@@ -1,0 +1,53 @@
+"""File-level one-shot API: read a WAV, run the chain, write a WAV.
+
+    from audiosignalprocess_tpu_torch import api
+    api.chain_file("in.wav", "out.wav", device="cuda")
+
+Only the whole-file FIR -> noise-gate chain for a file already at
+``rate_out`` is ported so far; the resampler front end, the envelope tail
+and block streaming raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+
+import torch
+
+from audiosignalprocess_tpu_torch.io.wav import read_wav, write_wav
+from audiosignalprocess_tpu_torch.ops.fir import design_fir
+from audiosignalprocess_tpu_torch.pipeline import Chain, FIRGateStage
+
+
+def chain_file(path_in: str, path_out: str, rate_out: int = 48000,
+               cutoff_hz: float | None = None, numtaps: int = 64,
+               nfft: int = 1024, hop: int = 256,
+               threshold_db: float = 6.0, reduction_db: float = 60.0,
+               noise_frames: int = 8, envelope_hz: float | None = None,
+               block: int | None = None,
+               device: torch.device | str = "cpu", **wav_kw):
+    """FIR lowpass (``cutoff_hz``, default 0.3*Nyquist) -> spectral noise
+    gate on a WAV file at ``rate_out``, whole file, on ``device``.  Writes
+    exactly ``len(x)`` samples per channel; returns the output shape."""
+    x, rate = read_wav(path_in)
+    if Fraction(rate_out, rate) != 1:
+        raise NotImplementedError(
+            f"resampling {rate} Hz -> {rate_out} Hz is not ported yet "
+            f"(ROADMAP Queue 1: resample and envelope)")
+    if envelope_hz is not None:
+        raise NotImplementedError(
+            "the envelope tail is not ported yet (ROADMAP Queue 1: resample "
+            "and envelope)")
+    if block is not None:
+        raise NotImplementedError(
+            "block streaming is not ported yet (ROADMAP Queue 1: the "
+            "streaming Chain and its step kernels)")
+    fc = 2.0 * cutoff_hz / rate_out if cutoff_hz is not None else 0.3
+    chain = Chain([FIRGateStage(
+        h=design_fir(numtaps, fc), nfft=nfft, hop=hop,
+        threshold_db=threshold_db, reduction_db=reduction_db,
+        noise_frames=noise_frames)])
+    chain.build()
+    y = chain.full_flush(torch.from_numpy(x).to(device)).cpu().numpy()
+    write_wav(path_out, y, rate_out, **wav_kw)
+    return y.shape

@@ -1,0 +1,7 @@
+from audiosignalprocess_tpu_torch.ops import (  # noqa: F401
+    fft,
+    fir,
+    overlap_save,
+    stft,
+    windows,
+)

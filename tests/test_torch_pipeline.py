@@ -1,0 +1,128 @@
+"""The port's whole-file Chain and api.chain_file vs the JAX package."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from audiosignalprocess_tpu import api as jax_api
+from audiosignalprocess_tpu import pipeline as jax_pipeline
+from audiosignalprocess_tpu.cpu_ref import oracle
+from audiosignalprocess_tpu.io.wav import read_wav as jax_read_wav
+from audiosignalprocess_tpu_torch import api, pipeline
+from audiosignalprocess_tpu_torch.io.wav import read_wav, write_wav
+from audiosignalprocess_tpu_torch.kernels import _build
+from audiosignalprocess_tpu_torch.kernels.chain_kernel import fir_noise_gate_ref
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _signal(rng, c, n, fs=48000):
+    t = np.arange(n) / fs
+    return 0.01 * rng.standard_normal((c, n)) + np.where(
+        (t > 0.3 * n / fs) & (t < 0.6 * n / fs), 0.5 * np.sin(2 * np.pi * 440.0 * t), 0.0)
+
+
+@pytest.mark.parametrize("release", (0.0, 0.6))
+def test_chain_from_params_vs_jax(release):
+    rng = np.random.default_rng(21)
+    jax_stage = jax_pipeline.FIRGateStage(
+        h=oracle.design_fir(64, 0.3), nfft=1024, hop=256, noise_frames=4,
+        release=release)
+    params = [dataclasses.asdict(jax_stage)]
+    jchain = jax_pipeline.Chain([jax_stage])
+    chain = pipeline.Chain.from_params(params)
+    assert chain.build() == jchain.build()
+    x = _signal(rng, 2, 20000)
+    ref = np.asarray(jchain.full_flush(jnp.asarray(x)))
+    out = chain.full_flush(torch.as_tensor(x))
+    assert out.shape == ref.shape == (2, 20000)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-8, atol=1e-10)
+    for n in (4096, 20000, 48000, 77777):
+        assert chain.out_len(n) == jchain.out_len(n)
+
+
+def test_f32_routes_through_fused_wrapper():
+    """float32 goes through fir_noise_gate_fused (its plain version on a
+    CPU tensor), float64 through the composed FIRStage -> GateStage."""
+    rng = np.random.default_rng(22)
+    h = oracle.design_fir(64, 0.3)
+    chain = pipeline.Chain([pipeline.FIRGateStage(h=h, noise_frames=4)])
+    chain.build()
+    x = torch.as_tensor(_signal(rng, 2, 9000))
+    y32 = chain.full_flush(x.float())
+    ref32 = fir_noise_gate_ref(x.float(), h, noise_frames=4)
+    assert y32.dtype == torch.float32
+    assert torch.equal(y32[:, : ref32.shape[-1]], ref32)
+    assert torch.count_nonzero(y32[:, ref32.shape[-1]:]) == 0
+    y64 = chain.full_flush(x)
+    composed = pipeline.GateStage(noise_frames=4).full(
+        pipeline.FIRStage(h=h, nfft=1024).full(x))
+    assert torch.equal(y64, composed)
+
+
+def test_from_params_rejects_what_is_not_ported():
+    params = dataclasses.asdict(jax_pipeline.FIRGateStage(
+        h=oracle.design_fir(64, 0.3), env_h=oracle.design_fir(129, 0.05)))
+    with pytest.raises(NotImplementedError, match="envelope"):
+        pipeline.FIRGateStage.from_params(params)
+    chain = pipeline.Chain([pipeline.FIRGateStage(h=oracle.design_fir(64, 0.3))])
+    with pytest.raises(NotImplementedError, match="streaming"):
+        chain.stream(torch.zeros(1, 4096), 1024)
+
+
+def test_chain_file_vs_jax(tmp_path):
+    rng = np.random.default_rng(23)
+    x = _signal(rng, 2, 24000).astype(np.float32)
+    p = str(tmp_path / "in.wav")
+    write_wav(p, x, 48000)
+    out, ref = str(tmp_path / "port.wav"), str(tmp_path / "jax.wav")
+    shape = api.chain_file(p, out, rate_out=48000, noise_frames=4)
+    jax_api.chain_file(p, ref, rate_out=48000, noise_frames=4)
+    y, rate = read_wav(out, dtype=np.float64)
+    y_ref, rate_ref = jax_read_wav(ref, dtype=np.float64)
+    assert rate == rate_ref == 48000 and y.shape == y_ref.shape == shape == (2, 24000)
+    assert np.max(np.abs(y - y_ref)) * 32768 <= 1.0
+
+
+@pytest.mark.parametrize("kw", [dict(rate_out=44100), dict(block=2048),
+                                dict(envelope_hz=50.0)])
+def test_chain_file_not_ported_raises(tmp_path, kw):
+    p = str(tmp_path / "in.wav")
+    write_wav(p, np.zeros((1, 8192), np.float32), 48000)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.chain_file(p, str(tmp_path / "out.wav"), **kw)
+
+
+def _run(code, **env):
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={**os.environ, **env}, capture_output=True, text=True)
+
+
+def test_port_imports_no_jax():
+    proc = _run("import audiosignalprocess_tpu_torch, audiosignalprocess_tpu_torch.api, "
+                "audiosignalprocess_tpu_torch.pipeline, sys; "
+                "assert 'jax' not in sys.modules")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_kernel_module_imports_without_nvcc():
+    proc = _run("import audiosignalprocess_tpu_torch.kernels.chain_kernel as ck; "
+                "assert ck.fir_noise_gate_fused.launches == 0",
+                PATH=os.path.dirname(sys.executable), CUDA_HOME=os.devnull)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
