@@ -52,7 +52,7 @@
 
 #include <cuda_runtime.h>
 
-#include "fft_device.cuh"
+#include "fir_device.cuh"
 
 namespace {
 
@@ -142,16 +142,10 @@ fir_noise_gate_kernel(const float* __restrict__ x, float* __restrict__ out,
         span[i] = (gi >= 0 && gi < g.n) ? xc[gi] : 0.0f;
       }
       __syncthreads();
+      const auto raw = [span](int j) { return span[j]; };
       for (int k = 0; k < nblk; k += 2) {
         const bool two = k + 1 < nblk;
-        const float* a = span + k * g.blk;
-        for (int i = tid; i < N; i += nt)
-          z[i] = make_float2(a[i], two ? a[g.blk + i] : 0.0f);
-        __syncthreads();
-        asp::fft_shared(z, N, g.log2n, false, tw_s);
-        for (int i = tid; i < N; i += nt) z[i] = asp::cmul(z[i], hf[i]);
-        __syncthreads();
-        asp::fft_shared(z, N, g.log2n, true, tw_s);
+        asp::os_block_pair(z, raw, k, two, g.blk, N, g.log2n, hf, tw_s);
         float* o = span + k * g.blk;
         for (int i = tid; i < g.blk; i += nt) {
           const float2 v = z[g.taps - 1 + i];

@@ -1,28 +1,35 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 The sources in ``csrc/`` have a plain C interface (no PyTorch headers),
-so one nvcc call builds them in seconds.  The shared library goes into
-``_build/`` beside ``csrc/``, named by a hash of the sources and flags,
-and is built at first use; a changed source gets a new library.
+so nvcc builds them in seconds: one compile per ``.cu`` file, all started
+together, then one link.  The shared library goes into ``_build/`` beside
+``csrc/``, named by a hash of the sources and flags, and is built at
+first use; a changed source gets a new library.  The helpers at the end
+are what every kernel wrapper shares.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
+from audiosignalprocess_tpu_torch.utils.validate import check
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SMEM_LIMIT = 232448
+"""Dynamic shared memory one block may use on Hopper (227 KB)."""
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _sources() -> list[Path]:
@@ -66,19 +73,81 @@ def build() -> tuple[Path, str]:
         return out, ""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    stem = f"{out.stem}.{os.getpid()}"
+    srcs = [src for src in _sources() if src.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(srcs, objs)]
+    tmp = out.with_name(f"{stem}.tmp")
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        log = []
+        for cmd, proc in zip(cmds, procs):
+            log.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                for p in procs:
+                    p.wait()
+                raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                                   f"{' '.join(cmd)}\n{log[-1]}")
+        link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for f in [tmp, *objs]:
+            f.unlink(missing_ok=True)
+    return out, "".join(log)
 
 
+@functools.cache
 def load() -> ctypes.CDLL:
-    """The built library (building it first if needed)."""
+    """The built library (building it first if needed), loaded once per
+    process: a step kernel launches once per block, and hashing the
+    sources at every launch would cost host time on each one."""
     return ctypes.CDLL(str(build()[0]))
+
+
+# ---------------------------------------------------------------------------
+# what every kernel wrapper shares
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def kernel_fn(name: str, nargs: int):
+    """``name`` from the built library, as ``int name(const Args*...,
+    int smem_bytes, int device, void* stream)`` with ``nargs`` argument
+    structs; it returns the launch's CUDA error code.  Bound once per
+    process."""
+    fn = getattr(load(), name)
+    fn.argtypes = [ctypes.c_void_p] * nargs + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def raise_on_error(rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        fn = load().asp_error_string
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{what} kernel launch failed: {fn(rc).decode()} ({rc})")
+
+
+def rows_view(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """x (..., b) as rows of b samples for a kernel: (x2d, row stride).
+    A column slice of a (C, n) stream is used in place (stride n)."""
+    b = x.shape[-1]
+    xf = x.reshape(-1, b)
+    if xf.stride(-1) != 1 or (xf.shape[0] > 1 and xf.stride(0) < b):
+        xf = xf.contiguous()
+    return xf, (xf.stride(0) if xf.shape[0] > 1 else b)
+
+
+def check_cuda_f32(x: torch.Tensor, name: str, plain: str) -> None:
+    """The kernels take CUDA float32 tensors; anything else raises
+    (``plain`` says where float64 goes instead)."""
+    check(x.is_cuda, f"{name} runs on CPU or CUDA, not {x.device}")
+    check(x.dtype == torch.float32,
+          f"the CUDA kernel computes in float32, got {x.dtype} ({plain})")

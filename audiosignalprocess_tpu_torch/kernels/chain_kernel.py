@@ -1,28 +1,44 @@
-"""Fused FIR + spectral-noise-gate chain: the hand-written Hopper kernel
-(``csrc/chain_kernel.cu``) and its plain PyTorch version.
+"""Fused FIR + spectral-noise-gate chain: the hand-written Hopper
+kernels and their plain PyTorch versions.
 
-The headline 48 kHz chain (overlap-save FIR -> STFT noise gate) in one
-kernel: raw audio is read from device memory once, filtered, framed,
-gated, resynthesized and written once.  Same conventions as
-``oracle.noise_gate(oracle.fir_direct(x, h), ...)``; the output length is
-nfft + (F-1)*hop.
+- ``fir_noise_gate_fused`` (``csrc/chain_kernel.cu``): the whole-file
+  headline 48 kHz chain (overlap-save FIR -> STFT noise gate) in one
+  kernel: raw audio is read from device memory once, filtered, framed,
+  gated, resynthesized and written once.  Same conventions as
+  ``oracle.noise_gate(oracle.fir_direct(x, h), ...)``; the output length
+  is nfft + (F-1)*hop.
+- ``fir_gate_step_fused`` (``csrc/fir_gate_step_kernel.cu``): one
+  streaming block of the same chain, with an optional envelope tail
+  (|y| -> FIR ``env_h`` -> * ``env_scale``) folded into the same launch.
+  Its carry is the plain composition's: ``[FIR history (..., T-1), gate
+  carry (kernels/gate_kernel), envelope history (..., Te-1)]``.
 
-Routing: a CPU tensor runs ``fir_noise_gate_ref``; a CUDA float32 tensor
-launches the kernel; anything else raises.
+Routing: a CPU tensor runs the plain version (``fir_noise_gate_ref``,
+``fir_gate_step_ref``); a CUDA float32 tensor launches the kernel;
+anything else raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import numpy as np
 import torch
 
 from audiosignalprocess_tpu_torch.effects.noise_gate import noise_gate
 from audiosignalprocess_tpu_torch.kernels import _build
-from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
-    inv_norm_rows, noise_floor,
+from audiosignalprocess_tpu_torch.kernels._build import (
+    SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
 )
+from audiosignalprocess_tpu_torch.kernels.fir_kernel import reversed_taps
+from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
+    gate_step_args, gate_step_ref, inv_norm_rows, noise_floor,
+    step_smem_bytes,
+)
+from audiosignalprocess_tpu_torch.kernels.os_kernel import check_os_geometry, fft_tables
+from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.ops.stft import frame, num_frames
 from audiosignalprocess_tpu_torch.ops.windows import window_np
@@ -34,8 +50,8 @@ FRAMES_PER_TILE = 16
 the nfft/hop-1 frames of halo before its tile, so larger tiles waste
 less and take more shared memory."""
 
-SMEM_LIMIT = 232448
-"""Dynamic shared memory one block may use on Hopper (227 KB)."""
+ENV_TILE = 1024
+"""Envelope outputs per MAC tile of the step kernel (``kEnvTile``)."""
 
 
 def _check_guards(h: np.ndarray, n: int, nfft: int, hop: int,
@@ -85,16 +101,14 @@ def _inv_norm_table(wv: np.ndarray, nfft: int, hop: int) -> np.ndarray:
     return np.concatenate([inv[:d], inv[d : d + hop], inv[out_len - d :]])
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load()
-    fn = lib.asp_fir_noise_gate
+@functools.cache
+def _lib():
+    fn = _build.load().asp_fir_noise_gate
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.asp_error_string.argtypes = [ctypes.c_int]
-    lib.asp_error_string.restype = ctypes.c_char_p
-    return lib
+    return fn
 
 
 def fir_noise_gate_ref(x: torch.Tensor, h, nfft: int = 1024, hop: int = 256,
@@ -159,8 +173,7 @@ def fir_noise_gate_fused(x: torch.Tensor, h, nfft: int = 1024,
     inv_tab = upload(_inv_norm_table(wv, nfft, hop), torch.float32, dev)
     out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
 
-    lib = _lib()
-    rc = lib.asp_fir_noise_gate(
+    rc = _lib()(
         xf.data_ptr(), out.data_ptr(), floor.data_ptr(), wv_t.data_ptr(),
         hf.data_ptr(), tw.data_ptr(), inv_tab.data_ptr(),
         channels, n, nfft, nfft.bit_length() - 1, hop, len(h), nframes,
@@ -169,11 +182,125 @@ def fir_noise_gate_fused(x: torch.Tensor, h, nfft: int = 1024,
         float(10.0 ** (-reduction_db / 20.0)), float(release),
         geo["smem"], dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fir_noise_gate kernel launch failed: "
-                           f"{lib.asp_error_string(rc).decode()} ({rc})")
+    raise_on_error(rc, "fir_noise_gate")
     fir_noise_gate_fused.launches += 1
     return out.reshape(batch + (out_len,))
 
 
 fir_noise_gate_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the streaming FIR -> gate (-> envelope) step
+# ---------------------------------------------------------------------------
+
+class FirEnvArgs(ctypes.Structure):
+    """The FIR front and envelope tail of the step kernel's arguments:
+    ``struct FirEnvArgs`` of ``csrc/fir_gate_step_kernel.cu``."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "hist", "hist_out", "hf", "filtered", "env_hist", "env_hist_out",
+        "env_taps_rev", "gate_out")]
+        + [("taps", ctypes.c_int), ("env_taps", ctypes.c_int),
+           ("env_scale", ctypes.c_float)])
+
+
+def history_tail(hist: torch.Tensor, x: torch.Tensor, taps: int) -> torch.Tensor:
+    """The last taps-1 samples of [hist | x]: a FIR's carry after a block."""
+    if taps == 1:
+        return hist
+    return torch.cat([hist, x], dim=-1)[..., -(taps - 1):]
+
+
+def fir_gate_step_ref(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
+                      threshold_db: float, reduction_db: float,
+                      noise_frames: int, release: float, window_kind: str,
+                      input_latency: int, latency: int, env_h=None,
+                      env_scale: float = math.pi / 2.0,
+                      eof_in: int | None = None):
+    """Plain PyTorch streaming step, any device and dtype: overlap-save
+    FIR with history -> ``gate_step_ref`` -> (envelope: |y| ->
+    ``fir_direct`` with history -> * env_scale), the JAX package's
+    ``FIRStage -> GateStage [-> EnvelopeStage]`` steps."""
+    h = np.asarray(h, dtype=np.float64)
+    y = overlap_save(x, h, nfft, history=state[0])
+    new = [history_tail(state[0], x, len(h))]
+    sg, y = gate_step_ref(y, state[1], nfft=nfft, hop=hop,
+                          threshold_db=threshold_db, reduction_db=reduction_db,
+                          noise_frames=noise_frames, release=release,
+                          window_kind=window_kind, input_latency=input_latency,
+                          latency=latency, eof_in=eof_in)
+    new.append(sg)
+    if env_h is not None:
+        a = y.abs()
+        new.append(history_tail(state[2], a, len(env_h)))
+        y = fir_direct(a, env_h, history=state[2])
+        if env_scale != 1.0:
+            y = y * env_scale
+    return new, y
+
+
+def fir_gate_step_fused(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
+                        threshold_db: float, reduction_db: float,
+                        noise_frames: int, release: float, window_kind: str,
+                        input_latency: int, latency: int, env_h=None,
+                        env_scale: float = math.pi / 2.0,
+                        eof_in: int | None = None):
+    """Streaming FIR -> gate (-> envelope) step, fused:
+    (state, x) -> (new_state, y), x (..., b) with b a multiple of hop.
+
+    A CPU tensor runs ``fir_gate_step_ref``.  A CUDA float32 tensor
+    launches the kernel: one CTA per channel filters the block, gates it
+    and, with ``env_h``, runs the envelope tail.  Any other tensor raises.
+    """
+    h = np.ascontiguousarray(h, dtype=np.float64)
+    t = len(h)
+    check_os_geometry(nfft, t)
+    kw = dict(nfft=nfft, hop=hop, threshold_db=threshold_db,
+              reduction_db=reduction_db, noise_frames=noise_frames,
+              release=release, window_kind=window_kind,
+              input_latency=input_latency, latency=latency, eof_in=eof_in)
+    if x.device.type == "cpu":
+        return fir_gate_step_ref(x, state, h, env_h=env_h, env_scale=env_scale, **kw)
+    check_cuda_f32(x, "fir_gate_step_fused",
+                   "FIRGateStage routes float64 to the plain composition")
+    dev = x.device
+    x2d, x_ld = rows_view(x)
+    channels, b = x2d.shape
+    new_f = lambda *shape: torch.empty((channels,) + shape, dtype=torch.float32,
+                                       device=dev)
+    hist = state[0].contiguous()
+    out, filtered = new_f(b), new_f(b)
+    args, gate_state, _keep = gate_step_args(x2d, x_ld, state[1], out, **kw)
+    hist_out = torch.empty_like(hist)
+    env = env_h is not None
+    te = 0
+    ehist = ehist_out = gate_out = taps_rev = None
+    if env:
+        he = np.ascontiguousarray(env_h, dtype=np.float64)
+        te = len(he)
+        check(te >= 1, "the envelope FIR needs at least one tap")
+        ehist = state[2].contiguous()
+        ehist_out, gate_out = torch.empty_like(ehist), new_f(b)
+        taps_rev = reversed_taps(he.tobytes(), dev)
+    for name, carry in (("FIR history", hist), ("envelope history", ehist)):
+        check(carry is None or (carry.dtype == torch.float32 and carry.device == dev),
+              f"the {name} must be float32 on the input's device")
+    ptr = lambda v: None if v is None else v.data_ptr()
+    fargs = FirEnvArgs(ptr(hist), ptr(hist_out), ptr(fft_tables(h.tobytes(), nfft, dev)[0]),
+                       ptr(filtered), ptr(ehist), ptr(ehist_out), ptr(taps_rev),
+                       ptr(gate_out), t, te, float(env_scale))
+    smem = step_smem_bytes(nfft, hop) + (4 * (2 * te - 1 + ENV_TILE) if env else 0)
+    check(smem <= SMEM_LIMIT,
+          f"nfft={nfft}, hop={hop}, {te} envelope taps need {smem} bytes of "
+          f"shared memory per block, more than {SMEM_LIMIT}")
+    rc = kernel_fn("asp_fir_gate_step", 2)(
+        ctypes.byref(args), ctypes.byref(fargs), smem, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(rc, "fir_gate_step")
+    fir_gate_step_fused.launches += 1
+    new = [hist_out, gate_state] + ([ehist_out] if env else [])
+    return new, out.reshape(x.shape)
+
+
+fir_gate_step_fused.launches = 0

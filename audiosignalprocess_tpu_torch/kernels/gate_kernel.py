@@ -1,19 +1,46 @@
-"""Device-independent helpers of the fused gate kernels.
+"""The streaming gate step: the hand-written Hopper kernel
+(``csrc/gate_step_kernel.cu``), its plain PyTorch version, and the
+helpers the fused gate kernels share.
 
-Mirrors the helpers of the JAX package's ``kernels/gate_kernel.py`` that
-the FIR -> gate chain needs: the 1/WOLA-norm vector and the noise-floor
-prologue.  The fused gate kernel itself is not ported yet (ROADMAP
-Queue 2).
+Mirrors the JAX package's ``kernels/gate_kernel.py``: the 1/WOLA-norm
+vectors (whole-file and streaming), the noise-floor prologue, the
+position logic of a step (``gate_step_masks``), the streaming carry
+(``gate_step_init_state``) and the step itself (``gate_step_fused``).
+The whole-file ``noise_gate_fused`` is not ported yet (ROADMAP Queue 2).
+
+One carry layout serves the kernel and the plain step, and it is the
+JAX package's plain-path carry (``pipeline.GateStage.init_state``):
+``in_tail`` (..., d), ``fifo_r``/``fifo_i`` (..., noise_frames, nfft/2+1),
+``floor_sum`` (..., 1, nfft/2+1), ``ola_tail`` (..., d), ``rel``
+(..., 1, nfft/2+1) when release > 0, and ``pos`` / ``floor_n`` as Python
+ints (pure functions of the block count, so a step never reads the
+device).  A stream may switch between the kernel and the plain step at
+any block.
+
+Routing of ``gate_step_fused``: a CPU tensor runs ``gate_step_ref``; a
+CUDA float32 tensor launches the kernel; anything else raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
+from audiosignalprocess_tpu_torch.effects.noise_gate import gate_mask
+from audiosignalprocess_tpu_torch.kernels._build import (
+    SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
+)
 from audiosignalprocess_tpu_torch.ops import fft as fft_ops
-from audiosignalprocess_tpu_torch.ops.stft import wola_clamp
+from audiosignalprocess_tpu_torch.ops.stft import WOLA_EDGE_REL, frame, wola_clamp
+from audiosignalprocess_tpu_torch.ops.windows import window_np
+from audiosignalprocess_tpu_torch.utils.device import upload
+from audiosignalprocess_tpu_torch.utils.validate import check
 
+THREADS = 512
+"""Threads of one step CTA; each CTA walks one channel's frames in order."""
 
 def inv_norm_rows(wv_np: np.ndarray, nfft: int, hop: int, nframes: int,
                   total_len: int) -> np.ndarray:
@@ -32,3 +59,307 @@ def noise_floor(frames_windowed: torch.Tensor) -> torch.Tensor:
     """Per-bin noise floor, mean |rfft| over the frames axis:
     (..., frames, nfft) windowed frames -> (..., nfft/2+1)."""
     return fft_ops.rfft(frames_windowed).abs().mean(dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# streaming WOLA norms (the JAX package's pipeline._wola_*_norm)
+# ---------------------------------------------------------------------------
+
+def wola_const_norm(nfft: int, hop: int, window_kind: str) -> float:
+    """Interior WOLA norm (COLA constant: sum_k w^2[n-k*hop])."""
+    w2 = window_np(window_kind, nfft) ** 2
+    cols = np.sum(w2.reshape(nfft // hop, hop), axis=0)
+    check(np.allclose(cols, cols[0]), "window/hop is not COLA for w^2")
+    return float(cols[0])
+
+
+def _edge_clamp(norm: np.ndarray, nfft: int, hop: int, window_kind: str) -> np.ndarray:
+    # clamp relative to the INTERIOR peak, as the whole-file norm does: the
+    # edge's own max is itself a ramp value and would under-clamp
+    const = wola_const_norm(nfft, hop, window_kind)
+    return np.maximum(norm, max(WOLA_EDGE_REL * const, 1e-12))
+
+
+def wola_head_norm(nfft: int, hop: int, window_kind: str) -> np.ndarray:
+    """Per-sample WOLA norm over the first nfft-hop output samples (the
+    ramp-in of the whole-file istft)."""
+    w2 = window_np(window_kind, nfft) ** 2
+    d = nfft - hop
+    norm = np.zeros(d)
+    for lo in range(0, d, hop):
+        seg = min(nfft, d - lo)
+        norm[lo : lo + seg] += w2[:seg]
+    return _edge_clamp(norm, nfft, hop, window_kind)
+
+
+def wola_tail_norm(nfft: int, hop: int, window_kind: str) -> np.ndarray:
+    """Per-sample WOLA norm over the LAST nfft-hop output samples of a
+    whole-file istft (the ramp-out): position nout-d+i is covered by the
+    final frames at window offsets hop+i, 2*hop+i, ...  Used by drained
+    streams to reproduce the finite-file edge normalization."""
+    w2 = window_np(window_kind, nfft) ** 2
+    d = nfft - hop
+    norm = np.array([w2[hop + i :: hop].sum() for i in range(d)])
+    return _edge_clamp(norm, nfft, hop, window_kind)
+
+
+def wola_norm_at(p: torch.Tensor, head: torch.Tensor, const: float, d: int,
+                 eof_out: int | None = None,
+                 tail: torch.Tensor | None = None) -> torch.Tensor:
+    """Streaming WOLA norm at output positions ``p``: 1.0 before the
+    signal, the head ramp over [0, d), the constant after.  With
+    ``eof_out`` (a drained stream): the finite-file ramp-out over
+    [eof_out - d, eof_out) and 1.0 past ``eof_out``, where only zeros are
+    emitted."""
+    norm = torch.where(p < 0, torch.ones_like(head[:1]),
+                       torch.where(p < d, head[p.clamp(0, d - 1)],
+                                   torch.full_like(head[:1], const)))
+    if eof_out is not None:
+        ti = (p - (eof_out - d)).clamp(0, d - 1)
+        norm = torch.where(p >= eof_out, torch.ones_like(norm),
+                           torch.where(p >= eof_out - d, tail[ti], norm))
+    return norm
+
+
+def wola_ola_emit(out_frames: torch.Tensor, ola_tail: torch.Tensor, hop: int,
+                  norm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise WOLA synthesis: overlap-add the m synthesized frames
+    (..., m, nfft) with the d-sample tail carry, divide the first m*hop
+    samples by ``norm``.  Returns (y, new_tail)."""
+    m, nfft = out_frames.shape[-2], out_frames.shape[-1]
+    d = nfft - hop
+    b = m * hop
+    acc = out_frames.new_zeros(out_frames.shape[:-2] + (b + d,))
+    for j in range(m):
+        acc[..., j * hop : j * hop + nfft] += out_frames[..., j, :]
+    acc[..., :d] += ola_tail
+    return acc[..., :b] / norm, acc[..., b:]
+
+
+# ---------------------------------------------------------------------------
+# the streaming step
+# ---------------------------------------------------------------------------
+
+def gate_step_masks(pos: int, floor_n: int, m: int, d: int, hop: int,
+                    noise_frames: int, input_latency: int,
+                    eof_in: int | None = None):
+    """Position logic of one step, all host integers: per new frame its
+    validity (frames over the latency padding carry no signal; in a
+    drained stream frames straddling end-of-file are never analyzed) and
+    whether it feeds the noise floor (the first ``noise_frames`` valid
+    frames of the stream).  Also the whole-file synthesis length
+    ``eof_out`` of a drained stream (None otherwise).  Returns
+    (valid, take, eof_out)."""
+    nfft = d + hop
+    starts = [pos - d + hop * j for j in range(m)]
+    valid = [s >= input_latency for s in starts]
+    eof_out = None
+    if eof_in is not None:
+        valid = [v and s + nfft <= eof_in for v, s in zip(valid, starts)]
+        n_real = eof_in - input_latency
+        eof_out = nfft + ((n_real - nfft) // hop) * hop if n_real >= nfft else 0
+    take, seen = [], floor_n
+    for v in valid:
+        seen += v
+        take.append(v and seen <= noise_frames)
+    return valid, take, eof_out
+
+
+def gate_step_init_state(batch: tuple, nfft: int, hop: int, noise_frames: int,
+                         release: float, dtype=torch.float32,
+                         device=None) -> dict:
+    """The streaming gate carry (see the module docstring)."""
+    d = nfft - hop
+    nb = nfft // 2 + 1
+    z = lambda *shape: torch.zeros(batch + shape, dtype=dtype, device=device)
+    st = dict(in_tail=z(d), fifo_r=z(noise_frames, nb), fifo_i=z(noise_frames, nb),
+              floor_sum=z(1, nb), floor_n=0, ola_tail=z(d), pos=0)
+    if release > 0.0:
+        # release state s after the last emitted frame; zero init is exact
+        # (pad frames contribute at most att, absorbed by the max)
+        st["rel"] = z(1, nb)
+    return st
+
+
+@functools.lru_cache(maxsize=32)
+def _step_tables_np(nfft: int, hop: int, window_kind: str):
+    """Float64 design-time tables of a step: the periodic window and the
+    head, constant and tail WOLA norms."""
+    return (window_np(window_kind, nfft, periodic=True),
+            wola_head_norm(nfft, hop, window_kind),
+            wola_const_norm(nfft, hop, window_kind),
+            wola_tail_norm(nfft, hop, window_kind))
+
+
+@functools.lru_cache(maxsize=32)
+def step_device_tables(nfft: int, hop: int, window_kind: str,
+                       device: torch.device) -> dict:
+    """The step kernels' constant tables on ``device``, uploaded once per
+    geometry (pinned, non-blocking): window, twiddles, 1/norm head and
+    tail ramps; ``inv_const`` stays a host float."""
+    wv, head, const, tail = _step_tables_np(nfft, hop, window_kind)
+    tw = np.exp(-2j * np.pi * np.arange(nfft // 2) / nfft)
+    f32 = lambda a: upload(np.ascontiguousarray(a), torch.float32, device)
+    return dict(win=f32(wv), tw=f32(tw.astype(np.complex64).view(np.float32)),
+                inv_head=f32(1.0 / head), inv_tail=f32(1.0 / tail),
+                inv_const=1.0 / const)
+
+
+def gate_step_ref(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
+                  threshold_db: float, reduction_db: float, noise_frames: int,
+                  release: float, window_kind: str, input_latency: int,
+                  latency: int, eof_in: int | None = None):
+    """Plain PyTorch streaming gate step: (state, x) -> (new_state, y),
+    any device and dtype (the JAX package's ``GateStage.step``)."""
+    b = x.shape[-1]
+    check(b % hop == 0 and b >= hop, f"block {b} not a multiple of hop={hop}")
+    m, d = b // hop, nfft - hop
+    dtype, dev = x.dtype, x.device
+    pos, floor_n = state["pos"], state["floor_n"]
+    valid, take, eof_out = gate_step_masks(pos, floor_n, m, d, hop,
+                                           noise_frames, input_latency, eof_in)
+    wv, head, const, tail = _step_tables_np(nfft, hop, window_kind)
+    w = upload(wv, dtype, dev)
+    ext = torch.cat([state["in_tail"], x], dim=-1)                  # (..., b+d)
+    spec = fft_ops.rfft(frame(ext, nfft, hop) * w)                  # (..., m, nb)
+    spec = spec * upload(np.array(valid, np.float64), dtype, dev)[:, None]
+    tmask = upload(np.array(take, np.float64), dtype, dev)
+    floor_sum = state["floor_sum"] + (spec.abs() * tmask[:, None]).sum(
+        dim=-2, keepdim=True)
+    buf_r = torch.cat([state["fifo_r"], spec.real], dim=-2)
+    buf_i = torch.cat([state["fifo_i"], spec.imag], dim=-2)
+    popped = torch.complex(buf_r[..., :m, :], buf_i[..., :m, :])
+    mask = gate_mask(popped.abs(), floor_sum / noise_frames, threshold_db,
+                     reduction_db)
+    new_state = dict(in_tail=ext[..., b:], fifo_r=buf_r[..., m:, :],
+                     fifo_i=buf_i[..., m:, :], floor_sum=floor_sum,
+                     floor_n=floor_n + sum(take), pos=pos + b)
+    if release > 0.0:
+        # s_q = max(mask_q, release * s_{q-1}) over the popped frames,
+        # carried across blocks: the whole-file scan exactly
+        s = state["rel"]
+        rows = []
+        for q in range(m):
+            s = torch.maximum(mask[..., q : q + 1, :], release * s)
+            rows.append(s)
+        mask = torch.cat(rows, dim=-2)
+        new_state["rel"] = s
+    out_frames = fft_ops.irfft(popped * mask, nfft) * w
+    p = torch.arange(b, device=dev) + (pos - latency - input_latency)
+    norm = wola_norm_at(p, upload(head, dtype, dev), const, d, eof_out,
+                        upload(tail, dtype, dev))
+    y, new_state["ola_tail"] = wola_ola_emit(out_frames, state["ola_tail"], hop, norm)
+    return new_state, y
+
+
+class GateStepArgs(ctypes.Structure):
+    """The gate step's kernel arguments: ``struct GateStepArgs`` of
+    ``csrc/gate_step_device.cuh``, field for field."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "x", "out", "in_tail", "fifo_r", "fifo_i", "floor_sum", "ola_tail",
+            "rel", "in_tail_out", "fifo_r_out", "fifo_i_out", "floor_sum_out",
+            "ola_tail_out", "rel_out", "scratch_r", "scratch_i", "win", "tw",
+            "inv_head", "inv_tail")]
+        + [(name, ctypes.c_int) for name in (
+            "channels", "x_ld", "b", "nfft", "log2n", "hop", "nf", "pos",
+            "floor_n", "input_latency", "latency", "eof_in", "eof_out",
+            "ring", "has_release")]
+        + [(name, ctypes.c_float) for name in (
+            "thresh_gain", "att", "release", "inv_const")])
+
+
+def step_smem_bytes(nfft: int, hop: int) -> int:
+    """Dynamic shared memory of a gate-step CTA, in the order the kernel
+    carves it: twiddles (nfft/2 complex), FFT buffer (nfft complex),
+    floor sum and release state (nfft/2+1 each), OLA ring."""
+    return 8 * (nfft // 2) + 8 * nfft + 4 * (2 * (nfft // 2 + 1) + ola_ring(nfft, hop))
+
+
+def ola_ring(nfft: int, hop: int) -> int:
+    """Length of the OLA ring: the least power of two >= nfft + hop, the
+    span one frame pair writes."""
+    return 1 << (nfft + hop - 1).bit_length()
+
+
+def gate_step_args(x2d: torch.Tensor, x_ld: int, state: dict, out: torch.Tensor,
+                   *, nfft, hop, threshold_db, reduction_db, noise_frames,
+                   release, window_kind, input_latency, latency, eof_in):
+    """Check a step's geometry, allocate the new gate carry and fill the
+    kernel's argument struct.  Returns (args, new_state, keep): ``keep``
+    holds the tensors the struct points to until the launch is queued."""
+    dev = x2d.device
+    channels, b = x2d.shape
+    check(0 < channels <= 65535, f"{channels} channels: 1..65535 per launch")
+    check(b % hop == 0 and b >= hop, f"block {b} not a multiple of hop={hop}")
+    check(nfft >= 2 and nfft & (nfft - 1) == 0, f"nfft={nfft} must be a power of two")
+    check(nfft % hop == 0, f"hop={hop} must divide nfft={nfft}")
+    m, d, nb, nf = b // hop, nfft - hop, nfft // 2 + 1, noise_frames
+    pos, floor_n = state["pos"], state["floor_n"]
+    check(pos + b + nfft < 2 ** 31,
+          f"stream position {pos + b} past the kernel's 32-bit positions")
+    _, take, eof_out = gate_step_masks(pos, floor_n, m, d, hop, nf,
+                                       input_latency, eof_in)
+    tabs = step_device_tables(nfft, hop, window_kind, dev)
+    keys = ["in_tail", "fifo_r", "fifo_i", "floor_sum", "ola_tail"]
+    if release > 0.0:
+        keys.append("rel")
+    cur = {k: state[k].contiguous() for k in keys}
+    check(all(v.dtype == torch.float32 and v.device == dev for v in cur.values()),
+          "the gate carry must be float32 on the input's device")
+    new = {k: torch.empty_like(v) for k, v in cur.items()}
+    scratch = torch.empty((2, channels, max(m - nf, 0), nb), dtype=torch.float32,
+                          device=dev)
+    ptr = lambda d_, k: d_[k].data_ptr() if k in d_ else None
+    args = GateStepArgs(
+        x2d.data_ptr(), out.data_ptr(), *(ptr(cur, k) for k in (
+            "in_tail", "fifo_r", "fifo_i", "floor_sum", "ola_tail", "rel")),
+        *(ptr(new, k) for k in (
+            "in_tail", "fifo_r", "fifo_i", "floor_sum", "ola_tail", "rel")),
+        scratch[0].data_ptr(), scratch[1].data_ptr(), tabs["win"].data_ptr(),
+        tabs["tw"].data_ptr(), tabs["inv_head"].data_ptr(),
+        tabs["inv_tail"].data_ptr(),
+        channels, x_ld, b, nfft, nfft.bit_length() - 1, hop, nf, pos, floor_n,
+        input_latency, latency, -1 if eof_in is None else eof_in,
+        -1 if eof_out is None else eof_out, ola_ring(nfft, hop), int(release > 0.0),
+        float(10.0 ** (threshold_db / 20.0)), float(10.0 ** (-reduction_db / 20.0)),
+        float(release), tabs["inv_const"])
+    new_state = dict(new, floor_n=floor_n + sum(take), pos=pos + b)
+    return args, new_state, (cur, scratch)
+
+
+def gate_step_fused(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
+                    threshold_db: float, reduction_db: float,
+                    noise_frames: int, release: float, window_kind: str,
+                    input_latency: int, latency: int,
+                    eof_in: int | None = None):
+    """Streaming gate step, fused: (state, x) -> (new_state, y).
+
+    A CPU tensor runs ``gate_step_ref``.  A CUDA float32 tensor launches
+    the kernel: one CTA per channel walks the block's frames (analysis,
+    noise floor, FIFO, mask and release, synthesis, OLA, emission) with
+    the positions passed as scalars.  Any other tensor raises.
+    """
+    kw = dict(nfft=nfft, hop=hop, threshold_db=threshold_db,
+              reduction_db=reduction_db, noise_frames=noise_frames,
+              release=release, window_kind=window_kind,
+              input_latency=input_latency, latency=latency, eof_in=eof_in)
+    if x.device.type == "cpu":
+        return gate_step_ref(x, state, **kw)
+    check_cuda_f32(x, "gate_step_fused", "GateStage routes float64 to its plain step")
+    x2d, x_ld = rows_view(x)
+    out = torch.empty(x2d.shape, dtype=torch.float32, device=x.device)
+    args, new_state, _keep = gate_step_args(x2d, x_ld, state, out, **kw)
+    smem = step_smem_bytes(nfft, hop)
+    check(smem <= SMEM_LIMIT, f"nfft={nfft}, hop={hop} need {smem} bytes of "
+          f"shared memory per block, more than {SMEM_LIMIT}")
+    rc = kernel_fn("asp_gate_step", 1)(
+        ctypes.byref(args), smem, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    raise_on_error(rc, "gate step")
+    gate_step_fused.launches += 1
+    return new_state, out.reshape(x.shape)
+
+
+gate_step_fused.launches = 0

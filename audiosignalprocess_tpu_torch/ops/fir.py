@@ -1,15 +1,19 @@
-"""FIR design (host-side float64 numpy).
+"""FIR design (host-side float64 numpy) and direct-form filtering.
 
 ``design_fir`` is a copy of the JAX package's ``cpu_ref/oracle.design_fir``
 (windowed sinc, scipy.signal.firwin-compatible); the tests hold the two
-bit-equal.  The direct-form ``fir_direct`` is not ported yet (ROADMAP
-Queue 1).
+bit-equal.  ``fir_direct`` is the causal direct-form filter
+y[n] = sum_t h[t] x[n-t], output length == len(x); ``fused=True`` routes
+it through the hand-written MAC kernel (``kernels/fir_kernel.fir_mac``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
+from audiosignalprocess_tpu_torch.utils.device import upload
 from audiosignalprocess_tpu_torch.ops.windows import window_np
 
 
@@ -49,3 +53,37 @@ def design_fir(numtaps: int, cutoff, window_kind: str = "hann",
         )
     h /= s
     return h
+
+
+def fir_direct(x: torch.Tensor, h, history: torch.Tensor | None = None,
+               fused: bool = False) -> torch.Tensor:
+    """Causal direct-form FIR on the last axis, output length == len(x).
+
+    ``history``: optional (..., T-1) previous input samples for streaming
+    continuity (zeros when absent: a cold start, as the oracle).
+    ``fused=True`` routes through ``kernels.fir_kernel.fir_mac`` (same
+    semantics).  The plain path is ``conv1d`` with TF32 off: cuDNN runs
+    float32 convolutions in TF32 by default, which keeps about three
+    decimal digits.
+    """
+    if fused:
+        from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac
+
+        return fir_mac(x, h, history=history)
+    h = np.asarray(h, dtype=np.float64)
+    t = len(h)
+    batch, n = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, 1, n)
+    if history is not None and t > 1:  # t == 1: stateless
+        xf = torch.cat([history.reshape(-1, 1, t - 1).to(x.dtype), xf], dim=-1)
+    else:
+        xf = F.pad(xf, (t - 1, 0))
+    # correlation with reversed taps == causal convolution
+    w = upload(h[::-1].copy(), x.dtype, x.device).reshape(1, 1, t)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = F.conv1d(xf, w)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return y.reshape(batch + (n,))

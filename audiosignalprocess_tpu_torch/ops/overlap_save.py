@@ -3,6 +3,8 @@
 Identical output to a causal direct-form FIR (length == len(x)): block
 size B = nfft - (T-1); each block's input is the previous T-1 samples and
 B new ones; the first T-1 outputs of each block are discarded.
+``fused=True`` routes through the hand-written kernel
+(``kernels/os_kernel.overlap_save_fused``, same semantics).
 """
 
 from __future__ import annotations
@@ -23,11 +25,16 @@ def spectrum_taps(h, nfft: int, dtype=np.complex64) -> np.ndarray:
 
 
 def overlap_save(x: torch.Tensor, h, nfft: int,
-                 history: torch.Tensor | None = None) -> torch.Tensor:
+                 history: torch.Tensor | None = None,
+                 fused: bool = False) -> torch.Tensor:
     """Causal FIR via overlap-save on the last axis; output length == input.
 
     ``history``: optional (..., T-1) previous inputs; zeros when absent.
     """
+    if fused:
+        from audiosignalprocess_tpu_torch.kernels.os_kernel import overlap_save_fused
+
+        return overlap_save_fused(x, h, nfft, history=history)
     h = np.asarray(h, dtype=np.float64)
     t = len(h)
     check(nfft > t - 1, "nfft must exceed numtaps-1")

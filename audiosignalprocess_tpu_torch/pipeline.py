@@ -1,30 +1,53 @@
-"""Composable processing chain, whole-file mode.
+"""Composable processing chain: whole-file and block-streaming modes.
 
 Mirrors the JAX package's ``pipeline.py``: a ``Chain`` of stages with
 latency propagation (``build``), the rate-mapped output length
-(``out_len``) and the whole-signal paths ``full`` / ``full_flush``.
-The block-streaming mode (``init_state`` / ``step`` / ``stream``) is not
-ported yet and raises (ROADMAP Queue 1: the streaming Chain).
+(``out_len``), the whole-signal paths ``full`` / ``full_flush`` and the
+block streamer (``init_state`` / ``step`` / ``stream``), whose output
+equals the whole-file output exactly in structure:
+
+    stream(x, block)[..., L:] == full(x)[..., : emitted - L]   (L = latency)
+
+and ``stream(x, block, drain=True) == full_flush(x)`` for any input
+length, to floating-point reassociation (the stream sums the same terms
+in another order).  The carry is a list with one entry per stage (tensors,
+dicts of tensors and Python ints) and is checkpointable
+(``utils/checkpoint``).  ``stream`` is a Python loop over the blocks that
+writes into a preallocated output and never reads the device.
+
+Stages with a hand-written kernel route by tensor: a CUDA float32 tensor
+launches the kernel, a CPU tensor runs the kernel's plain version, and
+float64 takes the plain path on any device (the kernels compute in
+float32), as the JAX package does on a TPU.
 
 Stage parameters carry over from the JAX package as plain dictionaries:
-``FIRGateStage.from_params(dataclasses.asdict(jax_stage))`` builds the
-stage that computes the same thing.
+``Chain.from_params([dict(dataclasses.asdict(jax_stage), stage=name)])``
+builds the chain that computes the same thing.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from audiosignalprocess_tpu_torch.effects.noise_gate import noise_gate
-from audiosignalprocess_tpu_torch.kernels.chain_kernel import fir_noise_gate_fused
+from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
+    fir_gate_step_fused, fir_gate_step_ref, fir_noise_gate_fused, history_tail,
+)
+from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
+    gate_step_fused, gate_step_init_state, gate_step_ref,
+)
+from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.utils.validate import check
 
-_STREAMING = ("block streaming is not ported yet "
-              "(ROADMAP Queue 1: the streaming Chain and its step kernels)")
+_NOT_CARRIED = ("impl", "fused", "input_latency")
+"""JAX stage fields that are execution choices or set by ``Chain.build``;
+``from_params`` keeps those the port's stage has as fields."""
 
 
 def _pad_to(y: torch.Tensor, n: int) -> torch.Tensor:
@@ -36,6 +59,16 @@ class Stage:
     """Stage protocol.  Latency is in output samples."""
 
     latency: int = 0
+    input_latency: int = 0
+    _eof_n: int | None = None
+
+    @classmethod
+    def from_params(cls, params: dict) -> Stage:
+        """Build from the JAX package's stage fields, as
+        ``dataclasses.asdict`` gives them."""
+        own = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in params.items()
+                      if k in own or k not in _NOT_CARRIED})
 
     def configure(self, input_latency: int) -> int:
         """Receive the cumulative upstream latency; return this stage's
@@ -43,40 +76,103 @@ class Stage:
         self.input_latency = input_latency
         return input_latency + self.latency
 
+    def out_block(self, b: int) -> int:
+        return b
+
     def out_len(self, n: int) -> int:
         """Whole-file output length for input length n."""
         return n
 
+    def tail_width(self, t: int) -> int:
+        """If the input changes over its last t samples, at most the last
+        ``tail_width(t)`` output samples differ (sizes a drained stream's
+        flush blocks).  Causal sample maps: t."""
+        return t
+
+    # -- end of file (drained streams) -------------------------------------
+    # Chain.stream(drain=True) arms each stage with the length of its real
+    # input; frame-based stages then drop frames straddling end-of-file and
+    # switch their emission norm to the finite-file ramp-out, so the
+    # drained stream reproduces full().  Causal sample maps need nothing.
+
+    def set_eof(self, n_in: int) -> None:
+        """The real input occupies stream positions
+        [input_latency, input_latency + n_in)."""
+        self._eof_n = n_in
+
+    def clear_eof(self) -> None:
+        self._eof_n = None
+
+    def _eof_in(self) -> int | None:
+        return None if self._eof_n is None else self.input_latency + self._eof_n
+
     def full(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def init_state(self, batch: tuple, block: int, dtype):
-        raise NotImplementedError(_STREAMING)
+    def init_state(self, batch: tuple, block: int, dtype=torch.float32, device=None):
+        return ()
 
     def step(self, state, x):
-        raise NotImplementedError(_STREAMING)
+        raise NotImplementedError
 
 
 @dataclass
 class FIRStage(Stage):
-    """Causal FIR by overlap-save at FFT size ``nfft``.  Latency 0."""
+    """Causal FIR, direct form or overlap-save when ``nfft`` is given.
+    Latency 0.  ``pre="abs"`` rectifies the input (the envelope follower);
+    ``fused`` routes float32 through the hand-written kernels
+    (``overlap_save_fused`` / ``fir_mac``)."""
 
     h: np.ndarray
     nfft: int | None = None
+    pre: str | None = None
+    post_scale: float = 1.0
+    fused: bool = False
+
+    def __post_init__(self):
+        self.h = np.asarray(self.h, np.float64)
+        check(self.pre in (None, "abs"), f"pre must be None or 'abs', got {self.pre!r}")
+
+    def _apply(self, x, history):
+        if self.pre == "abs":
+            x = x.abs()
+        fused = self.fused and x.dtype != torch.float64
+        if self.nfft is not None:
+            y = overlap_save(x, self.h, self.nfft, history=history, fused=fused)
+        else:
+            y = fir_direct(x, self.h, history=history, fused=fused)
+        return y * self.post_scale if self.post_scale != 1.0 else y
 
     def full(self, x):
-        if self.nfft is None:
-            raise NotImplementedError(
-                "the direct-form FIR is not ported yet (ROADMAP Queue 1: fir_direct)")
-        return overlap_save(x, self.h, self.nfft)
+        return self._apply(x, None)
+
+    def init_state(self, batch, block, dtype=torch.float32, device=None):
+        return torch.zeros(batch + (len(self.h) - 1,), dtype=dtype, device=device)
+
+    def step(self, state, x):
+        y = self._apply(x, state)
+        xin = x.abs() if self.pre == "abs" else x
+        return history_tail(state, xin, len(self.h)), y
+
+
+def EnvelopeStage(h, fused: bool = False) -> FIRStage:
+    """Envelope follower as a stage: |x| -> FIR lowpass -> * pi/2."""
+    return FIRStage(h=np.asarray(h), pre="abs", post_scale=math.pi / 2.0, fused=fused)
 
 
 @dataclass
 class GateStage(Stage):
     """Spectral noise gate (STFT -> mask -> WOLA ISTFT).
 
-    Latency = (nfft-hop) + noise_frames*hop output samples (the streaming
-    delay; the whole-file output is aligned to the input)."""
+    Streaming carries the input tail of nfft-hop samples, a spectral FIFO
+    of ``noise_frames`` frames (so every frame is masked with the final
+    noise floor, as the whole-file gate does) and the un-emitted OLA tail
+    (``kernels/gate_kernel``).  Latency = (nfft-hop) + noise_frames*hop
+    output samples; the whole-file output is aligned to the input.
+    ``fused`` routes a float32 step through ``gate_step_fused``; the
+    whole-file ``noise_gate_fused`` is not ported yet, so ``full`` raises
+    for a CUDA tensor when ``fused`` is set.
+    """
 
     nfft: int = 1024
     hop: int = 256
@@ -85,6 +181,7 @@ class GateStage(Stage):
     noise_frames: int = 8
     release: float = 0.0
     window_kind: str = "hann"
+    fused: bool = False
 
     def __post_init__(self):
         check(self.nfft % self.hop == 0, "nfft must be a multiple of hop")
@@ -95,26 +192,69 @@ class GateStage(Stage):
               f"upstream latency {input_latency} not a multiple of hop={self.hop}")
         return super().configure(input_latency)
 
+    def tail_width(self, t):
+        # the zero-pad tail of full() becomes true WOLA synthesis once later
+        # frames exist: nfft-hop of overlap plus up to hop-1 of truncation
+        return t + self.nfft - 1
+
     def full(self, x):
         """Whole-signal gate, zero-padded back to the input length (the
         gate's output is nfft-hop shorter)."""
+        if self.fused and x.is_cuda:
+            raise NotImplementedError(
+                "GateStage(fused=True).full needs noise_gate_fused, which is not "
+                "ported yet (ROADMAP Queue 2); use fused=False for the whole file")
         y = noise_gate(x, self.nfft, self.hop, self.threshold_db,
                        self.reduction_db, self.noise_frames, self.release,
                        self.window_kind)
         return _pad_to(y, x.shape[-1])
 
+    def set_eof(self, n_in: int) -> None:
+        d = self.nfft - self.hop
+        check(n_in >= self.nfft, f"drain needs >= one complete frame "
+              f"(nfft={self.nfft}), got {n_in} input samples; use full()")
+        nframes = 1 + (n_in - self.nfft) // self.hop
+        check(nframes >= self.noise_frames,
+              f"signal has {nframes} frames < noise_frames={self.noise_frames}")
+        nout = self.nfft + (nframes - 1) * self.hop
+        check(nout >= 2 * d, f"drain needs disjoint WOLA edge ramps "
+              f"(synthesis length {nout} < {2 * d}); use full()")
+        self._eof_n = n_in
+
+    def _step_kw(self) -> dict:
+        return dict(nfft=self.nfft, hop=self.hop, threshold_db=self.threshold_db,
+                    reduction_db=self.reduction_db, noise_frames=self.noise_frames,
+                    release=self.release, window_kind=self.window_kind,
+                    input_latency=self.input_latency, latency=self.latency,
+                    eof_in=self._eof_in())
+
+    def init_state(self, batch, block, dtype=torch.float32, device=None):
+        check(block % self.hop == 0 and block >= self.hop,
+              f"block {block} not a multiple of hop={self.hop}")
+        return gate_step_init_state(batch, self.nfft, self.hop, self.noise_frames,
+                                    self.release, dtype, device)
+
+    def step(self, state, x):
+        if self.fused and x.dtype != torch.float64:
+            return gate_step_fused(x, state, **self._step_kw())
+        return gate_step_ref(x, state, **self._step_kw())
+
 
 @dataclass
 class FIRGateStage(Stage):
-    """FIR -> spectral gate composite, the headline 48 kHz chain.
+    """FIR -> spectral gate (-> envelope) composite, the headline 48 kHz
+    chain.
 
-    Equivalent to ``FIRStage(h, nfft) -> GateStage(nfft, hop, ...)``.
-    ``full`` routes by tensor:
+    Equivalent to ``FIRStage(h, nfft) -> GateStage(nfft, hop, ...)``, with
+    ``env_h`` also ``-> EnvelopeStage(env_h)`` (|y| -> FIR -> *
+    ``env_scale``).  Routes by tensor:
 
-    - float32 runs ``fir_noise_gate_fused``: the fused Hopper kernel on a
-      CUDA tensor, its plain PyTorch version on a CPU tensor;
-    - float64 runs the composed plain path FIRStage -> GateStage on any
-      device, as the JAX package does (the kernel computes in float32).
+    - float32: ``full`` runs ``fir_noise_gate_fused`` (then ``fir_mac`` for
+      the envelope) and each streaming block one ``fir_gate_step_fused``,
+      envelope included: the hand-written kernels on a CUDA tensor, their
+      plain versions on a CPU tensor;
+    - float64 runs the composed plain path on any device, as the JAX
+      package does (the kernels compute in float32).
     """
 
     h: np.ndarray = None
@@ -125,6 +265,8 @@ class FIRGateStage(Stage):
     noise_frames: int = 8
     release: float = 0.0
     window_kind: str = "hann"
+    env_h: np.ndarray | None = None
+    env_scale: float = math.pi / 2.0
 
     def __post_init__(self):
         check(self.h is not None, "FIRGateStage requires filter taps h")
@@ -137,50 +279,83 @@ class FIRGateStage(Stage):
             nfft=self.nfft, hop=self.hop, threshold_db=self.threshold_db,
             reduction_db=self.reduction_db, noise_frames=self.noise_frames,
             release=self.release, window_kind=self.window_kind)
-
-    @classmethod
-    def from_params(cls, params: dict) -> FIRGateStage:
-        """Build from the JAX package's stage fields, as
-        ``dataclasses.asdict`` gives them.  Its execution choices (``impl``,
-        ``fused``) and the latency that ``Chain.build`` sets
-        (``input_latency``) do not carry over; the envelope fold
-        (``env_h``) is not ported yet."""
-        p = dict(params)
-        for key in ("impl", "fused", "input_latency", "env_scale"):
-            p.pop(key, None)
-        if p.pop("env_h", None) is not None:
-            raise NotImplementedError(
-                "the envelope fold is not ported yet (ROADMAP Queue 1: "
-                "resample and envelope)")
-        return cls(**p)
+        self._env = None
+        if self.env_h is not None:
+            self.env_h = np.asarray(self.env_h, np.float64)
+            check(len(self.env_h) >= 1, "the envelope FIR needs at least one tap")
+            self._env = FIRStage(h=self.env_h, pre="abs",
+                                 post_scale=self.env_scale, fused=True)
 
     def configure(self, input_latency: int) -> int:
         check(input_latency % self.hop == 0,
               f"upstream latency {input_latency} not a multiple of hop={self.hop}")
         self._fir.configure(input_latency)
         self._gate.configure(input_latency)
+        if self._env is not None:
+            self._env.configure(input_latency + self.latency)
         return super().configure(input_latency)
+
+    def tail_width(self, t):
+        return t + self.nfft - 1  # see GateStage.tail_width
+
+    def set_eof(self, n_in: int) -> None:
+        # the FIR front is a 1:1 causal map: the gate sees the same EOF
+        self._gate.set_eof(n_in)
+        self._eof_n = n_in
+
+    def clear_eof(self) -> None:
+        self._gate.clear_eof()
+        self._eof_n = None
 
     def full(self, x):
         if x.dtype == torch.float64:
-            return self._gate.full(self._fir.full(x))
-        y = fir_noise_gate_fused(
-            x, self.h, self.nfft, self.hop, self.threshold_db,
-            self.reduction_db, self.noise_frames, self.release,
-            self.window_kind)
-        return _pad_to(y, x.shape[-1])
+            y = self._gate.full(self._fir.full(x))
+        else:
+            y = _pad_to(fir_noise_gate_fused(
+                x, self.h, self.nfft, self.hop, self.threshold_db,
+                self.reduction_db, self.noise_frames, self.release,
+                self.window_kind), x.shape[-1])
+        return y if self._env is None else self._env.full(y)
+
+    def init_state(self, batch, block, dtype=torch.float32, device=None):
+        check(block % self.hop == 0 and block >= self.hop,
+              f"block {block} not a multiple of hop={self.hop}")
+        st = [self._fir.init_state(batch, block, dtype, device),
+              self._gate.init_state(batch, block, dtype, device)]
+        if self._env is not None:
+            st.append(self._env.init_state(batch, block, dtype, device))
+        return st
+
+    def step(self, state, x):
+        step = fir_gate_step_ref if x.dtype == torch.float64 else fir_gate_step_fused
+        return step(x, state, self.h, env_h=self.env_h, env_scale=self.env_scale,
+                    **self._gate._step_kw())
+
+
+STAGES = {"FIRStage": FIRStage, "EnvelopeStage": FIRStage,
+          "GateStage": GateStage, "FIRGateStage": FIRGateStage}
+"""Stage classes ``Chain.from_params`` builds by name (the JAX package's
+``EnvelopeStage`` is a ``FIRStage`` with ``pre="abs"``)."""
 
 
 @dataclass
 class Chain:
-    """Sequential stage composition (whole-file mode)."""
+    """Sequential stage composition with whole-file and streaming modes."""
 
     stages: list = field(default_factory=list)
 
     @classmethod
     def from_params(cls, params: list[dict]) -> Chain:
-        """A chain of ``FIRGateStage.from_params`` stages, one per dict."""
-        return cls([FIRGateStage.from_params(p) for p in params])
+        """One stage per dict of the JAX stage's fields; the optional key
+        ``stage`` names its class (see ``STAGES``), ``FIRGateStage`` when
+        absent."""
+        stages = []
+        for p in params:
+            p = dict(p)
+            name = p.pop("stage", "FIRGateStage")
+            check(name in STAGES, f"unknown stage {name!r}; one of {sorted(STAGES)}")
+            stages.append(STAGES[name].from_params(p))
+        return cls(stages)
 
     def build(self) -> int:
         """Propagate latencies; returns the total chain latency."""
@@ -190,11 +365,24 @@ class Chain:
         self.latency = lat
         return lat
 
+    def out_block(self, b: int) -> int:
+        for s in self.stages:
+            b = s.out_block(b)
+        return b
+
     def out_len(self, n: int) -> int:
         """Rate-mapped whole-file output length: len(full(x)) for any x."""
         for s in self.stages:
             n = s.out_len(n)
         return n
+
+    def tail_width(self) -> int:
+        """Output samples at the end of ``full(x)`` that change once the
+        input is extended past end-of-file (see Stage.tail_width)."""
+        t = 0
+        for s in self.stages:
+            t = s.tail_width(t)
+        return t
 
     def full(self, x: torch.Tensor) -> torch.Tensor:
         for s in self.stages:
@@ -209,11 +397,70 @@ class Chain:
             y = _pad_to(y, n_out)
         return y[..., :n_out]
 
-    def init_state(self, batch: tuple, block: int, dtype=torch.float32):
-        raise NotImplementedError(_STREAMING)
+    def init_state(self, batch: tuple, block: int, dtype=torch.float32, device=None):
+        self.build()
+        states = []
+        for s in self.stages:
+            states.append(s.init_state(batch, block, dtype, device))
+            block = s.out_block(block)
+        return states
 
     def step(self, states, x):
-        raise NotImplementedError(_STREAMING)
+        new_states = []
+        for s, st in zip(self.stages, states):
+            st, x = s.step(st, x)
+            new_states.append(st)
+        return new_states, x
 
-    def stream(self, x: torch.Tensor, block: int, drain: bool = False):
-        raise NotImplementedError(_STREAMING)
+    def arm_eof(self, n: int) -> None:
+        """Arm every stage's end-of-file handling for a drained stream of
+        ``n`` real input samples (see Stage.set_eof).  A caller running its
+        own loop over ``step`` arms before the first block and disarms
+        after the last; ``stream(drain=True)`` does both."""
+        for s in self.stages:
+            s.set_eof(n)
+            n = s.out_len(n)
+
+    def disarm_eof(self) -> None:
+        for s in self.stages:
+            s.clear_eof()
+
+    def drain_blocks(self, n: int, block: int) -> int:
+        """Input blocks (>= ceil(n/block)) a drained stream steps so that
+        its emission covers [0, out_len(n)) past the latency and every
+        emitted position has converged.  Requires ``build()``."""
+        need = self.out_len(n) + max(self.latency, self.tail_width())
+        return max(-(-n // block), -(-need // self.out_block(block)))
+
+    def stream(self, x: torch.Tensor, block: int, drain: bool = False) -> torch.Tensor:
+        """Run the whole signal through the block streamer.
+
+        ``drain=False``: len(x) must be a multiple of ``block``; returns the
+        emitted stream, whose first ``latency`` samples precede the signal
+        and whose last ``latency`` samples of ``full(x)`` stay in the carry.
+
+        ``drain=True``: any input length.  Zero-pads to ``drain_blocks``
+        whole blocks, arms every stage's end-of-file handling, streams, and
+        returns exactly ``out_len(len(x))`` samples aligned to position 0:
+        ``full_flush(x)`` to streaming reassociation.
+        """
+        n = x.shape[-1]
+        if drain:
+            self.build()
+            nblocks = self.drain_blocks(n, block)
+            if nblocks * block > n:
+                x = _pad_to(x, nblocks * block)
+            try:
+                self.arm_eof(n)
+                y = self.stream(x, block)
+            finally:
+                self.disarm_eof()
+            return y[..., self.latency : self.latency + self.out_len(n)]
+        check(n % block == 0, "stream length must be a multiple of the block")
+        states = self.init_state(x.shape[:-1], block, x.dtype, x.device)
+        ob = self.out_block(block)
+        out = x.new_empty(x.shape[:-1] + ((n // block) * ob,))
+        for k in range(n // block):
+            states, y = self.step(states, x[..., k * block : (k + 1) * block])
+            out[..., k * ob : (k + 1) * ob] = y
+        return out

@@ -3,12 +3,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``audiosignalprocess_tpu_torch/csrc``
-with nvcc, checks each kernel against its plain PyTorch version on the
-card, drives the main path (the 48 kHz FIR -> noise-gate chain at
-64 channels x 10 s) through ``pipeline.Chain`` and ``api.chain_file``,
-counts the kernel launches of that run, and times the kernel against the
-plain version.  Every phase prints one line and raises on failure.  The
-second-to-last line is the kernels' JSON record; the last line is
+with nvcc (one compile per source, in parallel), checks each kernel
+against its plain PyTorch version on the card, and drives the port's
+paths through the user entry points at 64 channels x 10 s of 48 kHz
+audio, counting the kernel launches of each run:
+
+- the whole-file FIR -> noise-gate chain (``Chain.full_flush``,
+  ``api.chain_file``): ``fir_noise_gate_fused``;
+- path A, block streaming of the composite stage (``Chain.stream`` of
+  ``FIRGateStage``, ``api.chain_file(block=...)``):
+  ``fir_gate_step_fused`` per block, the envelope folded in;
+- path B, the same chain stage by stage: ``overlap_save_fused``,
+  ``gate_step_fused`` and ``fir_mac`` per block.
+
+It times each kernel against its plain version and each path per stream.
+Every phase prints its lines and raises on failure.  The second-to-last
+line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  Imports nothing of JAX.
 """
@@ -31,6 +41,8 @@ SNR_MIN_DB = 60.0  # float32 kernel vs float64 plain version; the gate's
 # flip), so the bar is the oracle-parity SNR the repo uses everywhere
 HEADLINE = (64, 480000)  # 64 channels x 10 s at 48 kHz (bench.py)
 NFFT, HOP, TAPS, NOISE_FRAMES = 1024, 256, 64, 8
+BLOCK, ENV_TAPS = 4096, 129  # bench.py's stream modes: block 4096, design_fir(129, 0.01)
+LINEAR_MIN_DB = 100.0  # fir_mac and overlap_save_fused are linear: no gate decisions
 
 
 def tone_burst(rng, c, n):
@@ -68,9 +80,9 @@ def oracle_chain(x, h, nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES,
     return out / wola_clamp(norm)
 
 
-def time_ms(fn, reps=20):
+def time_ms(fn, reps=20, warmup=3):
     """Mean device time of fn() over reps calls, after a warm-up."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -83,6 +95,57 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(stop) / reps
 
 
+def stream_ms(fn, reps=3):
+    """Mean device time of a whole stream fn() over reps runs, after one
+    warm-up run (CUDA events around the loop of blocks)."""
+    return time_ms(fn, reps=reps, warmup=1)
+
+
+def decision_flips(g_in, nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES,
+                   threshold_db=6.0):
+    """Gate decisions (|X| > floor * threshold) of the plain whole-file gate
+    on the gate's input g_in, float32 against float64: the count of bins
+    float32 rounding flips on this input, among the bins within 60 dB of
+    their channel's peak (in a filter's stopband the rounding is the
+    signal, and flips there carry no energy)."""
+    from audiosignalprocess_tpu_torch.ops.stft import stft
+
+    dec, mag64 = [], None
+    for dt in (torch.float32, torch.float64):
+        mag = stft(g_in.to(dt), nfft, hop).abs()
+        floor = mag[..., :noise_frames, :].mean(dim=-2, keepdim=True)
+        dec.append(mag > floor * 10.0 ** (threshold_db / 20.0))
+        mag64 = mag
+    loud = mag64 > 1e-3 * mag64.amax(dim=(-2, -1), keepdim=True)
+    return int(((dec[0] != dec[1]) & loud).sum())
+
+
+def device_idle_share(fn):
+    """Share of the span from the first to the last device activity of
+    fn() in which the device runs nothing (torch.profiler); None when the
+    profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s = s
+        cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return 1.0 - busy / (cur_e - spans[0][0])
+
+
 def main() -> int:
     # ---- phase 1: environment
     if not torch.cuda.is_available():
@@ -93,11 +156,25 @@ def main() -> int:
     from audiosignalprocess_tpu_torch.io.wav import read_wav, write_wav
     from audiosignalprocess_tpu_torch.kernels import _build
     from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
-        fir_noise_gate_fused, fir_noise_gate_ref,
+        fir_gate_step_fused, fir_noise_gate_fused, fir_noise_gate_ref,
+    )
+    from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac, fir_mac_ref
+    from audiosignalprocess_tpu_torch.kernels.gate_kernel import gate_step_fused
+    from audiosignalprocess_tpu_torch.kernels.os_kernel import (
+        overlap_save_fused, overlap_save_ref,
     )
     from audiosignalprocess_tpu_torch.ops.fir import design_fir
-    from audiosignalprocess_tpu_torch.pipeline import Chain
+    from audiosignalprocess_tpu_torch.pipeline import (
+        Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage,
+    )
     from audiosignalprocess_tpu_torch.utils.metrics import snr_db
+
+    kernels = (fir_noise_gate_fused, fir_gate_step_fused, gate_step_fused,
+               overlap_save_fused, fir_mac)
+
+    def reset_counts():
+        for k in kernels:
+            k.launches = 0
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -157,12 +234,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         p_in, p_gpu, p_cpu = (str(Path(tmp) / f) for f in ("in.wav", "gpu.wav", "cpu.wav"))
         write_wav(p_in, wav_x, FS, float_fmt=True)
-        fir_noise_gate_fused.launches = 0
+        reset_counts()
         y_main = chain.full_flush(x_dev)
         torch.cuda.synchronize()
         chain_launches = fir_noise_gate_fused.launches
         api.chain_file(p_in, p_gpu, device="cuda", float_fmt=True)
         launches = fir_noise_gate_fused.launches
+        if any(k.launches for k in kernels[1:]):
+            raise SystemExit("phase 4 failed: the whole-file path launched a step kernel")
         api.chain_file(p_in, p_cpu, device="cpu", float_fmt=True)
         y_gpu, _ = read_wav(p_gpu, dtype=np.float64)
         y_cpu, _ = read_wav(p_cpu, dtype=np.float64)
@@ -192,17 +271,193 @@ def main() -> int:
           f"{plain_ms:.4f} ms ({samples / plain_ms * 1e3:.4e} samples/s); "
           f"white-noise snr_vs_f64_plain={snr_noise:.2f} dB (record only)")
 
+    record = {"fir_noise_gate_fused": dict(
+        source="chain_kernel.cu", replaces="chain_kernel.py:151", launches=launches,
+        max_abs_err=max_err, min_snr_db=min_snr, ms=ms, plain_ms=plain_ms)}
+
+    # ---- phase 6: the streaming paths' kernels vs their float64 plain
+    # versions on the card, at the shapes the paths give them
+    c = HEADLINE[0]
+    h_env = design_fir(ENV_TAPS, 0.01)
+
+    def check_kernel(name, y, ref, kernel, before, calls, bar, extra=""):
+        snr = snr_db(ref, y)
+        err = float((y.double() - ref).abs().max())
+        line = (f"[6 kernel] {name}: shape {tuple(y.shape)} launches "
+                f"{kernel.launches - before}/{calls} snr_vs_f64_plain={snr:.2f} dB "
+                f"max_abs_err={err:.3e}{extra}")
+        print(line)
+        if not (tuple(y.shape) == tuple(ref.shape) and bool(torch.isfinite(y).all())
+                and snr >= bar and kernel.launches - before == calls):
+            raise SystemExit(f"phase 6 failed: {line}")
+        rec = record.setdefault(kernel.__name__, dict(max_abs_err=0.0, min_snr_db=np.inf))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["min_snr_db"] = min(rec["min_snr_db"], snr)
+
+    linear = [  # (kernel, plain, taps, per-call shape, history, extra args)
+        (fir_mac, fir_mac_ref, h_env, (c, BLOCK), True, ()),
+        (fir_mac, fir_mac_ref, h_env, HEADLINE, False, ()),
+        (overlap_save_fused, overlap_save_ref, h, (c, BLOCK), True, (NFFT,)),
+    ]
+    for kernel, plain, taps, shape, with_hist, extra in linear:
+        x64 = torch.as_tensor(rng.standard_normal(shape), device=dev)
+        hist = (torch.as_tensor(rng.standard_normal((shape[0], len(taps) - 1)), device=dev)
+                if with_hist else None)
+        before = kernel.launches
+        y = kernel(x64.float(), taps, *extra, history=None if hist is None else hist.float())
+        torch.cuda.synchronize()
+        check_kernel(f"{kernel.__name__} {shape[0]}x{shape[1]} taps={len(taps)} "
+                     f"history={with_hist}", y, plain(x64, taps, *extra, history=hist),
+                     kernel, before, 1, LINEAR_MIN_DB)
+
+    n_short = 16 * BLOCK
+    x_short = torch.as_tensor(tone_burst(rng, c, n_short), device=dev)
+    x_drain = x_short[:, : n_short - 1234]
+    for release in (0.0, 0.6):
+        for drain in (False, True):
+            xs = x_drain if drain else x_short
+            gate = dict(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, release=release)
+            kern = Chain([GateStage(fused=True, **gate)])
+            kern.build()
+            calls = kern.drain_blocks(xs.shape[-1], BLOCK) if drain else xs.shape[-1] // BLOCK
+            before = gate_step_fused.launches
+            y = kern.stream(xs.float(), BLOCK, drain=drain)
+            torch.cuda.synchronize()
+            ref = Chain([GateStage(**gate)]).stream(xs, BLOCK, drain=drain)
+            check_kernel(f"gate_step_fused release={release} drain={drain}", y, ref,
+                         gate_step_fused, before, calls, SNR_MIN_DB,
+                         f" decision_flips_f32_vs_f64={decision_flips(xs)}")
+            for env_h in (None, h_env):
+                chain_s = Chain([FIRGateStage(h=h, env_h=env_h, **gate)])
+                chain_s.build()
+                before = fir_gate_step_fused.launches
+                y = chain_s.stream(xs.float(), BLOCK, drain=drain)
+                torch.cuda.synchronize()
+                ref = chain_s.stream(xs, BLOCK, drain=drain)  # float64: the plain composition
+                flips = decision_flips(FIRStage(h=h, nfft=NFFT).full(xs))
+                check_kernel(f"fir_gate_step_fused release={release} drain={drain} "
+                             f"env={env_h is not None}", y, ref, fir_gate_step_fused,
+                             before, calls, SNR_MIN_DB,
+                             f" decision_flips_f32_vs_f64={flips}")
+
+    # ---- phase 7: paths A and B at the full width, drained, each driven
+    # with every count at 0 just before and read just after
+    n = HEADLINE[1]
+    path_a = Chain([FIRGateStage(h=h, nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES)])
+    path_ae = Chain([FIRGateStage(h=h, nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES,
+                                  env_h=h_env)])
+
+    def path_b(fused):
+        return Chain([FIRStage(h=h, nfft=NFFT, fused=fused),
+                      GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, fused=fused),
+                      EnvelopeStage(h_env, fused=fused)])
+
+    runs = {}
+    for name, chain_p, on_path in (("A", path_a, (fir_gate_step_fused,)),
+                                   ("A+env", path_ae, (fir_gate_step_fused,)),
+                                   ("B", path_b(True), (overlap_save_fused, gate_step_fused,
+                                                        fir_mac))):
+        chain_p.build()
+        blocks = chain_p.drain_blocks(n, BLOCK)
+        reset_counts()
+        y = chain_p.stream(x_dev, BLOCK, drain=True)
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in kernels}
+        runs[name] = (chain_p, y, blocks, counts)
+        want = {k.__name__: (blocks if k in on_path else 0) for k in kernels}
+        line = (f"[7 path {name}] Chain.stream(drain=True) {tuple(y.shape)} "
+                f"blocks={blocks} launches={counts}")
+        print(line)
+        if counts != want or tuple(y.shape) != (c, chain_p.out_len(n)) \
+                or not bool(torch.isfinite(y).all()):
+            raise SystemExit(f"phase 7 failed: {line}")
+    for name, ref in (("A", path_a.full_flush(x_dev)), ("A+env", path_ae.full_flush(x_dev)),
+                      ("B", path_b(False).full_flush(x_dev))):
+        snr = snr_db(ref, runs[name][1])
+        line = f"[7 path {name}] stream vs full_flush on the card: snr={snr:.2f} dB"
+        print(line)
+        if snr < SNR_MIN_DB:
+            raise SystemExit(f"phase 7 failed: {line}")
+    record["fir_gate_step_fused"]["launches"] = runs["A"][3]["fir_gate_step_fused"]
+    for k in (overlap_save_fused, gate_step_fused, fir_mac):
+        record[k.__name__]["launches"] = runs["B"][3][k.__name__]
+
+    # ---- phase 8: api.chain_file streaming and envelope, cuda vs cpu
+    with tempfile.TemporaryDirectory() as tmp:
+        p_in = str(Path(tmp) / "in.wav")
+        write_wav(p_in, wav_x, FS, float_fmt=True)
+        for kw in (dict(block=BLOCK), dict(envelope_hz=50.0),
+                   dict(block=BLOCK, envelope_hz=50.0)):
+            outs = {}
+            reset_counts()
+            for d in ("cuda", "cpu"):
+                api.chain_file(p_in, str(Path(tmp) / f"{d}.wav"), device=d,
+                               float_fmt=True, **kw)
+                outs[d] = read_wav(str(Path(tmp) / f"{d}.wav"), dtype=np.float64)[0]
+            counts = {k.__name__: k.launches for k in kernels if k.launches}
+            snr = snr_db(outs["cpu"], outs["cuda"])
+            line = (f"[8 api.chain_file] {kw} 8x{2 * FS}: launches={counts} "
+                    f"snr_vs_cpu_plain={snr:.2f} dB")
+            print(line)
+            if snr < SNR_MIN_DB or outs["cuda"].shape != wav_x.shape or not counts:
+                raise SystemExit(f"phase 8 failed: {line}")
+
+    # ---- phase 9: times per stream of 64 x 480000 (bench.py's white
+    # noise), each kernel's path against the same stream through the plain
+    # versions (float32 on the card)
+    def gate_only(fused):
+        return Chain([GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, fused=fused)])
+
+    def fir_gate(fused):
+        return Chain([FIRStage(h=h, nfft=NFFT, fused=fused),
+                      GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, fused=fused)])
+
+    timed = [  # (name, kernel chain, plain chain)
+        ("path A", path_a, fir_gate(False)),
+        ("path A+env", path_ae, path_b(False)),
+        ("path B", path_b(True), path_b(False)),
+        ("gate_step_fused", gate_only(True), gate_only(False)),
+        ("overlap_save_fused", Chain([FIRStage(h=h, nfft=NFFT, fused=True)]),
+         Chain([FIRStage(h=h, nfft=NFFT)])),
+        ("fir_mac", Chain([EnvelopeStage(h_env, fused=True)]), Chain([EnvelopeStage(h_env)])),
+    ]
+    times = {}
+    for name, kern, plain in timed:
+        kern.build()
+        plain.build()
+        times[name] = (stream_ms(lambda: kern.stream(xn, BLOCK, drain=True)),
+                       stream_ms(lambda: plain.stream(xn, BLOCK, drain=True)))
+        print(f"[9 times] {name} stream of {HEADLINE[0]}x{HEADLINE[1]} f32, block {BLOCK}, "
+              f"{kern.drain_blocks(n, BLOCK)} blocks, on {smi}: kernels "
+              f"{times[name][0]:.4f} ms ({samples / times[name][0] * 1e3:.4e} samples/s), "
+              f"plain {times[name][1]:.4f} ms")
+    idle = device_idle_share(lambda: path_a.stream(xn, BLOCK, drain=True))
+    idle_plain = device_idle_share(lambda: fir_gate(False).stream(xn, BLOCK, drain=True))
+    fmt = lambda v: "not measured (no device activity in the profile)" if v is None \
+        else f"{v * 100:.1f} %"
+    print(f"[9 idle] path A stream under torch.profiler on {smi}: device idle "
+          f"{fmt(idle)} of its span; plain version {fmt(idle_plain)}")
+    for kname, tname in (("fir_gate_step_fused", "path A"), ("gate_step_fused", "gate_step_fused"),
+                         ("overlap_save_fused", "overlap_save_fused"), ("fir_mac", "fir_mac")):
+        record[kname].update(ms=times[tname][0], plain_ms=times[tname][1])
+    record["fir_gate_step_fused"].update(source="fir_gate_step_kernel.cu",
+                                         replaces="chain_kernel.py:465")
+    record["gate_step_fused"].update(source="gate_step_kernel.cu",
+                                     replaces="gate_kernel.py:562")
+    record["overlap_save_fused"].update(source="os_kernel.cu", replaces="os_kernel.py:91")
+    record["fir_mac"].update(source="fir_kernel.cu", replaces="fir_kernel.py:65")
+
     print(json.dumps({"kernels": [{
-        "name": "fir_noise_gate_fused",
+        "name": name,
         "route": "cuda",
-        "source": "audiosignalprocess_tpu_torch/csrc/chain_kernel.cu",
-        "replaces": "audiosignalprocess_tpu/kernels/chain_kernel.py:151",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "min_snr_db": min_snr,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": f"audiosignalprocess_tpu_torch/csrc/{r['source']}",
+        "replaces": f"audiosignalprocess_tpu/kernels/{r['replaces']}",
+        "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"],
+        "min_snr_db": r["min_snr_db"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+    } for name, r in record.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

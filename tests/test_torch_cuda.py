@@ -5,6 +5,10 @@ neither jax nor the JAX package, so it runs where only PyTorch is
 installed:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py
+
+Bars: the linear kernels (fir_mac, overlap_save_fused) >= 100 dB against
+their float64 plain versions; everything with the gate >= 60 dB, because
+its hard thresholds flip a few borderline bins under float32 rounding.
 """
 
 import numpy as np
@@ -12,9 +16,17 @@ import pytest
 import torch
 
 from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
-    fir_noise_gate_fused, fir_noise_gate_ref,
+    fir_gate_step_fused, fir_gate_step_ref, fir_noise_gate_fused, fir_noise_gate_ref,
+)
+from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac, fir_mac_ref
+from audiosignalprocess_tpu_torch.kernels.gate_kernel import gate_step_fused
+from audiosignalprocess_tpu_torch.kernels.os_kernel import (
+    overlap_save_fused, overlap_save_ref,
 )
 from audiosignalprocess_tpu_torch.ops.fir import design_fir
+from audiosignalprocess_tpu_torch.pipeline import (
+    Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage,
+)
 from audiosignalprocess_tpu_torch.utils.metrics import snr_db
 
 pytestmark = pytest.mark.requires_cuda
@@ -60,3 +72,156 @@ def test_float64_on_card_raises(card):
     with pytest.raises(ValueError, match="float32"):
         fir_noise_gate_fused(torch.zeros(1, 8192, dtype=torch.float64, device=card),
                              design_fir(64, 0.3))
+
+
+@pytest.mark.parametrize("taps,n,hist", [(1, 5000, False), (64, 40000, True),
+                                          (129, 4096, True), (300, 3000, True)])
+def test_fir_mac_vs_plain(card, taps, n, hist):
+    rng = np.random.default_rng(51)
+    x = torch.as_tensor(rng.standard_normal((3, n)), device=card)
+    h = rng.standard_normal(taps)
+    history = (torch.as_tensor(rng.standard_normal((3, taps - 1)), device=card)
+               if hist else None)
+    before = fir_mac.launches
+    out = fir_mac(x.float(), h, None if history is None else history.float())
+    torch.cuda.synchronize()
+    assert fir_mac.launches == before + 1
+    ref = fir_mac_ref(x, h, history)
+    assert out.shape == ref.shape == (3, n) and bool(torch.isfinite(out).all())
+    assert snr_db(ref, out) >= 100.0
+
+
+@pytest.mark.parametrize("taps,nfft,n", [(64, 1024, 4096), (64, 1024, 40000),
+                                          (384, 1024, 9000), (1, 256, 1000)])
+def test_overlap_save_vs_plain(card, taps, nfft, n):
+    rng = np.random.default_rng(52)
+    x = torch.as_tensor(rng.standard_normal((3, n)), device=card)
+    h = design_fir(taps, 0.3) if taps > 1 else np.array([0.5])
+    history = torch.as_tensor(rng.standard_normal((3, taps - 1)), device=card)
+    before = overlap_save_fused.launches
+    out = overlap_save_fused(x.float(), h, nfft, history.float())
+    torch.cuda.synchronize()
+    assert overlap_save_fused.launches == before + 1
+    ref = overlap_save_ref(x, h, nfft, history)
+    assert out.shape == ref.shape == (3, n) and bool(torch.isfinite(out).all())
+    assert snr_db(ref, out) >= 100.0
+
+
+def _streams(chain_kernel, chain_plain, x, block, drain):
+    """The f32 kernel stream and the f64 plain stream of the same input."""
+    y = chain_kernel.stream(x.float(), block, drain=drain)
+    torch.cuda.synchronize()
+    ref = chain_plain.stream(x, block, drain=drain)
+    return y, ref
+
+
+@pytest.mark.parametrize("release,drain,block", [(0.0, False, 1024), (0.6, True, 1024),
+                                                  (0.0, True, 256), (0.6, False, 3072)])
+def test_gate_step_vs_plain(card, release, drain, block):
+    """GateStage(fused=True) float32 (one gate_step_fused launch per block)
+    against the float64 plain step stream on the same card."""
+    rng = np.random.default_rng(53)
+    n = 12 * 3072 + (777 if drain else 0)
+    x = torch.as_tensor(_tone_burst(rng, 3, n), device=card)
+    kw = dict(nfft=1024, hop=256, noise_frames=4, release=release)
+    ck, cp = Chain([GateStage(fused=True, **kw)]), Chain([GateStage(**kw)])
+    ck.build()
+    blocks = ck.drain_blocks(n, block) if drain else n // block
+    before = gate_step_fused.launches
+    y, ref = _streams(ck, cp, x, block, drain)
+    assert gate_step_fused.launches == before + blocks
+    assert y.shape == ref.shape and bool(torch.isfinite(y).all())
+    assert snr_db(ref, y) >= 60.0
+
+
+@pytest.mark.parametrize("release,env_taps,drain,taps", [
+    (0.0, 0, False, 64), (0.6, 129, True, 64), (0.0, 129, False, 64),
+    (0.6, 0, True, 64), (0.0, 300, True, 500), (0.0, 1, False, 1),
+])
+def test_fir_gate_step_vs_plain(card, release, env_taps, drain, taps):
+    """FIRGateStage float32 (one fir_gate_step_fused launch per block,
+    envelope folded in) against its float64 plain composition."""
+    rng = np.random.default_rng(54)
+    n = 10 * 4096 + (1234 if drain else 0)
+    x = torch.as_tensor(_tone_burst(rng, 3, n), device=card)
+    h = design_fir(taps, 0.3) if taps > 1 else np.array([0.8])
+    env_h = None
+    if env_taps:
+        env_h = design_fir(env_taps, 0.01) if env_taps > 1 else np.array([0.5])
+    chain = Chain([FIRGateStage(h=h, noise_frames=4, release=release, env_h=env_h)])
+    chain.build()
+    blocks = chain.drain_blocks(n, 4096) if drain else n // 4096
+    before = fir_gate_step_fused.launches
+    y, ref = _streams(chain, chain, x, 4096, drain)
+    assert fir_gate_step_fused.launches == before + blocks
+    assert y.shape == ref.shape and bool(torch.isfinite(y).all())
+    assert snr_db(ref, y) >= 60.0
+
+
+def test_path_b_launches_each_kernel_per_block(card):
+    rng = np.random.default_rng(55)
+    x = torch.as_tensor(_tone_burst(rng, 2, 8 * 4096), device=card)
+    h, he = design_fir(64, 0.3), design_fir(129, 0.01)
+    stages = lambda fused: [FIRStage(h=h, nfft=1024, fused=fused),
+                            GateStage(noise_frames=4, fused=fused),
+                            EnvelopeStage(he, fused=fused)]
+    counters = (overlap_save_fused, gate_step_fused, fir_mac)
+    before = [k.launches for k in counters]
+    chain = Chain(stages(True))
+    chain.build()
+    blocks = chain.drain_blocks(x.shape[-1], 4096)
+    y, ref = _streams(chain, Chain(stages(False)), x, 4096, True)
+    assert [k.launches - b for k, b in zip(counters, before)] == [blocks] * 3
+    assert snr_db(ref, y) >= 60.0
+
+
+def test_carry_switches_between_kernel_and_plain(card):
+    """One carry layout: blocks alternate between the kernel and the plain
+    float32 step and the stream equals the kernel-only stream."""
+    rng = np.random.default_rng(56)
+    x = torch.as_tensor(_tone_burst(rng, 2, 8 * 2048), device=card, dtype=torch.float32)
+    stage = FIRGateStage(h=design_fir(64, 0.3), noise_frames=4, release=0.6,
+                         env_h=design_fir(129, 0.01))
+    chain = Chain([stage])
+    ref = chain.stream(x, 2048)
+    st = chain.init_state((2,), 2048, torch.float32, card)
+    ys = []
+    for k in range(8):
+        xb = x[:, k * 2048 : (k + 1) * 2048]
+        if k % 2:
+            st, y = chain.step(st, xb)
+        else:
+            s0, y = fir_gate_step_ref(xb, st[0], stage.h, env_h=stage.env_h,
+                                      env_scale=stage.env_scale,
+                                      **stage._gate._step_kw())
+            st = [s0]
+        ys.append(y)
+    assert snr_db(ref, torch.cat(ys, dim=-1)) >= 60.0
+
+
+def _gate_step_f64(x):
+    g = GateStage()
+    return gate_step_fused(x, g.init_state((1,), 4096, torch.float64, x.device),
+                           **g._step_kw())
+
+
+def _fir_gate_step_f64(x):
+    st = FIRGateStage(h=design_fir(64, 0.3))
+    return fir_gate_step_fused(x, st.init_state((1,), 4096, torch.float64, x.device),
+                               st.h, **st._gate._step_kw())
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: fir_mac(x, design_fir(64, 0.3)),
+    lambda x: overlap_save_fused(x, design_fir(64, 0.3), 1024),
+    _gate_step_f64,
+    _fir_gate_step_f64,
+])
+def test_new_kernels_raise_on_float64(card, call):
+    with pytest.raises(ValueError, match="float32"):
+        call(torch.zeros(1, 4096, dtype=torch.float64, device=card))
+
+
+def test_gate_stage_fused_full_raises_on_card(card):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        GateStage(fused=True).full(torch.zeros(1, 8192, device=card))

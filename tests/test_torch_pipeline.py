@@ -1,9 +1,11 @@
-"""The port's whole-file Chain and api.chain_file vs the JAX package."""
+"""The port's Chain (whole file, and from_params) and api.chain_file vs
+the JAX package."""
 
 import dataclasses
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -67,13 +69,37 @@ def test_f32_routes_through_fused_wrapper():
 
 
 def test_from_params_rejects_what_is_not_ported():
-    params = dataclasses.asdict(jax_pipeline.FIRGateStage(
-        h=oracle.design_fir(64, 0.3), env_h=oracle.design_fir(129, 0.05)))
-    with pytest.raises(NotImplementedError, match="envelope"):
-        pipeline.FIRGateStage.from_params(params)
-    chain = pipeline.Chain([pipeline.FIRGateStage(h=oracle.design_fir(64, 0.3))])
-    with pytest.raises(NotImplementedError, match="streaming"):
-        chain.stream(torch.zeros(1, 4096), 1024)
+    """Stage classes the port does not have yet raise; the whole-file
+    noise_gate_fused behind GateStage(fused=True).full raises for a CUDA
+    tensor (a stand-in here: the stage decides by ``is_cuda`` before it
+    reads the data)."""
+    for name in ("ResFIRGateStage", "ResampleStage", "StretchStage"):
+        with pytest.raises(ValueError, match="unknown stage"):
+            pipeline.Chain.from_params([dict(stage=name)])
+    on_card = SimpleNamespace(is_cuda=True, shape=(1, 8192))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        pipeline.GateStage(fused=True).full(on_card)
+
+
+@pytest.mark.parametrize("release", (0.0, 0.6))
+def test_from_params_env_h_streams_like_jax(release):
+    """A JAX FIRGateStage with the envelope fold carried across: whole
+    file and drained stream equal the JAX chain's (float64)."""
+    rng = np.random.default_rng(24)
+    jax_stage = jax_pipeline.FIRGateStage(
+        h=oracle.design_fir(64, 0.3), noise_frames=4, release=release,
+        env_h=oracle.design_fir(129, 0.05), fused=False)
+    jchain = jax_pipeline.Chain([jax_stage])
+    chain = pipeline.Chain.from_params([dataclasses.asdict(jax_stage)])
+    assert chain.build() == jchain.build()
+    x = _signal(rng, 2, 12000)
+    np.testing.assert_allclose(chain.full_flush(torch.as_tensor(x)).numpy(),
+                               np.asarray(jchain.full_flush(jnp.asarray(x))),
+                               rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(
+        chain.stream(torch.as_tensor(x), 2048, drain=True).numpy(),
+        np.asarray(jchain.stream(jnp.asarray(x), 2048, drain=True)),
+        rtol=1e-8, atol=1e-10)
 
 
 def test_chain_file_vs_jax(tmp_path):
@@ -90,13 +116,32 @@ def test_chain_file_vs_jax(tmp_path):
     assert np.max(np.abs(y - y_ref)) * 32768 <= 1.0
 
 
-@pytest.mark.parametrize("kw", [dict(rate_out=44100), dict(block=2048),
-                                dict(envelope_hz=50.0)])
+@pytest.mark.parametrize("kw", [dict(rate_out=44100),
+                                dict(rate_out=44100, block=2048),
+                                dict(rate_out=44100, envelope_hz=50.0)])
 def test_chain_file_not_ported_raises(tmp_path, kw):
+    """The resampler front end (a file not at rate_out) is not ported, in
+    any mode."""
     p = str(tmp_path / "in.wav")
     write_wav(p, np.zeros((1, 8192), np.float32), 48000)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.chain_file(p, str(tmp_path / "out.wav"), **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(block=2048), dict(envelope_hz=50.0),
+                                dict(block=4096, envelope_hz=50.0)])
+def test_chain_file_streaming_and_envelope_vs_jax(tmp_path, kw):
+    rng = np.random.default_rng(25)
+    x = _signal(rng, 2, 24000).astype(np.float32)
+    p = str(tmp_path / "in.wav")
+    write_wav(p, x, 48000)
+    out, ref = str(tmp_path / "port.wav"), str(tmp_path / "jax.wav")
+    shape = api.chain_file(p, out, noise_frames=4, **kw)
+    jax_api.chain_file(p, ref, noise_frames=4, **kw)
+    y, rate = read_wav(out, dtype=np.float64)
+    y_ref, _ = jax_read_wav(ref, dtype=np.float64)
+    assert rate == 48000 and y.shape == y_ref.shape == shape == (2, 24000)
+    assert np.max(np.abs(y - y_ref)) * 32768 <= 1.0
 
 
 def _run(code, **env):
@@ -106,14 +151,20 @@ def _run(code, **env):
 
 def test_port_imports_no_jax():
     proc = _run("import audiosignalprocess_tpu_torch, audiosignalprocess_tpu_torch.api, "
-                "audiosignalprocess_tpu_torch.pipeline, sys; "
+                "audiosignalprocess_tpu_torch.pipeline, "
+                "audiosignalprocess_tpu_torch.utils.checkpoint, sys; "
                 "assert 'jax' not in sys.modules")
     assert proc.returncode == 0, proc.stderr
 
 
 def test_kernel_module_imports_without_nvcc():
-    proc = _run("import audiosignalprocess_tpu_torch.kernels.chain_kernel as ck; "
-                "assert ck.fir_noise_gate_fused.launches == 0",
+    proc = _run("from audiosignalprocess_tpu_torch.kernels import chain_kernel as ck, "
+                "gate_kernel as gk, fir_kernel as fk, os_kernel as ok; "
+                "assert ck.fir_noise_gate_fused.launches == 0; "
+                "assert ck.fir_gate_step_fused.launches == 0; "
+                "assert gk.gate_step_fused.launches == 0; "
+                "assert fk.fir_mac.launches == 0; "
+                "assert ok.overlap_save_fused.launches == 0",
                 PATH=os.path.dirname(sys.executable), CUDA_HOME=os.devnull)
     assert proc.returncode == 0, proc.stderr
 

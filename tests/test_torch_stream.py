@@ -1,0 +1,522 @@
+"""The port's block streaming vs the JAX package's, stage by stage and for
+the FIR -> gate (-> envelope) chain as a whole.
+
+Twins of the streaming tests of tests/unit/test_pipeline.py and of
+tests/kernels/test_chain_kernel.py::test_fir_gate_env_one_kernel_step.
+JAX runs as its own tests run it (tests/conftest.py: CPU, x64, Pallas in
+interpret mode), so a JAX float32 stream with ``fused=True`` runs its
+Pallas step kernel in interpret mode.  On the CPU the port's step
+wrappers run their plain versions.
+
+Tolerances: float64 port vs float64 JAX rtol 1e-8, atol 1e-10; float32
+port vs the JAX fused float32 stream >= 100 dB on a tone burst (JAX's
+own bar) and >= 80 dB with the envelope; latency, out_len, out_block and
+drain_blocks equal.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from audiosignalprocess_tpu import pipeline as J
+from audiosignalprocess_tpu.cpu_ref import oracle
+from audiosignalprocess_tpu.utils import checkpoint as jax_checkpoint
+from audiosignalprocess_tpu_torch import pipeline as P
+from audiosignalprocess_tpu_torch.kernels.chain_kernel import fir_gate_step_fused
+from audiosignalprocess_tpu_torch.kernels.gate_kernel import gate_step_fused
+from audiosignalprocess_tpu_torch.utils import checkpoint
+
+F64 = dict(rtol=1e-8, atol=1e-10)
+
+
+@pytest.fixture()
+def rng():
+    return np.random.default_rng(71)
+
+
+def _burst(rng, c, n, lo=0.25, hi=0.7, fs=48000):
+    """Tone burst in low noise."""
+    t = np.arange(n) / fs
+    return 0.01 * rng.standard_normal((c, n)) + np.where(
+        (t > lo * n / fs) & (t < hi * n / fs), np.sin(2 * np.pi * 440.0 * t), 0.0)
+
+
+def _j(chain, x, block, drain=False):
+    return np.asarray(chain.stream(jnp.asarray(x), block, drain=drain))
+
+
+def _p(chain, x, block, drain=False):
+    return chain.stream(torch.as_tensor(x), block, drain=drain).numpy()
+
+
+def _snr(ref, got):
+    return oracle.snr_db(np.asarray(ref, np.float64) + 1e-30,
+                         np.asarray(got, np.float64) + 1e-30)
+
+
+def _both(make_j, make_p):
+    jc, pc = make_j(), make_p()
+    assert jc.build() == pc.build()
+    return jc, pc
+
+
+def _stream_equals_full(chain, y, x):
+    """The port's own identity: stream[L:] == full[: len - L]."""
+    lat = chain.latency
+    full = chain.full(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(y[..., lat:], full[..., : y.shape[-1] - lat],
+                               rtol=1e-8, atol=1e-8)
+
+
+class TestFIRStage:
+    @pytest.mark.parametrize("nfft", (None, 1024))
+    def test_stream_equals_full(self, rng, nfft):
+        x = rng.standard_normal((2, 8192))
+        h = oracle.design_fir(64, 0.25)
+        jc, pc = _both(lambda: J.Chain([J.FIRStage(h=h, nfft=nfft)]),
+                       lambda: P.Chain([P.FIRStage(h=h, nfft=nfft)]))
+        y = _p(pc, x, 1024)
+        np.testing.assert_allclose(y, _j(jc, x, 1024), **F64)
+        _stream_equals_full(pc, y, x)
+
+    def test_full_matches_oracle(self, rng):
+        x = rng.standard_normal(4096)
+        h = oracle.design_fir(64, 0.25)
+        c = P.Chain([P.FIRStage(h=h, nfft=1024)])
+        c.build()
+        np.testing.assert_allclose(c.full(torch.as_tensor(x)).numpy(),
+                                   oracle.fir_direct(x, h), rtol=1e-8, atol=1e-8)
+
+
+class TestEnvelopeStage:
+    def test_stream_equals_full(self, rng):
+        x = rng.standard_normal(8192)
+        h = oracle.design_fir(129, 0.01)
+        jc, pc = _both(lambda: J.Chain([J.EnvelopeStage(h)]),
+                       lambda: P.Chain([P.EnvelopeStage(h)]))
+        y = _p(pc, x, 512)
+        np.testing.assert_allclose(y, _j(jc, x, 512), **F64)
+        _stream_equals_full(pc, y, x)
+
+
+class TestGateStage:
+    def test_stream_equals_full(self, rng):
+        x = _burst(rng, 1, 512 * 48)[0]
+        jc, pc = _both(lambda: J.Chain([J.GateStage()]), lambda: P.Chain([P.GateStage()]))
+        y = _p(pc, x, 512)
+        np.testing.assert_allclose(y, _j(jc, x, 512), **F64)
+        _stream_equals_full(pc, y, x)
+
+    def test_full_matches_oracle_gate(self, rng):
+        x = 0.01 * rng.standard_normal(48000)
+        x[20000:30000] += np.sin(2 * np.pi * 440.0 * np.arange(10000) / 48000.0)
+        c = P.Chain([P.GateStage()])
+        c.build()
+        out = c.full(torch.as_tensor(x)).numpy()
+        ref = oracle.noise_gate(x)
+        np.testing.assert_allclose(out[: ref.shape[-1]], ref, rtol=1e-7, atol=1e-9)
+        assert np.allclose(out[ref.shape[-1]:], 0.0)
+
+
+class TestFusedStages:
+    @pytest.mark.parametrize("release", (0.0, 0.9))
+    def test_gate_stage_fused_streaming(self, rng, release):
+        """The port's float32 gate step (its plain version on the CPU) vs
+        the JAX Pallas step kernel (gate_step_fused, interpret mode)."""
+        x = (0.01 * rng.standard_normal((2, 8192))).astype(np.float32)
+        x[:, 2048:4096] += np.sin(np.arange(2048) / 10.0).astype(np.float32)
+        jc, pc = _both(lambda: J.Chain([J.GateStage(release=release, fused=True)]),
+                       lambda: P.Chain([P.GateStage(release=release, fused=True)]))
+        y = _p(pc, x, 1024)
+        assert y.dtype == np.float32
+        assert _snr(_j(jc, x, 1024), y) >= 100.0
+        full = pc.full(torch.as_tensor(x)).numpy()
+        assert _snr(full[..., : y.shape[-1] - pc.latency], y[..., pc.latency:]) >= 100.0
+
+
+class TestFIRGateStage:
+    @pytest.mark.parametrize("release,taps", ((0.0, 64), (0.8, 64), (0.0, 768)))
+    def test_matches_jax_one_kernel_step(self, rng, release, taps):
+        """The port's float32 FIRGateStage stream vs the JAX one, whose
+        float32 step is the Pallas fir_gate_step_fused (interpret mode),
+        and vs the port's own composed FIRStage -> GateStage stream."""
+        h = oracle.design_fir(taps, 0.3 if taps == 64 else 0.2)
+        x = (0.01 * rng.standard_normal((3, 8192))).astype(np.float32)
+        x[:, 2048:6000] += np.sin(2 * np.pi * 440 * np.arange(3952) / 48000).astype(np.float32)
+        kw = dict(nfft=1024, hop=256, noise_frames=4, release=release)
+        jc, pc = _both(lambda: J.Chain([J.FIRGateStage(h=h, **kw)]),
+                       lambda: P.Chain([P.FIRGateStage(h=h, **kw)]))
+        y = _p(pc, x, 1024)
+        assert _snr(_j(jc, x, 1024), y) >= 100.0
+        comp = P.Chain([P.FIRStage(h=h, nfft=1024), P.GateStage(**kw)])
+        assert _snr(_p(comp, x, 1024), y) >= 100.0
+        full = pc.full(torch.as_tensor(x)).numpy()
+        assert _snr(full[:, : y.shape[-1] - pc.latency], y[:, pc.latency:]) >= 100.0
+
+    def test_f64_vs_jax_composition(self, rng):
+        h = oracle.design_fir(64, 0.3)
+        x = rng.standard_normal((2, 8192))
+        jc, pc = _both(
+            lambda: J.Chain([J.FIRGateStage(h=h, nfft=1024, hop=256, noise_frames=4)]),
+            lambda: P.Chain([P.FIRGateStage(h=h, nfft=1024, hop=256, noise_frames=4)]))
+        np.testing.assert_allclose(_p(pc, x, 1024), _j(jc, x, 1024), **F64)
+
+
+@pytest.mark.parametrize("env_taps,release", ((129, 0.0), (200, 0.6)))
+def test_fir_gate_env_one_kernel_step(rng, env_taps, release):
+    """Twin of tests/kernels/test_chain_kernel.py::
+    test_fir_gate_env_one_kernel_step: FIRGateStage(env_h) float32 vs the
+    JAX one-kernel step with the envelope folded in, and vs the port's
+    composed FIRStage -> GateStage -> EnvelopeStage; whole file too."""
+    h = oracle.design_fir(64, 0.3)
+    he = oracle.design_fir(env_taps, 0.05)
+    x = _burst(rng, 2, 2048 * 6).astype(np.float32)
+    kw = dict(nfft=1024, hop=256, noise_frames=4, release=release)
+    jc, pc = _both(lambda: J.Chain([J.FIRGateStage(h=h, env_h=he, **kw)]),
+                   lambda: P.Chain([P.FIRGateStage(h=h, env_h=he, **kw)]))
+    comp = P.Chain([P.FIRStage(h=h, nfft=1024), P.GateStage(**kw), P.EnvelopeStage(he)])
+    assert comp.build() == pc.latency
+    y = _p(pc, x, 2048)
+    assert y.shape == x.shape
+    assert _snr(_j(jc, x, 2048), y) >= 80.0
+    assert _snr(_p(comp, x, 2048), y) >= 80.0
+    full = pc.full(torch.as_tensor(x)).numpy()
+    assert _snr(np.asarray(jc.full(jnp.asarray(x))), full) >= 80.0
+
+
+class TestSingleTap:
+    def test_single_tap_fir_stage(self, rng):
+        x = rng.standard_normal((2, 1024))
+        chain = P.Chain([P.FIRStage(h=np.array([0.5]))])
+        chain.build()
+        full = chain.full(torch.as_tensor(x)).numpy()
+        np.testing.assert_allclose(full, 0.5 * x, rtol=1e-12)
+        np.testing.assert_allclose(_p(chain, x, 256), full, rtol=1e-12)
+
+    def test_single_tap_fir_gate_env(self, rng):
+        """T == 1 and Te == 1: stateless FIR front and envelope tail."""
+        x = _burst(rng, 2, 4096)
+        kw = dict(h=np.array([0.7]), nfft=256, hop=64, noise_frames=2,
+                  env_h=np.array([0.5]))
+        jc, pc = _both(lambda: J.Chain([J.FIRGateStage(fused=False, **kw)]),
+                       lambda: P.Chain([P.FIRGateStage(**kw)]))
+        np.testing.assert_allclose(_p(pc, x, 256), _j(jc, x, 256), **F64)
+
+
+class TestNumericContract:
+    def test_stream_f32_snr_bound(self, rng):
+        x = rng.standard_normal((2, 2048 * 6)).astype(np.float32)
+        h = oracle.design_fir(64, 0.3)
+        jc, pc = _both(
+            lambda: J.Chain([J.FIRStage(h=h, nfft=1024),
+                             J.GateStage(nfft=1024, hop=256, noise_frames=4)]),
+            lambda: P.Chain([P.FIRStage(h=h, nfft=1024),
+                             P.GateStage(nfft=1024, hop=256, noise_frames=4)]))
+        y, yj = _p(pc, x, 2048), _j(jc, x, 2048)
+        assert _snr(yj, y) >= 100.0
+        # stream vs full in float32 is bounded by borderline gate bins, so
+        # it depends on the input: JAX's own 110 dB holds for its seed, and
+        # on this one JAX reads about 101.5 dB.  Hold the port to the JAX
+        # package's figure on the same input.
+        lat, n = pc.latency, y.shape[-1] - pc.latency
+        full = pc.full(torch.as_tensor(x)).numpy()
+        jfull = np.asarray(jc.full(jnp.asarray(x)))
+        assert (_snr(full[..., :n], y[..., lat:])
+                >= min(110.0, _snr(jfull[..., :n], yj[..., lat:])) - 3.0)
+
+
+class TestGateRelease:
+    def test_gate_stage_release_stream_equals_full(self, rng):
+        x = rng.standard_normal((2, 2048 * 5))
+        x[:, :4096] *= 0.01
+        kw = dict(nfft=1024, hop=256, noise_frames=4, release=0.6)
+        jc, pc = _both(lambda: J.Chain([J.GateStage(**kw)]),
+                       lambda: P.Chain([P.GateStage(**kw)]))
+        y = _p(pc, x, 2048)
+        np.testing.assert_allclose(y, _j(jc, x, 2048), **F64)
+        _stream_equals_full(pc, y, x)
+
+
+class TestCheckpoint:
+    def test_checkpoint_resume(self, rng, tmp_path):
+        """Stream halfway, checkpoint the carry, resume: the same output."""
+        x = torch.as_tensor(_burst(rng, 2, 8 * 1024))
+        h = oracle.design_fir(64, 0.25)
+        chain = P.Chain([P.FIRGateStage(h=h, noise_frames=2, release=0.6,
+                                        env_h=oracle.design_fir(33, 0.05))])
+        states = chain.init_state((2,), 1024, torch.float64)
+        outs = []
+        for k in range(4):
+            states, y = chain.step(states, x[:, k * 1024 : (k + 1) * 1024])
+            outs.append(y)
+        checkpoint.save_carry(str(tmp_path / "ck"), states, block_index=4)
+        states2, bk = checkpoint.load_carry(str(tmp_path / "ck"),
+                                            chain.init_state((2,), 1024, torch.float64))
+        assert bk == 4
+        for k in range(4, 8):
+            states2, y = chain.step(states2, x[:, k * 1024 : (k + 1) * 1024])
+            outs.append(y)
+        np.testing.assert_allclose(torch.cat(outs, dim=-1).numpy(),
+                                   chain.stream(x, 1024).numpy(), rtol=0, atol=0)
+
+    @pytest.mark.parametrize("path", ("A", "B"))
+    def test_jax_carry_resumes_in_port(self, rng, tmp_path, path):
+        """JAX streams 4 blocks through a fused=False chain and saves its
+        carry; the port loads it and streams 4 more: the uninterrupted JAX
+        stream, within the float64 tolerance."""
+        h, he = oracle.design_fir(64, 0.3), oracle.design_fir(129, 0.01)
+        kw = dict(nfft=1024, hop=256, noise_frames=4, release=0.6)
+        if path == "A":
+            jc, pc = _both(
+                lambda: J.Chain([J.FIRGateStage(h=h, env_h=he, fused=False, **kw)]),
+                lambda: P.Chain([P.FIRGateStage(h=h, env_h=he, **kw)]))
+        else:
+            jc, pc = _both(
+                lambda: J.Chain([J.FIRStage(h=h, nfft=1024), J.GateStage(**kw),
+                                 J.EnvelopeStage(he)]),
+                lambda: P.Chain([P.FIRStage(h=h, nfft=1024), P.GateStage(**kw),
+                                 P.EnvelopeStage(he)]))
+        x = _burst(rng, 2, 8 * 2048)
+        st = jc.init_state((2,), 2048, jnp.float64)
+        outs = []
+        for k in range(4):
+            st, y = jc.step(st, jnp.asarray(x[:, k * 2048 : (k + 1) * 2048]))
+            outs.append(np.asarray(y))
+        jax_checkpoint.save_carry(str(tmp_path / "jax.npz"), st, block_index=4)
+        pst, bk = checkpoint.load_carry(str(tmp_path / "jax.npz"),
+                                        pc.init_state((2,), 2048, torch.float64))
+        assert bk == 4
+        for k in range(4, 8):
+            pst, y = pc.step(pst, torch.as_tensor(x[:, k * 2048 : (k + 1) * 2048]))
+            outs.append(y.numpy())
+        np.testing.assert_allclose(np.concatenate(outs, axis=-1), _j(jc, x, 2048), **F64)
+
+    def test_port_carry_leaves_in_jax_order(self, rng):
+        """The port's carry flattens to the JAX carry's leaves: same count,
+        shapes and values."""
+        import jax
+
+        h = oracle.design_fir(16, 0.3)
+        kw = dict(h=h, nfft=256, hop=64, noise_frames=2, release=0.5,
+                  env_h=oracle.design_fir(9, 0.1))
+        jc, pc = _both(lambda: J.Chain([J.FIRGateStage(fused=False, **kw)]),
+                       lambda: P.Chain([P.FIRGateStage(**kw)]))
+        x = _burst(rng, 2, 512)
+        js, _ = jc.step(jc.init_state((2,), 512, jnp.float64), jnp.asarray(x))
+        ps, _ = pc.step(pc.init_state((2,), 512, torch.float64), torch.as_tensor(x))
+        jl = jax.tree_util.tree_leaves(js)
+        pl = checkpoint._leaves(ps)
+        assert len(jl) == len(pl)
+        for a, b in zip(jl, pl):
+            b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+            assert np.shape(a) == b.shape
+            np.testing.assert_allclose(b, np.asarray(a), **F64)
+
+
+class TestDrain:
+    @staticmethod
+    def _drain(make_j, make_p, x, block, f32_min_snr=None):
+        """The port's drained stream: exact out_len, equal to its own
+        full_flush and to the JAX drained stream (float64 tolerance, or an
+        SNR bar for float32)."""
+        jc, pc = _both(make_j, make_p)
+        n = x.shape[-1]
+        assert pc.drain_blocks(n, block) == jc.drain_blocks(n, block)
+        y = _p(pc, x, block, drain=True)
+        ref = _j(jc, x, block, drain=True)
+        assert y.shape == ref.shape == x.shape[:-1] + (pc.out_len(n),)
+        ff = pc.full_flush(torch.as_tensor(x)).numpy()
+        if f32_min_snr is None:
+            np.testing.assert_allclose(y, ref, **F64)
+            np.testing.assert_allclose(y, ff, rtol=1e-8, atol=1e-10)
+        else:
+            assert _snr(ref, y) >= f32_min_snr
+            assert _snr(ff, y) >= f32_min_snr
+        return pc
+
+    def test_fir_non_multiple_length(self, rng):
+        h = oracle.design_fir(64, 0.25)
+        self._drain(lambda: J.Chain([J.FIRStage(h=h, nfft=1024)]),
+                    lambda: P.Chain([P.FIRStage(h=h, nfft=1024)]),
+                    rng.standard_normal((2, 4097)), 512)
+
+    def test_fir_causal_flush_is_exact_full(self, rng):
+        c = P.Chain([P.FIRStage(h=oracle.design_fir(64, 0.25))])
+        c.build()
+        x = torch.as_tensor(rng.standard_normal(4097))
+        np.testing.assert_allclose(c.full_flush(x).numpy(), c.full(x).numpy(),
+                                   rtol=1e-12, atol=1e-12)
+
+    def test_gate_drain(self, rng):
+        x = 0.01 * rng.standard_normal((1, 8192 + 100))
+        x[:, 3000:6000] += np.sin(2 * np.pi * 440.0 * np.arange(3000) / 48000.0)
+        self._drain(lambda: J.Chain([J.GateStage(nfft=1024, hop=256)]),
+                    lambda: P.Chain([P.GateStage(nfft=1024, hop=256)]), x, 2048)
+
+    @pytest.mark.parametrize("nfft,hop", ((1024, 256), (512, 128)))
+    def test_gate_fused_block_equals_hop(self, rng, nfft, hop):
+        """The smallest block (block == hop, one frame per step), float32,
+        vs the JAX fused gate step."""
+        x = (0.01 * rng.standard_normal((2, 4096))).astype(np.float32)
+        x[:, 1000:3000] += np.sin(2 * np.pi * 440.0 * np.arange(2000) / 48000).astype(np.float32)
+        kw = dict(nfft=nfft, hop=hop, noise_frames=4, fused=True)
+        jc, pc = _both(lambda: J.Chain([J.GateStage(**kw)]),
+                       lambda: P.Chain([P.GateStage(**kw)]))
+        y = _p(pc, x, hop)
+        assert _snr(_j(jc, x, hop), y) >= 100.0
+        full = pc.full(torch.as_tensor(x)).numpy()
+        assert _snr(full[..., : y.shape[-1] - pc.latency], y[..., pc.latency:]) >= 100.0
+
+    def test_gate_drain_short_input_raises_like_full_flush(self, rng):
+        chain = P.Chain([P.GateStage(nfft=1024, hop=256, noise_frames=8)])
+        chain.build()
+        x = torch.as_tensor(0.01 * rng.standard_normal((1, 2100)))  # 5 frames < 8
+        with pytest.raises(ValueError, match="noise_frames"):
+            chain.full_flush(x)
+        with pytest.raises(ValueError, match="noise_frames"):
+            chain.stream(x, 512, drain=True)
+
+    @pytest.mark.parametrize("make", (
+        lambda: P.FIRGateStage(h=oracle.design_fir(64, 0.3), noise_frames=8),
+        lambda: P.FIRGateStage(h=oracle.design_fir(64, 0.3), noise_frames=8,
+                               env_h=oracle.design_fir(129, 0.01)),
+    ))
+    def test_fir_gate_drain_short_input_raises(self, rng, make):
+        chain = P.Chain([make()])
+        x = torch.as_tensor(0.01 * rng.standard_normal((1, 2100)))
+        with pytest.raises(ValueError, match="noise_frames"):
+            chain.stream(x, 512, drain=True)
+        assert chain.stages[0]._eof_n is None  # disarmed after the raise
+
+    def test_drain_block_multiple_matches_plain_stream(self, rng):
+        c = P.Chain([P.FIRStage(h=oracle.design_fir(64, 0.25))])
+        lat = c.build()
+        x = torch.as_tensor(rng.standard_normal(4096))
+        plain = c.stream(x, 512).numpy()[..., lat:]
+        drained = c.stream(x, 512, drain=True).numpy()
+        np.testing.assert_allclose(drained[..., : plain.shape[-1]], plain,
+                                   rtol=1e-12, atol=1e-12)
+
+    def test_gate_drain_fused(self, rng):
+        x = (0.01 * rng.standard_normal((1, 8192 + 100))).astype(np.float32)
+        x[:, 3000:6000] += np.sin(2 * np.pi * 440.0 * np.arange(3000) / 48000.0).astype(np.float32)
+        kw = dict(nfft=1024, hop=256, fused=True)
+        self._drain(lambda: J.Chain([J.GateStage(**kw)]),
+                    lambda: P.Chain([P.GateStage(**kw)]), x, 2048, f32_min_snr=90.0)
+
+    @pytest.mark.parametrize("env", (False, True))
+    @pytest.mark.parametrize("release", (0.0, 0.6))
+    def test_fir_gate_drain(self, rng, env, release):
+        """Path A drained, float64 (the JAX plain composition) and float32
+        (the JAX one-kernel step, envelope folded in when env)."""
+        h = oracle.design_fir(64, 0.3)
+        he = oracle.design_fir(129, 2.0 * 50.0 / 48000) if env else None
+        kw = dict(h=h, nfft=1024, hop=256, noise_frames=4, release=release, env_h=he)
+        x = _burst(rng, 2, 4096 * 3 + 777)
+        self._drain(lambda: J.Chain([J.FIRGateStage(fused=False, **kw)]),
+                    lambda: P.Chain([P.FIRGateStage(**kw)]), x, 2048)
+        self._drain(lambda: J.Chain([J.FIRGateStage(**kw)]),
+                    lambda: P.Chain([P.FIRGateStage(**kw)]), x.astype(np.float32),
+                    2048, f32_min_snr=80.0 if env else 90.0)
+
+    def test_path_b_drain(self, rng):
+        """Path B drained: FIRStage -> GateStage -> EnvelopeStage."""
+        h, he = oracle.design_fir(64, 0.3), oracle.design_fir(129, 0.01)
+        kw = dict(nfft=1024, hop=256, noise_frames=4, release=0.6)
+        self._drain(
+            lambda: J.Chain([J.FIRStage(h=h, nfft=1024), J.GateStage(**kw),
+                             J.EnvelopeStage(he)]),
+            lambda: P.Chain([P.FIRStage(h=h, nfft=1024, fused=True),
+                             P.GateStage(fused=True, **kw),
+                             P.EnvelopeStage(he, fused=True)]),
+            _burst(rng, 2, 4096 * 3 + 500), 2048)
+
+    @staticmethod
+    def _fuzz_cases(k):
+        rng = np.random.default_rng(2028)
+        out = []
+        combos = [(512, 128), (1024, 256), (1024, 128), (2048, 512)]
+        for _ in range(k):
+            nfft, hop = combos[int(rng.integers(len(combos)))]
+            block = hop * int(rng.integers(2, 9))
+            n = int(rng.integers(3 * nfft, 10 * nfft)) + int(rng.integers(hop))
+            out.append((nfft, hop, block, n))
+        return out
+
+    @pytest.mark.parametrize("nfft,hop,block,n", _fuzz_cases.__func__(10))
+    def test_gate_drain_fuzz(self, rng, nfft, hop, block, n):
+        """Drain == the JAX package's full_flush across random geometries."""
+        x = 0.01 * rng.standard_normal((2, n))
+        x[:, n // 4 : n // 2] += np.sin(0.05 * np.arange(n // 2 - n // 4))
+        kw = dict(nfft=nfft, hop=hop, noise_frames=4)
+        jc, pc = _both(lambda: J.Chain([J.GateStage(**kw)]),
+                       lambda: P.Chain([P.GateStage(**kw)]))
+        y = _p(pc, x, block, drain=True)
+        np.testing.assert_allclose(y, np.asarray(jc.full_flush(jnp.asarray(x))),
+                                   rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("nfft,hop,nf,block,n", (
+    (1024, 256, 8, 4096, 480000), (1024, 256, 4, 1024, 8192 + 100),
+    (512, 128, 3, 384, 5000), (2048, 512, 2, 512, 20000)))
+def test_geometry_matches_jax(nfft, hop, nf, block, n):
+    """Latency, out_len, out_block, tail_width and drain_blocks equal the
+    JAX package's for both paths."""
+    h, he = oracle.design_fir(64, 0.3), oracle.design_fir(129, 0.01)
+    gkw = dict(nfft=nfft, hop=hop, noise_frames=nf)
+    pairs = [
+        (J.Chain([J.FIRGateStage(h=h, env_h=he, **gkw)]),
+         P.Chain([P.FIRGateStage(h=h, env_h=he, **gkw)])),
+        (J.Chain([J.FIRStage(h=h, nfft=nfft), J.GateStage(**gkw), J.EnvelopeStage(he)]),
+         P.Chain([P.FIRStage(h=h, nfft=nfft), P.GateStage(**gkw), P.EnvelopeStage(he)])),
+    ]
+    for jc, pc in pairs:
+        assert jc.build() == pc.build()
+        assert (jc.out_len(n), jc.out_block(block), jc.tail_width(),
+                jc.drain_blocks(n, block)) == (pc.out_len(n), pc.out_block(block),
+                                               pc.tail_width(), pc.drain_blocks(n, block))
+    head = P.Chain([P.FIRGateStage(h=h, env_h=he)])
+    head.build()
+    assert head.drain_blocks(480000, 4096) == 118
+
+
+def test_from_params_carries_a_jax_chain(rng):
+    """Each dict may name its stage class; the JAX chain's fields carried
+    across stream the same."""
+    h, he = oracle.design_fir(64, 0.3), oracle.design_fir(129, 0.01)
+    jstages = [J.FIRStage(h=h, nfft=1024), J.GateStage(noise_frames=4, release=0.6),
+               J.EnvelopeStage(he)]
+    names = ["FIRStage", "GateStage", "EnvelopeStage"]
+    pc = P.Chain.from_params([dict(dataclasses.asdict(s), stage=n)
+                              for s, n in zip(jstages, names)])
+    assert [type(s) for s in pc.stages] == [P.FIRStage, P.GateStage, P.FIRStage]
+    assert pc.stages[2].pre == "abs"
+    jc = J.Chain(jstages)
+    assert jc.build() == pc.build()
+    x = _burst(rng, 2, 4 * 2048)
+    np.testing.assert_allclose(_p(pc, x, 2048), _j(jc, x, 2048), **F64)
+    js = J.FIRGateStage(h=h, noise_frames=4, env_h=he)
+    one = P.Chain.from_params([dataclasses.asdict(js)])
+    assert isinstance(one.stages[0], P.FIRGateStage)
+    np.testing.assert_array_equal(one.stages[0].env_h, he)
+    with pytest.raises(ValueError, match="unknown stage"):
+        P.Chain.from_params([dict(stage="StretchStage")])
+
+
+def test_cpu_step_runs_plain_version_without_launch(rng):
+    x = torch.as_tensor(_burst(rng, 2, 4 * 1024).astype(np.float32))
+    before = (gate_step_fused.launches, fir_gate_step_fused.launches)
+    c = P.Chain([P.FIRGateStage(h=oracle.design_fir(64, 0.3), noise_frames=2),
+                 P.GateStage(noise_frames=2, fused=True)])
+    c.stream(x, 1024)
+    assert (gate_step_fused.launches, fir_gate_step_fused.launches) == before
+
+
+@pytest.mark.parametrize("block", (1000, 128))
+def test_bad_block_raises(block):
+    c = P.Chain([P.FIRGateStage(h=oracle.design_fir(64, 0.3))])
+    with pytest.raises(ValueError, match="multiple of hop"):
+        c.stream(torch.zeros(1, block * 8), block)
