@@ -6,13 +6,16 @@ are written by hand for NVIDIA Hopper (CUDA C++ in ``csrc/``, built with
 nvcc at first use).  It never imports jax.
 
 Ported so far: windows, FIR design and direct-form filtering, the FFT
-family (torch.fft), STFT/ISTFT, overlap-save, the spectral noise gate, the
-envelope effects, the FIR -> gate (-> envelope) chain in ``pipeline.Chain``
-with whole-file and block-streaming modes (``FIRStage``, ``GateStage``,
-``EnvelopeStage``, ``FIRGateStage``), checkpointable carries, WAV I/O and
-``api.chain_file``.  Hand-written kernels (``kernels/``):
-``fir_noise_gate_fused``, ``fir_gate_step_fused``, ``gate_step_fused``,
-``overlap_save_fused`` and ``fir_mac``.
+family (torch.fft), STFT/ISTFT, overlap-save, the polyphase resampler, the
+spectral noise gate, the envelope effects, the (resample ->) FIR -> gate
+(-> envelope) chain in ``pipeline.Chain`` with whole-file and
+block-streaming modes (``FIRStage``, ``GateStage``, ``EnvelopeStage``,
+``FIRGateStage``, ``ResampleStage``, ``ResFIRGateStage``), checkpointable
+carries, WAV I/O, ``api.chain_file`` and ``api.resample_file``.
+Hand-written kernels (``kernels/``): ``fir_noise_gate_fused``,
+``fir_gate_step_fused``, ``gate_step_fused``, ``overlap_save_fused``,
+``fir_mac``, ``resample_mac``, ``resample_fir_gate_fused`` and
+``res_fir_gate_step_fused``.
 """
 
 __version__ = "0.1.0"

@@ -70,10 +70,10 @@ def _check_guards(h: np.ndarray, n: int, nfft: int, hop: int,
 
 
 def _geometry(nfft: int, hop: int, taps: int) -> dict:
-    """Tile size and dynamic shared memory of one CTA, in the order the
-    kernel carves it: twiddles (nfft/2 complex), FFT buffer (nfft
-    complex), threshold and release state (nfft/2+1 each), OLA tile
-    (tile + nfft-hop), raw/filtered span."""
+    """Tile size, the longest FIR span of a tile and the dynamic shared
+    memory of one CTA, in the order ``asp::fir_gate_tiles`` carves it:
+    twiddles (nfft/2 complex), FFT buffer (nfft complex), threshold and
+    release state (nfft/2+1 each), OLA tile (tile + nfft-hop), FIR span."""
     d = nfft - hop
     # at least nfft/hop frames per tile, so the spill (d) is shorter than
     # the tile and the sequential launch can move it without overlap
@@ -85,7 +85,7 @@ def _geometry(nfft: int, hop: int, taps: int) -> dict:
     span = -(-(tile + 2 * d) // blk) * blk + taps - 1
     nb = nfft // 2 + 1
     smem = 8 * (nfft // 2) + 8 * nfft + 4 * (2 * nb + tile + d + span)
-    return {"mf": mf, "tile": tile, "smem": smem}
+    return {"mf": mf, "tile": tile, "span": span, "smem": smem}
 
 
 def _inv_norm_table(wv: np.ndarray, nfft: int, hop: int) -> np.ndarray:
@@ -99,6 +99,29 @@ def _inv_norm_table(wv: np.ndarray, nfft: int, hop: int) -> np.ndarray:
     out_len = nfft + (nf - 1) * hop
     inv = inv_norm_rows(wv, nfft, hop, nf, out_len)
     return np.concatenate([inv[:d], inv[d : d + hop], inv[out_len - d :]])
+
+
+@functools.lru_cache(maxsize=32)
+def gate_tables(h_bytes: bytes, nfft: int, hop: int, window_kind: str,
+                device: torch.device) -> tuple:
+    """The whole-file kernels' constant tables on ``device``, float32,
+    uploaded once per geometry: the periodic window, the tap spectrum and
+    twiddles (``os_kernel.fft_tables``) and the [head | period | tail]
+    1/WOLA-norm table."""
+    wv = window_np(window_kind, nfft, periodic=True)
+    hf, tw = fft_tables(h_bytes, nfft, device)
+    return (upload(wv, torch.float32, device), hf, tw,
+            upload(_inv_norm_table(wv, nfft, hop), torch.float32, device))
+
+
+def filtered_floor(head: torch.Tensor, h: np.ndarray, nfft: int, hop: int,
+                   noise_frames: int, win: torch.Tensor) -> torch.Tensor:
+    """The gate's noise floor (channels, nfft/2+1) from the first frames of
+    the filtered signal, given the head of the FIR's input: plain torch on
+    the device, as the JAX package computes it in XLA outside Pallas."""
+    pro = overlap_save(head, h, nfft)
+    frames = frame(pro[:, : nfft - hop + noise_frames * hop], nfft, hop)
+    return noise_floor(frames * win).contiguous()
 
 
 @functools.cache
@@ -154,27 +177,14 @@ def fir_noise_gate_fused(x: torch.Tensor, h, nfft: int = 1024,
           f"nfft={nfft}, hop={hop}, taps={len(h)} need {geo['smem']} bytes "
           f"of shared memory per block, more than {SMEM_LIMIT}")
     dev = xf.device
-    d = nfft - hop
     out_len = nfft + (nframes - 1) * hop
-
-    # noise floor of the filtered signal's first frames (plain torch on
-    # the device, as the JAX package computes it in XLA outside Pallas)
-    wv = window_np(window_kind, nfft, periodic=True)
-    wv_t = upload(wv, torch.float32, dev)
-    pro = overlap_save(xf[:, : min(n, d + noise_frames * hop + nfft)], h, nfft)
-    floor = noise_floor(frame(pro[:, : d + noise_frames * hop], nfft, hop) * wv_t)
-    floor = floor.contiguous()
-
-    hp = np.concatenate([h, np.zeros(nfft - len(h))])
-    hf = upload(np.fft.fft(hp).astype(np.complex64).view(np.float32),
-                torch.float32, dev)
-    tw = np.exp(-2j * np.pi * np.arange(nfft // 2) / nfft)
-    tw = upload(tw.astype(np.complex64).view(np.float32), torch.float32, dev)
-    inv_tab = upload(_inv_norm_table(wv, nfft, hop), torch.float32, dev)
+    win, hf, tw, inv_tab = gate_tables(h.tobytes(), nfft, hop, window_kind, dev)
+    head = xf[:, : min(n, nfft - hop + noise_frames * hop + nfft)]
+    floor = filtered_floor(head, h, nfft, hop, noise_frames, win)
     out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
 
     rc = _lib()(
-        xf.data_ptr(), out.data_ptr(), floor.data_ptr(), wv_t.data_ptr(),
+        xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(),
         hf.data_ptr(), tw.data_ptr(), inv_tab.data_ptr(),
         channels, n, nfft, nfft.bit_length() - 1, hop, len(h), nframes,
         geo["mf"], int(release > 0.0),
@@ -196,7 +206,7 @@ fir_noise_gate_fused.launches = 0
 
 class FirEnvArgs(ctypes.Structure):
     """The FIR front and envelope tail of the step kernel's arguments:
-    ``struct FirEnvArgs`` of ``csrc/fir_gate_step_kernel.cu``."""
+    ``struct FirEnvArgs`` of ``csrc/fir_gate_step_device.cuh``."""
 
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "hist", "hist_out", "hf", "filtered", "env_hist", "env_hist_out",
@@ -240,38 +250,21 @@ def fir_gate_step_ref(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
     return new, y
 
 
-def fir_gate_step_fused(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
-                        threshold_db: float, reduction_db: float,
-                        noise_frames: int, release: float, window_kind: str,
-                        input_latency: int, latency: int, env_h=None,
-                        env_scale: float = math.pi / 2.0,
-                        eof_in: int | None = None):
-    """Streaming FIR -> gate (-> envelope) step, fused:
-    (state, x) -> (new_state, y), x (..., b) with b a multiple of hop.
-
-    A CPU tensor runs ``fir_gate_step_ref``.  A CUDA float32 tensor
-    launches the kernel: one CTA per channel filters the block, gates it
-    and, with ``env_h``, runs the envelope tail.  Any other tensor raises.
-    """
-    h = np.ascontiguousarray(h, dtype=np.float64)
+def fir_gate_step_args(x2d: torch.Tensor, x_ld: int, state: list, h: np.ndarray, *,
+                       env_h, env_scale: float, **kw):
+    """Check a FIR -> gate (-> envelope) step's geometry, allocate its
+    output and new carry and fill the kernel's argument structs
+    (``asp::fir_gate_step_channel``) for the rows ``x2d``.  Returns
+    (args, fargs, new_state, out, smem, keep): ``keep`` holds the tensors
+    the structs point to until the launch is queued."""
     t = len(h)
-    check_os_geometry(nfft, t)
-    kw = dict(nfft=nfft, hop=hop, threshold_db=threshold_db,
-              reduction_db=reduction_db, noise_frames=noise_frames,
-              release=release, window_kind=window_kind,
-              input_latency=input_latency, latency=latency, eof_in=eof_in)
-    if x.device.type == "cpu":
-        return fir_gate_step_ref(x, state, h, env_h=env_h, env_scale=env_scale, **kw)
-    check_cuda_f32(x, "fir_gate_step_fused",
-                   "FIRGateStage routes float64 to the plain composition")
-    dev = x.device
-    x2d, x_ld = rows_view(x)
+    dev = x2d.device
     channels, b = x2d.shape
     new_f = lambda *shape: torch.empty((channels,) + shape, dtype=torch.float32,
                                        device=dev)
     hist = state[0].contiguous()
     out, filtered = new_f(b), new_f(b)
-    args, gate_state, _keep = gate_step_args(x2d, x_ld, state[1], out, **kw)
+    args, gate_state, keep = gate_step_args(x2d, x_ld, state[1], out, **kw)
     hist_out = torch.empty_like(hist)
     env = env_h is not None
     te = 0
@@ -287,19 +280,51 @@ def fir_gate_step_fused(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
         check(carry is None or (carry.dtype == torch.float32 and carry.device == dev),
               f"the {name} must be float32 on the input's device")
     ptr = lambda v: None if v is None else v.data_ptr()
-    fargs = FirEnvArgs(ptr(hist), ptr(hist_out), ptr(fft_tables(h.tobytes(), nfft, dev)[0]),
+    fargs = FirEnvArgs(ptr(hist), ptr(hist_out),
+                       ptr(fft_tables(h.tobytes(), kw["nfft"], dev)[0]),
                        ptr(filtered), ptr(ehist), ptr(ehist_out), ptr(taps_rev),
                        ptr(gate_out), t, te, float(env_scale))
-    smem = step_smem_bytes(nfft, hop) + (4 * (2 * te - 1 + ENV_TILE) if env else 0)
+    smem = (step_smem_bytes(kw["nfft"], kw["hop"])
+            + (4 * (2 * te - 1 + ENV_TILE) if env else 0))
+    new = [hist_out, gate_state] + ([ehist_out] if env else [])
+    return args, fargs, new, out, smem, (keep, hist, filtered, ehist, gate_out)
+
+
+def fir_gate_step_fused(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
+                        threshold_db: float, reduction_db: float,
+                        noise_frames: int, release: float, window_kind: str,
+                        input_latency: int, latency: int, env_h=None,
+                        env_scale: float = math.pi / 2.0,
+                        eof_in: int | None = None):
+    """Streaming FIR -> gate (-> envelope) step, fused:
+    (state, x) -> (new_state, y), x (..., b) with b a multiple of hop.
+
+    A CPU tensor runs ``fir_gate_step_ref``.  A CUDA float32 tensor
+    launches the kernel: one CTA per channel filters the block, gates it
+    and, with ``env_h``, runs the envelope tail.  Any other tensor raises.
+    """
+    h = np.ascontiguousarray(h, dtype=np.float64)
+    check_os_geometry(nfft, len(h))
+    kw = dict(nfft=nfft, hop=hop, threshold_db=threshold_db,
+              reduction_db=reduction_db, noise_frames=noise_frames,
+              release=release, window_kind=window_kind,
+              input_latency=input_latency, latency=latency, eof_in=eof_in)
+    if x.device.type == "cpu":
+        return fir_gate_step_ref(x, state, h, env_h=env_h, env_scale=env_scale, **kw)
+    check_cuda_f32(x, "fir_gate_step_fused",
+                   "FIRGateStage routes float64 to the plain composition")
+    dev = x.device
+    x2d, x_ld = rows_view(x)
+    args, fargs, new, out, smem, _keep = fir_gate_step_args(
+        x2d, x_ld, state, h, env_h=env_h, env_scale=env_scale, **kw)
     check(smem <= SMEM_LIMIT,
-          f"nfft={nfft}, hop={hop}, {te} envelope taps need {smem} bytes of "
+          f"nfft={nfft}, hop={hop} and the envelope taps need {smem} bytes of "
           f"shared memory per block, more than {SMEM_LIMIT}")
     rc = kernel_fn("asp_fir_gate_step", 2)(
         ctypes.byref(args), ctypes.byref(fargs), smem, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "fir_gate_step")
     fir_gate_step_fused.launches += 1
-    new = [hist_out, gate_state] + ([ehist_out] if env else [])
     return new, out.reshape(x.shape)
 
 

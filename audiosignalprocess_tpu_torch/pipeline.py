@@ -41,8 +41,14 @@ from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
     gate_step_fused, gate_step_init_state, gate_step_ref,
 )
+from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import (
+    res_fir_gate_step_fused, res_fir_gate_step_ref, resample_fir_gate_fused,
+)
 from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
+from audiosignalprocess_tpu_torch.ops.resample import (
+    history_len, resample_filter, resample_poly,
+)
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 _NOT_CARRIED = ("impl", "fused", "input_latency")
@@ -158,6 +164,61 @@ class FIRStage(Stage):
 def EnvelopeStage(h, fused: bool = False) -> FIRStage:
     """Envelope follower as a stage: |x| -> FIR lowpass -> * pi/2."""
     return FIRStage(h=np.asarray(h), pre="abs", post_scale=math.pi / 2.0, fused=fused)
+
+
+@dataclass
+class ResampleStage(Stage):
+    """Causal polyphase rational resampler.  Latency 0 (the filter's group
+    delay is part of the signal, not stream misalignment).  Blocks and the
+    upstream latency must be multiples of ``down``; the carry is the last
+    ``history_len`` raw samples.  ``fused`` routes float32 through the
+    hand-written ``resample_mac``."""
+
+    up: int
+    down: int
+    h: np.ndarray | None = None
+    fused: bool = False
+
+    def __post_init__(self):
+        g = math.gcd(self.up, self.down)
+        self.up //= g
+        self.down //= g
+        if self.h is None:
+            self.h = resample_filter(self.up, self.down)
+        self.h = np.asarray(self.h, dtype=np.float64)
+
+    def configure(self, input_latency: int) -> int:
+        check(input_latency % self.down == 0,
+              f"upstream latency {input_latency} not a multiple of down={self.down}")
+        self.input_latency = input_latency
+        return input_latency * self.up // self.down
+
+    def out_block(self, b):
+        check(b % self.down == 0, f"block {b} not a multiple of down={self.down}")
+        return b * self.up // self.down
+
+    def out_len(self, n):
+        return -(-n * self.up // self.down)
+
+    def tail_width(self, t):
+        return -(-t * self.up // self.down) + 1
+
+    def _resample(self, x, history):
+        return resample_poly(x, self.up, self.down, h=self.h, zero_phase=False,
+                             history=history,
+                             fused=self.fused and x.dtype != torch.float64)
+
+    def full(self, x):
+        return self._resample(x, None)
+
+    def init_state(self, batch, block, dtype=torch.float32, device=None):
+        return torch.zeros(batch + (history_len(len(self.h), self.up, self.down),),
+                           dtype=dtype, device=device)
+
+    def step(self, state, x):
+        y = self._resample(x, state)
+        hn = state.shape[-1]
+        return (torch.cat([state, x], dim=-1)[..., -hn:] if hn else state), y
 
 
 @dataclass
@@ -332,8 +393,108 @@ class FIRGateStage(Stage):
                     **self._gate._step_kw())
 
 
+@dataclass
+class ResFIRGateStage(Stage):
+    """Resample -> FIR -> spectral gate (-> envelope) composite, the
+    config-5 chain (44.1 -> 48 kHz at 160/147).
+
+    Equivalent to ``ResampleStage(up, down, h_res) -> FIRGateStage(h,
+    ...)``; latencies and positions after the resampler are in resampled
+    samples.  Routes by tensor:
+
+    - float32: ``full`` runs ``resample_fir_gate_fused`` (then ``fir_mac``
+      for the envelope) and each streaming block one
+      ``res_fir_gate_step_fused``, envelope included: the hand-written
+      kernels on a CUDA tensor, their plain versions on a CPU tensor;
+    - float64 runs the composed plain path on any device.
+
+    The streaming carry is the composition's, ``[res_hist, FIRGateStage
+    carry]``, for either dtype.  Blocks are multiples of the input quantum
+    down*hop/gcd(up, hop) (``res_step_geometry``).
+    """
+
+    up: int = 160
+    down: int = 147
+    h: np.ndarray = None
+    h_res: np.ndarray | None = None
+    nfft: int = 1024
+    hop: int = 256
+    threshold_db: float = 6.0
+    reduction_db: float = 60.0
+    noise_frames: int = 8
+    release: float = 0.0
+    window_kind: str = "hann"
+    env_h: np.ndarray | None = None
+    env_scale: float = math.pi / 2.0
+
+    def __post_init__(self):
+        check(self.h is not None, "ResFIRGateStage requires filter taps h")
+        self._res = ResampleStage(up=self.up, down=self.down, h=self.h_res)
+        self.up, self.down, self.h_res = self._res.up, self._res.down, self._res.h
+        self._fg = FIRGateStage(
+            h=self.h, nfft=self.nfft, hop=self.hop, threshold_db=self.threshold_db,
+            reduction_db=self.reduction_db, noise_frames=self.noise_frames,
+            release=self.release, window_kind=self.window_kind, env_h=self.env_h,
+            env_scale=self.env_scale)
+        self.h, self.env_h = self._fg.h, self._fg.env_h
+        self.latency = self._fg.latency  # resampled domain
+
+    def configure(self, input_latency: int) -> int:
+        self.input_latency = self._res.configure(input_latency)  # the gate's domain
+        return self._fg.configure(self.input_latency)
+
+    def out_block(self, b: int) -> int:
+        return self._fg.out_block(self._res.out_block(b))
+
+    def out_len(self, n: int) -> int:
+        return self._fg.out_len(self._res.out_len(n))
+
+    def tail_width(self, t: int) -> int:
+        return self._fg.tail_width(self._res.tail_width(t))
+
+    def set_eof(self, n_in: int) -> None:
+        # the gate frames the resampled stream; positions past the
+        # resampler's rate-mapped end of file are the polyphase history's
+        # phantom continuation, which full() never analyzes
+        self._fg.set_eof(self._res.out_len(n_in))
+        self._eof_n = n_in
+
+    def clear_eof(self) -> None:
+        self._fg.clear_eof()
+        self._eof_n = None
+
+    def _fused_args(self) -> tuple:
+        return (self.up, self.down, self.h, self.h_res)
+
+    def full(self, x):
+        if x.dtype == torch.float64:
+            return self._fg.full(self._res.full(x))
+        g = self._fg
+        y = _pad_to(resample_fir_gate_fused(
+            x, *self._fused_args(), g.nfft, g.hop, g.threshold_db, g.reduction_db,
+            g.noise_frames, g.release, g.window_kind), self._res.out_len(x.shape[-1]))
+        return y if g._env is None else g._env.full(y)
+
+    def init_state(self, batch, block, dtype=torch.float32, device=None):
+        # name the INPUT-domain quantum: the inner stages would report the
+        # resampled block ("block 4800 not a multiple of hop=256" for 4410)
+        quantum = self.down * (self.hop // math.gcd(self.up, self.hop))
+        check(block % quantum == 0,
+              f"block {block} not a multiple of this chain's input quantum "
+              f"{quantum} (= down*hop/gcd(up,hop): the resampled block "
+              f"{self.up}/{self.down}*block must be a multiple of hop={self.hop})")
+        return [self._res.init_state(batch, block, dtype, device),
+                self._fg.init_state(batch, self._res.out_block(block), dtype, device)]
+
+    def step(self, state, x):
+        step = res_fir_gate_step_ref if x.dtype == torch.float64 else res_fir_gate_step_fused
+        return step(x, state, *self._fused_args(), env_h=self.env_h,
+                    env_scale=self.env_scale, **self._fg._gate._step_kw())
+
+
 STAGES = {"FIRStage": FIRStage, "EnvelopeStage": FIRStage,
-          "GateStage": GateStage, "FIRGateStage": FIRGateStage}
+          "GateStage": GateStage, "FIRGateStage": FIRGateStage,
+          "ResampleStage": ResampleStage, "ResFIRGateStage": ResFIRGateStage}
 """Stage classes ``Chain.from_params`` builds by name (the JAX package's
 ``EnvelopeStage`` is a ``FIRStage`` with ``pre="abs"``)."""
 

@@ -6,9 +6,10 @@ installed:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py
 
-Bars: the linear kernels (fir_mac, overlap_save_fused) >= 100 dB against
-their float64 plain versions; everything with the gate >= 60 dB, because
-its hard thresholds flip a few borderline bins under float32 rounding.
+Bars: the linear kernels (fir_mac, overlap_save_fused, resample_mac)
+>= 100 dB against their float64 plain versions; everything with the gate
+>= 60 dB, because its hard thresholds flip a few borderline bins under
+float32 rounding.
 """
 
 import numpy as np
@@ -23,9 +24,18 @@ from audiosignalprocess_tpu_torch.kernels.gate_kernel import gate_step_fused
 from audiosignalprocess_tpu_torch.kernels.os_kernel import (
     overlap_save_fused, overlap_save_ref,
 )
+from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import (
+    res_fir_gate_step_fused, res_fir_gate_step_ref, resample_fir_gate_fused,
+    resample_fir_gate_ref,
+)
+from audiosignalprocess_tpu_torch.kernels.resample_kernel import (
+    resample_mac, resample_mac_ref,
+)
 from audiosignalprocess_tpu_torch.ops.fir import design_fir
+from audiosignalprocess_tpu_torch.ops.resample import history_len, resample_filter
 from audiosignalprocess_tpu_torch.pipeline import (
-    Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage,
+    Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage, ResampleStage,
+    ResFIRGateStage,
 )
 from audiosignalprocess_tpu_torch.utils.metrics import snr_db
 
@@ -211,11 +221,20 @@ def _fir_gate_step_f64(x):
                                st.h, **st._gate._step_kw())
 
 
+def _res_fir_gate_step_f64(x):
+    st = ResFIRGateStage(h=design_fir(64, 0.3))
+    return res_fir_gate_step_fused(x, st.init_state((1,), 4704, torch.float64, x.device),
+                                   160, 147, st.h, **st._fg._gate._step_kw())
+
+
 @pytest.mark.parametrize("call", [
     lambda x: fir_mac(x, design_fir(64, 0.3)),
     lambda x: overlap_save_fused(x, design_fir(64, 0.3), 1024),
     _gate_step_f64,
     _fir_gate_step_f64,
+    lambda x: resample_mac(x, 160, 147),
+    lambda x: resample_fir_gate_fused(x, 160, 147, design_fir(64, 0.3)),
+    _res_fir_gate_step_f64,
 ])
 def test_new_kernels_raise_on_float64(card, call):
     with pytest.raises(ValueError, match="float32"):
@@ -225,3 +244,122 @@ def test_new_kernels_raise_on_float64(card, call):
 def test_gate_stage_fused_full_raises_on_card(card):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
         GateStage(fused=True).full(torch.zeros(1, 8192, device=card))
+
+
+@pytest.mark.parametrize("up,down", [(160, 147), (147, 160), (2, 1), (1, 2), (3, 4)])
+@pytest.mark.parametrize("mode", ["zero_phase", "causal", "history"])
+def test_resample_mac_vs_plain(card, up, down, mode):
+    """resample_mac float32 against its float64 plain version: >= 100 dB,
+    exact length, one launch."""
+    rng = np.random.default_rng(57)
+    n = down * 300
+    x = torch.as_tensor(rng.standard_normal((3, n)), device=card)
+    hist = None
+    if mode == "history":
+        hn = history_len(len(resample_filter(up, down)), up, down)
+        hist = torch.as_tensor(rng.standard_normal((3, hn)), device=card)
+    zp = mode == "zero_phase"
+    before = resample_mac.launches
+    out = resample_mac(x.float(), up, down, zero_phase=zp,
+                       history=None if hist is None else hist.float())
+    torch.cuda.synchronize()
+    assert resample_mac.launches == before + 1
+    ref = resample_mac_ref(x, up, down, zero_phase=zp, history=hist)
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert snr_db(ref, out) >= 100.0
+
+
+@pytest.mark.parametrize("up,down,taps,n,release", [
+    (160, 147, 64, 47040, 0.0), (2, 1, 96, 16384, 0.7), (160, 147, 384, 47040, 0.0),
+    (147, 160, 64, 40960 + 333, 0.0), (160, 147, 64, 20000, 0.6),
+])
+def test_resample_fir_gate_vs_plain(card, up, down, taps, n, release):
+    """resample_fir_gate_fused float32 against its float64 plain version on
+    a tone burst: >= 60 dB, exact length, one launch and no resample_mac
+    (the floor prologue runs the plain resampler)."""
+    rng = np.random.default_rng(58)
+    x = torch.as_tensor(_tone_burst(rng, 2, n, fs=44100), device=card)
+    h = design_fir(taps, 0.2 if taps == 384 else (0.25 if taps == 96 else 0.3))
+    before = (resample_fir_gate_fused.launches, resample_mac.launches)
+    out = resample_fir_gate_fused(x.float(), up, down, h, noise_frames=4, release=release)
+    torch.cuda.synchronize()
+    assert (resample_fir_gate_fused.launches, resample_mac.launches) == (before[0] + 1,
+                                                                          before[1])
+    ref = resample_fir_gate_ref(x, up, down, h, noise_frames=4, release=release)
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert snr_db(ref, out) >= 60.0
+
+
+@pytest.mark.parametrize("release,env,drain,block", [
+    (0.0, False, False, 4704), (0.6, True, True, 4704), (0.0, True, False, 1176),
+    (0.6, False, True, 2352),
+])
+def test_res_fir_gate_step_vs_plain(card, release, env, drain, block):
+    """ResFIRGateStage float32 (one res_fir_gate_step_fused launch per
+    block, envelope folded in) against its float64 plain composition."""
+    rng = np.random.default_rng(59)
+    n = 8 * 4704 + (777 if drain else 0)
+    x = torch.as_tensor(_tone_burst(rng, 3, n, fs=44100), device=card)
+    chain = Chain([ResFIRGateStage(h=design_fir(64, 0.3), noise_frames=4, release=release,
+                                   env_h=design_fir(129, 0.01) if env else None)])
+    chain.build()
+    blocks = chain.drain_blocks(n, block) if drain else n // block
+    before = res_fir_gate_step_fused.launches
+    y, ref = _streams(chain, chain, x, block, drain)
+    assert res_fir_gate_step_fused.launches == before + blocks
+    assert y.shape == ref.shape and bool(torch.isfinite(y).all())
+    assert snr_db(ref, y) >= 60.0
+
+
+def test_res_paths_launch_counts(card):
+    """Path 1 (whole file): one resample_fir_gate_fused (+ fir_mac for the
+    envelope); path D: resample_mac + fir_gate_step_fused per block."""
+    rng = np.random.default_rng(60)
+    x = torch.as_tensor(_tone_burst(rng, 2, 8 * 4704, fs=44100), device=card,
+                        dtype=torch.float32)
+    h, he = design_fir(64, 0.3), design_fir(129, 0.01)
+    counters = (resample_fir_gate_fused, res_fir_gate_step_fused, resample_mac,
+                fir_gate_step_fused, fir_noise_gate_fused, fir_mac)
+    counts = lambda: [k.launches for k in counters]
+    whole = Chain([ResFIRGateStage(h=h, noise_frames=4, env_h=he)])
+    whole.build()
+    before = counts()
+    y = whole.full_flush(x)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 0, 0, 0, 0, 1]
+    assert y.shape == (2, whole.out_len(x.shape[-1]))
+    path_d = Chain([ResampleStage(160, 147, fused=True), FIRGateStage(h=h, noise_frames=4)])
+    path_d.build()
+    blocks = path_d.drain_blocks(x.shape[-1], 4704)
+    before = counts()
+    yd = path_d.stream(x, 4704, drain=True)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [0, 0, blocks, blocks, 0, 0]
+    ref = Chain([ResampleStage(160, 147), FIRGateStage(h=h, noise_frames=4)]).full_flush(
+        x.double())
+    assert snr_db(ref, yd) >= 60.0
+
+
+def test_res_carry_switches_between_kernel_and_plain(card):
+    """One carry layout: blocks alternate between res_fir_gate_step_fused
+    and its plain float32 step; the stream equals the kernel-only one."""
+    rng = np.random.default_rng(61)
+    x = torch.as_tensor(_tone_burst(rng, 2, 8 * 2352, fs=44100), device=card,
+                        dtype=torch.float32)
+    stage = ResFIRGateStage(h=design_fir(64, 0.3), noise_frames=4, release=0.6,
+                            env_h=design_fir(129, 0.01))
+    chain = Chain([stage])
+    ref = chain.stream(x, 2352)
+    st = chain.init_state((2,), 2352, torch.float32, card)
+    ys = []
+    for k in range(8):
+        xb = x[:, k * 2352 : (k + 1) * 2352]
+        if k % 2:
+            st, y = chain.step(st, xb)
+        else:
+            s0, y = res_fir_gate_step_ref(xb, st[0], 160, 147, stage.h, stage.h_res,
+                                          env_h=stage.env_h, env_scale=stage.env_scale,
+                                          **stage._fg._gate._step_kw())
+            st = [s0]
+        ys.append(y)
+    assert snr_db(ref, torch.cat(ys, dim=-1)) >= 60.0

@@ -11,9 +11,10 @@ import torch
 from audiosignalprocess_tpu.cpu_ref import oracle
 from audiosignalprocess_tpu.io import wav as jax_wav
 from audiosignalprocess_tpu.kernels import gate_kernel as jax_gate
+from audiosignalprocess_tpu.ops import resample as jax_resample
 from audiosignalprocess_tpu_torch.io import wav
 from audiosignalprocess_tpu_torch.kernels import chain_kernel, gate_kernel
-from audiosignalprocess_tpu_torch.ops import fir, stft, windows
+from audiosignalprocess_tpu_torch.ops import fir, resample, stft, windows
 
 
 @pytest.mark.parametrize("kind", windows.KINDS)
@@ -37,6 +38,29 @@ def test_window_np(kind, periodic):
 def test_design_fir(args, kw):
     assert np.array_equal(fir.design_fir(*args, **kw),
                           oracle.design_fir(*args, **kw))
+
+
+@pytest.mark.parametrize("up,down,kw", [
+    (160, 147, {}), (147, 160, {}), (2, 1, {}), (1, 2, {}), (3, 4, {}),
+    (160, 147, {"half_width": 4, "window_kind": "blackman"}),
+])
+def test_resample_filter(up, down, kw):
+    assert np.array_equal(resample.resample_filter(up, down, **kw),
+                          oracle.resample_filter(up, down, **kw))
+
+
+@pytest.mark.parametrize("up,down", [(160, 147), (147, 160), (2, 1), (3, 4)])
+def test_resample_geometry(up, down):
+    """taps_per_phase and history_len equal the JAX package's; the phase
+    bank holds every tap once, bank[p, k] = h[p + up*k]."""
+    h = oracle.resample_filter(up, down)
+    assert resample.taps_per_phase(len(h), up) == jax_resample.taps_per_phase(len(h), up)
+    assert (resample.history_len(len(h), up, down)
+            == jax_resample.history_len(len(h), up, down))
+    bank = resample.phase_bank(h, up)
+    assert bank.shape == (up, resample.taps_per_phase(len(h), up))
+    p, k = np.divmod(np.arange(len(h)), up)[::-1]
+    assert np.array_equal(bank[p, k], h) and np.count_nonzero(bank) == np.count_nonzero(h)
 
 
 def test_design_fir_rejects_like_oracle():

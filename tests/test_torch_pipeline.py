@@ -69,13 +69,13 @@ def test_f32_routes_through_fused_wrapper():
 
 
 def test_from_params_rejects_what_is_not_ported():
-    """Stage classes the port does not have yet raise; the whole-file
-    noise_gate_fused behind GateStage(fused=True).full raises for a CUDA
-    tensor (a stand-in here: the stage decides by ``is_cuda`` before it
-    reads the data)."""
-    for name in ("ResFIRGateStage", "ResampleStage", "StretchStage"):
-        with pytest.raises(ValueError, match="unknown stage"):
-            pipeline.Chain.from_params([dict(stage=name)])
+    """A stage class the port does not have yet (the phase vocoder's
+    StretchStage) raises; the whole-file noise_gate_fused behind
+    GateStage(fused=True).full raises for a CUDA tensor (a stand-in here:
+    the stage decides by ``is_cuda`` before it reads the data)."""
+    with pytest.raises(ValueError, match="unknown stage"):
+        pipeline.Chain.from_params([dict(stage="StretchStage")])
+    assert {"ResampleStage", "ResFIRGateStage"} <= set(pipeline.STAGES)
     on_card = SimpleNamespace(is_cuda=True, shape=(1, 8192))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
         pipeline.GateStage(fused=True).full(on_card)
@@ -116,16 +116,44 @@ def test_chain_file_vs_jax(tmp_path):
     assert np.max(np.abs(y - y_ref)) * 32768 <= 1.0
 
 
-@pytest.mark.parametrize("kw", [dict(rate_out=44100),
-                                dict(rate_out=44100, block=2048),
-                                dict(rate_out=44100, envelope_hz=50.0)])
+@pytest.mark.parametrize("kw", [dict(rate=48000, rate_out=44100),
+                                dict(rate=44100, rate_out=48000, block=4704),
+                                dict(rate=44100, rate_out=48000, envelope_hz=50.0)])
 def test_chain_file_not_ported_raises(tmp_path, kw):
-    """The resampler front end (a file not at rate_out) is not ported, in
-    any mode."""
+    """The resampler front end (a file not at rate_out), once missing from
+    the port, now runs: whole file, block-streamed and with the envelope,
+    against the JAX api.chain_file (16-bit output within one LSB)."""
+    kw = dict(kw)
+    rate = kw.pop("rate")
+    rng = np.random.default_rng(26)
+    x = _signal(rng, 2, 14112, fs=rate).astype(np.float32)
     p = str(tmp_path / "in.wav")
-    write_wav(p, np.zeros((1, 8192), np.float32), 48000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.chain_file(p, str(tmp_path / "out.wav"), **kw)
+    write_wav(p, x, rate)
+    out, ref = str(tmp_path / "port.wav"), str(tmp_path / "jax.wav")
+    shape = api.chain_file(p, out, noise_frames=4, **kw)
+    jax_api.chain_file(p, ref, noise_frames=4, **kw)
+    y, rate_y = read_wav(out, dtype=np.float64)
+    y_ref, rate_ref = jax_read_wav(ref, dtype=np.float64)
+    n_out = -(-14112 * kw["rate_out"] // rate)
+    assert rate_y == rate_ref == kw["rate_out"]
+    assert y.shape == y_ref.shape == shape == (2, n_out)
+    assert np.max(np.abs(y - y_ref)) * 32768 <= 1.0
+
+
+@pytest.mark.parametrize("rate,rate_out", [(44100, 48000), (48000, 44100), (48000, 24000)])
+def test_resample_file_vs_jax(tmp_path, rate, rate_out):
+    """api.resample_file (zero-phase polyphase) against the JAX one."""
+    rng = np.random.default_rng(27)
+    x = _signal(rng, 2, 9000, fs=rate).astype(np.float32)
+    p = str(tmp_path / "in.wav")
+    write_wav(p, x, rate, float_fmt=True)
+    out, ref = str(tmp_path / "port.wav"), str(tmp_path / "jax.wav")
+    shape = api.resample_file(p, out, rate_out, float_fmt=True)
+    jax_api.resample_file(p, ref, rate_out, float_fmt=True)
+    y, rate_y = read_wav(out, dtype=np.float64)
+    y_ref, rate_ref = jax_read_wav(ref, dtype=np.float64)
+    assert rate_y == rate_ref == rate_out and y.shape == y_ref.shape == shape
+    assert oracle.snr_db(y_ref, y) >= 100.0
 
 
 @pytest.mark.parametrize("kw", [dict(block=2048), dict(envelope_hz=50.0),
@@ -159,12 +187,16 @@ def test_port_imports_no_jax():
 
 def test_kernel_module_imports_without_nvcc():
     proc = _run("from audiosignalprocess_tpu_torch.kernels import chain_kernel as ck, "
-                "gate_kernel as gk, fir_kernel as fk, os_kernel as ok; "
+                "gate_kernel as gk, fir_kernel as fk, os_kernel as ok, "
+                "resample_kernel as rk, res_chain_kernel as rc; "
                 "assert ck.fir_noise_gate_fused.launches == 0; "
                 "assert ck.fir_gate_step_fused.launches == 0; "
                 "assert gk.gate_step_fused.launches == 0; "
                 "assert fk.fir_mac.launches == 0; "
-                "assert ok.overlap_save_fused.launches == 0",
+                "assert ok.overlap_save_fused.launches == 0; "
+                "assert rk.resample_mac.launches == 0; "
+                "assert rc.resample_fir_gate_fused.launches == 0; "
+                "assert rc.res_fir_gate_step_fused.launches == 0",
                 PATH=os.path.dirname(sys.executable), CUDA_HOME=os.devnull)
     assert proc.returncode == 0, proc.stderr
 
