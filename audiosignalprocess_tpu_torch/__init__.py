@@ -6,21 +6,26 @@ are written by hand for NVIDIA Hopper (CUDA C++ in ``csrc/``, built with
 nvcc at first use).  It never imports jax.
 
 Ported so far: windows, FIR design and direct-form filtering, the FFT
-family (torch.fft), STFT/ISTFT, overlap-save, the polyphase resampler, the
-spectral noise gate, the envelope effects, the (resample ->) FIR -> gate
-(-> envelope) chain in ``pipeline.Chain`` with whole-file and
-block-streaming modes (``FIRStage``, ``GateStage``, ``EnvelopeStage``,
-``FIRGateStage``, ``ResampleStage``, ``ResFIRGateStage``), checkpointable
-carries, WAV I/O, ``api.chain_file`` and ``api.resample_file``.
+family (``ops.fft``: torch.fft, radix-2, split-radix and the hand-written
+Stockham kernels, ``auto`` picking the kernels for CUDA float32),
+STFT/ISTFT, overlap-save, the polyphase resampler, the spectral noise
+gate, the envelope effects, the (resample ->) FIR -> gate (-> envelope)
+chain in ``pipeline.Chain`` with whole-file and block-streaming modes
+(``FIRStage``, ``GateStage``, ``EnvelopeStage``, ``FIRGateStage``,
+``ResampleStage``, ``ResFIRGateStage``), checkpointable carries, WAV I/O
+and the one-shots ``api.chain_file``, ``api.resample_file``,
+``api.lowpass_file``, ``api.bandpass_file``, ``api.noise_gate_file`` and
+``api.envelope_file``, which run on the GPU unless told ``device="cpu"``.
 Hand-written kernels (``kernels/``): ``fir_noise_gate_fused``,
 ``fir_gate_step_fused``, ``gate_step_fused``, ``overlap_save_fused``,
-``fir_mac``, ``resample_mac``, ``resample_fir_gate_fused`` and
-``res_fir_gate_step_fused``.
+``fir_mac``, ``resample_mac``, ``resample_fir_gate_fused``,
+``res_fir_gate_step_fused``, ``noise_gate_fused``, ``fft_stockham_lanes``,
+``rfft_stockham`` and ``irfft_stockham``.
 """
 
 __version__ = "0.1.0"
 
-from audiosignalprocess_tpu_torch.ops import windows, fft, stft, fir, overlap_save  # noqa: F401
+from audiosignalprocess_tpu_torch.ops import windows, fft, stft, fir, overlap_save, resample  # noqa: F401
 from audiosignalprocess_tpu_torch import effects, io  # noqa: F401
 from audiosignalprocess_tpu_torch.pipeline import Chain  # noqa: F401
 from audiosignalprocess_tpu_torch import api, kernels  # noqa: F401

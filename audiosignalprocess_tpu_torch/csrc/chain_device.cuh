@@ -1,7 +1,8 @@
 // The whole-file FIR -> spectral noise gate body for Hopper (sm_90a):
-// what chain_kernel.cu and res_chain_kernel.cu share.  The two differ only
-// in where the FIR's input comes from (the raw samples, or the resampled
-// stream), which each kernel passes in as a `fill` functor.
+// what chain_kernel.cu, res_chain_kernel.cu and gate_kernel.cu share.  The
+// first two differ only in where the FIR's input comes from (the raw
+// samples, or the resampled stream), which each kernel passes in as a
+// `fill` functor; gate_kernel.cu runs the gate alone (kFir false).
 //
 // Per channel the body computes oracle.noise_gate(oracle.fir_direct(u, h),
 // nfft, hop, ...) of its input u: causal FIR with zero history by FFT
@@ -91,8 +92,10 @@ __device__ __forceinline__ float inv_norm_at(const ChainGeo& g, const float* tab
 // The tiles of channel c that this CTA owns (blockIdx.x, step gridDim.x),
 // written to oc.  fill(span, s, len): every thread calls it; it stores
 // the FIR input u[s + i] in span[i] for i < len (zero where s + i < 0 or
-// past the end of u) and returns after a __syncthreads().
-template <class Fill>
+// past the end of u) and returns after a __syncthreads().  With kFir
+// false there is no FIR (the gate alone, gate_kernel.cu): fill stores the
+// gate's input itself, g.taps is 1 and hf is unused.
+template <bool kFir = true, class Fill>
 __device__ void fir_gate_tiles(const ChainGeo& g, float* smem, int c, float* __restrict__ oc,
                                const float* __restrict__ noise_floor,
                                const float* __restrict__ win,
@@ -133,19 +136,23 @@ __device__ void fir_gate_tiles(const ChainGeo& g, float* smem, int c, float* __r
       // reads, so span[m] ends up holding y[y0 + m].
       const int y0 = qa * H;
       const int len = (qb - 1) * H + N - y0;
-      const int nblk = (len + g.blk - 1) / g.blk;
-      fill(span, y0 - (g.taps - 1), nblk * g.blk + g.taps - 1);
-      const auto raw = [span](int j) { return span[j]; };
-      for (int k = 0; k < nblk; k += 2) {
-        const bool two = k + 1 < nblk;
-        os_block_pair(z, raw, k, two, g.blk, N, g.log2n, hf, tw_s);
-        float* o = span + k * g.blk;
-        for (int i = tid; i < g.blk; i += nt) {
-          const float2 v = z[g.taps - 1 + i];
-          o[i] = v.x * g.inv_n;
-          if (two) o[g.blk + i] = v.y * g.inv_n;
+      if constexpr (kFir) {
+        const int nblk = (len + g.blk - 1) / g.blk;
+        fill(span, y0 - (g.taps - 1), nblk * g.blk + g.taps - 1);
+        const auto raw = [span](int j) { return span[j]; };
+        for (int k = 0; k < nblk; k += 2) {
+          const bool two = k + 1 < nblk;
+          os_block_pair(z, raw, k, two, g.blk, N, g.log2n, hf, tw_s);
+          float* o = span + k * g.blk;
+          for (int i = tid; i < g.blk; i += nt) {
+            const float2 v = z[g.taps - 1 + i];
+            o[i] = v.x * g.inv_n;
+            if (two) o[g.blk + i] = v.y * g.inv_n;
+          }
+          __syncthreads();
         }
-        __syncthreads();
+      } else {
+        fill(span, y0, len);
       }
       // ---- gate: frames q, q+1 as re/im of one transform
       for (int q = qa; q < qb; q += 2) {

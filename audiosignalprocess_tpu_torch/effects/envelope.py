@@ -34,13 +34,14 @@ def default_envelope_fir(fs: float, fc: float = 50.0, numtaps: int = 129) -> np.
     return design_fir(numtaps, 2.0 * fc / fs)
 
 
-def hilbert_envelope(x: torch.Tensor) -> torch.Tensor:
-    """|analytic signal| via spectrum doubling (power-of-two length)."""
+def hilbert_envelope(x: torch.Tensor, impl: str = fft_ops.DEFAULT_IMPL) -> torch.Tensor:
+    """|analytic signal| via spectrum doubling (power-of-two length);
+    ``impl``: the FFT implementation (``ops.fft``)."""
     n = x.shape[-1]
-    spec = fft_ops.rfft(x)  # n//2+1 bins
+    spec = fft_ops.rfft(x, impl=impl)  # n//2+1 bins
     gain = np.full(n // 2 + 1, 2.0)
     gain[0] = 1.0
     gain[n // 2] = 1.0
     half = spec * upload(gain, x.dtype, x.device)
     full = torch.cat([half, half.new_zeros(x.shape[:-1] + (n - n // 2 - 1,))], dim=-1)
-    return fft_ops.ifft(full).abs()
+    return fft_ops.ifft(full, impl=impl).abs()

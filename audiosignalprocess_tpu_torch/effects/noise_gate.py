@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from audiosignalprocess_tpu_torch.ops import fft as fft_ops
 from audiosignalprocess_tpu_torch.ops.stft import istft, num_frames, stft
 from audiosignalprocess_tpu_torch.utils.validate import check
 
@@ -36,13 +37,24 @@ def gate_mask(mag: torch.Tensor, floor: torch.Tensor, threshold_db: float,
 def noise_gate(x: torch.Tensor, nfft: int = 1024, hop: int = 256,
                threshold_db: float = 6.0, reduction_db: float = 60.0,
                noise_frames: int = 8, release: float = 0.0,
-               window_kind: str = "hann") -> torch.Tensor:
-    """Gate on the last axis.  Output length = istft length of the frames."""
+               window_kind: str = "hann", impl: str = fft_ops.DEFAULT_IMPL,
+               fused: bool = False) -> torch.Tensor:
+    """Gate on the last axis.  Output length = istft length of the frames.
+
+    ``impl``: the FFT implementation (``ops.fft``).  ``fused=True`` routes
+    through ``kernels.gate_kernel.noise_gate_fused`` (the hand-written
+    kernel on a CUDA float32 tensor, its plain version on a CPU tensor).
+    """
     nframes = num_frames(x.shape[-1], nfft, hop)
     check(nframes >= noise_frames,
           f"signal has {nframes} frames < noise_frames={noise_frames}")
-    spec = stft(x, nfft, hop, window_kind)
+    if fused:
+        from audiosignalprocess_tpu_torch.kernels.gate_kernel import noise_gate_fused
+
+        return noise_gate_fused(x, nfft, hop, threshold_db, reduction_db,
+                                noise_frames, release, window_kind)
+    spec = stft(x, nfft, hop, window_kind, impl=impl)
     mag = spec.abs()
     floor = mag[..., :noise_frames, :].mean(dim=-2, keepdim=True)
     mask = gate_mask(mag, floor, threshold_db, reduction_db, release)
-    return istft(spec * mask, nfft, hop, window_kind)
+    return istft(spec * mask, nfft, hop, window_kind, impl=impl)

@@ -33,22 +33,15 @@ from audiosignalprocess_tpu_torch.kernels._build import (
     SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
 )
 from audiosignalprocess_tpu_torch.kernels.fir_kernel import reversed_taps
-from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
-    gate_step_args, gate_step_ref, inv_norm_rows, noise_floor,
-    step_smem_bytes,
+from audiosignalprocess_tpu_torch.kernels.gate_kernel import (  # noqa: F401
+    FRAMES_PER_TILE, _geometry, _inv_norm_table, check_gate_guards, file_tables,
+    gate_step_args, gate_step_ref, noise_floor, step_smem_bytes,
 )
 from audiosignalprocess_tpu_torch.kernels.os_kernel import check_os_geometry, fft_tables
 from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
-from audiosignalprocess_tpu_torch.ops.stft import frame, num_frames
-from audiosignalprocess_tpu_torch.ops.windows import window_np
-from audiosignalprocess_tpu_torch.utils.device import upload
+from audiosignalprocess_tpu_torch.ops.stft import frame
 from audiosignalprocess_tpu_torch.utils.validate import check
-
-FRAMES_PER_TILE = 16
-"""Output hops per CTA in the parallel launch; each CTA also recomputes
-the nfft/hop-1 frames of halo before its tile, so larger tiles waste
-less and take more shared memory."""
 
 ENV_TILE = 1024
 """Envelope outputs per MAC tile of the step kernel (``kEnvTile``)."""
@@ -57,61 +50,18 @@ ENV_TILE = 1024
 def _check_guards(h: np.ndarray, n: int, nfft: int, hop: int,
                   noise_frames: int) -> int:
     """Validate the geometry; returns the frame count F."""
-    t = len(h)
-    check(nfft >= 2 and nfft & (nfft - 1) == 0,
-          f"nfft={nfft} must be a power of two >= 2")
-    check(hop >= 1 and nfft % hop == 0, f"hop={hop} must divide nfft={nfft}")
-    check(nfft > t - 1, f"nfft={nfft} must exceed taps-1 ({t - 1})")
-    nframes = num_frames(n, nfft, hop)
-    check(nframes * hop >= 2 * (nfft - hop), "signal too short")
-    check(nframes >= noise_frames,
-          f"signal has {nframes} frames < noise_frames={noise_frames}")
-    return nframes
-
-
-def _geometry(nfft: int, hop: int, taps: int) -> dict:
-    """Tile size, the longest FIR span of a tile and the dynamic shared
-    memory of one CTA, in the order ``asp::fir_gate_tiles`` carves it:
-    twiddles (nfft/2 complex), FFT buffer (nfft complex), threshold and
-    release state (nfft/2+1 each), OLA tile (tile + nfft-hop), FIR span."""
-    d = nfft - hop
-    # at least nfft/hop frames per tile, so the spill (d) is shorter than
-    # the tile and the sequential launch can move it without overlap
-    mf = max(FRAMES_PER_TILE, nfft // hop)
-    tile = mf * hop
-    blk = nfft - (taps - 1)
-    # the longest filtered span a tile needs is tile + 2d (its frames plus
-    # the halo frames), in whole overlap-save blocks, plus the FIR history
-    span = -(-(tile + 2 * d) // blk) * blk + taps - 1
-    nb = nfft // 2 + 1
-    smem = 8 * (nfft // 2) + 8 * nfft + 4 * (2 * nb + tile + d + span)
-    return {"mf": mf, "tile": tile, "span": span, "smem": smem}
-
-
-def _inv_norm_table(wv: np.ndarray, nfft: int, hop: int) -> np.ndarray:
-    """[head ramp (d) | one interior period (hop) | tail ramp (d)] of the
-    1/WOLA norm.  Taken from a 2*nfft/hop-frame output, whose head, tail
-    and interior sums run over the same frames in the same order as in
-    any longer output, so each entry is bit-equal to ``inv_norm_rows``
-    at the positions the kernel maps onto it."""
-    d = nfft - hop
-    nf = 2 * (nfft // hop)
-    out_len = nfft + (nf - 1) * hop
-    inv = inv_norm_rows(wv, nfft, hop, nf, out_len)
-    return np.concatenate([inv[:d], inv[d : d + hop], inv[out_len - d :]])
+    check(nfft > len(h) - 1, f"nfft={nfft} must exceed taps-1 ({len(h) - 1})")
+    return check_gate_guards(n, nfft, hop, noise_frames)
 
 
 @functools.lru_cache(maxsize=32)
 def gate_tables(h_bytes: bytes, nfft: int, hop: int, window_kind: str,
                 device: torch.device) -> tuple:
-    """The whole-file kernels' constant tables on ``device``, float32,
-    uploaded once per geometry: the periodic window, the tap spectrum and
-    twiddles (``os_kernel.fft_tables``) and the [head | period | tail]
-    1/WOLA-norm table."""
-    wv = window_np(window_kind, nfft, periodic=True)
-    hf, tw = fft_tables(h_bytes, nfft, device)
-    return (upload(wv, torch.float32, device), hf, tw,
-            upload(_inv_norm_table(wv, nfft, hop), torch.float32, device))
+    """The whole-file FIR -> gate kernels' constant tables on ``device``:
+    the gate's (``gate_kernel.file_tables``: window, twiddles, 1/WOLA
+    norm) and the tap spectrum (``os_kernel.fft_tables``)."""
+    win, tw, inv_tab = file_tables(nfft, hop, window_kind, device)
+    return win, fft_tables(h_bytes, nfft, device)[0], tw, inv_tab
 
 
 def filtered_floor(head: torch.Tensor, h: np.ndarray, nfft: int, hop: int,
@@ -119,7 +69,7 @@ def filtered_floor(head: torch.Tensor, h: np.ndarray, nfft: int, hop: int,
     """The gate's noise floor (channels, nfft/2+1) from the first frames of
     the filtered signal, given the head of the FIR's input: plain torch on
     the device, as the JAX package computes it in XLA outside Pallas."""
-    pro = overlap_save(head, h, nfft)
+    pro = overlap_save(head, h, nfft, impl="torch")
     frames = frame(pro[:, : nfft - hop + noise_frames * hop], nfft, hop)
     return noise_floor(frames * win).contiguous()
 
@@ -139,10 +89,10 @@ def fir_noise_gate_ref(x: torch.Tensor, h, nfft: int = 1024, hop: int = 256,
                        noise_frames: int = 8, release: float = 0.0,
                        window_kind: str = "hann") -> torch.Tensor:
     """Plain PyTorch version: ``noise_gate(overlap_save(x, h, nfft), ...)``
-    on any device and dtype."""
-    y = overlap_save(x, h, nfft)
+    with torch.fft (``impl="torch"``), on any device and dtype."""
+    y = overlap_save(x, h, nfft, impl="torch")
     return noise_gate(y, nfft, hop, threshold_db, reduction_db, noise_frames,
-                      release, window_kind)
+                      release, window_kind, impl="torch")
 
 
 def fir_noise_gate_fused(x: torch.Tensor, h, nfft: int = 1024,
@@ -233,7 +183,7 @@ def fir_gate_step_ref(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
     ``fir_direct`` with history -> * env_scale), the JAX package's
     ``FIRStage -> GateStage [-> EnvelopeStage]`` steps."""
     h = np.asarray(h, dtype=np.float64)
-    y = overlap_save(x, h, nfft, history=state[0])
+    y = overlap_save(x, h, nfft, history=state[0], impl="torch")
     new = [history_tail(state[0], x, len(h))]
     sg, y = gate_step_ref(y, state[1], nfft=nfft, hop=hop,
                           threshold_db=threshold_db, reduction_db=reduction_db,

@@ -1,12 +1,15 @@
-"""The streaming gate step: the hand-written Hopper kernel
-(``csrc/gate_step_kernel.cu``), its plain PyTorch version, and the
+"""The spectral noise gate kernels: the whole-file gate
+(``csrc/gate_kernel.cu``) and the streaming gate step
+(``csrc/gate_step_kernel.cu``), their plain PyTorch versions, and the
 helpers the fused gate kernels share.
 
 Mirrors the JAX package's ``kernels/gate_kernel.py``: the 1/WOLA-norm
 vectors (whole-file and streaming), the noise-floor prologue, the
-position logic of a step (``gate_step_masks``), the streaming carry
-(``gate_step_init_state``) and the step itself (``gate_step_fused``).
-The whole-file ``noise_gate_fused`` is not ported yet (ROADMAP Queue 2).
+whole-file gate (``noise_gate_fused``), the position logic of a step
+(``gate_step_masks``), the streaming carry (``gate_step_init_state``) and
+the step itself (``gate_step_fused``).  The plain versions and the
+prologue run their FFTs through torch.fft (``impl="torch"``) on any
+device, so they never launch a kernel.
 
 One carry layout serves the kernel and the plain step, and it is the
 JAX package's plain-path carry (``pipeline.GateStage.init_state``):
@@ -17,8 +20,9 @@ ints (pure functions of the block count, so a step never reads the
 device).  A stream may switch between the kernel and the plain step at
 any block.
 
-Routing of ``gate_step_fused``: a CPU tensor runs ``gate_step_ref``; a
-CUDA float32 tensor launches the kernel; anything else raises.
+Routing of ``noise_gate_fused`` and ``gate_step_fused``: a CPU tensor
+runs the plain version (``noise_gate_ref``, ``gate_step_ref``); a CUDA
+float32 tensor launches the kernel; anything else raises.
 """
 
 from __future__ import annotations
@@ -29,12 +33,15 @@ import functools
 import numpy as np
 import torch
 
-from audiosignalprocess_tpu_torch.effects.noise_gate import gate_mask
+from audiosignalprocess_tpu_torch.effects.noise_gate import gate_mask, noise_gate
+from audiosignalprocess_tpu_torch.kernels import _build
 from audiosignalprocess_tpu_torch.kernels._build import (
     SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
 )
 from audiosignalprocess_tpu_torch.ops import fft as fft_ops
-from audiosignalprocess_tpu_torch.ops.stft import WOLA_EDGE_REL, frame, wola_clamp
+from audiosignalprocess_tpu_torch.ops.stft import (
+    WOLA_EDGE_REL, frame, num_frames, wola_clamp,
+)
 from audiosignalprocess_tpu_torch.ops.windows import window_np
 from audiosignalprocess_tpu_torch.utils.device import upload
 from audiosignalprocess_tpu_torch.utils.validate import check
@@ -58,7 +65,139 @@ def inv_norm_rows(wv_np: np.ndarray, nfft: int, hop: int, nframes: int,
 def noise_floor(frames_windowed: torch.Tensor) -> torch.Tensor:
     """Per-bin noise floor, mean |rfft| over the frames axis:
     (..., frames, nfft) windowed frames -> (..., nfft/2+1)."""
-    return fft_ops.rfft(frames_windowed).abs().mean(dim=-2)
+    return fft_ops.rfft(frames_windowed, impl="torch").abs().mean(dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# the whole-file gate (and the tile geometry the whole-file chains share)
+# ---------------------------------------------------------------------------
+
+FRAMES_PER_TILE = 16
+"""Output hops per CTA in the parallel launch; each CTA also recomputes
+the nfft/hop-1 frames of halo before its tile, so larger tiles waste
+less and take more shared memory."""
+
+
+def check_gate_guards(n: int, nfft: int, hop: int, noise_frames: int) -> int:
+    """Validate a whole-file gate's geometry; returns the frame count F."""
+    check(nfft >= 2 and nfft & (nfft - 1) == 0,
+          f"nfft={nfft} must be a power of two >= 2")
+    check(hop >= 1 and nfft % hop == 0, f"hop={hop} must divide nfft={nfft}")
+    nframes = num_frames(n, nfft, hop)
+    check(nframes * hop >= 2 * (nfft - hop), "signal too short")
+    check(nframes >= noise_frames,
+          f"signal has {nframes} frames < noise_frames={noise_frames}")
+    return nframes
+
+
+def _geometry(nfft: int, hop: int, taps: int) -> dict:
+    """Tile size, the longest FIR span of a tile and the dynamic shared
+    memory of one CTA, in the order ``asp::fir_gate_tiles`` carves it:
+    twiddles (nfft/2 complex), FFT buffer (nfft complex), threshold and
+    release state (nfft/2+1 each), OLA tile (tile + nfft-hop), FIR span.
+    The gate alone is ``taps`` = 1."""
+    d = nfft - hop
+    # at least nfft/hop frames per tile, so the spill (d) is shorter than
+    # the tile and the sequential launch can move it without overlap
+    mf = max(FRAMES_PER_TILE, nfft // hop)
+    tile = mf * hop
+    blk = nfft - (taps - 1)
+    # the longest filtered span a tile needs is tile + 2d (its frames plus
+    # the halo frames), in whole overlap-save blocks, plus the FIR history
+    span = -(-(tile + 2 * d) // blk) * blk + taps - 1
+    nb = nfft // 2 + 1
+    smem = 8 * (nfft // 2) + 8 * nfft + 4 * (2 * nb + tile + d + span)
+    return {"mf": mf, "tile": tile, "span": span, "smem": smem}
+
+
+def _inv_norm_table(wv: np.ndarray, nfft: int, hop: int) -> np.ndarray:
+    """[head ramp (d) | one interior period (hop) | tail ramp (d)] of the
+    1/WOLA norm.  Taken from a 2*nfft/hop-frame output, whose head, tail
+    and interior sums run over the same frames in the same order as in
+    any longer output, so each entry is bit-equal to ``inv_norm_rows``
+    at the positions the kernel maps onto it."""
+    d = nfft - hop
+    nf = 2 * (nfft // hop)
+    out_len = nfft + (nf - 1) * hop
+    inv = inv_norm_rows(wv, nfft, hop, nf, out_len)
+    return np.concatenate([inv[:d], inv[d : d + hop], inv[out_len - d :]])
+
+
+@functools.lru_cache(maxsize=32)
+def file_tables(nfft: int, hop: int, window_kind: str, device: torch.device) -> tuple:
+    """The whole-file kernels' constant tables on ``device``, float32,
+    uploaded once per geometry: the periodic window, the nfft/2 twiddles
+    exp(-2 pi i k / nfft) as (re, im) pairs and the [head | period | tail]
+    1/WOLA-norm table."""
+    wv = window_np(window_kind, nfft, periodic=True)
+    tw = np.exp(-2j * np.pi * np.arange(nfft // 2) / nfft)
+    f32 = lambda a: upload(np.ascontiguousarray(a), torch.float32, device)
+    return (f32(wv), f32(tw.astype(np.complex64).view(np.float32)),
+            f32(_inv_norm_table(wv, nfft, hop)))
+
+
+@functools.cache
+def _lib():
+    fn = _build.load().asp_noise_gate
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def noise_gate_ref(x: torch.Tensor, nfft: int = 1024, hop: int = 256,
+                   threshold_db: float = 6.0, reduction_db: float = 60.0,
+                   noise_frames: int = 8, release: float = 0.0,
+                   window_kind: str = "hann") -> torch.Tensor:
+    """Plain PyTorch version: ``effects.noise_gate`` with ``impl="torch"``,
+    any device and dtype."""
+    return noise_gate(x, nfft, hop, threshold_db, reduction_db, noise_frames,
+                      release, window_kind, impl="torch")
+
+
+def noise_gate_fused(x: torch.Tensor, nfft: int = 1024, hop: int = 256,
+                     threshold_db: float = 6.0, reduction_db: float = 60.0,
+                     noise_frames: int = 8, release: float = 0.0,
+                     window_kind: str = "hann") -> torch.Tensor:
+    """Spectral noise gate, fused: x (..., n) -> (..., nfft + (F-1)*hop).
+
+    A CPU tensor runs ``noise_gate_ref``.  A CUDA float32 tensor launches
+    the kernel: one CTA per (channel, tile) when ``release`` is 0, one CTA
+    per channel walking its frames in order when it is not (the release is
+    a scan over all frames).  Any other tensor raises.
+    """
+    n = x.shape[-1]
+    nframes = check_gate_guards(n, nfft, hop, noise_frames)
+    if x.device.type == "cpu":
+        return noise_gate_ref(x, nfft, hop, threshold_db, reduction_db, noise_frames,
+                              release, window_kind)
+    check_cuda_f32(x, "noise_gate_fused", "GateStage routes float64 to the plain gate")
+    batch = x.shape[:-1]
+    xf = x.reshape(-1, n).contiguous()
+    channels = xf.shape[0]
+    check(0 < channels <= 65535, f"{channels} channels: 1..65535 per launch")
+    geo = _geometry(nfft, hop, 1)
+    check(geo["smem"] <= SMEM_LIMIT,
+          f"nfft={nfft}, hop={hop} need {geo['smem']} bytes of shared memory per "
+          f"block, more than {SMEM_LIMIT}")
+    dev = xf.device
+    out_len = nfft + (nframes - 1) * hop
+    win, tw, inv_tab = file_tables(nfft, hop, window_kind, dev)
+    head = xf[:, : nfft - hop + noise_frames * hop]
+    floor = noise_floor(frame(head, nfft, hop) * win).contiguous()
+    out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
+    rc = _lib()(
+        xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(), tw.data_ptr(),
+        inv_tab.data_ptr(), channels, n, nfft, nfft.bit_length() - 1, hop, nframes,
+        geo["mf"], int(release > 0.0), float(10.0 ** (threshold_db / 20.0)),
+        float(10.0 ** (-reduction_db / 20.0)), float(release), geo["smem"], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(rc, "noise_gate")
+    noise_gate_fused.launches += 1
+    return out.reshape(batch + (out_len,))
+
+
+noise_gate_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +360,7 @@ def gate_step_ref(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
     wv, head, const, tail = _step_tables_np(nfft, hop, window_kind)
     w = upload(wv, dtype, dev)
     ext = torch.cat([state["in_tail"], x], dim=-1)                  # (..., b+d)
-    spec = fft_ops.rfft(frame(ext, nfft, hop) * w)                  # (..., m, nb)
+    spec = fft_ops.rfft(frame(ext, nfft, hop) * w, impl="torch")    # (..., m, nb)
     spec = spec * upload(np.array(valid, np.float64), dtype, dev)[:, None]
     tmask = upload(np.array(take, np.float64), dtype, dev)
     floor_sum = state["floor_sum"] + (spec.abs() * tmask[:, None]).sum(
@@ -244,7 +383,7 @@ def gate_step_ref(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
             rows.append(s)
         mask = torch.cat(rows, dim=-2)
         new_state["rel"] = s
-    out_frames = fft_ops.irfft(popped * mask, nfft) * w
+    out_frames = fft_ops.irfft(popped * mask, nfft, impl="torch") * w
     p = torch.arange(b, device=dev) + (pos - latency - input_latency)
     norm = wola_norm_at(p, upload(head, dtype, dev), const, d, eof_out,
                         upload(tail, dtype, dev))

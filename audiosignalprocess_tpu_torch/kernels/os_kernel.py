@@ -47,9 +47,9 @@ def check_os_geometry(nfft: int, taps: int) -> None:
 
 def overlap_save_ref(x: torch.Tensor, h, nfft: int,
                      history: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version: ``ops.overlap_save.overlap_save``, any device
-    and dtype."""
-    return overlap_save(x, h, nfft, history=history)
+    """Plain PyTorch version: ``ops.overlap_save.overlap_save`` with
+    torch.fft (``impl="torch"``), any device and dtype."""
+    return overlap_save(x, h, nfft, history=history, impl="torch")
 
 
 @functools.cache

@@ -2,25 +2,67 @@
 
 Forward is unnormalized, the inverse scales by 1/N, ``rfft`` returns the
 N/2+1 bins 0..N/2, and every transform runs on the last axis, whose
-length must be a power of two.  ``impl="torch"`` (torch.fft) is the one
-implementation so far; the structural ``radix2``/``splitradix`` impls
-and the standalone FFT kernels are still to be ported (ROADMAP Queue 1).
+length must be a power of two.  The implementations, in the port's names
+(the JAX package's in brackets):
+
+- ``"torch"`` (``"xla"``): torch.fft;
+- ``"radix2"``: iterative decimation in time with an explicit
+  bit-reversal permutation, the classic C structure;
+- ``"splitradix"``: recursive split-radix (L-shaped butterflies);
+- ``"stockham"`` (``"pallas_sk"``): the hand-written Stockham kernels of
+  ``kernels/fft_kernel``, complex through ``fft_stockham_lanes`` and real
+  through the fused ``rfft_stockham`` / ``irfft_stockham``;
+- ``"stockham_split"`` (``"pallas_sk_split"``): the even/odd pack and
+  untangle of the real transforms in torch around the complex kernel;
+- ``"auto"`` (the default): ``"stockham"`` for a CUDA float32 or
+  complex64 tensor, ``"torch"`` for anything else (CPU, float64).
+
+The kernel wrappers run their plain PyTorch versions on a CPU tensor, so
+every impl runs on the CPU.  Real transforms of every impl but
+``"torch"`` take the JAX package's route: an n/2-point complex transform
+of z = x[0::2] + i x[1::2] and the untangle.  ``irfft`` ignores the
+imaginary parts of bins 0 and N/2, as torch.fft.irfft does.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from audiosignalprocess_tpu_torch.utils.device import upload
 from audiosignalprocess_tpu_torch.utils.validate import check
 
-DEFAULT_IMPL = "torch"
+DEFAULT_IMPL = "auto"
+
+IMPLS = ("torch", "radix2", "splitradix", "stockham", "stockham_split", "auto")
+
+_JAX_NAMES = {"xla": "torch", "pallas_sk": "stockham", "pallas_sk_split": "stockham_split"}
+"""The JAX package's names of the impls the port has."""
+
+_NOT_PORTED = {
+    "matmul": "fft_fourstep",
+    "pallas": "fft_fourstep",
+    "pallas_r2": "fft_radix2_lanes",
+    "pallas_r2_stages": "fft_radix2_stages",
+    "pallas_cg": "fft_pease_lanes",
+}
+"""JAX impls whose kernels are still to be ported, with the kernel each waits for."""
 
 
-def _check_impl(impl: str) -> None:
-    if impl in ("radix2", "splitradix"):
+def _resolve_impl(impl: str, x: torch.Tensor) -> str:
+    """A concrete impl for ``impl`` on ``x`` (``"auto"`` by device and dtype)."""
+    impl = _JAX_NAMES.get(impl, impl)
+    if impl in _NOT_PORTED:
         raise NotImplementedError(
-            f"impl={impl!r} is not ported yet (ROADMAP Queue 1: FFT impls)")
-    check(impl == "torch", f"unknown FFT impl {impl!r}")
+            f"impl={impl!r} is not ported yet: it waits for the kernel "
+            f"{_NOT_PORTED[impl]} (ROADMAP Queue 2 #3, the FFT variants)")
+    check(impl in IMPLS, f"unknown FFT impl {impl!r}; one of {IMPLS}")
+    if impl == "auto":
+        return ("stockham" if x.is_cuda and x.dtype in (torch.float32, torch.complex64)
+                else "torch")
+    return impl
 
 
 def _check_pow2(n: int, least: int = 1) -> None:
@@ -28,31 +70,151 @@ def _check_pow2(n: int, least: int = 1) -> None:
           f"power-of-two length >= {least} required, got {n}")
 
 
+def _complex_dtype(dtype: torch.dtype) -> torch.dtype:
+    return (torch.complex128 if dtype in (torch.float64, torch.complex128)
+            else torch.complex64)
+
+
+def _table(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A float64 design-time table as ``like``'s complex dtype, on its device."""
+    return upload(a, _complex_dtype(like.dtype), like.device)
+
+
+# ---------------------------------------------------------------------------
+# radix-2 (iterative DIT, explicit bit reversal) and split-radix
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def bit_reverse_indices(n: int) -> np.ndarray:
+    """Bit-reversal permutation of a power-of-two n (``oracle.bit_reverse_indices``)."""
+    bits = n.bit_length() - 1
+    idx = np.arange(n)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
+def _fft_radix2(x: torch.Tensor, sign: float) -> torch.Tensor:
+    n = x.shape[-1]
+    if n == 1:
+        return x
+    batch = x.shape[:-1]
+    x = x[..., torch.as_tensor(bit_reverse_indices(n), device=x.device)]
+    m = 1
+    while m < n:
+        w = _table(np.exp(sign * 1j * np.pi * np.arange(m) / m), x)
+        xv = x.reshape(batch + (n // (2 * m), 2, m))
+        a, b = xv[..., 0, :], xv[..., 1, :] * w
+        x = torch.cat([a + b, a - b], dim=-1).reshape(batch + (n,))
+        m *= 2
+    return x
+
+
+def _fft_splitradix(x: torch.Tensor, sign: float) -> torch.Tensor:
+    n = x.shape[-1]
+    if n == 1:
+        return x
+    if n == 2:
+        return torch.stack([x[..., 0] + x[..., 1], x[..., 0] - x[..., 1]], dim=-1)
+    u = _fft_splitradix(x[..., 0::2], sign)
+    z = _fft_splitradix(x[..., 1::4], sign) * _table(
+        np.exp(sign * 2j * np.pi * np.arange(n // 4) / n), x)
+    zp = _fft_splitradix(x[..., 3::4], sign) * _table(
+        np.exp(sign * 2j * np.pi * 3 * np.arange(n // 4) / n), x)
+    s = z + zp
+    d = (1j if sign > 0 else -1j) * (z - zp)
+    uk, ukq = u[..., : n // 4], u[..., n // 4 :]
+    return torch.cat([uk + s, ukq + d, uk - s, ukq - d], dim=-1)
+
+
+def _fft_stockham(x: torch.Tensor, sign: float) -> torch.Tensor:
+    from audiosignalprocess_tpu_torch.kernels import fft_kernel
+
+    return fft_kernel.fft_complex(x, sign)
+
+
+_COMPLEX = {"radix2": _fft_radix2, "splitradix": _fft_splitradix,
+            "stockham": _fft_stockham, "stockham_split": _fft_stockham}
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
 def fft(x: torch.Tensor, impl: str = DEFAULT_IMPL) -> torch.Tensor:
     """Forward FFT on the last axis (unnormalized)."""
-    _check_impl(impl)
+    impl = _resolve_impl(impl, x)
     _check_pow2(x.shape[-1])
-    return torch.fft.fft(x)
+    if impl == "torch":
+        return torch.fft.fft(x)
+    return _COMPLEX[impl](x.to(_complex_dtype(x.dtype)), -1.0)
 
 
 def ifft(x: torch.Tensor, impl: str = DEFAULT_IMPL) -> torch.Tensor:
     """Inverse FFT on the last axis, scaled 1/N."""
-    _check_impl(impl)
-    _check_pow2(x.shape[-1])
-    return torch.fft.ifft(x)
+    impl = _resolve_impl(impl, x)
+    n = x.shape[-1]
+    _check_pow2(n)
+    if impl == "torch":
+        return torch.fft.ifft(x)
+    return _COMPLEX[impl](x.to(_complex_dtype(x.dtype)), 1.0) / n
 
 
 def rfft(x: torch.Tensor, impl: str = DEFAULT_IMPL) -> torch.Tensor:
     """Real FFT on the last axis: N/2+1 bins."""
-    _check_impl(impl)
     check(not x.is_complex(),
           "rfft requires a real-valued input (use fft for complex signals)")
-    _check_pow2(x.shape[-1], least=2)
-    return torch.fft.rfft(x)
+    impl = _resolve_impl(impl, x)
+    n = x.shape[-1]
+    _check_pow2(n, least=2)
+    if impl == "torch":
+        return torch.fft.rfft(x)
+    half = n // 2
+    if impl == "stockham" and n >= 4:
+        from audiosignalprocess_tpu_torch.kernels import fft_kernel
+
+        yr, yi = fft_kernel.rfft_stockham(x.reshape(-1, n))
+        return torch.complex(yr, yi).reshape(x.shape[:-1] + (half + 1,))
+    cdt = _complex_dtype(x.dtype)
+    if half == 1:
+        a, b = x[..., 0], x[..., 1]
+        return torch.stack([a + b, a - b], dim=-1).to(cdt)
+    zf = _COMPLEX[impl](torch.complex(x[..., 0::2], x[..., 1::2]).to(cdt), -1.0)
+    zk = torch.cat([zf, zf[..., :1]], dim=-1)
+    zkc = zk.flip(-1).conj()
+    xe = 0.5 * (zk + zkc)
+    xo = -0.5j * (zk - zkc)
+    return xe + _table(np.exp(-2j * np.pi * np.arange(half + 1) / n), xe) * xo
 
 
 def irfft(spec: torch.Tensor, n: int, impl: str = DEFAULT_IMPL) -> torch.Tensor:
     """Inverse real FFT: n real samples from n/2+1 bins (1/N scaling)."""
-    _check_impl(impl)
+    impl = _resolve_impl(impl, spec)
     _check_pow2(n, least=2)
-    return torch.fft.irfft(spec, n)
+    if impl == "torch":
+        return torch.fft.irfft(spec, n)
+    half = n // 2
+    cdt = _complex_dtype(spec.dtype)
+    rdt = torch.float64 if cdt == torch.complex128 else torch.float32
+    sf = spec[..., : half + 1].to(cdt)
+    if impl == "stockham" and n >= 4:
+        from audiosignalprocess_tpu_torch.kernels import fft_kernel
+
+        flat = sf.reshape(-1, half + 1)
+        y = fft_kernel.irfft_stockham(flat.real.contiguous(), flat.imag.contiguous(), n)
+        return y.reshape(spec.shape[:-1] + (n,))
+    if half == 1:
+        a, b = sf[..., 0].real, sf[..., 1].real
+        return (torch.stack([a + b, a - b], dim=-1) * 0.5).to(rdt)
+    # bins 0 and n/2 of a real signal's spectrum are real: their imaginary
+    # parts are dropped, as torch.fft.irfft drops them
+    edge = np.ones(half + 1)
+    edge[[0, half]] = 0.0
+    zk = torch.complex(sf.real, sf.imag * upload(edge, rdt, sf.device))
+    zkc = zk.flip(-1).conj()
+    xe = 0.5 * (zk + zkc)
+    xo = 0.5 * (zk - zkc) * _table(np.exp(2j * np.pi * np.arange(half + 1) / n), zk)
+    zt = _COMPLEX[impl]((xe + 1j * xo)[..., :half], 1.0) / half
+    return torch.stack([zt.real, zt.imag], dim=-1).reshape(spec.shape[:-1] + (n,))
+

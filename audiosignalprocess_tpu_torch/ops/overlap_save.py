@@ -26,10 +26,12 @@ def spectrum_taps(h, nfft: int, dtype=np.complex64) -> np.ndarray:
 
 def overlap_save(x: torch.Tensor, h, nfft: int,
                  history: torch.Tensor | None = None,
+                 impl: str = fft_ops.DEFAULT_IMPL,
                  fused: bool = False) -> torch.Tensor:
     """Causal FIR via overlap-save on the last axis; output length == input.
 
     ``history``: optional (..., T-1) previous inputs; zeros when absent.
+    ``impl``: the FFT implementation (``ops.fft``).
     """
     if fused:
         from audiosignalprocess_tpu_torch.kernels.os_kernel import overlap_save_fused
@@ -51,5 +53,5 @@ def overlap_save(x: torch.Tensor, h, nfft: int,
     blocks = xp.unfold(-1, nfft, b)  # block k = xp[k*b : k*b + nfft]
     cdt = torch.complex128 if x.dtype == torch.float64 else torch.complex64
     hf = upload(spectrum_taps(h, nfft, dtype=np.complex128), cdt, x.device)
-    y = fft_ops.irfft(fft_ops.rfft(blocks) * hf, nfft)
+    y = fft_ops.irfft(fft_ops.rfft(blocks, impl=impl) * hf, nfft, impl=impl)
     return y[..., t - 1 :].reshape(batch + (nblocks * b,))[..., :n]

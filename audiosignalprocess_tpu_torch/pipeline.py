@@ -44,6 +44,7 @@ from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
 from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import (
     res_fir_gate_step_fused, res_fir_gate_step_ref, resample_fir_gate_fused,
 )
+from audiosignalprocess_tpu_torch.ops import fft as fft_ops
 from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.ops.resample import (
@@ -127,13 +128,15 @@ class FIRStage(Stage):
     """Causal FIR, direct form or overlap-save when ``nfft`` is given.
     Latency 0.  ``pre="abs"`` rectifies the input (the envelope follower);
     ``fused`` routes float32 through the hand-written kernels
-    (``overlap_save_fused`` / ``fir_mac``)."""
+    (``overlap_save_fused`` / ``fir_mac``); ``impl`` is the overlap-save's
+    FFT implementation otherwise (``ops.fft``)."""
 
     h: np.ndarray
     nfft: int | None = None
     pre: str | None = None
     post_scale: float = 1.0
     fused: bool = False
+    impl: str = fft_ops.DEFAULT_IMPL
 
     def __post_init__(self):
         self.h = np.asarray(self.h, np.float64)
@@ -144,7 +147,8 @@ class FIRStage(Stage):
             x = x.abs()
         fused = self.fused and x.dtype != torch.float64
         if self.nfft is not None:
-            y = overlap_save(x, self.h, self.nfft, history=history, fused=fused)
+            y = overlap_save(x, self.h, self.nfft, history=history, impl=self.impl,
+                             fused=fused)
         else:
             y = fir_direct(x, self.h, history=history, fused=fused)
         return y * self.post_scale if self.post_scale != 1.0 else y
@@ -230,9 +234,13 @@ class GateStage(Stage):
     noise floor, as the whole-file gate does) and the un-emitted OLA tail
     (``kernels/gate_kernel``).  Latency = (nfft-hop) + noise_frames*hop
     output samples; the whole-file output is aligned to the input.
-    ``fused`` routes a float32 step through ``gate_step_fused``; the
-    whole-file ``noise_gate_fused`` is not ported yet, so ``full`` raises
-    for a CUDA tensor when ``fused`` is set.
+    ``fused`` routes float32 through the hand-written kernels:
+    ``noise_gate_fused`` for the whole file, ``gate_step_fused`` per
+    block (their plain versions on a CPU tensor); float64 takes the plain
+    path on any device.  ``impl`` is the whole-file FFT implementation
+    when ``fused`` is off (``ops.fft``; a CUDA float32 tensor then runs
+    one ``rfft_stockham`` and one ``irfft_stockham`` by default); the
+    plain step computes its FFTs with torch.fft.
     """
 
     nfft: int = 1024
@@ -243,6 +251,7 @@ class GateStage(Stage):
     release: float = 0.0
     window_kind: str = "hann"
     fused: bool = False
+    impl: str = fft_ops.DEFAULT_IMPL
 
     def __post_init__(self):
         check(self.nfft % self.hop == 0, "nfft must be a multiple of hop")
@@ -261,13 +270,10 @@ class GateStage(Stage):
     def full(self, x):
         """Whole-signal gate, zero-padded back to the input length (the
         gate's output is nfft-hop shorter)."""
-        if self.fused and x.is_cuda:
-            raise NotImplementedError(
-                "GateStage(fused=True).full needs noise_gate_fused, which is not "
-                "ported yet (ROADMAP Queue 2); use fused=False for the whole file")
         y = noise_gate(x, self.nfft, self.hop, self.threshold_db,
                        self.reduction_db, self.noise_frames, self.release,
-                       self.window_kind)
+                       self.window_kind, impl=self.impl,
+                       fused=self.fused and x.dtype != torch.float64)
         return _pad_to(y, x.shape[-1])
 
     def set_eof(self, n_in: int) -> None:

@@ -22,13 +22,25 @@ audio, counting the kernel launches of each run:
   D, ``ResampleStage(fused=True) -> FIRGateStage``: ``resample_mac`` and
   ``fir_gate_step_fused`` per block (``resample_mac`` and
   ``fir_noise_gate_fused`` for the whole file); ``api.chain_file`` across
-  rates and ``api.resample_file``.
+  rates and ``api.resample_file``;
+- the config-3 gate alone, 8 and 64 channels x 10 s at 48 kHz
+  (``Chain([GateStage(fused=True)]).full_flush``, ``api.noise_gate_file``):
+  ``noise_gate_fused``; the FFT family behind ``ops.fft``'s default
+  ``impl="auto"`` (``GateStage(fused=False).full``, ``ops.overlap_save``,
+  ``api.lowpass_file``: ``rfft_stockham`` + ``irfft_stockham``;
+  ``ops.fft.fft``/``ifft``: ``fft_stockham_lanes``), ``api.bandpass_file``
+  and ``api.envelope_file`` (``fir_mac``), and bench.py's True and False
+  modes through the port.
 
-It times each kernel against its plain version and each path per stream.
-Every phase prints its lines and raises on failure.  The second-to-last
-line is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
-prints no result.  Imports nothing of JAX.
+It times each kernel against its plain version, each path per stream, and
+the FFTs against torch.fft and a copy-bandwidth probe.  Every phase prints
+its lines and raises on failure.  The second-to-last line is the kernels'
+JSON record, each kernel with its bound (``bound_ms``, ``bound_by``: the
+larger of its bytes over 3.35 TB/s and its float32 operations over
+67 TFLOP/s, the H100 SXM's published peaks) and, where one PyTorch call
+computes the same function, that call's time (``library_ms``); the last
+line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+1 and prints no result.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -120,7 +132,7 @@ def decision_flips(g_in, nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES,
 
     dec, mag64 = [], None
     for dt in (torch.float32, torch.float64):
-        mag = stft(g_in.to(dt), nfft, hop).abs()
+        mag = stft(g_in.to(dt), nfft, hop, impl="torch").abs()
         floor = mag[..., :noise_frames, :].mean(dim=-2, keepdim=True)
         dec.append(mag > floor * 10.0 ** (threshold_db / 20.0))
         mag64 = mag
@@ -391,7 +403,8 @@ def resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x48):
     record["resample_mac"].update(ms=mac_ms, plain_ms=mac_plain_ms)
 
     def plain_c(env_h=None):
-        return Chain([ResampleStage(UP, DOWN), FIRStage(h=h, nfft=NFFT), GateStage(**gate)]
+        return Chain([ResampleStage(UP, DOWN), FIRStage(h=h, nfft=NFFT, impl="torch"),
+                      GateStage(impl="torch", **gate)]
                      + ([EnvelopeStage(env_h)] if env_h is not None else []))
 
     timed = [  # (name, kernel chain, plain chain)
@@ -425,6 +438,315 @@ def resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x48):
                                              replaces="res_chain_kernel.py:476")
 
 
+PEAK_BYTES_S, PEAK_FLOP_S = 3.35e12, 67e12  # H100 SXM published peaks at 700 W: HBM3, float32
+FFT_SIZES = (2, 4, 8, 256, 1024, 4096)
+FFT_BATCHES = (1, 100, 4096)
+FFT_TIMED = 4096  # rows of the timed FFTs (benchmarks/roofline.py's sizes)
+
+
+def fft_flops(n, transforms=1.0):
+    """Nominal float32 operations of ``transforms`` complex n-point radix-2
+    FFTs, 5 n log2 n each (a real transform of n points counts half)."""
+    return transforms * 5.0 * n * np.log2(n)
+
+
+def set_bound(rec, nbytes, flops):
+    """bound_ms: the larger of the bytes over the memory rate and the
+    operations over the float32 peak, and which of the two it is."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOP_S * 1e3
+    rec.update(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def chain_flops(channels, samples, frames, nfft=NFFT, taps=TAPS):
+    """Overlap-save FIR blocks and gate frames of ``channels`` x ``samples``
+    samples: each block and each frame is a forward and an inverse real
+    nfft-point transform (one complex transform's worth)."""
+    blocks = -(-samples // (nfft - (taps - 1)))
+    return channels * fft_flops(nfft, blocks + frames)
+
+
+def conv_ms(x, taps):
+    """The yardstick library call for a causal FIR: one conv1d over the
+    whole input, TF32 off (the port never calls it)."""
+    w = torch.as_tensor(np.ascontiguousarray(taps[::-1]), dtype=x.dtype,
+                        device=x.device).reshape(1, 1, -1)
+    xp = torch.nn.functional.pad(x.reshape(x.shape[0], 1, -1), (len(taps) - 1, 0))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        return time_ms(lambda: torch.nn.functional.conv1d(xp, w))
+
+
+def gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_main, h):
+    """Phases 14-16: the config-3 gate (noise_gate_fused) and the standalone
+    FFT kernels (fft_stockham_lanes, rfft_stockham, irfft_stockham).  Adds
+    the four kernels to ``record``; raises SystemExit on a failure."""
+    from audiosignalprocess_tpu_torch import api
+    from audiosignalprocess_tpu_torch.io.wav import read_wav, write_wav
+    from audiosignalprocess_tpu_torch.kernels import fft_kernel as fk
+    from audiosignalprocess_tpu_torch.kernels.chain_kernel import fir_noise_gate_fused
+    from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
+        noise_gate_fused, noise_gate_ref,
+    )
+    from audiosignalprocess_tpu_torch.kernels.os_kernel import overlap_save_fused
+    from audiosignalprocess_tpu_torch.effects.noise_gate import noise_gate
+    from audiosignalprocess_tpu_torch.ops import fft
+    from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
+    from audiosignalprocess_tpu_torch.pipeline import Chain, GateStage
+    from audiosignalprocess_tpu_torch.utils.metrics import snr_db
+
+    # ---- phase 14: the four kernels vs their float64 plain versions
+    worst = {}
+    for n in FFT_SIZES:
+        for b in FFT_BATCHES:
+            xr = torch.as_tensor(rng.standard_normal((b, n)), device=dev)
+            xi = torch.as_tensor(rng.standard_normal((b, n)), device=dev)
+            runs = []  # (kernel, launch, plain f64, torch.fft f64)
+            for sign in (-1.0, 1.0):
+                lib = torch.fft.fft if sign < 0 else (lambda z: torch.fft.ifft(z) * n)
+                runs.append((fk.fft_stockham_lanes,
+                             lambda s=sign: torch.cat(fk.fft_stockham_lanes(
+                                 xr.float(), xi.float(), s)),
+                             torch.cat(fk.fft_stockham_lanes_ref(xr, xi, sign)),
+                             torch.view_as_real(lib(torch.complex(xr, xi))).permute(2, 0, 1)
+                             .reshape(2 * b, n)))
+            if n >= 4:
+                spec = torch.fft.rfft(xr)
+                sr, si = spec.real.contiguous(), spec.imag.contiguous()
+                runs.append((fk.rfft_stockham, lambda: torch.cat(fk.rfft_stockham(xr.float())),
+                             torch.cat(fk.rfft_stockham_ref(xr)), torch.cat([sr, si])))
+                runs.append((fk.irfft_stockham,
+                             lambda: fk.irfft_stockham(sr.float(), si.float(), n),
+                             fk.irfft_stockham_ref(sr, si, n), xr))
+            parts = []
+            for kernel, launch, ref, lib_ref in runs:
+                before = kernel.launches
+                y = launch()
+                torch.cuda.synchronize()
+                snr, snr_lib = snr_db(ref, y), snr_db(lib_ref, y)
+                err = float((y.double() - ref).abs().max())
+                rec = record.setdefault(kernel.__name__, dict(max_abs_err=0.0, min_snr_db=np.inf))
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                rec["min_snr_db"] = min(rec["min_snr_db"], snr)
+                worst[kernel.__name__] = min(worst.get(kernel.__name__, np.inf), snr, snr_lib)
+                parts.append(f"{kernel.__name__} {snr:.2f}/{snr_lib:.2f}")
+                if not (tuple(y.shape) == tuple(ref.shape) and bool(torch.isfinite(y).all())
+                        and min(snr, snr_lib) >= LINEAR_MIN_DB
+                        and kernel.launches == before + 1):
+                    raise SystemExit(f"phase 14 failed: {kernel.__name__} n={n} b={b} "
+                                     f"snr={snr:.2f} snr_vs_torch_fft={snr_lib:.2f} "
+                                     f"launches={kernel.launches - before}")
+            print(f"[14 kernel] FFT n={n} batch={b}: snr_vs_f64_plain/torch.fft_f64 dB: "
+                  + ", ".join(parts))
+    print(f"[14 kernel] FFT worst reading over n in {FFT_SIZES}, batch in {FFT_BATCHES} "
+          f"(against the float64 plain version and torch.fft float64): "
+          + ", ".join(f"{k} {v:.2f} dB" for k, v in worst.items()))
+
+    noise = np.random.default_rng(1).standard_normal(HEADLINE)
+    for name, x64, kw in (
+            ("tone burst 2x48128 release 0", tone_burst(rng, 2, 48128), {}),
+            ("tone burst 2x48128 release 0.9", tone_burst(rng, 2, 48128), dict(release=0.9)),
+            ("tone burst 2x48128 nfft 2048 hop 512", tone_burst(rng, 2, 48128),
+             dict(nfft=2048, hop=512)),
+            ("tone burst 3x40000+77 ragged", tone_burst(rng, 3, 40077), {}),
+            (f"white noise {HEADLINE[0]}x{HEADLINE[1]}", noise, {})):
+        x64 = torch.as_tensor(x64, device=dev)
+        before = noise_gate_fused.launches
+        y = noise_gate_fused(x64.float(), **kw)
+        torch.cuda.synchronize()
+        g = dict(nfft=kw.get("nfft", NFFT), hop=kw.get("hop", HOP))
+        check_kernel(record, 14, f"noise_gate_fused {name}", y, noise_gate_ref(x64, **kw),
+                     noise_gate_fused, before, 1, SNR_MIN_DB,
+                     f" decision_flips_f32_vs_f64={decision_flips(x64, **g)}")
+
+    # ---- phase 15: the paths through the entry points, each driven with
+    # every count at 0 just before and read just after
+    def counted(fn):
+        reset_counts()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, {k.__name__: k.launches for k in kernels if k.launches}
+
+    for c in (8, HEADLINE[0]):  # config 3: 8 ch x 10 s at 48 kHz; bench.py's 64
+        x = x_main[:c]
+        chain3 = Chain([GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, fused=True)])
+        chain3.build()
+        y, counts = counted(lambda: chain3.full_flush(x))
+        ref = Chain([GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES)]).full_flush(
+            x.double())
+        snr = snr_db(ref, y)
+        line = (f"[15 config 3] Chain([GateStage(fused=True)]).full_flush {tuple(y.shape)} "
+                f"launches={counts} snr_vs_f64_plain={snr:.2f} dB")
+        print(line)
+        if counts != {"noise_gate_fused": 1} or tuple(y.shape) != tuple(x.shape) \
+                or not bool(torch.isfinite(y).all()) or snr < SNR_MIN_DB:
+            raise SystemExit(f"phase 15 failed: {line}")
+        record["noise_gate_fused"]["launches"] = counts["noise_gate_fused"]
+
+    x8 = x_main[:8, :2 * FS]
+    real_ffts = {"rfft_stockham": 1, "irfft_stockham": 1}
+    for name, op, want, bar in (  # op on float32 (the kernels), then float64 (torch.fft)
+            ("GateStage(fused=False).full",
+             GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES).full, real_ffts,
+             SNR_MIN_DB),
+            ("ops.overlap_save", lambda v: overlap_save(v, h, NFFT), real_ffts, LINEAR_MIN_DB),
+            ("ops.fft.fft complex64",
+             lambda v: fft.fft(torch.complex(v, v.flip(-1))[:, :4096]),
+             {"fft_stockham_lanes": 1}, LINEAR_MIN_DB),
+            ("ops.fft.ifft complex64",
+             lambda v: fft.ifft(torch.complex(v, v.flip(-1))[:, :4096]),
+             {"fft_stockham_lanes": 1}, LINEAR_MIN_DB)):
+        y, counts = counted(lambda: op(x8))
+        ref = op(x8.double())
+        if y.is_complex():
+            y, ref = torch.view_as_real(y), torch.view_as_real(ref)
+        snr = snr_db(ref, y)
+        line = f"[15 path] {name} 8x{2 * FS} f32: launches={counts} snr_vs_f64={snr:.2f} dB"
+        print(line)
+        if counts != want or snr < bar:
+            raise SystemExit(f"phase 15 failed: {line}")
+        for k, v in counts.items():
+            record[k]["launches"] = v
+
+    wav_x = (0.5 * tone_burst(rng, 8, 2 * FS)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        p_in = str(Path(tmp) / "in.wav")
+        write_wav(p_in, wav_x, FS, float_fmt=True)
+        for fn, kw, want, bar in (
+                (api.noise_gate_file, {}, {"noise_gate_fused": 1}, SNR_MIN_DB),
+                (api.lowpass_file, dict(cutoff_hz=3000.0),
+                 {"rfft_stockham": 1, "irfft_stockham": 1}, LINEAR_MIN_DB),
+                (api.bandpass_file, dict(lo_hz=300.0, hi_hz=3000.0), {"fir_mac": 1},
+                 LINEAR_MIN_DB),
+                (api.envelope_file, {}, {"fir_mac": 1}, LINEAR_MIN_DB)):
+            outs = {}
+            for d in ("cuda", "cpu"):
+                out = str(Path(tmp) / f"{d}.wav")
+                y, counts = counted(lambda: fn(p_in, out, device=d, float_fmt=True, **kw))
+                if d == "cuda":
+                    launched = counts
+                outs[d] = read_wav(out, dtype=np.float64)[0]
+            snr = snr_db(outs["cpu"], outs["cuda"])
+            line = (f"[15 api.{fn.__name__}] 8x{2 * FS} {kw}: launches={launched} "
+                    f"shape={outs['cuda'].shape} snr_vs_cpu_plain={snr:.2f} dB")
+            print(line)
+            if launched != want or snr < bar or outs["cuda"].shape != outs["cpu"].shape:
+                raise SystemExit(f"phase 15 failed: {line}")
+
+    def bench_true(v):  # bench.py's True mode: two fused kernels
+        return noise_gate_fused(overlap_save_fused(v, h, NFFT), NFFT, HOP,
+                                noise_frames=NOISE_FRAMES)
+
+    def bench_false(v):  # bench.py's False mode: the unfused ops (Stockham FFTs)
+        return noise_gate(overlap_save(v, h, NFFT), NFFT, HOP, noise_frames=NOISE_FRAMES)
+
+    y, counts = counted(lambda: bench_true(x_main))
+    y_false, counts_false = counted(lambda: bench_false(x_main))
+    ref = fir_noise_gate_fused(x_main, h)
+    snr, snr_false = snr_db(ref, y), snr_db(ref, y_false)
+    line = (f"[15 bench modes] {HEADLINE[0]}x{HEADLINE[1]} tone bursts: True launches={counts} "
+            f"snr_vs_fir_noise_gate_fused={snr:.2f} dB; False launches={counts_false} "
+            f"snr_vs_fir_noise_gate_fused={snr_false:.2f} dB")
+    print(line)
+    if (counts != {"overlap_save_fused": 1, "noise_gate_fused": 1}
+            or counts_false != {"rfft_stockham": 2, "irfft_stockham": 2}
+            or min(snr, snr_false) < SNR_MIN_DB):
+        raise SystemExit(f"phase 15 failed: {line}")
+
+    # ---- phase 16: times
+    src = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)  # 256 MB
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src))
+    copy_bw = 2 * src.numel() * 4 / copy_ms * 1e3
+    print(f"[16 times] copy probe (read + write 256 MB) on {smi}: {copy_ms:.4f} ms, "
+          f"{copy_bw / 1e12:.4f} TB/s = {copy_bw / PEAK_BYTES_S * 100:.1f} % of 3.35 TB/s")
+    del src, dst
+    for n in (1024, 4096):
+        xr = torch.randn(FFT_TIMED, n, device=dev)
+        xi = torch.randn(FFT_TIMED, n, device=dev)
+        z = torch.complex(xr, xi)
+        sr, si = fk.rfft_stockham(xr)
+        spec = torch.complex(sr, si)
+        b = FFT_TIMED
+        for kernel, call, plain, lib, nbytes, flops in (
+                (fk.fft_stockham_lanes, lambda: fk.fft_stockham_lanes(xr, xi, -1.0),
+                 lambda: fk.fft_stockham_lanes_ref(xr, xi, -1.0), lambda: torch.fft.fft(z),
+                 16 * b * n, b * fft_flops(n)),
+                (fk.rfft_stockham, lambda: fk.rfft_stockham(xr), lambda: fk.rfft_stockham_ref(xr),
+                 lambda: torch.fft.rfft(xr), 4 * b * (n + 2 * (n // 2 + 1)),
+                 b * fft_flops(n, 0.5)),
+                (fk.irfft_stockham, lambda: fk.irfft_stockham(sr, si, n),
+                 lambda: fk.irfft_stockham_ref(sr, si, n), lambda: torch.fft.irfft(spec, n),
+                 4 * b * (n + 2 * (n // 2 + 1)), b * fft_flops(n, 0.5))):
+            ms, plain_ms, lib_ms = time_ms(call), time_ms(plain), time_ms(lib)
+            rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
+            set_bound(rec, nbytes, flops)
+            bw = nbytes / ms * 1e3
+            print(f"[16 times] {kernel.__name__} {b}x{n} f32 on {smi}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, torch.fft (library) {lib_ms:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); {bw / 1e9:.1f} GB/s = "
+                  f"{bw / copy_bw * 100:.1f} % of the copy probe, "
+                  f"{bw / PEAK_BYTES_S * 100:.1f} % of 3.35 TB/s")
+            if n == 1024:
+                record[kernel.__name__].update(rec)
+    for c in (8, HEADLINE[0]):
+        xn = torch.as_tensor(np.random.default_rng(0).standard_normal((c, HEADLINE[1])),
+                             dtype=torch.float32, device=dev)
+        ms = time_ms(lambda: noise_gate_fused(xn))
+        plain_ms = time_ms(lambda: noise_gate_ref(xn))
+        frames = 1 + (HEADLINE[1] - NFFT) // HOP
+        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=None)
+        set_bound(rec, 4 * c * (HEADLINE[1] + NFFT + (frames - 1) * HOP),
+                  c * fft_flops(NFFT, frames))
+        print(f"[16 times] noise_gate_fused {c}x{HEADLINE[1]} f32 white noise on {smi}: "
+              f"kernel {ms:.4f} ms ({c * HEADLINE[1] / ms * 1e3:.4e} samples/s), plain "
+              f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        if c == HEADLINE[0]:
+            record["noise_gate_fused"].update(rec)
+            true_ms, false_ms = time_ms(lambda: bench_true(xn)), time_ms(lambda: bench_false(xn))
+            print(f"[16 times] bench.py modes through the port, {c}x{HEADLINE[1]} f32 white "
+                  f"noise on {smi}: True (overlap_save_fused + noise_gate_fused) "
+                  f"{true_ms:.4f} ms, False (ops with Stockham FFTs) {false_ms:.4f} ms")
+    for k, src_, rep in (("noise_gate_fused", "gate_kernel.cu", "gate_kernel.py:188"),
+                         ("fft_stockham_lanes", "fft_kernel.cu", "fft_kernel.py:1147"),
+                         ("rfft_stockham", "fft_kernel.cu", "fft_kernel.py:1486"),
+                         ("irfft_stockham", "fft_kernel.cu", "fft_kernel.py:1568")):
+        record[k].update(source=src_, replaces=rep)
+
+
+def earlier_bounds(record, h, h_env, xn, blocks, res_blocks):
+    """bound_ms and library_ms of the eight kernels of the earlier phases, for
+    the work each timed run did: whole files of HEADLINE (48 kHz) or
+    RES_HEADLINE -> RES_OUT (config 5), and drained streams of ``blocks``
+    blocks of BLOCK (48 kHz) or ``res_blocks`` of RES_BLOCK (config 5)."""
+    from audiosignalprocess_tpu_torch.ops.resample import resample_filter
+
+    c, n = HEADLINE
+    nk = -(-len(resample_filter(UP, DOWN)) // UP)
+    frames = 1 + (n - NFFT) // HOP
+    sn = blocks * BLOCK  # a stream's samples per channel (in and out)
+    s_frames = sn // HOP
+    res_in, res_out = res_blocks * RES_BLOCK, res_blocks * (RES_BLOCK * UP // DOWN)
+    res_frames = 1 + (RES_OUT - NFFT) // HOP
+    work = {  # kernel: (bytes, operations)
+        "fir_noise_gate_fused": (8 * c * n, chain_flops(c, n, frames)),
+        "fir_gate_step_fused": (8 * c * sn, chain_flops(c, sn, s_frames)),
+        "gate_step_fused": (8 * c * sn, c * fft_flops(NFFT, s_frames)),
+        "overlap_save_fused": (8 * c * sn, chain_flops(c, sn, 0)),
+        "fir_mac": (8 * c * sn, 2.0 * len(h_env) * c * sn),
+        "resample_mac": (4 * c * (RES_HEADLINE[1] + RES_OUT), 2.0 * nk * c * RES_OUT),
+        "resample_fir_gate_fused": (4 * c * (RES_HEADLINE[1] + RES_OUT),
+                                    2.0 * nk * c * RES_OUT + chain_flops(c, RES_OUT, res_frames)),
+        "res_fir_gate_step_fused": (4 * c * (res_in + res_out),
+                                    2.0 * nk * c * res_out
+                                    + chain_flops(c, res_out, res_out // HOP)),
+    }
+    for k, (nbytes, flops) in work.items():
+        set_bound(record[k], nbytes, flops)
+        record[k].setdefault("library_ms", None)
+    record["fir_mac"]["library_ms"] = conv_ms(xn, h_env)
+    record["overlap_save_fused"]["library_ms"] = conv_ms(xn, h)
+
+
 def main() -> int:
     # ---- phase 1: environment
     if not torch.cuda.is_available():
@@ -434,11 +756,14 @@ def main() -> int:
     from audiosignalprocess_tpu_torch import api
     from audiosignalprocess_tpu_torch.io.wav import read_wav, write_wav
     from audiosignalprocess_tpu_torch.kernels import _build
+    from audiosignalprocess_tpu_torch.kernels import fft_kernel as fk
     from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
         fir_gate_step_fused, fir_noise_gate_fused, fir_noise_gate_ref,
     )
     from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac, fir_mac_ref
-    from audiosignalprocess_tpu_torch.kernels.gate_kernel import gate_step_fused
+    from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
+        gate_step_fused, noise_gate_fused,
+    )
     from audiosignalprocess_tpu_torch.kernels.os_kernel import (
         overlap_save_fused, overlap_save_ref,
     )
@@ -448,13 +773,14 @@ def main() -> int:
     from audiosignalprocess_tpu_torch.kernels.resample_kernel import resample_mac
     from audiosignalprocess_tpu_torch.ops.fir import design_fir
     from audiosignalprocess_tpu_torch.pipeline import (
-        Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage,
+        Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage, ResFIRGateStage,
     )
     from audiosignalprocess_tpu_torch.utils.metrics import snr_db
 
     kernels = (fir_noise_gate_fused, fir_gate_step_fused, gate_step_fused,
                overlap_save_fused, fir_mac, resample_mac, resample_fir_gate_fused,
-               res_fir_gate_step_fused)
+               res_fir_gate_step_fused, noise_gate_fused, fk.fft_stockham_lanes,
+               fk.rfft_stockham, fk.irfft_stockham)
 
     def reset_counts():
         for k in kernels:
@@ -618,8 +944,10 @@ def main() -> int:
                                   env_h=h_env)])
 
     def path_b(fused):
-        return Chain([FIRStage(h=h, nfft=NFFT, fused=fused),
-                      GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, fused=fused),
+        impl = "auto" if fused else "torch"
+        return Chain([FIRStage(h=h, nfft=NFFT, fused=fused, impl=impl),
+                      GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, fused=fused,
+                                impl=impl),
                       EnvelopeStage(h_env, fused=fused)])
 
     runs = {}
@@ -676,11 +1004,13 @@ def main() -> int:
     # noise), each kernel's path against the same stream through the plain
     # versions (float32 on the card)
     def gate_only(fused):
-        return Chain([GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, fused=fused)])
+        return Chain([GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, fused=fused,
+                                impl="torch")])
 
     def fir_gate(fused):
-        return Chain([FIRStage(h=h, nfft=NFFT, fused=fused),
-                      GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, fused=fused)])
+        return Chain([FIRStage(h=h, nfft=NFFT, fused=fused, impl="torch"),
+                      GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, fused=fused,
+                                impl="torch")])
 
     timed = [  # (name, kernel chain, plain chain)
         ("path A", path_a, fir_gate(False)),
@@ -688,7 +1018,7 @@ def main() -> int:
         ("path B", path_b(True), path_b(False)),
         ("gate_step_fused", gate_only(True), gate_only(False)),
         ("overlap_save_fused", Chain([FIRStage(h=h, nfft=NFFT, fused=True)]),
-         Chain([FIRStage(h=h, nfft=NFFT)])),
+         Chain([FIRStage(h=h, nfft=NFFT, impl="torch")])),
         ("fir_mac", Chain([EnvelopeStage(h_env, fused=True)]), Chain([EnvelopeStage(h_env)])),
     ]
     times = {}
@@ -716,6 +1046,11 @@ def main() -> int:
     record["fir_mac"].update(source="fir_kernel.cu", replaces="fir_kernel.py:65")
 
     resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x)
+    gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_dev, h)
+    res_c = Chain([ResFIRGateStage(UP, DOWN, h=h, nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES)])
+    res_c.build()
+    earlier_bounds(record, h, h_env, xn, path_a.drain_blocks(n, BLOCK),
+                   res_c.drain_blocks(RES_HEADLINE[1], RES_BLOCK))
 
     print(json.dumps({"kernels": [{
         "name": name,
@@ -727,6 +1062,9 @@ def main() -> int:
         "min_snr_db": r["min_snr_db"],
         "ms": r["ms"],
         "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
     } for name, r in record.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,21 +6,26 @@ installed:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py
 
-Bars: the linear kernels (fir_mac, overlap_save_fused, resample_mac)
->= 100 dB against their float64 plain versions; everything with the gate
->= 60 dB, because its hard thresholds flip a few borderline bins under
-float32 rounding.
+Bars: the linear kernels (fir_mac, overlap_save_fused, resample_mac and
+the FFTs) >= 100 dB against their float64 plain versions; everything with
+the gate >= 60 dB, because its hard thresholds flip a few borderline bins
+under float32 rounding.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from audiosignalprocess_tpu_torch import api
+from audiosignalprocess_tpu_torch.io.wav import read_wav, write_wav
+from audiosignalprocess_tpu_torch.kernels import fft_kernel as fk
 from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
     fir_gate_step_fused, fir_gate_step_ref, fir_noise_gate_fused, fir_noise_gate_ref,
 )
 from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac, fir_mac_ref
-from audiosignalprocess_tpu_torch.kernels.gate_kernel import gate_step_fused
+from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
+    gate_step_fused, noise_gate_fused, noise_gate_ref,
+)
 from audiosignalprocess_tpu_torch.kernels.os_kernel import (
     overlap_save_fused, overlap_save_ref,
 )
@@ -31,7 +36,9 @@ from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import (
 from audiosignalprocess_tpu_torch.kernels.resample_kernel import (
     resample_mac, resample_mac_ref,
 )
+from audiosignalprocess_tpu_torch.ops import fft
 from audiosignalprocess_tpu_torch.ops.fir import design_fir
+from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.ops.resample import history_len, resample_filter
 from audiosignalprocess_tpu_torch.pipeline import (
     Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage, ResampleStage,
@@ -47,6 +54,22 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def _all_counters():
+    """Every kernel wrapper of the port (each counts its launches)."""
+    return (fir_noise_gate_fused, fir_gate_step_fused, gate_step_fused, overlap_save_fused,
+            fir_mac, resample_mac, resample_fir_gate_fused, res_fir_gate_step_fused,
+            noise_gate_fused, fk.fft_stockham_lanes, fk.rfft_stockham, fk.irfft_stockham)
+
+
+def _launches(fn):
+    """fn()'s launches of each kernel, by name (those it launched)."""
+    before = {k.__name__: k.launches for k in _all_counters()}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches - before[k.__name__] for k in _all_counters()
+                 if k.launches != before[k.__name__]}
 
 
 def _tone_burst(rng, c, n, fs=48000):
@@ -235,15 +258,30 @@ def _res_fir_gate_step_f64(x):
     lambda x: resample_mac(x, 160, 147),
     lambda x: resample_fir_gate_fused(x, 160, 147, design_fir(64, 0.3)),
     _res_fir_gate_step_f64,
+    noise_gate_fused,
+    lambda x: fk.fft_stockham_lanes(x, x, -1.0),
+    fk.rfft_stockham,
+    lambda x: fk.irfft_stockham(x[:, :2049], x[:, :2049], 4096),
 ])
 def test_new_kernels_raise_on_float64(card, call):
     with pytest.raises(ValueError, match="float32"):
         call(torch.zeros(1, 4096, dtype=torch.float64, device=card))
 
 
-def test_gate_stage_fused_full_raises_on_card(card):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        GateStage(fused=True).full(torch.zeros(1, 8192, device=card))
+def test_gate_stage_fused_full_launches_one_kernel(card):
+    """GateStage(fused=True).full on a CUDA float32 tensor: one
+    noise_gate_fused and no other kernel, >= 60 dB against float64."""
+    rng = np.random.default_rng(62)
+    x = torch.as_tensor(_tone_burst(rng, 3, 40000), device=card)
+    counters = _all_counters()
+    before = [k.launches for k in counters]
+    y = GateStage(noise_frames=4, fused=True).full(x.float())
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [
+        int(k is noise_gate_fused) for k in counters]
+    ref = GateStage(noise_frames=4).full(x)
+    assert y.shape == ref.shape == (3, 40000) and bool(torch.isfinite(y).all())
+    assert snr_db(ref, y) >= 60.0
 
 
 @pytest.mark.parametrize("up,down", [(160, 147), (147, 160), (2, 1), (1, 2), (3, 4)])
@@ -363,3 +401,98 @@ def test_res_carry_switches_between_kernel_and_plain(card):
             st = [s0]
         ys.append(y)
     assert snr_db(ref, torch.cat(ys, dim=-1)) >= 60.0
+
+
+@pytest.mark.parametrize("n", (2, 4, 8, 256, 1024, 4096, 16384))
+@pytest.mark.parametrize("batch", (1, 100, 300))
+def test_fft_kernels_vs_plain(card, n, batch):
+    """fft_stockham_lanes (both signs), rfft_stockham and irfft_stockham in
+    float32 against their float64 plain versions: >= 100 dB, one launch
+    each; n = 16384 runs the complex kernel on buffers in device memory."""
+    rng = np.random.default_rng(63)
+    xr = torch.as_tensor(rng.standard_normal((batch, n)), device=card)
+    xi = torch.as_tensor(rng.standard_normal((batch, n)), device=card)
+    for sign in (-1.0, 1.0):
+        (yr, yi), k = _launches(lambda: fk.fft_stockham_lanes(xr.float(), xi.float(), sign))
+        assert k == {"fft_stockham_lanes": 1}
+        rr, ri = fk.fft_stockham_lanes_ref(xr, xi, sign)
+        assert snr_db(torch.cat([rr, ri]), torch.cat([yr, yi])) >= 100.0
+    if n < 4:
+        return
+    (sr, si), k = _launches(lambda: fk.rfft_stockham(xr.float()))
+    assert k == {"rfft_stockham": 1} and sr.shape == (batch, n // 2 + 1)
+    rr, ri = fk.rfft_stockham_ref(xr)
+    assert snr_db(torch.cat([rr, ri]), torch.cat([sr, si])) >= 100.0
+    # edge bins with imaginary parts: dropped, as torch.fft.irfft drops them
+    ri = ri + xi[:, : n // 2 + 1]
+    y, k = _launches(lambda: fk.irfft_stockham(rr.float(), ri.float(), n))
+    assert k == {"irfft_stockham": 1} and y.shape == (batch, n)
+    assert snr_db(fk.irfft_stockham_ref(rr, ri, n), y) >= 100.0
+    assert snr_db(torch.fft.irfft(torch.complex(rr, ri), n), y) >= 100.0
+
+
+def test_ops_fft_auto_launches_one_kernel(card):
+    """ops.fft with the default impl on CUDA float32: one Stockham launch
+    per transform; float64 stays on torch.fft with none."""
+    rng = np.random.default_rng(64)
+    x = torch.as_tensor(rng.standard_normal((2, 3, 1024)), device=card)
+    z = torch.complex(x, x.flip(-1))
+    for call, name in ((lambda: fft.fft(z.to(torch.complex64)), "fft_stockham_lanes"),
+                       (lambda: fft.ifft(z.to(torch.complex64)), "fft_stockham_lanes"),
+                       (lambda: fft.rfft(x.float()), "rfft_stockham"),
+                       (lambda: fft.irfft(torch.fft.rfft(x).to(torch.complex64), 1024),
+                        "irfft_stockham")):
+        _, k = _launches(call)
+        assert k == {name: 1}
+    out, k = _launches(lambda: (fft.fft(z), fft.rfft(x)))
+    assert k == {}
+    assert snr_db(torch.view_as_real(torch.fft.fft(z)),
+                  torch.view_as_real(fft.fft(z.to(torch.complex64)))) >= 100.0
+
+
+def test_unfused_gate_and_overlap_save_launch_the_real_ffts(card):
+    """GateStage(fused=False).full and ops.overlap_save on CUDA float32: one
+    rfft_stockham and one irfft_stockham, nothing else."""
+    rng = np.random.default_rng(65)
+    x = torch.as_tensor(_tone_burst(rng, 3, 40000), device=card)
+    y, k = _launches(lambda: GateStage(noise_frames=4).full(x.float()))
+    assert k == {"rfft_stockham": 1, "irfft_stockham": 1}
+    assert snr_db(GateStage(noise_frames=4).full(x), y) >= 60.0
+    h = design_fir(64, 0.3)
+    y, k = _launches(lambda: overlap_save(x.float(), h, 1024))
+    assert k == {"rfft_stockham": 1, "irfft_stockham": 1}
+    assert snr_db(overlap_save(x, h, 1024), y) >= 100.0
+
+
+@pytest.mark.parametrize("c,n,nfft,hop,release", [
+    (3, 48128, 1024, 256, 0.0), (3, 48128, 1024, 256, 0.9), (2, 40960 + 333, 2048, 512, 0.0),
+    (2, 30000, 512, 128, 0.5),
+])
+def test_noise_gate_kernel_vs_plain(card, c, n, nfft, hop, release):
+    """noise_gate_fused float32 against its float64 plain version: exact
+    length, finite, >= 60 dB, one launch and no other kernel."""
+    rng = np.random.default_rng(66)
+    x = torch.as_tensor(_tone_burst(rng, c, n), device=card)
+    y, k = _launches(lambda: noise_gate_fused(x.float(), nfft, hop, release=release))
+    assert k == {"noise_gate_fused": 1}
+    ref = noise_gate_ref(x, nfft, hop, release=release)
+    assert y.shape == ref.shape == (c, nfft + ((n - nfft) // hop) * hop)
+    assert bool(torch.isfinite(y).all()) and snr_db(ref, y) >= 60.0
+
+
+@pytest.mark.parametrize("name,kw,bar", [
+    ("noise_gate_file", {}, 60.0), ("lowpass_file", dict(cutoff_hz=3000.0), 100.0),
+    ("bandpass_file", dict(lo_hz=300.0, hi_hz=3000.0), 100.0),
+    ("envelope_file", {}, 100.0),
+])
+def test_one_shots_cuda_vs_cpu(card, tmp_path, name, kw, bar):
+    rng = np.random.default_rng(67)
+    p = str(tmp_path / "in.wav")
+    write_wav(p, (0.5 * _tone_burst(rng, 2, 48000)).astype(np.float32), 48000,
+              float_fmt=True)
+    outs = {}
+    for d in ("cuda", "cpu"):
+        getattr(api, name)(p, str(tmp_path / f"{d}.wav"), device=d, float_fmt=True, **kw)
+        outs[d] = read_wav(str(tmp_path / f"{d}.wav"), dtype=np.float64)[0]
+    assert outs["cuda"].shape == outs["cpu"].shape
+    assert snr_db(outs["cpu"], outs["cuda"]) >= bar

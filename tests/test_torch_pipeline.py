@@ -5,7 +5,6 @@ import dataclasses
 import os
 import subprocess
 import sys
-from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -71,14 +70,19 @@ def test_f32_routes_through_fused_wrapper():
 def test_from_params_rejects_what_is_not_ported():
     """A stage class the port does not have yet (the phase vocoder's
     StretchStage) raises; the whole-file noise_gate_fused behind
-    GateStage(fused=True).full raises for a CUDA tensor (a stand-in here:
-    the stage decides by ``is_cuda`` before it reads the data)."""
+    GateStage(fused=True).full, once missing, now runs: a JAX GateStage
+    with fused=True carries over and gates like the JAX one (float64)."""
     with pytest.raises(ValueError, match="unknown stage"):
         pipeline.Chain.from_params([dict(stage="StretchStage")])
     assert {"ResampleStage", "ResFIRGateStage"} <= set(pipeline.STAGES)
-    on_card = SimpleNamespace(is_cuda=True, shape=(1, 8192))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        pipeline.GateStage(fused=True).full(on_card)
+    jax_stage = jax_pipeline.GateStage(noise_frames=4, fused=True)
+    chain = pipeline.Chain.from_params([dict(dataclasses.asdict(jax_stage), stage="GateStage")])
+    assert chain.stages[0].fused and chain.stages[0].impl == "auto"
+    x = _signal(np.random.default_rng(28), 2, 9000)
+    np.testing.assert_allclose(
+        chain.full_flush(torch.as_tensor(x)).numpy(),
+        np.asarray(jax_pipeline.Chain([jax_stage]).full_flush(jnp.asarray(x))),
+        rtol=1e-8, atol=1e-10)
 
 
 @pytest.mark.parametrize("release", (0.0, 0.6))
@@ -108,7 +112,7 @@ def test_chain_file_vs_jax(tmp_path):
     p = str(tmp_path / "in.wav")
     write_wav(p, x, 48000)
     out, ref = str(tmp_path / "port.wav"), str(tmp_path / "jax.wav")
-    shape = api.chain_file(p, out, rate_out=48000, noise_frames=4)
+    shape = api.chain_file(p, out, rate_out=48000, noise_frames=4, device="cpu")
     jax_api.chain_file(p, ref, rate_out=48000, noise_frames=4)
     y, rate = read_wav(out, dtype=np.float64)
     y_ref, rate_ref = jax_read_wav(ref, dtype=np.float64)
@@ -130,7 +134,7 @@ def test_chain_file_not_ported_raises(tmp_path, kw):
     p = str(tmp_path / "in.wav")
     write_wav(p, x, rate)
     out, ref = str(tmp_path / "port.wav"), str(tmp_path / "jax.wav")
-    shape = api.chain_file(p, out, noise_frames=4, **kw)
+    shape = api.chain_file(p, out, noise_frames=4, device="cpu", **kw)
     jax_api.chain_file(p, ref, noise_frames=4, **kw)
     y, rate_y = read_wav(out, dtype=np.float64)
     y_ref, rate_ref = jax_read_wav(ref, dtype=np.float64)
@@ -148,7 +152,7 @@ def test_resample_file_vs_jax(tmp_path, rate, rate_out):
     p = str(tmp_path / "in.wav")
     write_wav(p, x, rate, float_fmt=True)
     out, ref = str(tmp_path / "port.wav"), str(tmp_path / "jax.wav")
-    shape = api.resample_file(p, out, rate_out, float_fmt=True)
+    shape = api.resample_file(p, out, rate_out, device="cpu", float_fmt=True)
     jax_api.resample_file(p, ref, rate_out, float_fmt=True)
     y, rate_y = read_wav(out, dtype=np.float64)
     y_ref, rate_ref = jax_read_wav(ref, dtype=np.float64)
@@ -164,7 +168,7 @@ def test_chain_file_streaming_and_envelope_vs_jax(tmp_path, kw):
     p = str(tmp_path / "in.wav")
     write_wav(p, x, 48000)
     out, ref = str(tmp_path / "port.wav"), str(tmp_path / "jax.wav")
-    shape = api.chain_file(p, out, noise_frames=4, **kw)
+    shape = api.chain_file(p, out, noise_frames=4, device="cpu", **kw)
     jax_api.chain_file(p, ref, noise_frames=4, **kw)
     y, rate = read_wav(out, dtype=np.float64)
     y_ref, _ = jax_read_wav(ref, dtype=np.float64)
@@ -188,7 +192,11 @@ def test_port_imports_no_jax():
 def test_kernel_module_imports_without_nvcc():
     proc = _run("from audiosignalprocess_tpu_torch.kernels import chain_kernel as ck, "
                 "gate_kernel as gk, fir_kernel as fk, os_kernel as ok, "
-                "resample_kernel as rk, res_chain_kernel as rc; "
+                "resample_kernel as rk, res_chain_kernel as rc, fft_kernel as ff; "
+                "assert gk.noise_gate_fused.launches == 0; "
+                "assert ff.fft_stockham_lanes.launches == 0; "
+                "assert ff.rfft_stockham.launches == 0; "
+                "assert ff.irfft_stockham.launches == 0; "
                 "assert ck.fir_noise_gate_fused.launches == 0; "
                 "assert ck.fir_gate_step_fused.launches == 0; "
                 "assert gk.gate_step_fused.launches == 0; "
