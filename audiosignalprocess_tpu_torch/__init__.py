@@ -9,18 +9,21 @@ Ported so far: windows, FIR design and direct-form filtering, the FFT
 family (``ops.fft``: torch.fft, radix-2, split-radix and the hand-written
 Stockham kernels, ``auto`` picking the kernels for CUDA float32),
 STFT/ISTFT, overlap-save, the polyphase resampler, the spectral noise
-gate, the envelope effects, the (resample ->) FIR -> gate (-> envelope)
-chain in ``pipeline.Chain`` with whole-file and block-streaming modes
-(``FIRStage``, ``GateStage``, ``EnvelopeStage``, ``FIRGateStage``,
-``ResampleStage``, ``ResFIRGateStage``), checkpointable carries, WAV I/O
-and the one-shots ``api.chain_file``, ``api.resample_file``,
-``api.lowpass_file``, ``api.bandpass_file``, ``api.noise_gate_file`` and
-``api.envelope_file``, which run on the GPU unless told ``device="cpu"``.
-Hand-written kernels (``kernels/``): ``fir_noise_gate_fused``,
-``fir_gate_step_fused``, ``gate_step_fused``, ``overlap_save_fused``,
-``fir_mac``, ``resample_mac``, ``resample_fir_gate_fused``,
-``res_fir_gate_step_fused``, ``noise_gate_fused``, ``fft_stockham_lanes``,
-``rfft_stockham`` and ``irfft_stockham``.
+gate, the envelope effects, the phase vocoder (``effects.time_stretch``,
+``effects.pitch_shift``), the (resample ->) FIR -> gate (-> envelope)
+chain and the streaming vocoder in ``pipeline.Chain`` with whole-file and
+block-streaming modes (``FIRStage``, ``GateStage``, ``EnvelopeStage``,
+``FIRGateStage``, ``ResampleStage``, ``ResFIRGateStage``,
+``StretchStage``), checkpointable carries, WAV I/O and the one-shots
+``api.chain_file``, ``api.resample_file``, ``api.lowpass_file``,
+``api.bandpass_file``, ``api.noise_gate_file``, ``api.envelope_file``,
+``api.time_stretch_file`` and ``api.pitch_shift_file``, which run on the
+GPU unless told ``device="cpu"``.  Hand-written kernels (``kernels/``):
+``fir_noise_gate_fused``, ``fir_gate_step_fused``, ``gate_step_fused``,
+``overlap_save_fused``, ``fir_mac``, ``resample_mac``,
+``resample_fir_gate_fused``, ``res_fir_gate_step_fused``,
+``noise_gate_fused``, ``fft_stockham_lanes``, ``rfft_stockham``,
+``irfft_stockham`` and ``stretch_step_fused``.
 """
 
 __version__ = "0.1.0"

@@ -8,13 +8,15 @@ own error.
     api.noise_gate_file("noisy.wav", "clean.wav")
     api.lowpass_file("in.wav", "low.wav", cutoff_hz=2000)
     api.resample_file("cd.wav", "dat.wav", rate_out=48000, device="cpu")
+    api.pitch_shift_file("voice.wav", "high.wav", semitones=4)
 
 ``chain_file``: resample to ``rate_out`` (when the file is at another
 rate) -> FIR lowpass -> noise gate (-> envelope), whole file or
 block-streamed.  ``resample_file``: the resampler alone.  The one-shots
 of the JAX package's ``api``: ``lowpass_file`` (config 1),
-``bandpass_file`` (config 2's filter), ``noise_gate_file`` (config 3) and
-``envelope_file``.
+``bandpass_file`` (config 2's filter), ``noise_gate_file`` (config 3),
+``envelope_file``, and the phase vocoder's ``time_stretch_file`` and
+``pitch_shift_file``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from fractions import Fraction
 import torch
 
 from audiosignalprocess_tpu_torch.effects.noise_gate import noise_gate
+from audiosignalprocess_tpu_torch.effects.phase_vocoder import pitch_shift, time_stretch
 from audiosignalprocess_tpu_torch.io.wav import read_wav, write_wav
 from audiosignalprocess_tpu_torch.ops.fir import design_fir, fir_direct
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
@@ -134,5 +137,29 @@ def envelope_file(path_in: str, path_out: str, cutoff_hz: float = 50.0,
 
     def fn(x, rate):
         return EnvelopeStage(design_fir(numtaps, 2.0 * cutoff_hz / rate), fused=True).full(x)
+
+    return _process(path_in, path_out, fn, device, **wav_kw)
+
+
+def time_stretch_file(path_in: str, path_out: str, rate_factor: float, nfft: int = 1024,
+                      hop: int = 256, device: torch.device | str = "cuda", **wav_kw):
+    """Phase-vocoder time stretch (``rate_factor`` > 1 speeds up): on a
+    CUDA device its STFT and ISTFT run ``rfft_stockham`` and
+    ``irfft_stockham``."""
+
+    def fn(x, rate):
+        return time_stretch(x, rate_factor, nfft, hop)
+
+    return _process(path_in, path_out, fn, device, **wav_kw)
+
+
+def pitch_shift_file(path_in: str, path_out: str, semitones: float, nfft: int = 1024,
+                     hop: int = 256, device: torch.device | str = "cuda", **wav_kw):
+    """Phase-vocoder pitch shift by ``semitones``: on a CUDA device the
+    time stretch's ``rfft_stockham`` and ``irfft_stockham``, then the
+    hand-written ``resample_mac``."""
+
+    def fn(x, rate):
+        return pitch_shift(x, semitones, nfft, hop)
 
     return _process(path_in, path_out, fn, device, **wav_kw)

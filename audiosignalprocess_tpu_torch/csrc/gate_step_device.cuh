@@ -100,7 +100,11 @@ struct RowSrc {
   __device__ __forceinline__ float operator()(int i) const { return row[i]; }
 };
 
-__device__ __forceinline__ float gate_inv_norm(const GateStepArgs& a, int p, int d) {
+// 1 / the streaming WOLA norm at output position p (wola_norm_at of
+// kernels/gate_kernel.py); Args: any argument struct with inv_head,
+// inv_const, eof_out and inv_tail (the gate and stretch steps share it)
+template <class Args>
+__device__ __forceinline__ float gate_inv_norm(const Args& a, int p, int d) {
   float v = p < 0 ? 1.0f : (p < d ? a.inv_head[p] : a.inv_const);
   if (a.eof_out >= 0) {
     if (p >= a.eof_out) v = 1.0f;

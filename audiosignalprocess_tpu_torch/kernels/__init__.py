@@ -20,3 +20,4 @@ from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import (  # noqa: F40
     res_fir_gate_step_fused, resample_fir_gate_fused,
 )
 from audiosignalprocess_tpu_torch.kernels.resample_kernel import resample_mac  # noqa: F401
+from audiosignalprocess_tpu_torch.kernels.stretch_kernel import stretch_step_fused  # noqa: F401

@@ -57,7 +57,7 @@ def _resolve_impl(impl: str, x: torch.Tensor) -> str:
     if impl in _NOT_PORTED:
         raise NotImplementedError(
             f"impl={impl!r} is not ported yet: it waits for the kernel "
-            f"{_NOT_PORTED[impl]} (ROADMAP Queue 2 #3, the FFT variants)")
+            f"{_NOT_PORTED[impl]} (ROADMAP Queue 2 #2, the FFT variants)")
     check(impl in IMPLS, f"unknown FFT impl {impl!r}; one of {IMPLS}")
     if impl == "auto":
         return ("stockham" if x.is_cuda and x.dtype in (torch.float32, torch.complex64)

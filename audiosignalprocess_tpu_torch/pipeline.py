@@ -30,11 +30,13 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field
+from fractions import Fraction
 
 import numpy as np
 import torch
 
 from audiosignalprocess_tpu_torch.effects.noise_gate import noise_gate
+from audiosignalprocess_tpu_torch.effects.phase_vocoder import stretch_spec_rational
 from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
     fir_gate_step_fused, fir_gate_step_ref, fir_noise_gate_fused, history_tail,
 )
@@ -44,12 +46,17 @@ from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
 from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import (
     res_fir_gate_step_fused, res_fir_gate_step_ref, resample_fir_gate_fused,
 )
+from audiosignalprocess_tpu_torch.kernels.stretch_kernel import (
+    stretch_block_frames, stretch_slots, stretch_step_fused, stretch_step_init_state,
+    stretch_step_ref,
+)
 from audiosignalprocess_tpu_torch.ops import fft as fft_ops
 from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.ops.resample import (
     history_len, resample_filter, resample_poly,
 )
+from audiosignalprocess_tpu_torch.ops.stft import istft, stft
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 _NOT_CARRIED = ("impl", "fused", "input_latency")
@@ -498,9 +505,130 @@ class ResFIRGateStage(Stage):
                     env_scale=self.env_scale, **self._fg._gate._step_kw())
 
 
+@dataclass
+class StretchStage(Stage):
+    """Streaming phase-vocoder time stretch at the exact rational rate p/q
+    (analysis frames advanced per synthesis frame; p > q speeds up).
+
+    - Output frame i samples analysis position t_i = i*p/q.  Blocks of m
+      = block/hop frames with m*q % p == 0 emit exactly mo = m*q/p
+      synthesis frames each.
+    - The emission offset ``off`` (warm-up frames, latency/hop) makes
+      frame availability hold for every block and the analysis-FIFO slots
+      of synthesis frame u block-independent (``stretch_slots``).
+    - The phase is a running product of unit rotors carried across
+      blocks; z0, the first true analysis frame's rotor, is captured when
+      its physical frame (``n_skip``) arrives.
+    - WOLA synthesis uses the gate's OLA-tail carry and streaming norm.
+
+    Streaming contract: stream[L:] == full(x)[: emitted - L] for interior
+    samples (the whole-file tail ramp has no streaming counterpart but in
+    a drained stream).  Routes by tensor: with ``fused`` a float32 block
+    runs ``stretch_step_fused`` (the kernel on a CUDA tensor, its plain
+    version on a CPU tensor); float64 runs the plain step on any device.
+    ``full`` runs ``stft`` -> ``stretch_spec_rational`` -> ``istft`` with
+    ``impl`` (a CUDA float32 tensor: one ``rfft_stockham`` and one
+    ``irfft_stockham`` by default).
+    """
+
+    p: int
+    q: int
+    nfft: int = 1024
+    hop: int = 256
+    window_kind: str = "hann"
+    impl: str = fft_ops.DEFAULT_IMPL
+    fused: bool = False
+
+    def __post_init__(self):
+        g = math.gcd(self.p, self.q)
+        self.p //= g
+        self.q //= g
+        check(self.nfft % self.hop == 0, "nfft must be a multiple of hop")
+
+    @classmethod
+    def from_rate(cls, rate: float, max_den: int = 64, **kw) -> StretchStage:
+        """Streaming stage for any (also irrational) float rate: the
+        continued-fraction best approximation p/q with q <= max_den (rate
+        error < 1/(q*max_den)).  Exact float rates on a whole file are
+        ``effects.time_stretch`` / ``pitch_shift``."""
+        check(rate > 0 and math.isfinite(rate), "rate must be finite and > 0")
+        f = Fraction(rate).limit_denominator(max_den)
+        check(f.numerator > 0, f"rate {rate} too small for max_den={max_den}")
+        return cls(p=f.numerator, q=f.denominator, **kw)
+
+    def configure(self, input_latency: int) -> int:
+        check(input_latency % self.hop == 0,
+              f"upstream latency {input_latency} not a multiple of hop={self.hop}")
+        self.input_latency = input_latency
+        # physical frames (starting at stream position -d) before the first
+        # true analysis frame
+        self.n_skip = (input_latency + self.nfft - self.hop) // self.hop
+        # smallest block-independent warm-up with
+        # (mo-1-off)*p < (m - n_skip - 1)*q for every block
+        self.off = -(-((self.n_skip + 1) * self.q + 1) // self.p) - 1
+        self.latency = self.off * self.hop
+        return self.latency
+
+    def out_block(self, b: int) -> int:
+        return stretch_block_frames(b, self.hop, self.p, self.q)[1] * self.hop
+
+    def out_len(self, n: int) -> int:
+        return n * self.q // self.p
+
+    def tail_width(self, t: int) -> int:
+        # frame overlap + analysis-slot lookahead + frame truncation
+        return -(-t * self.q // self.p) + self.nfft + self.hop
+
+    def set_eof(self, n_in: int) -> None:
+        d = self.nfft - self.hop
+        check(n_in >= self.nfft + self.hop,
+              f"drain needs >= two complete analysis frames "
+              f"(nfft+hop={self.nfft + self.hop}), got {n_in}; use full()")
+        check(self.nfft + (self._nof(n_in) - 1) * self.hop >= 2 * d,
+              "drain needs disjoint WOLA edge ramps; use full()")
+        self._eof_n = n_in
+
+    def _nof(self, n_in: int) -> int:
+        """The whole file's output frame count (``stretch_steps_rational``:
+        nf complete analysis frames give nf-1 slot pairs)."""
+        nf = (n_in - self.nfft) // self.hop + 1
+        return 0 if nf < 2 else ((nf - 1) * self.q - 1) // self.p + 1
+
+    def _eof_frames_out(self) -> int | None:
+        return None if self._eof_n is None else self._nof(self._eof_n)
+
+    def full(self, x):
+        spec = stft(x, self.nfft, self.hop, self.window_kind, impl=self.impl)
+        out = stretch_spec_rational(spec, self.p, self.q, self.nfft, self.hop)
+        y = istft(out, self.nfft, self.hop, self.window_kind, impl=self.impl)
+        target = x.shape[-1] * self.q // self.p
+        return (_pad_to(y, target) if y.shape[-1] < target else y)[..., :target]
+
+    def _slots(self, m: int):
+        """Static FIFO geometry for blocks of m frames: (depth, slot[u],
+        frac[u])."""
+        return stretch_slots(m, self.p, self.q, self.n_skip, self.off)
+
+    def _step_kw(self) -> dict:
+        return dict(nfft=self.nfft, hop=self.hop, p=self.p, q=self.q,
+                    n_skip=self.n_skip, off=self.off, window_kind=self.window_kind,
+                    eof_frames_out=self._eof_frames_out())
+
+    def init_state(self, batch, block, dtype=torch.float32, device=None):
+        m, _ = stretch_block_frames(block, self.hop, self.p, self.q)
+        depth, _, _ = self._slots(m)
+        return stretch_step_init_state(batch, self.nfft, self.hop, depth, dtype, device)
+
+    def step(self, state, x):
+        if self.fused and x.dtype != torch.float64:
+            return stretch_step_fused(x, state, **self._step_kw())
+        return stretch_step_ref(x, state, **self._step_kw())
+
+
 STAGES = {"FIRStage": FIRStage, "EnvelopeStage": FIRStage,
           "GateStage": GateStage, "FIRGateStage": FIRGateStage,
-          "ResampleStage": ResampleStage, "ResFIRGateStage": ResFIRGateStage}
+          "ResampleStage": ResampleStage, "ResFIRGateStage": ResFIRGateStage,
+          "StretchStage": StretchStage}
 """Stage classes ``Chain.from_params`` builds by name (the JAX package's
 ``EnvelopeStage`` is a ``FIRStage`` with ``pre="abs"``)."""
 

@@ -30,7 +30,13 @@ audio, counting the kernel launches of each run:
   ``api.lowpass_file``: ``rfft_stockham`` + ``irfft_stockham``;
   ``ops.fft.fft``/``ifft``: ``fft_stockham_lanes``), ``api.bandpass_file``
   and ``api.envelope_file`` (``fir_mac``), and bench.py's True and False
-  modes through the port.
+  modes through the port;
+- the phase vocoder at 64 x 480000: streams S1 (speed-up 4/3, block
+  4096), S2 (slow-down 3/4, block 4608) and S3 (stretch 1/2 then resample
+  1/2, an octave up): ``stretch_step_fused`` per block (and
+  ``resample_mac`` on S3); the whole-file ``StretchStage.full_flush``,
+  ``api.time_stretch_file`` (``rfft_stockham`` + ``irfft_stockham``) and
+  ``api.pitch_shift_file`` (those and ``resample_mac``).
 
 It times each kernel against its plain version, each path per stream, and
 the FFTs against torch.fft and a copy-bandwidth probe.  Every phase prints
@@ -350,7 +356,7 @@ def resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x48):
             raise SystemExit(f"phase 11 failed: {line}")
     record["resample_fir_gate_fused"]["launches"] = runs["1"][1]["resample_fir_gate_fused"]
     record["res_fir_gate_step_fused"]["launches"] = runs["C"][1]["res_fir_gate_step_fused"]
-    record["resample_mac"]["launches"] = runs["D"][1]["resample_mac"]
+    record["resample_mac"]["launches"] = runs["D whole"][1]["resample_mac"]  # per file, as ms
 
     # ---- phase 12: api.chain_file across rates and api.resample_file,
     # cuda vs cpu
@@ -713,6 +719,178 @@ def gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_main, h):
         record[k].update(source=src_, replaces=rep)
 
 
+STRETCH_M = {(4, 3): 16, (3, 4): 18, (1, 2): 16, (147, 160): 147}  # frames per block
+STRETCH_PATHS = {"S1": ((4, 3), 4096), "S2": ((3, 4), 4608), "S3": ((1, 2), 4096)}
+
+
+def stretch_work(c, n, p, q, block, nfft=NFFT, hop=HOP):
+    """(bytes, operations) of a drained stretch stream of c channels x n
+    samples in blocks of ``block``: per block and channel the input and
+    output read or written once, the tails, z0 and acc read and written
+    once, the old FIFO rows that survive the block (depth - m) read and the
+    whole new FIFO written; m forward and mo inverse real transforms."""
+    from audiosignalprocess_tpu_torch.kernels.stretch_kernel import stretch_slots
+    from audiosignalprocess_tpu_torch.pipeline import Chain, StretchStage
+
+    chain = Chain([StretchStage(p, q, nfft=nfft, hop=hop)])
+    chain.build()
+    st = chain.stages[0]
+    m = block // hop
+    mo, d, nb = m * q // p, nfft - hop, nfft // 2 + 1
+    depth = stretch_slots(m, p, q, st.n_skip, st.off)[0]
+    fifo = 2 * (max(depth - m, 0) + depth) * nb  # re and im
+    per = 4 * (block + mo * hop + 2 * (2 * d + 4 * nb) + fifo)
+    blocks = c * chain.drain_blocks(n, block)
+    return blocks * per, blocks * fft_flops(nfft, 0.5 * (m + mo))
+
+
+def vocoder_phases(dev, smi, record, kernels, reset_counts):
+    """Phases 17-19: the phase vocoder (stretch_step_fused; the whole-file
+    stretch and pitch shift on rfft_stockham, irfft_stockham and
+    resample_mac).  Adds stretch_step_fused to ``record``; raises
+    SystemExit on a failure."""
+    from audiosignalprocess_tpu_torch import api
+    from audiosignalprocess_tpu_torch.io.wav import read_wav, write_wav
+    from audiosignalprocess_tpu_torch.kernels.stretch_kernel import stretch_step_fused
+    from audiosignalprocess_tpu_torch.pipeline import Chain, ResampleStage, StretchStage
+    from audiosignalprocess_tpu_torch.utils.metrics import snr_db
+
+    def counted(fn):
+        reset_counts()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, {k.__name__: k.launches for k in kernels if k.launches}
+
+    # ---- phase 17: the kernel vs its float64 and float32 plain versions
+    # on the card, over the rates and frame sizes of the tests
+    rng = np.random.default_rng(17)
+    geos = [(pq, nh) for pq in STRETCH_M for nh in ((256, 64), (NFFT, HOP), (2048, 512))]
+    rate = StretchStage.from_rate(2.0 ** (1.0 / 3.0), 64)
+    geos.append(((rate.p, rate.q), (256, 64)))
+    worst32 = np.inf
+    for (p, q), (nfft, hop) in geos:
+        block = STRETCH_M.get((p, q), p) * hop
+        for drain in (False, True):
+            n = 5 * block + (321 if drain else 0)
+            x64 = torch.as_tensor(rng.standard_normal((8, n)), device=dev)
+            kern = Chain([StretchStage(p, q, nfft=nfft, hop=hop, fused=True)])
+            plain = Chain([StretchStage(p, q, nfft=nfft, hop=hop)])
+            kern.build()
+            calls = kern.drain_blocks(n, block) if drain else n // block
+            before = stretch_step_fused.launches
+            y = kern.stream(x64.float(), block, drain=drain)
+            torch.cuda.synchronize()
+            s32 = snr_db(plain.stream(x64.float(), block, drain=drain), y)
+            worst32 = min(worst32, s32)
+            check_kernel(record, 17, f"stretch_step_fused {p}/{q} nfft {nfft} hop {hop} "
+                         f"block {block} 8x{n} drain={drain}", y,
+                         plain.stream(x64, block, drain=drain), stretch_step_fused, before,
+                         calls, SNR_MIN_DB, f" snr_vs_f32_plain={s32:.2f} dB")
+            if s32 < 65.0:
+                raise SystemExit(f"phase 17 failed: {s32:.2f} dB against the float32 plain step")
+    print(f"[17 kernel] stretch_step_fused worst reading against the float32 plain step: "
+          f"{worst32:.2f} dB (bar 65 dB)")
+
+    # ---- phase 18: S1-S3, W1 and W2 at the full width (bench.py's white
+    # noise), each driven with every count at 0 just before and read just
+    # after
+    c, n = HEADLINE
+    xn = torch.as_tensor(np.random.default_rng(0).standard_normal(HEADLINE),
+                         dtype=torch.float32, device=dev)
+
+    def path(name):
+        (p, q), _ = STRETCH_PATHS[name]
+        stages = [StretchStage(p, q, nfft=NFFT, hop=HOP, fused=True)]
+        if name == "S3":
+            stages.append(ResampleStage(1, 2, fused=True))
+        return Chain(stages)
+
+    runs = {}
+    for name, (_, block) in STRETCH_PATHS.items():
+        chain = path(name)
+        chain.build()
+        blocks = chain.drain_blocks(n, block)
+        y, counts = counted(lambda: chain.stream(xn, block, drain=True))
+        want = {"stretch_step_fused": blocks}
+        if name == "S3":
+            want["resample_mac"] = blocks
+        snr = snr_db(chain.full_flush(xn.double()), y)
+        line = (f"[18 path {name}] {chain.stages[0].p}/{chain.stages[0].q} "
+                f"Chain.stream(drain=True) block {block} blocks={blocks} {tuple(y.shape)} "
+                f"launches={counts} snr_vs_f64_full_flush={snr:.2f} dB")
+        print(line)
+        if counts != want or tuple(y.shape) != (c, chain.out_len(n)) \
+                or not bool(torch.isfinite(y).all()) or snr < SNR_MIN_DB:
+            raise SystemExit(f"phase 18 failed: {line} (want {want})")
+        runs[name] = counts
+    real = {"rfft_stockham": 1, "irfft_stockham": 1}
+    whole = Chain([StretchStage(4, 3)])
+    whole.build()
+    y, counts = counted(lambda: whole.full_flush(xn))
+    snr = snr_db(whole.full_flush(xn.double()), y)
+    line = (f"[18 path W1] Chain([StretchStage(4, 3)]).full_flush {tuple(y.shape)} "
+            f"launches={counts} snr_vs_f64={snr:.2f} dB")
+    print(line)
+    if counts != real or snr < SNR_MIN_DB or tuple(y.shape) != (c, n * 3 // 4):
+        raise SystemExit(f"phase 18 failed: {line}")
+    wav_x = (0.25 * xn.cpu().numpy()).clip(-1.0, 1.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        p_in = str(Path(tmp) / "in.wav")
+        write_wav(p_in, wav_x, FS, float_fmt=True)
+        for fn, kw, want in ((api.time_stretch_file, dict(rate_factor=1.25), real),
+                             (api.pitch_shift_file, dict(semitones=3.0),
+                              dict(real, resample_mac=1))):
+            outs = {}
+            for d in ("cuda", "cpu"):
+                out = str(Path(tmp) / f"{d}.wav")
+                t0 = time.perf_counter()
+                _, launched = counted(lambda: fn(p_in, out, device=d, float_fmt=True, **kw))
+                secs = time.perf_counter() - t0
+                if d == "cuda":
+                    counts, cuda_s = launched, secs
+                outs[d] = read_wav(out, dtype=np.float64)[0]
+            snr = snr_db(outs["cpu"], outs["cuda"])
+            line = (f"[18 api.{fn.__name__}] {c}x{n} {kw}: launches={counts} "
+                    f"shape={outs['cuda'].shape} snr_vs_cpu={snr:.2f} dB (cuda call "
+                    f"{cuda_s:.2f} s, cpu call {secs:.2f} s, host clock)")
+            print(line)
+            if counts != want or snr < SNR_MIN_DB or outs["cuda"].shape != outs["cpu"].shape:
+                raise SystemExit(f"phase 18 failed: {line}")
+    record["stretch_step_fused"]["launches"] = runs["S1"]["stretch_step_fused"]
+
+    # ---- phase 19: times per drained stream (kernel, then the same stream
+    # through the float32 plain step), the device idle share of S1, bound
+    times = {}
+    for name, ((p, q), block) in STRETCH_PATHS.items():
+        kern = path(name)
+        plain = Chain([StretchStage(p, q, nfft=NFFT, hop=HOP)]
+                      + ([ResampleStage(1, 2)] if name == "S3" else []))
+        kern.build()
+        plain.build()
+        times[name] = (stream_ms(lambda: kern.stream(xn, block, drain=True)),
+                       stream_ms(lambda: plain.stream(xn, block, drain=True)))
+        nbytes, flops = stretch_work(c, n, p, q, block)
+        rec = {}
+        set_bound(rec, nbytes, flops)
+        print(f"[19 times] {name} {p}/{q} stream of {c}x{n} f32 white noise, block {block}, "
+              f"{kern.drain_blocks(n, block)} blocks, on {smi}: kernels {times[name][0]:.4f} ms "
+              f"({c * n / times[name][0] * 1e3:.4e} in samples/s), plain f32 "
+              f"{times[name][1]:.4f} ms; stretch bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.4f} GFLOP)")
+        if name == "S1":
+            record["stretch_step_fused"].update(rec, ms=times[name][0], plain_ms=times[name][1])
+    s1 = path("S1")
+    s1.build()
+    idle = device_idle_share(lambda: s1.stream(xn, 4096, drain=True))
+    plain1 = Chain([StretchStage(4, 3, nfft=NFFT, hop=HOP)])
+    plain1.build()
+    idle_plain = device_idle_share(lambda: plain1.stream(xn, 4096, drain=True))
+    print(f"[19 idle] S1 stream under torch.profiler on {smi}: device idle {idle_text(idle)} "
+          f"of its span; plain version {idle_text(idle_plain)}")
+    record["stretch_step_fused"].update(source="stretch_step_kernel.cu",
+                                        replaces="stretch_kernel.py:125", library_ms=None)
+
+
 def earlier_bounds(record, h, h_env, xn, blocks, res_blocks):
     """bound_ms and library_ms of the eight kernels of the earlier phases, for
     the work each timed run did: whole files of HEADLINE (48 kHz) or
@@ -749,6 +927,7 @@ def earlier_bounds(record, h, h_env, xn, blocks, res_blocks):
 
 def main() -> int:
     # ---- phase 1: environment
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -771,6 +950,7 @@ def main() -> int:
         res_fir_gate_step_fused, resample_fir_gate_fused,
     )
     from audiosignalprocess_tpu_torch.kernels.resample_kernel import resample_mac
+    from audiosignalprocess_tpu_torch.kernels.stretch_kernel import stretch_step_fused
     from audiosignalprocess_tpu_torch.ops.fir import design_fir
     from audiosignalprocess_tpu_torch.pipeline import (
         Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage, ResFIRGateStage,
@@ -780,7 +960,7 @@ def main() -> int:
     kernels = (fir_noise_gate_fused, fir_gate_step_fused, gate_step_fused,
                overlap_save_fused, fir_mac, resample_mac, resample_fir_gate_fused,
                res_fir_gate_step_fused, noise_gate_fused, fk.fft_stockham_lanes,
-               fk.rfft_stockham, fk.irfft_stockham)
+               fk.rfft_stockham, fk.irfft_stockham, stretch_step_fused)
 
     def reset_counts():
         for k in kernels:
@@ -1045,13 +1225,23 @@ def main() -> int:
     record["overlap_save_fused"].update(source="os_kernel.cu", replaces="os_kernel.py:91")
     record["fir_mac"].update(source="fir_kernel.cu", replaces="fir_kernel.py:65")
 
+    marks = [("phases 1-9", time.perf_counter())]
     resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x)
+    marks.append(("phases 10-13", time.perf_counter()))
     gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_dev, h)
+    marks.append(("phases 14-16", time.perf_counter()))
+    vocoder_phases(dev, smi, record, kernels, reset_counts)
+    marks.append(("phases 17-19", time.perf_counter()))
     res_c = Chain([ResFIRGateStage(UP, DOWN, h=h, nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES)])
     res_c.build()
     earlier_bounds(record, h, h_env, xn, path_a.drain_blocks(n, BLOCK),
                    res_c.drain_blocks(RES_HEADLINE[1], RES_BLOCK))
 
+    prev = t_start
+    for name, t in marks:
+        print(f"[time] {name}: {t - prev:.1f} s (host clock)")
+        prev = t
+    print(f"[time] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

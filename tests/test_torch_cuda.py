@@ -9,7 +9,10 @@ installed:
 Bars: the linear kernels (fir_mac, overlap_save_fused, resample_mac and
 the FFTs) >= 100 dB against their float64 plain versions; everything with
 the gate >= 60 dB, because its hard thresholds flip a few borderline bins
-under float32 rounding.
+under float32 rounding; the phase vocoder's step >= 60 dB against its
+float64 plain version and >= 65 dB against its float32 plain version
+(the JAX package's own bar: its rotor recursion integrates float32
+rounding over the stream).
 """
 
 import numpy as np
@@ -36,13 +39,16 @@ from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import (
 from audiosignalprocess_tpu_torch.kernels.resample_kernel import (
     resample_mac, resample_mac_ref,
 )
+from audiosignalprocess_tpu_torch.kernels.stretch_kernel import (
+    stretch_step_fused, stretch_step_ref,
+)
 from audiosignalprocess_tpu_torch.ops import fft
 from audiosignalprocess_tpu_torch.ops.fir import design_fir
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.ops.resample import history_len, resample_filter
 from audiosignalprocess_tpu_torch.pipeline import (
     Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage, ResampleStage,
-    ResFIRGateStage,
+    ResFIRGateStage, StretchStage,
 )
 from audiosignalprocess_tpu_torch.utils.metrics import snr_db
 
@@ -60,7 +66,8 @@ def _all_counters():
     """Every kernel wrapper of the port (each counts its launches)."""
     return (fir_noise_gate_fused, fir_gate_step_fused, gate_step_fused, overlap_save_fused,
             fir_mac, resample_mac, resample_fir_gate_fused, res_fir_gate_step_fused,
-            noise_gate_fused, fk.fft_stockham_lanes, fk.rfft_stockham, fk.irfft_stockham)
+            noise_gate_fused, fk.fft_stockham_lanes, fk.rfft_stockham, fk.irfft_stockham,
+            stretch_step_fused)
 
 
 def _launches(fn):
@@ -250,6 +257,13 @@ def _res_fir_gate_step_f64(x):
                                    160, 147, st.h, **st._fg._gate._step_kw())
 
 
+def _stretch_step_f64(x):
+    st = StretchStage(4, 3)
+    st.configure(0)
+    return stretch_step_fused(x[:, :4096], st.init_state((1,), 4096, torch.float64, x.device),
+                              **st._step_kw())
+
+
 @pytest.mark.parametrize("call", [
     lambda x: fir_mac(x, design_fir(64, 0.3)),
     lambda x: overlap_save_fused(x, design_fir(64, 0.3), 1024),
@@ -262,6 +276,7 @@ def _res_fir_gate_step_f64(x):
     lambda x: fk.fft_stockham_lanes(x, x, -1.0),
     fk.rfft_stockham,
     lambda x: fk.irfft_stockham(x[:, :2049], x[:, :2049], 4096),
+    _stretch_step_f64,
 ])
 def test_new_kernels_raise_on_float64(card, call):
     with pytest.raises(ValueError, match="float32"):
@@ -483,7 +498,8 @@ def test_noise_gate_kernel_vs_plain(card, c, n, nfft, hop, release):
 @pytest.mark.parametrize("name,kw,bar", [
     ("noise_gate_file", {}, 60.0), ("lowpass_file", dict(cutoff_hz=3000.0), 100.0),
     ("bandpass_file", dict(lo_hz=300.0, hi_hz=3000.0), 100.0),
-    ("envelope_file", {}, 100.0),
+    ("envelope_file", {}, 100.0), ("time_stretch_file", dict(rate_factor=1.25), 60.0),
+    ("pitch_shift_file", dict(semitones=3.0), 60.0),
 ])
 def test_one_shots_cuda_vs_cpu(card, tmp_path, name, kw, bar):
     rng = np.random.default_rng(67)
@@ -496,3 +512,100 @@ def test_one_shots_cuda_vs_cpu(card, tmp_path, name, kw, bar):
         outs[d] = read_wav(str(tmp_path / f"{d}.wav"), dtype=np.float64)[0]
     assert outs["cuda"].shape == outs["cpu"].shape
     assert snr_db(outs["cpu"], outs["cuda"]) >= bar
+
+
+# ---------------------------------------------------------------------------
+# the phase vocoder: stretch_step_fused and the whole-file routes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("drain", (False, True))
+@pytest.mark.parametrize("nfft,hop", ((256, 64), (1024, 256), (2048, 512)))
+@pytest.mark.parametrize("p,q", ((4, 3), (3, 4), (1, 2), (147, 160)))
+def test_stretch_step_vs_plain(card, p, q, nfft, hop, drain):
+    """StretchStage(fused=True) float32, one stretch_step_fused launch per
+    block and no other kernel, against the float64 (>= 60 dB) and float32
+    (>= 65 dB) plain step streams on the same card."""
+    rng = np.random.default_rng(71)
+    block = p * max(1, 16 // p + 1) * hop
+    n = 5 * block + (321 if drain else 0)
+    x = torch.as_tensor(rng.standard_normal((3, n)), device=card)
+    kern, plain = Chain([StretchStage(p, q, nfft=nfft, hop=hop, fused=True)]), \
+        Chain([StretchStage(p, q, nfft=nfft, hop=hop)])
+    kern.build()
+    blocks = kern.drain_blocks(n, block) if drain else n // block
+    y, counts = _launches(lambda: kern.stream(x.float(), block, drain=drain))
+    assert counts == {"stretch_step_fused": blocks}
+    ref64 = plain.stream(x, block, drain=drain)
+    ref32 = plain.stream(x.float(), block, drain=drain)
+    assert y.shape == ref64.shape and bool(torch.isfinite(y).all())
+    assert snr_db(ref64, y) >= 60.0
+    assert snr_db(ref32, y) >= 65.0
+
+
+def test_stretch_from_rate_irrational_vs_plain(card):
+    rng = np.random.default_rng(72)
+    st = StretchStage.from_rate(2.0 ** (1.0 / 3.0), 64, nfft=256, hop=64, fused=True)
+    block = st.p * max(1, 16 // st.p + 1) * 64
+    x = torch.as_tensor(rng.standard_normal((2, 4 * block)), device=card)
+    kern = Chain([st])
+    y, counts = _launches(lambda: kern.stream(x.float(), block))
+    assert counts == {"stretch_step_fused": 4}
+    ref = Chain([StretchStage(st.p, st.q, nfft=256, hop=64)]).stream(x, block)
+    assert snr_db(ref, y) >= 60.0
+
+
+def test_stretch_carry_switches_between_kernel_and_plain(card):
+    """One carry layout: blocks alternate between the kernel and the plain
+    float32 step; the stream equals the kernel-only stream."""
+    rng = np.random.default_rng(73)
+    block = 16 * 256
+    x = torch.as_tensor(rng.standard_normal((2, 8 * block)), device=card, dtype=torch.float32)
+    stage = StretchStage(4, 3, fused=True)
+    chain = Chain([stage])
+    ref = chain.stream(x, block)
+    st = chain.init_state((2,), block, torch.float32, card)
+    ys = []
+    for k in range(8):
+        xb = x[:, k * block : (k + 1) * block]
+        if k % 2:
+            st, y = chain.step(st, xb)
+        else:
+            s0, y = stretch_step_ref(xb, st[0], **stage._step_kw())
+            st = [s0]
+        ys.append(y)
+    assert st[0]["blk"] == 8
+    assert snr_db(ref, torch.cat(ys, dim=-1)) >= 65.0
+
+
+def test_stretch_streams_launch_counts(card):
+    """S3: stretch 1/2 then resample 1/2 streamed: one stretch_step_fused
+    and one resample_mac per block, >= 60 dB against the float64 whole
+    file."""
+    rng = np.random.default_rng(74)
+    x = torch.as_tensor(rng.standard_normal((2, 10 * 4096 + 99)), device=card)
+    chain = Chain([StretchStage(1, 2, fused=True), ResampleStage(1, 2, fused=True)])
+    chain.build()
+    blocks = chain.drain_blocks(x.shape[-1], 4096)
+    y, counts = _launches(lambda: chain.stream(x.float(), 4096, drain=True))
+    assert counts == {"stretch_step_fused": blocks, "resample_mac": blocks}
+    assert snr_db(chain.full_flush(x), y) >= 60.0
+
+
+def test_vocoder_whole_file_launch_counts(card, tmp_path):
+    """W1/W2: a whole-file stretch runs one rfft_stockham and one
+    irfft_stockham (StretchStage.full_flush, api.time_stretch_file), a
+    pitch shift those and one resample_mac."""
+    rng = np.random.default_rng(75)
+    x = torch.as_tensor(rng.standard_normal((3, 40000)), device=card)
+    real = {"rfft_stockham": 1, "irfft_stockham": 1}
+    chain = Chain([StretchStage(4, 3)])
+    y, counts = _launches(lambda: chain.full_flush(x.float()))
+    assert counts == real and snr_db(chain.full_flush(x), y) >= 60.0
+    p = str(tmp_path / "in.wav")
+    write_wav(p, (0.5 * _tone_burst(rng, 2, 48000)).astype(np.float32), 48000, float_fmt=True)
+    for name, kw, want in (("time_stretch_file", dict(rate_factor=1.25), real),
+                           ("pitch_shift_file", dict(semitones=3.0),
+                            dict(real, resample_mac=1))):
+        _, counts = _launches(lambda: getattr(api, name)(p, str(tmp_path / "o.wav"),
+                                                         float_fmt=True, **kw))
+        assert counts == want, name

@@ -68,13 +68,23 @@ def test_f32_routes_through_fused_wrapper():
 
 
 def test_from_params_rejects_what_is_not_ported():
-    """A stage class the port does not have yet (the phase vocoder's
-    StretchStage) raises; the whole-file noise_gate_fused behind
-    GateStage(fused=True).full, once missing, now runs: a JAX GateStage
-    with fused=True carries over and gates like the JAX one (float64)."""
+    """A stage name the port does not know raises; the phase vocoder's
+    StretchStage, once missing, now carries over from the JAX stage's
+    fields (and computes like it, float64); so does a JAX GateStage with
+    fused=True, whose whole-file noise_gate_fused once was missing."""
     with pytest.raises(ValueError, match="unknown stage"):
-        pipeline.Chain.from_params([dict(stage="StretchStage")])
-    assert {"ResampleStage", "ResFIRGateStage"} <= set(pipeline.STAGES)
+        pipeline.Chain.from_params([dict(stage="PhaseShifterStage")])
+    assert {"ResampleStage", "ResFIRGateStage", "StretchStage"} <= set(pipeline.STAGES)
+    jax_stretch = jax_pipeline.StretchStage(p=3, q=4, fused=True)
+    chain = pipeline.Chain.from_params(
+        [dict(dataclasses.asdict(jax_stretch), stage="StretchStage")])
+    st = chain.stages[0]
+    assert isinstance(st, pipeline.StretchStage) and (st.p, st.q, st.fused) == (3, 4, True)
+    xs = np.random.default_rng(27).standard_normal((2, 9000))
+    np.testing.assert_allclose(
+        chain.full_flush(torch.as_tensor(xs)).numpy(),
+        np.asarray(jax_pipeline.Chain([jax_stretch]).full_flush(jnp.asarray(xs))),
+        rtol=1e-8, atol=1e-10)
     jax_stage = jax_pipeline.GateStage(noise_frames=4, fused=True)
     chain = pipeline.Chain.from_params([dict(dataclasses.asdict(jax_stage), stage="GateStage")])
     assert chain.stages[0].fused and chain.stages[0].impl == "auto"

@@ -503,7 +503,11 @@ def test_from_params_carries_a_jax_chain(rng):
     assert isinstance(one.stages[0], P.FIRGateStage)
     np.testing.assert_array_equal(one.stages[0].env_h, he)
     with pytest.raises(ValueError, match="unknown stage"):
-        P.Chain.from_params([dict(stage="StretchStage")])
+        P.Chain.from_params([dict(stage="PhaseShifterStage")])
+    jst = J.StretchStage(p=4, q=3, nfft=512, hop=128)
+    stretch = P.Chain.from_params([dict(dataclasses.asdict(jst), stage="StretchStage")])
+    assert isinstance(stretch.stages[0], P.StretchStage)
+    assert J.Chain([jst]).build() == stretch.build()
 
 
 def test_cpu_step_runs_plain_version_without_launch(rng):
