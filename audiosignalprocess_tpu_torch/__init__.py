@@ -14,7 +14,10 @@ gate, the envelope effects, the phase vocoder (``effects.time_stretch``,
 chain and the streaming vocoder in ``pipeline.Chain`` with whole-file and
 block-streaming modes (``FIRStage``, ``GateStage``, ``EnvelopeStage``,
 ``FIRGateStage``, ``ResampleStage``, ``ResFIRGateStage``,
-``StretchStage``), checkpointable carries, WAV I/O and the one-shots
+``StretchStage``), channel/time sharding over torch.distributed
+(``parallel``: a (channel, time) mesh of processes, halo exchange, the
+sharded FIR, overlap-save, resampler, gate, stretch and chain),
+checkpointable carries, WAV I/O and the one-shots
 ``api.chain_file``, ``api.resample_file``, ``api.lowpass_file``,
 ``api.bandpass_file``, ``api.noise_gate_file``, ``api.envelope_file``,
 ``api.time_stretch_file`` and ``api.pitch_shift_file``, which run on the
@@ -23,7 +26,7 @@ GPU unless told ``device="cpu"``.  Hand-written kernels (``kernels/``):
 ``overlap_save_fused``, ``fir_mac``, ``resample_mac``,
 ``resample_fir_gate_fused``, ``res_fir_gate_step_fused``,
 ``noise_gate_fused``, ``fft_stockham_lanes``, ``rfft_stockham``,
-``irfft_stockham`` and ``stretch_step_fused``.
+``irfft_stockham``, ``stretch_step_fused`` and ``gate_shard_fused``.
 """
 
 __version__ = "0.1.0"
@@ -31,4 +34,4 @@ __version__ = "0.1.0"
 from audiosignalprocess_tpu_torch.ops import windows, fft, stft, fir, overlap_save, resample  # noqa: F401
 from audiosignalprocess_tpu_torch import effects, io  # noqa: F401
 from audiosignalprocess_tpu_torch.pipeline import Chain  # noqa: F401
-from audiosignalprocess_tpu_torch import api, kernels  # noqa: F401
+from audiosignalprocess_tpu_torch import api, kernels, parallel  # noqa: F401

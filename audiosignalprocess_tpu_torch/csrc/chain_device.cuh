@@ -75,6 +75,15 @@ inline ChainGeo chain_geo(int nfft, int log2n, int hop, int taps, int nframes,
   return g;
 }
 
+// The geometry of one time shard of the gate (gate_kernel.cu's
+// asp_gate_shard): the first `nvalid` frames are computed, but the output
+// covers `out_len` samples (the shard and its spill), zero past the frames.
+inline ChainGeo shard_geo(ChainGeo g, int out_len) {
+  g.out_len = out_len;
+  g.ntiles = (out_len + g.tile - 1) / g.tile;
+  return g;
+}
+
 // Floats of shared memory fir_gate_tiles uses: twiddles (N/2 complex),
 // FFT buffer (N complex), threshold and release state (N/2+1 each), OLA
 // tile (tile + d), FIR span.  A kernel's own shared memory follows.
@@ -94,7 +103,9 @@ __device__ __forceinline__ float inv_norm_at(const ChainGeo& g, const float* tab
 // the FIR input u[s + i] in span[i] for i < len (zero where s + i < 0 or
 // past the end of u) and returns after a __syncthreads().  With kFir
 // false there is no FIR (the gate alone, gate_kernel.cu): fill stores the
-// gate's input itself, g.taps is 1 and hf is unused.
+// gate's input itself, g.taps is 1 and hf is unused.  With inv_tab null
+// the tiles are emitted un-normalized (one time shard of the gate, whose
+// caller divides by the WOLA norm at global positions).
 template <bool kFir = true, class Fill>
 __device__ void fir_gate_tiles(const ChainGeo& g, float* smem, int c, float* __restrict__ oc,
                                const float* __restrict__ noise_floor,
@@ -204,7 +215,7 @@ __device__ void fir_gate_tiles(const ChainGeo& g, float* smem, int c, float* __r
     // ---- emit the tile, normalized
     for (int p = tid; p < g.tile; p += nt) {
       const int gp = ts + p;
-      if (gp < g.out_len) oc[gp] = acc[p] * inv_norm_at(g, inv_tab, gp);
+      if (gp < g.out_len) oc[gp] = inv_tab ? acc[p] * inv_norm_at(g, inv_tab, gp) : acc[p];
     }
     __syncthreads();
     if (g.sequential) {

@@ -21,6 +21,19 @@
 // shared memory.  Two frames go to one complex FFT as re/im and are
 // untangled per bin pair for the mask.
 //
+// One time shard of the gate (asp_gate_shard) replaces the TPU package's
+// kernels/gate_kernel.py:gate_shard_fused.  The input is the shard's l
+// samples and the d = nfft-hop samples of its right neighbour's head, the
+// floor is the one time shard 0 computed (the caller broadcasts it), and
+// only the first `nvalid` of the l/hop frames are analysed: frames whose
+// end passes the file's end are never formed, as in the whole-file gate.
+// The same kernel runs with the output length decoupled from the frame
+// count (asp::shard_geo: l + d samples, the spill included) and no
+// 1/WOLA table: the caller adds the spill into its right neighbour and
+// divides by the norm at global positions.  Its bound per launch, at a
+// shard of 64 x 119808 (+768): 61.7 MB moved (0.018 ms at 3.35 TB/s) and
+// 1.53 GFLOP (0.023 ms at 67 TFLOP/s), so operations bound it, as above.
+//
 // What bounds it on an H100, at 64 channels x 480000 samples, nfft 1024,
 // hop 256: 123 MB in and 123 MB out (0.07 ms at 3.35 TB/s); two complex
 // 1024-point transforms per frame pair, 5 n log2 n flops each, about
@@ -79,6 +92,26 @@ int asp_noise_gate(const float* x, float* out, const float* noise_floor,
   const dim3 grid(sequential ? 1 : g.ntiles, channels);
   noise_gate_kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       x, n, out, noise_floor, win, reinterpret_cast<const float2*>(tw), inv_tab, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One time shard: x (channels, n) rows of the shard plus its right halo,
+// out (channels, n) the un-normalized overlap-add of the first nvalid
+// frames (zeros past them).  Same launch as the parallel whole-file gate.
+int asp_gate_shard(const float* x, float* out, const float* noise_floor, const float* win,
+                   const float* tw, int channels, int n, int nfft, int log2n, int hop,
+                   int nvalid, int mf, float thresh_gain, float att, int smem_bytes,
+                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const asp::ChainGeo g = asp::shard_geo(
+      asp::chain_geo(nfft, log2n, hop, 1, nvalid, mf, 0, thresh_gain, att, 0.0f), n);
+  err = cudaFuncSetAttribute(noise_gate_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(g.ntiles, channels);
+  noise_gate_kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      x, n, out, noise_floor, win, reinterpret_cast<const float2*>(tw), nullptr, g);
   return static_cast<int>(cudaGetLastError());
 }
 

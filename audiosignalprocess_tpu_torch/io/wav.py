@@ -1,9 +1,10 @@
 """WAV (RIFF) file I/O, host-side numpy.
 
-A copy of the JAX package's ``io/wav.py`` reader and writer (the port
-cannot import that module without importing jax): RIFF header parse,
-PCM8/16/24/32 and float32/64 decode, encode, interleaved <-> planar
-channels.  The caller moves the planar array to its device.
+A copy of the JAX package's ``io/wav.py`` (the port cannot import that
+module without importing jax): RIFF header parse, PCM8/16/24/32 and
+float32/64 decode, encode, interleaved <-> planar channels, and the
+block reader ``stream_blocks``.  ``read_wav`` returns numpy; the caller
+moves the planar array to its device.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import struct
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 _PCM = 1
 _FLOAT = 3
@@ -144,3 +146,17 @@ def write_wav(path: str, x: np.ndarray, rate: int, bits: int = 16,
     with open(path, "wb") as f:
         f.write(hdr + body + pad)
 
+
+def stream_blocks(path: str, block: int, dtype=np.float32, device="cuda"):
+    """Yield planar (channels, block) tensors on ``device``; final block
+    zero-padded.  The file moves to the device once; each block is a view.
+    """
+    x, _ = read_wav(path, dtype)
+    n = x.shape[1]
+    nblocks = -(-n // block)
+    pad = nblocks * block - n
+    if pad:
+        x = np.pad(x, ((0, 0), (0, pad)))
+    x = torch.as_tensor(x, device=device)
+    for k in range(nblocks):
+        yield x[:, k * block : (k + 1) * block]

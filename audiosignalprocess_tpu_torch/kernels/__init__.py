@@ -13,7 +13,7 @@ from audiosignalprocess_tpu_torch.kernels.fft_kernel import (  # noqa: F401
 )
 from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac  # noqa: F401
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (  # noqa: F401
-    gate_step_fused, noise_gate_fused,
+    gate_shard_fused, gate_step_fused, noise_gate_fused,
 )
 from audiosignalprocess_tpu_torch.kernels.os_kernel import overlap_save_fused  # noqa: F401
 from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import (  # noqa: F401

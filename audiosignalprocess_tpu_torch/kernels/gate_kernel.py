@@ -1,11 +1,13 @@
-"""The spectral noise gate kernels: the whole-file gate
-(``csrc/gate_kernel.cu``) and the streaming gate step
+"""The spectral noise gate kernels: the whole-file gate and one time
+shard of it (``csrc/gate_kernel.cu``) and the streaming gate step
 (``csrc/gate_step_kernel.cu``), their plain PyTorch versions, and the
 helpers the fused gate kernels share.
 
 Mirrors the JAX package's ``kernels/gate_kernel.py``: the 1/WOLA-norm
 vectors (whole-file and streaming), the noise-floor prologue, the
-whole-file gate (``noise_gate_fused``), the position logic of a step
+whole-file gate (``noise_gate_fused``), the time shard of the sharded
+gate (``gate_shard_fused``: floor in, un-normalized overlap-add and its
+spill out), the position logic of a step
 (``gate_step_masks``), the streaming carry (``gate_step_init_state``) and
 the step itself (``gate_step_fused``).  The plain versions and the
 prologue run their FFTs through torch.fft (``impl="torch"``) on any
@@ -20,8 +22,9 @@ ints (pure functions of the block count, so a step never reads the
 device).  A stream may switch between the kernel and the plain step at
 any block.
 
-Routing of ``noise_gate_fused`` and ``gate_step_fused``: a CPU tensor
-runs the plain version (``noise_gate_ref``, ``gate_step_ref``); a CUDA
+Routing of ``noise_gate_fused``, ``gate_shard_fused`` and
+``gate_step_fused``: a CPU tensor runs the plain version
+(``noise_gate_ref``, ``gate_shard_ref``, ``gate_step_ref``); a CUDA
 float32 tensor launches the kernel; anything else raises.
 """
 
@@ -40,9 +43,9 @@ from audiosignalprocess_tpu_torch.kernels._build import (
 )
 from audiosignalprocess_tpu_torch.ops import fft as fft_ops
 from audiosignalprocess_tpu_torch.ops.stft import (
-    WOLA_EDGE_REL, frame, num_frames, wola_clamp,
+    WOLA_EDGE_REL, frame, num_frames, overlap_add, wola_clamp,
 )
-from audiosignalprocess_tpu_torch.ops.windows import window_np
+from audiosignalprocess_tpu_torch.ops.windows import window, window_np
 from audiosignalprocess_tpu_torch.utils.device import upload
 from audiosignalprocess_tpu_torch.utils.validate import check
 
@@ -198,6 +201,98 @@ def noise_gate_fused(x: torch.Tensor, nfft: int = 1024, hop: int = 256,
 
 
 noise_gate_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# one time shard of the gate (parallel/sharded.gate_shard_body)
+# ---------------------------------------------------------------------------
+
+def check_shard_geometry(n_ext: int, nfft: int, hop: int, n_valid: int) -> int:
+    """Validate one shard's geometry: x_ext holds l + nfft-hop samples, l a
+    multiple of hop, and the first ``n_valid`` of its l/hop frames are
+    analysed.  Returns l."""
+    check(nfft >= 2 and nfft & (nfft - 1) == 0, f"nfft={nfft} must be a power of two >= 2")
+    check(hop >= 1 and nfft % hop == 0, f"hop={hop} must divide nfft={nfft}")
+    l = n_ext - (nfft - hop)
+    check(l >= hop and l % hop == 0, f"shard length {l} not a multiple of hop")
+    check(isinstance(n_valid, int) and 0 <= n_valid <= l // hop,
+          f"n_valid={n_valid!r} must be an int in [0, {l // hop}]")
+    return l
+
+
+def gate_shard_ref(x_ext: torch.Tensor, floor_half: torch.Tensor, n_valid: int,
+                   nfft: int, hop: int, threshold_db: float = 6.0,
+                   reduction_db: float = 60.0, window_kind: str = "hann") -> torch.Tensor:
+    """Plain PyTorch version of ``gate_shard_fused``, any device and dtype
+    (torch.fft): frames, window, rfft, hard mask against ``floor_half``,
+    irfft, window and overlap-add of the first ``n_valid`` frames, zero
+    past them; (..., l + nfft-hop) un-normalized."""
+    n_ext = x_ext.shape[-1]
+    check_shard_geometry(n_ext, nfft, hop, n_valid)
+    if n_valid == 0:
+        return torch.zeros_like(x_ext)
+    w = window(window_kind, nfft, periodic=True, dtype=x_ext.dtype, device=x_ext.device)
+    spec = fft_ops.rfft(frame(x_ext[..., : (n_valid - 1) * hop + nfft], nfft, hop) * w,
+                        impl="torch")
+    mask = gate_mask(spec.abs(), floor_half.unsqueeze(-2), threshold_db, reduction_db)
+    acc = overlap_add(fft_ops.irfft(spec * mask, nfft, impl="torch") * w, hop)
+    return torch.nn.functional.pad(acc, (0, n_ext - acc.shape[-1]))
+
+
+@functools.cache
+def _shard_lib():
+    fn = _build.load().asp_gate_shard
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gate_shard_fused(x_ext: torch.Tensor, floor_half: torch.Tensor, n_valid: int,
+                     nfft: int, hop: int, threshold_db: float = 6.0,
+                     reduction_db: float = 60.0, window_kind: str = "hann") -> torch.Tensor:
+    """One time shard of the gate, fused: x_ext (..., l + d), d = nfft-hop,
+    the shard's samples and its right neighbour's first d -> the
+    un-normalized overlap-add (..., l + d), the d-sample spill included.
+
+    ``floor_half`` (..., nfft/2+1) is the global noise floor (time shard
+    0's, broadcast by the caller); ``n_valid`` counts the shard's frames
+    that end inside the file (a prefix of its l/hop frames), a Python int,
+    so the wrapper never reads the device.  No release.  A CPU tensor runs
+    ``gate_shard_ref``.  A CUDA float32 tensor launches the kernel: one CTA
+    per (channel, tile), as ``noise_gate_fused``.  Any other tensor raises.
+    """
+    n_ext = x_ext.shape[-1]
+    check_shard_geometry(n_ext, nfft, hop, n_valid)
+    if x_ext.device.type == "cpu":
+        return gate_shard_ref(x_ext, floor_half, n_valid, nfft, hop, threshold_db,
+                              reduction_db, window_kind)
+    check_cuda_f32(x_ext, "gate_shard_fused", "the sharded gate routes float64 to its plain body")
+    xf = x_ext.reshape(-1, n_ext).contiguous()
+    channels = xf.shape[0]
+    check(0 < channels <= 65535, f"{channels} channels: 1..65535 per launch")
+    nb = nfft // 2 + 1
+    dev = xf.device
+    check(floor_half.dtype == torch.float32 and floor_half.device == dev,
+          "the floor must be float32 on the input's device")
+    floor = torch.broadcast_to(floor_half.reshape(-1, nb), (channels, nb)).contiguous()
+    geo = _geometry(nfft, hop, 1)
+    check(geo["smem"] <= SMEM_LIMIT,
+          f"nfft={nfft}, hop={hop} need {geo['smem']} bytes of shared memory per "
+          f"block, more than {SMEM_LIMIT}")
+    win, tw, _ = file_tables(nfft, hop, window_kind, dev)
+    out = torch.empty((channels, n_ext), dtype=torch.float32, device=dev)
+    rc = _shard_lib()(
+        xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(), tw.data_ptr(),
+        channels, n_ext, nfft, nfft.bit_length() - 1, hop, n_valid, geo["mf"],
+        float(10.0 ** (threshold_db / 20.0)), float(10.0 ** (-reduction_db / 20.0)),
+        geo["smem"], dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(rc, "gate_shard")
+    gate_shard_fused.launches += 1
+    return out.reshape(x_ext.shape)
+
+
+gate_shard_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------

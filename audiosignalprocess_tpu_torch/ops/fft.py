@@ -9,6 +9,9 @@ length must be a power of two.  The implementations, in the port's names
 - ``"radix2"``: iterative decimation in time with an explicit
   bit-reversal permutation, the classic C structure;
 - ``"splitradix"``: recursive split-radix (L-shaped butterflies);
+- ``"matmul"``: the four-step (Bailey) factorization n = n1*n2 as two
+  dense DFT products around a twiddle, in plain torch (``torch.matmul``
+  with TF32 off, DFT and twiddle tables from float64 on the host);
 - ``"stockham"`` (``"pallas_sk"``): the hand-written Stockham kernels of
   ``kernels/fft_kernel``, complex through ``fft_stockham_lanes`` and real
   through the fused ``rfft_stockham`` / ``irfft_stockham``;
@@ -36,13 +39,12 @@ from audiosignalprocess_tpu_torch.utils.validate import check
 
 DEFAULT_IMPL = "auto"
 
-IMPLS = ("torch", "radix2", "splitradix", "stockham", "stockham_split", "auto")
+IMPLS = ("torch", "radix2", "splitradix", "matmul", "stockham", "stockham_split", "auto")
 
 _JAX_NAMES = {"xla": "torch", "pallas_sk": "stockham", "pallas_sk_split": "stockham_split"}
 """The JAX package's names of the impls the port has."""
 
 _NOT_PORTED = {
-    "matmul": "fft_fourstep",
     "pallas": "fft_fourstep",
     "pallas_r2": "fft_radix2_lanes",
     "pallas_r2_stages": "fft_radix2_stages",
@@ -57,7 +59,7 @@ def _resolve_impl(impl: str, x: torch.Tensor) -> str:
     if impl in _NOT_PORTED:
         raise NotImplementedError(
             f"impl={impl!r} is not ported yet: it waits for the kernel "
-            f"{_NOT_PORTED[impl]} (ROADMAP Queue 2 #2, the FFT variants)")
+            f"{_NOT_PORTED[impl]} (ROADMAP Queue 2, the FFT variants)")
     check(impl in IMPLS, f"unknown FFT impl {impl!r}; one of {IMPLS}")
     if impl == "auto":
         return ("stockham" if x.is_cuda and x.dtype in (torch.float32, torch.complex64)
@@ -128,13 +130,69 @@ def _fft_splitradix(x: torch.Tensor, sign: float) -> torch.Tensor:
     return torch.cat([uk + s, ukq + d, uk - s, ukq - d], dim=-1)
 
 
+# ---------------------------------------------------------------------------
+# four-step matmul (the JAX package's _fft_matmul_planar)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _dft_mat(n: int, sign: float) -> tuple[np.ndarray, np.ndarray]:
+    """DFT matrix exp(sign*2j*pi*jk/n) as (real, imag) float64."""
+    ang = sign * 2.0 * np.pi * np.outer(np.arange(n), np.arange(n)) / n
+    return np.cos(ang), np.sin(ang)
+
+
+@functools.lru_cache(maxsize=None)
+def _fourstep_tw(n1: int, n2: int, sign: float) -> tuple[np.ndarray, np.ndarray]:
+    """Twiddles W_n^{cb} of the four-step transform as (real, imag) float64."""
+    ang = sign * 2.0 * np.pi * np.outer(np.arange(n1), np.arange(n2)) / (n1 * n2)
+    return np.cos(ang), np.sin(ang)
+
+
+def _split_n(n: int) -> tuple[int, int]:
+    """Balanced power-of-two factorization n = n1*n2 (n1 <= n2)."""
+    k = n.bit_length() - 1
+    return 1 << (k // 2), 1 << (k - k // 2)
+
+
+def _fft_matmul(x: torch.Tensor, sign: float) -> torch.Tensor:
+    """Four-step FFT on the last axis, n = n1*n2.  With n = n2*a + b and
+    k = n1*d + c: Y[c,b] = sum_a F_n1[c,a] X[a,b]; Z = Y * W_n^{cb};
+    out[c,d] = sum_b Z[c,b] F_n2[b,d]; natural order is the transpose
+    (d, c).  Planar real products, as the JAX package's einsums."""
+    n = x.shape[-1]
+    if n == 1:
+        return x
+    rdt = torch.float64 if x.dtype == torch.complex128 else torch.float32
+    n1, n2 = _split_n(n)
+    tab = lambda pair: [upload(a, rdt, x.device) for a in pair]
+    f1r, f1i = tab(_dft_mat(n1, sign))
+    f2r, f2i = tab(_dft_mat(n2, sign))
+    twr, twi = tab(_fourstep_tw(n1, n2, sign))
+    batch = x.shape[:-1]
+    xr = x.real.reshape(batch + (n1, n2))
+    xi = x.imag.reshape(batch + (n1, n2))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # TF32 keeps ~3 decimal digits
+    try:
+        yr = torch.matmul(f1r, xr) - torch.matmul(f1i, xi)
+        yi = torch.matmul(f1r, xi) + torch.matmul(f1i, xr)
+        zr = yr * twr - yi * twi
+        zi = yr * twi + yi * twr
+        outr = torch.matmul(zr, f2r) - torch.matmul(zi, f2i)
+        outi = torch.matmul(zr, f2i) + torch.matmul(zi, f2r)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return torch.complex(outr.transpose(-1, -2).reshape(batch + (n,)),
+                         outi.transpose(-1, -2).reshape(batch + (n,)))
+
+
 def _fft_stockham(x: torch.Tensor, sign: float) -> torch.Tensor:
     from audiosignalprocess_tpu_torch.kernels import fft_kernel
 
     return fft_kernel.fft_complex(x, sign)
 
 
-_COMPLEX = {"radix2": _fft_radix2, "splitradix": _fft_splitradix,
+_COMPLEX = {"radix2": _fft_radix2, "splitradix": _fft_splitradix, "matmul": _fft_matmul,
             "stockham": _fft_stockham, "stockham_split": _fft_stockham}
 
 

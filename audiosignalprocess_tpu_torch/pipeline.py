@@ -348,11 +348,13 @@ class FIRGateStage(Stage):
         check(self.nfft % self.hop == 0, "nfft must be a multiple of hop")
         check(self.nfft > len(self.h) - 1, "nfft must exceed taps-1")
         self.latency = (self.nfft - self.hop) + self.noise_frames * self.hop
-        self._fir = FIRStage(h=self.h, nfft=self.nfft)
+        # the components run the kernels on float32 too: a sharded chain
+        # (parallel.sharded_chain) executes this stage as them
+        self._fir = FIRStage(h=self.h, nfft=self.nfft, fused=True)
         self._gate = GateStage(
             nfft=self.nfft, hop=self.hop, threshold_db=self.threshold_db,
             reduction_db=self.reduction_db, noise_frames=self.noise_frames,
-            release=self.release, window_kind=self.window_kind)
+            release=self.release, window_kind=self.window_kind, fused=True)
         self._env = None
         if self.env_h is not None:
             self.env_h = np.asarray(self.env_h, np.float64)
@@ -442,7 +444,7 @@ class ResFIRGateStage(Stage):
 
     def __post_init__(self):
         check(self.h is not None, "ResFIRGateStage requires filter taps h")
-        self._res = ResampleStage(up=self.up, down=self.down, h=self.h_res)
+        self._res = ResampleStage(up=self.up, down=self.down, h=self.h_res, fused=True)
         self.up, self.down, self.h_res = self._res.up, self._res.down, self._res.h
         self._fg = FIRGateStage(
             h=self.h, nfft=self.nfft, hop=self.hop, threshold_db=self.threshold_db,

@@ -36,7 +36,17 @@ audio, counting the kernel launches of each run:
   1/2, an octave up): ``stretch_step_fused`` per block (and
   ``resample_mac`` on S3); the whole-file ``StretchStage.full_flush``,
   ``api.time_stretch_file`` (``rfft_stockham`` + ``irfft_stockham``) and
-  ``api.pitch_shift_file`` (those and ``resample_mac``).
+  ``api.pitch_shift_file`` (those and ``resample_mac``);
+- the sharded whole-file program (``parallel``): ``gate_shard_fused`` on
+  the four time shards of 64 x 479232; a one-rank NCCL group on a 1x1
+  mesh (``sharded_noise_gate(fused=True)``: ``noise_gate_fused``;
+  ``sharded_chain`` of the config-5 composite at 64 x 441000 -> 480000:
+  ``resample_mac``, ``overlap_save_fused`` and ``gate_shard_fused``); four
+  ranks sharing the card over gloo (``spawn_local``) on (1, 4) and (2, 2)
+  meshes: the time-sharded gate, config 4's halo'd overlap-save (64 x
+  384000 at 96 kHz, 4096 taps, nfft 16384) and the sharded config-5
+  chain; the config-3 and config-4 drivers with ``--check``, and config 4
+  under torchrun with four ranks.
 
 It times each kernel against its plain version, each path per stream, and
 the FFTs against torch.fft and a copy-bandwidth probe.  Every phase prints
@@ -52,6 +62,7 @@ line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -925,6 +936,299 @@ def earlier_bounds(record, h, h_env, xn, blocks, res_blocks):
     record["overlap_save_fused"]["library_ms"] = conv_ms(xn, h)
 
 
+SHARD_HEADLINE = (64, 479232)  # 4 time shards of 119808 = 468 hops
+SHARDS = 4
+CHAIN_SHARD_N = 437472  # 4 x 109368 = 4 x 744 x 147 raw samples; 4 x 465 hops resampled
+C4_RATE, C4_TAPS, C4_NFFT, C4_SECONDS = 96000, 4096, 16384, 4.0  # config 4: 64 x 384000
+
+
+def gate_shard_inputs(x, t, n_sh, nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES):
+    """(x_ext, floor, n_valid) of time shard t of n_sh of the planar x, as
+    ``parallel.sharded.gate_shard_body`` forms them: the shard and its
+    right neighbour's first nfft-hop samples (zeros past the file), the
+    noise floor of the file's first frames (the whole-file gate's
+    prologue) and the count of the shard's frames that end in the file."""
+    from audiosignalprocess_tpu_torch.kernels.gate_kernel import noise_floor
+    from audiosignalprocess_tpu_torch.ops.stft import frame
+    from audiosignalprocess_tpu_torch.ops.windows import window
+
+    d, n = nfft - hop, x.shape[-1]
+    l = n // n_sh
+    xp = torch.nn.functional.pad(x, (0, d))
+    w = window("hann", nfft, periodic=True, dtype=x.dtype, device=x.device)
+    floor = noise_floor(frame(xp[:, : d + noise_frames * hop], nfft, hop) * w)
+    n_valid = min(max((n - nfft - t * l) // hop + 1, 0), l // hop)
+    return xp[:, t * l : (t + 1) * l + d].contiguous(), floor, n_valid
+
+
+def shard_flips(x64, t, n_sh, threshold_db=6.0):
+    """Gate decisions of time shard t's frames against the file's floor,
+    float32 against float64: the bins float32 rounding flips, among those
+    within 60 dB of their channel's peak (``decision_flips`` for a shard)."""
+    from audiosignalprocess_tpu_torch.ops.stft import frame
+    from audiosignalprocess_tpu_torch.ops.windows import window
+
+    dec, mag64 = [], None
+    for dt in (torch.float32, torch.float64):
+        ext, floor, nv = gate_shard_inputs(x64.to(dt), t, n_sh)
+        w = window("hann", NFFT, periodic=True, dtype=dt, device=x64.device)
+        mag = torch.fft.rfft(frame(ext[:, : (nv - 1) * HOP + NFFT], NFFT, HOP) * w).abs()
+        dec.append(mag > floor[:, None, :] * 10.0 ** (threshold_db / 20.0))
+        mag64 = mag
+    loud = mag64 > 1e-3 * mag64.amax(dim=(-2, -1), keepdim=True)
+    return int(((dec[0] != dec[1]) & loud).sum())
+
+
+def sharded_rank(rank, world, seed):
+    """Phase 22 on one of ``world`` ranks that share the card over gloo
+    (CUDA tensors staged through host memory for every transfer): on the
+    meshes (1, world) and (2, world/2), the fused time-sharded gate at
+    SHARD_HEADLINE, config 4's halo'd overlap-save and the config-5
+    composite as a sharded chain, each with its own launch counts; rank 0
+    also holds the gathered outputs to the unsharded kernels and the
+    float64 plain paths.  Returns {case: record}."""
+    from audiosignalprocess_tpu_torch import parallel
+    from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
+        FRAMES_PER_TILE, gate_shard_fused, noise_gate_fused, noise_gate_ref,
+    )
+    from audiosignalprocess_tpu_torch.kernels.os_kernel import overlap_save_fused, overlap_save_ref
+    from audiosignalprocess_tpu_torch.kernels.resample_kernel import resample_mac
+    from audiosignalprocess_tpu_torch.ops.fir import design_fir
+    from audiosignalprocess_tpu_torch.pipeline import Chain, ResFIRGateStage
+    from audiosignalprocess_tpu_torch.tools.common import make_signal
+    from audiosignalprocess_tpu_torch.utils.metrics import snr_db
+
+    dev = torch.device("cuda")
+    kernels = (gate_shard_fused, noise_gate_fused, overlap_save_fused, resample_mac)
+    rng = np.random.default_rng(seed)
+    c = SHARD_HEADLINE[0]
+    h4 = design_fir(C4_TAPS, 0.1, window_kind="blackman")
+    chain = Chain([ResFIRGateStage(UP, DOWN, h=design_fir(TAPS, 0.3), nfft=NFFT, hop=HOP,
+                                   noise_frames=NOISE_FRAMES)])
+    chain.build()
+    xs = {"gate": torch.as_tensor(tone_burst(rng, *SHARD_HEADLINE), device=dev),
+          "config 4": torch.as_tensor(make_signal(c, C4_RATE, C4_SECONDS, seed=seed),
+                                      device=dev),
+          "config 5": torch.as_tensor(tone_burst(rng, c, CHAIN_SHARD_N), device=dev)}
+    refs = {}  # rank 0: (unsharded float32 kernels, float64 plain) per case
+
+    def ref_of(name, x):
+        n = x.shape[-1]
+        pad = lambda y: torch.nn.functional.pad(y, (0, n - y.shape[-1]))
+        if name == "gate":
+            return (pad(noise_gate_fused(x.float(), noise_frames=NOISE_FRAMES)),
+                    pad(noise_gate_ref(x, noise_frames=NOISE_FRAMES)))
+        if name == "config 4":
+            return (overlap_save_fused(x.float(), h4, C4_NFFT),
+                    overlap_save_ref(x, h4, C4_NFFT))
+        return chain.full(x.float()), chain.full(x)
+
+    out = {}
+    for shape in ((1, world), (2, world // 2)):
+        mesh = parallel.make_mesh(*shape)
+        for name, fn in (
+                ("gate", parallel.sharded_noise_gate(mesh, NFFT, HOP, noise_frames=NOISE_FRAMES,
+                                                     fused=True)),
+                ("config 4", parallel.sharded_overlap_save(mesh, h4, C4_NFFT, fused=True)),
+                ("config 5", parallel.sharded_chain(mesh, chain))):
+            block = parallel.shard_audio(xs[name].float(), mesh)
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            y = fn(block)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {k.__name__: k.launches for k in kernels if k.launches}
+            y = parallel.gather_audio(y, mesh)
+            rec = dict(launches=counts, shape=tuple(y.shape), secs=secs,
+                       finite=bool(torch.isfinite(y).all()))
+            if rank == 0:
+                if name not in refs:
+                    refs[name] = ref_of(name, xs[name])
+                rec.update(snr_vs_kernel=snr_db(refs[name][0], y),
+                           snr_vs_f64_plain=snr_db(refs[name][1], y),
+                           ref_shape=tuple(refs[name][1].shape))
+                if name == "gate":
+                    # the hops whose output differs from the whole-file
+                    # kernel's beyond rounding (a flipped bin): each must be
+                    # one where the two launches transform some frame
+                    # differently, in the shard's first tile (frames paired
+                    # from another origin, the left spill) or at the last
+                    # hop of a tile of either launch or of the shard (its
+                    # last frame transformed alone)
+                    err = (y - refs[name][0]).abs().reshape(c, -1, HOP).amax(dim=(0, 2))
+                    g = torch.nonzero(err > 1e-5 * refs[name][0].abs().max()).flatten()
+                    g = g.cpu().numpy()
+                    l_hops, last = y.shape[-1] // shape[1] // HOP, FRAMES_PER_TILE - 1
+                    h = g % l_hops
+                    odd = ((h >= FRAMES_PER_TILE) & (h % FRAMES_PER_TILE != last)
+                           & (g % FRAMES_PER_TILE != last) & (h != l_hops - 1))
+                    rec.update(diff_hops=len(g), unexplained_hops=g[odd].tolist())
+            out[f"{name} {shape}"] = rec
+    return out
+
+
+def sharded_phases(dev, smi, record, kernels, reset_counts):
+    """Phases 20-23: the sharded whole-file program (``parallel``) and its
+    kernel gate_shard_fused, then the config-3 and config-4 drivers.  Adds
+    gate_shard_fused to ``record``; raises SystemExit on a failure."""
+    import torch.distributed as dist
+
+    from audiosignalprocess_tpu_torch import parallel
+    from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
+        gate_shard_fused, gate_shard_ref,
+    )
+    from audiosignalprocess_tpu_torch.ops.fir import design_fir
+    from audiosignalprocess_tpu_torch.pipeline import Chain, GateStage, ResFIRGateStage
+    from audiosignalprocess_tpu_torch.utils.metrics import snr_db
+
+    def counted(fn):
+        reset_counts()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, {k.__name__: k.launches for k in kernels if k.launches}
+
+    # ---- phase 20: the kernel vs its float64 plain version on the card,
+    # on the four shards of SHARD_HEADLINE (real right halos, the file's
+    # floor, validity against the file's end)
+    c, n = SHARD_HEADLINE
+    for name, x in (("tone bursts", tone_burst(np.random.default_rng(20), c, n)),
+                    ("white noise seed 1", np.random.default_rng(1).standard_normal((c, n))),
+                    ("white noise seed 2", np.random.default_rng(2).standard_normal((c, n)))):
+        x64 = torch.as_tensor(x, device=dev)
+        for t in range(SHARDS):
+            ext, floor, nv = gate_shard_inputs(x64, t, SHARDS)
+            ext32, floor32, _ = gate_shard_inputs(x64.float(), t, SHARDS)
+            before = gate_shard_fused.launches
+            y = gate_shard_fused(ext32, floor32, nv, NFFT, HOP)
+            torch.cuda.synchronize()
+            check_kernel(record, 20, f"gate_shard_fused {name} shard {t} of {SHARDS} "
+                         f"{c}x{ext.shape[-1]} n_valid={nv}", y,
+                         gate_shard_ref(ext, floor, nv, NFFT, HOP), gate_shard_fused, before, 1,
+                         SNR_MIN_DB, f" decision_flips_f32_vs_f64={shard_flips(x64, t, SHARDS)}")
+    noise = torch.as_tensor(np.random.default_rng(0).standard_normal(SHARD_HEADLINE),
+                            dtype=torch.float32, device=dev)
+    ext32, floor32, nv = gate_shard_inputs(noise, 1, SHARDS)
+    rec = record["gate_shard_fused"]
+    rec.update(ms=time_ms(lambda: gate_shard_fused(ext32, floor32, nv, NFFT, HOP)),
+               plain_ms=time_ms(lambda: gate_shard_ref(ext32, floor32, nv, NFFT, HOP)),
+               library_ms=None, source="gate_kernel.cu", replaces="gate_kernel.py:338")
+    set_bound(rec, 4 * (2 * ext32.numel() + floor32.numel()), c * fft_flops(NFFT, nv))
+    print(f"[20 times] gate_shard_fused shard 1 of {SHARDS}, {c}x{ext32.shape[-1]} f32 white "
+          f"noise, {nv} frames, on {smi}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+          f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+    # ---- phase 21: a one-rank NCCL group on a 1x1 mesh: the fused sharded
+    # gate and the config-5 composite as a sharded chain at the full width,
+    # each driven with every count at 0 just before and read just after
+    rng = np.random.default_rng(21)
+    h = design_fir(TAPS, 0.3)
+    x48 = torch.as_tensor(tone_burst(rng, *HEADLINE), dtype=torch.float32, device=dev)
+    x44 = torch.as_tensor(tone_burst(rng, *RES_HEADLINE), dtype=torch.float32, device=dev)
+    chain5 = Chain([ResFIRGateStage(UP, DOWN, h=h, nfft=NFFT, hop=HOP,
+                                    noise_frames=NOISE_FRAMES)])
+    chain5.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.initialize(f"file://{tmp}/store", 1, 0, backend="nccl")
+        try:
+            mesh = parallel.make_mesh(1, 1)
+            gate_fn = parallel.sharded_noise_gate(mesh, NFFT, HOP, noise_frames=NOISE_FRAMES,
+                                                  fused=True)
+            chain_fn = parallel.sharded_chain(mesh, chain5)
+            parallel.warmup(chain_fn, parallel.shard_audio(x44, mesh))  # and an NCCL barrier
+            runs = {}
+            for name, fn, x, want in (
+                    ("sharded_noise_gate(fused=True)", gate_fn, x48, {"noise_gate_fused": 1}),
+                    ("sharded_chain(ResFIRGateStage)", chain_fn, x44,
+                     {"resample_mac": 1, "overlap_save_fused": 1, "gate_shard_fused": 1})):
+                y, counts = counted(lambda: parallel.gather_audio(
+                    fn(parallel.shard_audio(x, mesh)), mesh))
+                runs[name] = (y, counts)
+                line = (f"[21 nccl world 1] {dist.get_backend()} {name} {tuple(x.shape)} -> "
+                        f"{tuple(y.shape)} launches={counts}")
+                print(line)
+                if counts != want or not bool(torch.isfinite(y).all()):
+                    raise SystemExit(f"phase 21 failed: {line} (want {want})")
+        finally:
+            dist.destroy_process_group()
+    y, _ = runs["sharded_noise_gate(fused=True)"]
+    whole = Chain([GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, fused=True)])
+    whole.build()
+    ref = whole.full_flush(x48)
+    snr64 = snr_db(GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES).full(x48.double()), y)
+    line = (f"[21 nccl world 1] gate: bit-equal to the unsharded GateStage(fused=True) "
+            f"{bool(torch.equal(ref, y))}, snr_vs_f64_plain={snr64:.2f} dB")
+    print(line)
+    if not torch.equal(ref, y) or snr64 < SNR_MIN_DB:
+        raise SystemExit(f"phase 21 failed: {line}")
+    y, counts = runs["sharded_chain(ResFIRGateStage)"]
+    snr32, snr64 = snr_db(chain5.full(x44), y), snr_db(chain5.full(x44.double()), y)
+    line = (f"[21 nccl world 1] config-5 chain {tuple(y.shape)}: snr_vs_unsharded "
+            f"resample_fir_gate_fused={snr32:.2f} dB, snr_vs_f64_plain={snr64:.2f} dB")
+    print(line)
+    if tuple(y.shape) != (RES_HEADLINE[0], RES_OUT) or min(snr32, snr64) < SNR_MIN_DB:
+        raise SystemExit(f"phase 21 failed: {line}")
+    record["gate_shard_fused"]["launches"] = counts["gate_shard_fused"]
+
+    # ---- phase 22: four ranks share the card over gloo (not a scaling
+    # number: one card); every rank reports its own launches
+    t0 = time.perf_counter()
+    ranks = parallel.spawn_local(sharded_rank, SHARDS, backend="gloo", device="cuda",
+                                 args=(22,), timeout_s=600.0)
+    gate_shard = {"gate_shard_fused": 1}
+    want = {"gate": gate_shard, "config 4": {"overlap_save_fused": 1},
+            "config 5": {"resample_mac": 1, "overlap_save_fused": 1, **gate_shard}}
+    # (against the unsharded float32 kernels, against the float64 plain
+    # path).  The shard's tiles start 4 hops off the whole-file launch's,
+    # so some frames are transformed in other pairs, and a borderline bin
+    # of one may flip (116.28 dB in a run): the bar is 100 dB, and every
+    # hop that differs beyond rounding must be one of those frames'
+    # (``unexplained_hops`` empty)
+    bars = {"gate": (LINEAR_MIN_DB, SNR_MIN_DB), "config 4": (LINEAR_MIN_DB, LINEAR_MIN_DB),
+            "config 5": (SNR_MIN_DB, SNR_MIN_DB)}
+    for case, rec0 in ranks[0].items():
+        name = case.rsplit(" (", 1)[0]
+        counts = [r[case]["launches"] for r in ranks]
+        line = (f"[22 gloo x{SHARDS} on one card] {case} {rec0['shape']}: launches per rank "
+                f"{counts} snr_vs_unsharded_kernels={rec0['snr_vs_kernel']:.2f} dB "
+                f"snr_vs_f64_plain={rec0['snr_vs_f64_plain']:.2f} dB (rank 0 call "
+                f"{rec0['secs']:.3f} s, host clock)")
+        if name == "gate":
+            line += (f"; {rec0['diff_hops']} hops differ beyond rounding, unexplained: "
+                     f"{rec0['unexplained_hops']}")
+        print(line)
+        if (any(cn != want[name] for cn in counts) or rec0["shape"] != rec0["ref_shape"]
+                or rec0.get("unexplained_hops")
+                or not all(r[case]["finite"] for r in ranks)
+                or rec0["snr_vs_kernel"] < bars[name][0]
+                or rec0["snr_vs_f64_plain"] < bars[name][1]):
+            raise SystemExit(f"phase 22 failed: {line} (want {want[name]} per rank)")
+    print(f"[22 gloo x{SHARDS} on one card] {time.perf_counter() - t0:.1f} s with the start "
+          f"of the ranks (host clock)")
+
+    # ---- phase 23: the config-3 and config-4 drivers on the card, one
+    # process, and config 4 under torchrun with four ranks sharing it
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    module = "audiosignalprocess_tpu_torch.tools.run_config_{}"
+    for label, cmd in (
+            ("config 3", ["-m", module.format(3)]),
+            ("config 4", ["-m", module.format(4)]),
+            ("config 4 torchrun x4 gloo 2x2", ["-m", "torch.distributed.run", "--standalone",
+                                              f"--nproc-per-node={SHARDS}", "-m",
+                                              module.format(4), "--backend", "gloo",
+                                              "--mesh", "2x2"])):
+        r = subprocess.run([sys.executable, *cmd, "--check", "--json", "--bench"], cwd=root,
+                           env=env, capture_output=True, text=True, timeout=600)
+        recs = [json.loads(ln) for ln in r.stdout.splitlines()
+                if ln.startswith("{") and "snr_db_vs_f64_plain" in ln]
+        line = f"[23 driver] {label}: rc={r.returncode} {recs} on {smi}"
+        print(line)
+        if r.returncode != 0 or len(recs) != 1 or not recs[0]["parity"] \
+                or recs[0]["device"] != "cuda":
+            raise SystemExit(f"phase 23 failed: {line}\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+
+
 def main() -> int:
     # ---- phase 1: environment
     t_start = time.perf_counter()
@@ -941,7 +1245,7 @@ def main() -> int:
     )
     from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac, fir_mac_ref
     from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
-        gate_step_fused, noise_gate_fused,
+        gate_shard_fused, gate_step_fused, noise_gate_fused,
     )
     from audiosignalprocess_tpu_torch.kernels.os_kernel import (
         overlap_save_fused, overlap_save_ref,
@@ -960,7 +1264,7 @@ def main() -> int:
     kernels = (fir_noise_gate_fused, fir_gate_step_fused, gate_step_fused,
                overlap_save_fused, fir_mac, resample_mac, resample_fir_gate_fused,
                res_fir_gate_step_fused, noise_gate_fused, fk.fft_stockham_lanes,
-               fk.rfft_stockham, fk.irfft_stockham, stretch_step_fused)
+               fk.rfft_stockham, fk.irfft_stockham, stretch_step_fused, gate_shard_fused)
 
     def reset_counts():
         for k in kernels:
@@ -1232,6 +1536,8 @@ def main() -> int:
     marks.append(("phases 14-16", time.perf_counter()))
     vocoder_phases(dev, smi, record, kernels, reset_counts)
     marks.append(("phases 17-19", time.perf_counter()))
+    sharded_phases(dev, smi, record, kernels, reset_counts)
+    marks.append(("phases 20-23", time.perf_counter()))
     res_c = Chain([ResFIRGateStage(UP, DOWN, h=h, nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES)])
     res_c.build()
     earlier_bounds(record, h, h_env, xn, path_a.drain_blocks(n, BLOCK),

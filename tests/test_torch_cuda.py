@@ -12,7 +12,10 @@ the gate >= 60 dB, because its hard thresholds flip a few borderline bins
 under float32 rounding; the phase vocoder's step >= 60 dB against its
 float64 plain version and >= 65 dB against its float32 plain version
 (the JAX package's own bar: its rotor recursion integrates float32
-rounding over the stream).
+rounding over the stream); the time-sharded fused gate of two gloo ranks
+sharing the card >= 100 dB against the whole-file gate kernel (the two
+kernels pair frames into complex transforms from different tile
+origins, so a borderline bin may flip).
 """
 
 import numpy as np
@@ -27,7 +30,8 @@ from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
 )
 from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac, fir_mac_ref
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
-    gate_step_fused, noise_gate_fused, noise_gate_ref,
+    gate_shard_fused, gate_shard_ref, gate_step_fused, noise_floor, noise_gate_fused,
+    noise_gate_ref,
 )
 from audiosignalprocess_tpu_torch.kernels.os_kernel import (
     overlap_save_fused, overlap_save_ref,
@@ -46,6 +50,8 @@ from audiosignalprocess_tpu_torch.ops import fft
 from audiosignalprocess_tpu_torch.ops.fir import design_fir
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.ops.resample import history_len, resample_filter
+from audiosignalprocess_tpu_torch.ops.stft import frame
+from audiosignalprocess_tpu_torch.ops.windows import window
 from audiosignalprocess_tpu_torch.pipeline import (
     Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage, ResampleStage,
     ResFIRGateStage, StretchStage,
@@ -67,7 +73,7 @@ def _all_counters():
     return (fir_noise_gate_fused, fir_gate_step_fused, gate_step_fused, overlap_save_fused,
             fir_mac, resample_mac, resample_fir_gate_fused, res_fir_gate_step_fused,
             noise_gate_fused, fk.fft_stockham_lanes, fk.rfft_stockham, fk.irfft_stockham,
-            stretch_step_fused)
+            stretch_step_fused, gate_shard_fused)
 
 
 def _launches(fn):
@@ -277,6 +283,8 @@ def _stretch_step_f64(x):
     fk.rfft_stockham,
     lambda x: fk.irfft_stockham(x[:, :2049], x[:, :2049], 4096),
     _stretch_step_f64,
+    lambda x: gate_shard_fused(x, torch.ones(1, 513, dtype=x.dtype, device=x.device), 13,
+                               1024, 256),
 ])
 def test_new_kernels_raise_on_float64(card, call):
     with pytest.raises(ValueError, match="float32"):
@@ -609,3 +617,79 @@ def test_vocoder_whole_file_launch_counts(card, tmp_path):
         _, counts = _launches(lambda: getattr(api, name)(p, str(tmp_path / "o.wav"),
                                                          float_fmt=True, **kw))
         assert counts == want, name
+
+
+@pytest.mark.parametrize("t,n_sh,l", [(0, 4, 16384), (1, 4, 16384), (3, 4, 16384), (3, 4, 512)])
+def test_gate_shard_vs_plain(card, t, n_sh, l):
+    """One time shard of the sharded gate (the file's start, a middle shard,
+    an end shard with frames past the file's end, one with none valid):
+    float32 kernel vs the float64 plain version, >= 60 dB, the
+    un-normalized overlap-add of (l + d) samples, zeros past the last valid
+    frame, one launch."""
+    nfft, hop, d = 1024, 256, 768
+    rng = np.random.default_rng(76 + t)
+    x = torch.as_tensor(_tone_burst(rng, 3, n_sh * l), device=card)
+    xp = torch.nn.functional.pad(x, (0, d))
+    ext = xp[:, t * l : (t + 1) * l + d]
+    n_valid = min(max((n_sh * l - nfft - t * l) // hop + 1, 0), l // hop)
+    floors = {}
+    for dt in (torch.float32, torch.float64):
+        w = window("hann", nfft, periodic=True, dtype=dt, device=card)
+        floors[dt] = noise_floor(frame(xp[:, : d + 8 * hop].to(dt), nfft, hop) * w)
+    before = gate_shard_fused.launches
+    y = gate_shard_fused(ext.float().contiguous(), floors[torch.float32], n_valid, nfft, hop)
+    torch.cuda.synchronize()
+    assert gate_shard_fused.launches == before + 1
+    ref = gate_shard_ref(ext, floors[torch.float64], n_valid, nfft, hop)
+    assert y.shape == ref.shape == (3, l + d) and bool(torch.isfinite(y).all())
+    end = max(n_valid - 1, 0) * hop + nfft if n_valid else 0
+    assert not bool(y[:, end:].any())
+    if n_valid:
+        assert snr_db(ref, y) >= 60.0
+
+
+def test_sharded_chain_nccl_world_1(card, tmp_path):
+    """The config-5 composite as a sharded chain in a one-rank NCCL group
+    on a 1x1 mesh: its components run resample_mac, overlap_save_fused and
+    gate_shard_fused once each, >= 60 dB against the float64 plain chain."""
+    import torch.distributed as dist
+
+    from audiosignalprocess_tpu_torch import parallel
+
+    rng = np.random.default_rng(77)
+    x = torch.as_tensor(_tone_burst(rng, 2, 147 * 64, fs=44100), device=card)
+    chain = Chain([ResFIRGateStage(160, 147, h=design_fir(64, 0.3), noise_frames=4)])
+    chain.build()
+    parallel.initialize(f"file://{tmp_path}/store", 1, 0, backend="nccl")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = parallel.make_mesh(1, 1)
+        fn = parallel.sharded_chain(mesh, chain)
+        y, counts = _launches(lambda: fn(parallel.shard_audio(x.float(), mesh)))
+        parallel.warmup(fn, parallel.shard_audio(x.float(), mesh))
+    finally:
+        dist.destroy_process_group()
+    assert counts == {"resample_mac": 1, "overlap_save_fused": 1, "gate_shard_fused": 1}
+    ref = chain.full(x)
+    assert y.shape == ref.shape and snr_db(ref, y) >= 60.0
+
+
+def test_time_sharded_gate_gloo_on_the_card(card):
+    """Two ranks sharing the card over gloo (CUDA tensors staged through
+    host memory for every transfer): the time-sharded fused gate == the
+    whole-file noise_gate_fused (>= 100 dB: the kernels pair frames into
+    complex transforms from different tile origins) and >= 60 dB against
+    the float64 plain gate."""
+    import torch_dist_workers
+    from audiosignalprocess_tpu_torch.parallel import spawn_local
+
+    rng = np.random.default_rng(78)
+    x = _tone_burst(rng, 2, 2 * 16384).astype(np.float32)
+    cases = [("gate", "gate", (1, 2), dict(noise_frames=8, fused=True), x)]
+    out = spawn_local(torch_dist_workers.run_cases, 2, backend="gloo", device="cuda",
+                      args=(cases, "cuda"), timeout_s=240.0)[0]["gate"]
+    xc = torch.as_tensor(x, device=card)
+    whole = noise_gate_fused(xc, noise_frames=8).cpu()
+    assert snr_db(whole, torch.as_tensor(out[:, : whole.shape[-1]])) >= 100.0
+    ref = noise_gate_ref(xc.double(), noise_frames=8).cpu()
+    assert snr_db(ref, torch.as_tensor(out[:, : ref.shape[-1]])) >= 60.0

@@ -244,7 +244,8 @@ class TestRouting:
         x = torch.zeros(4)
         assert [fft._resolve_impl(n, x) for n in ("xla", "pallas_sk", "pallas_sk_split")] == [
             "torch", "stockham", "stockham_split"]
-        for name in ("matmul", "pallas", "pallas_r2", "pallas_r2_stages", "pallas_cg"):
+        assert fft._resolve_impl("matmul", x) == "matmul"
+        for name in ("pallas", "pallas_r2", "pallas_r2_stages", "pallas_cg"):
             with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
                 fft.fft(torch.zeros(8, dtype=torch.complex64), impl=name)
         with pytest.raises(ValueError, match="unknown FFT impl"):

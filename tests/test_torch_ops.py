@@ -51,8 +51,10 @@ def test_fft_guards(rng):
         fft.rfft(torch.zeros(3, 24, dtype=torch.float64))
     with pytest.raises(ValueError):
         fft.rfft(torch.zeros(8, dtype=torch.complex128))
-    with pytest.raises(NotImplementedError):
-        fft.fft(torch.zeros(8, dtype=torch.complex128), impl="matmul")
+    # impl="matmul", the four-step product form, equals the JAX package's
+    z = rng.standard_normal((3, 64)) + 1j * rng.standard_normal((3, 64))
+    zt, zj = _both(z)
+    _close(fft.fft(zt, impl="matmul"), jax_fft.fft(zj, impl="matmul"))
 
 
 @pytest.mark.parametrize("nfft,hop,n", [(1024, 256, 6000), (256, 64, 1000),
