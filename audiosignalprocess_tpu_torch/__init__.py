@@ -6,8 +6,9 @@ are written by hand for NVIDIA Hopper (CUDA C++ in ``csrc/``, built with
 nvcc at first use).  It never imports jax.
 
 Ported so far: windows, FIR design and direct-form filtering, the FFT
-family (``ops.fft``: torch.fft, radix-2, split-radix and the hand-written
-Stockham kernels, ``auto`` picking the kernels for CUDA float32),
+family (``ops.fft``: torch.fft, radix-2, split-radix, the four-step
+matmul and the hand-written Stockham, four-step, radix-2 and Pease
+kernels, ``auto`` picking the Stockham kernels for CUDA float32),
 STFT/ISTFT, overlap-save, the polyphase resampler, the spectral noise
 gate, the envelope effects, the phase vocoder (``effects.time_stretch``,
 ``effects.pitch_shift``), the (resample ->) FIR -> gate (-> envelope)
@@ -26,7 +27,9 @@ GPU unless told ``device="cpu"``.  Hand-written kernels (``kernels/``):
 ``overlap_save_fused``, ``fir_mac``, ``resample_mac``,
 ``resample_fir_gate_fused``, ``res_fir_gate_step_fused``,
 ``noise_gate_fused``, ``fft_stockham_lanes``, ``rfft_stockham``,
-``irfft_stockham``, ``stretch_step_fused`` and ``gate_shard_fused``.
+``irfft_stockham``, ``stretch_step_fused``, ``gate_shard_fused``,
+``fft_fourstep``, ``fft_radix2_lanes``, ``fft_radix2_stages`` and
+``fft_pease_lanes``.
 """
 
 __version__ = "0.1.0"

@@ -9,7 +9,8 @@ from audiosignalprocess_tpu_torch.kernels.chain_kernel import (  # noqa: F401
     fir_gate_step_fused, fir_noise_gate_fused,
 )
 from audiosignalprocess_tpu_torch.kernels.fft_kernel import (  # noqa: F401
-    fft_complex, fft_stockham_lanes, irfft_stockham, rfft_stockham,
+    fft_complex, fft_fourstep, fft_pease_lanes, fft_radix2_lanes, fft_radix2_stages,
+    fft_stockham_lanes, irfft_stockham, rfft_stockham,
 )
 from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac  # noqa: F401
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (  # noqa: F401

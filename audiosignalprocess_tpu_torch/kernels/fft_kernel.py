@@ -10,14 +10,22 @@
 - ``irfft_stockham(sr, si, n)``: the inverse, planar (B, n/2+1) -> (B, n),
   scaled 1/n in the kernel; the imaginary parts of bins 0 and n/2 are
   ignored, as torch.fft.irfft ignores them;
-- ``fft_complex(x, sign)``: the complex-tensor adapter behind
-  ``ops.fft``'s ``"stockham"`` impl (a direct DFT below n = 4).
+- ``fft_fourstep``, ``fft_radix2_lanes``, ``fft_radix2_stages`` and
+  ``fft_pease_lanes``: the other complex FFTs of the JAX package's impl
+  registry, same planar contract as ``fft_stockham_lanes``: the four-step
+  factorization n = n1 n2 (n2 = min(128, n)) as two dense DFT products
+  around a twiddle, radix-2 decimation in time (twiddles from the n/2
+  table, or from the stacked per-stage table) and the constant-geometry
+  Pease stages;
+- ``fft_complex(x, sign, core)``: the complex-tensor adapter behind
+  ``ops.fft``'s kernel impls (a direct DFT below n = 4).
 
-The plain versions (``*_ref``) run the same self-sorting Stockham radix-2
-stages in PyTorch (the JAX package's ``_stockham_stages_r2``), not
-torch.fft.  Each wrapper runs its plain version for a CPU tensor and
-counts no launch; a CUDA float32 tensor launches the kernel; anything else
-raises.
+The plain versions (``*_ref``) run each kernel's own algorithm in
+PyTorch, not torch.fft: the self-sorting Stockham radix-2 stages (the JAX
+package's ``_stockham_stages_r2``), the four-step products, the radix-2
+DIT stages after a bit reversal, the Pease stages before one.  Each
+wrapper runs its plain version for a CPU tensor and counts no launch; a
+CUDA float32 tensor launches the kernel; anything else raises.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 from audiosignalprocess_tpu_torch.kernels._build import (
     SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error,
 )
+from audiosignalprocess_tpu_torch.ops.fft import bit_reverse_indices
 from audiosignalprocess_tpu_torch.utils.device import upload
 from audiosignalprocess_tpu_torch.utils.validate import check
 
@@ -43,14 +52,57 @@ def _pow2(n: int, least: int) -> None:
     check(n >= least and n & (n - 1) == 0, f"power-of-two n >= {least} required, got {n}")
 
 
+FOURSTEP_TILE = 4
+"""fft_fourstep's row DFTs give each thread this many grid rows (c) of one
+output column (d); rows per CTA times n1 must be a multiple of it."""
+
+PEASE_MAX_N = 1 << 24
+"""fft_pease_lanes' bound, kept from the JAX kernel (its f32 iota
+twiddle exponent is exact below it)."""
+
+
 @functools.lru_cache(maxsize=64)
 def _twiddles_np(n: int) -> np.ndarray:
     """exp(-2 pi i k / n) for k < n/2, float64."""
     return np.exp(-2j * np.pi * np.arange(n // 2) / n)
 
 
+def fourstep_split(n: int) -> tuple[int, int]:
+    """fft_fourstep's (n1, n2): n2 = min(128, n) points along a grid row,
+    n1 = n / n2 rows (the JAX kernel's ``_split_n``)."""
+    n2 = min(128, n)
+    return n // n2, n2
+
+
+@functools.lru_cache(maxsize=64)
+def dft_matrix_np(n: int, sign: float = -1.0) -> np.ndarray:
+    """The n-point DFT matrix exp(sign 2 pi i ((j k) mod n) / n), float64,
+    its angles reduced mod n as the JAX kernel's ``_np_coef`` reduces them."""
+    k = np.arange(n)
+    return np.exp(np.copysign(2.0, sign) * 1j * np.pi * (np.outer(k, k) % n) / n)
+
+
+@functools.lru_cache(maxsize=64)
+def fourstep_twiddles_np(n: int, sign: float = -1.0) -> np.ndarray:
+    """fft_fourstep's twiddle grid W_n^{c b} = exp(sign 2 pi i c b / n),
+    (n1, n2) float64 (c b < n: no reduction needed)."""
+    n1, n2 = fourstep_split(n)
+    cb = np.outer(np.arange(n1), np.arange(n2))
+    return np.exp(np.copysign(2.0, sign) * 1j * np.pi * cb / n)
+
+
+@functools.lru_cache(maxsize=64)
+def stage_twiddles_np(n: int, sign: float) -> np.ndarray:
+    """fft_radix2_stages' stacked table, (log2 n, n/2) complex float64:
+    stage s (half-size m = 2^s) holds its m twiddles exp(sign i pi p / m)
+    tiled n/(2m) times (the JAX package's ``_stage_twiddles``)."""
+    halves = [1 << s for s in range(n.bit_length() - 1)]
+    return np.stack([np.tile(np.exp(np.copysign(1.0, sign) * 1j * np.pi * np.arange(m) / m),
+                             n // (2 * m)) for m in halves])
+
+
 # ---------------------------------------------------------------------------
-# plain versions: the kernels' Stockham stages in PyTorch
+# plain versions: the kernels' algorithms in PyTorch
 # ---------------------------------------------------------------------------
 
 def fft_stockham_lanes_ref(xr: torch.Tensor, xi: torch.Tensor, sign: float):
@@ -118,6 +170,84 @@ def irfft_stockham_ref(sr: torch.Tensor, si: torch.Tensor, n: int):
     return torch.stack([tr, ti], dim=-1).reshape(b, n) / half
 
 
+def _planar(a: np.ndarray, like: torch.Tensor):
+    """A complex float64 table as (re, im) tensors of ``like``'s dtype and device."""
+    return (upload(a.real.copy(), like.dtype, like.device),
+            upload(a.imag.copy(), like.dtype, like.device))
+
+
+def fft_fourstep_ref(xr: torch.Tensor, xi: torch.Tensor, sign: float):
+    """Plain PyTorch version of ``fft_fourstep``, any device and dtype: the
+    row viewed as the grid X[a, b] = x[a n2 + b] (n1, n2 = fourstep_split),
+    the n1-point DFTs down its columns, the twiddle W_n^{c b}, the
+    n2-point DFTs along its rows, each DFT a dense product against its
+    table, and the transpose T[d, c] = S[n1 d + c] to natural order."""
+    b, n = xr.shape
+    n1, n2 = fourstep_split(n)
+    f1r, f1i = _planar(dft_matrix_np(n1, sign), xr)
+    f2r, f2i = _planar(dft_matrix_np(n2, sign), xr)
+    twr, twi = _planar(fourstep_twiddles_np(n, sign), xr)
+    ar, ai = xr.reshape(b, n1, n2), xi.reshape(b, n1, n2)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # TF32 keeps ~3 decimal digits
+    try:
+        yr = torch.matmul(f1r, ar) - torch.matmul(f1i, ai)
+        yi = torch.matmul(f1r, ai) + torch.matmul(f1i, ar)
+        zr, zi = yr * twr - yi * twi, yr * twi + yi * twr
+        sr = torch.matmul(zr, f2r) - torch.matmul(zi, f2i)
+        si = torch.matmul(zr, f2i) + torch.matmul(zi, f2r)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return sr.transpose(1, 2).reshape(b, n), si.transpose(1, 2).reshape(b, n)
+
+
+def fft_radix2_stages_ref(xr: torch.Tensor, xi: torch.Tensor, sign: float):
+    """Plain PyTorch version of ``fft_radix2_stages`` and
+    ``fft_radix2_lanes``, any device and dtype: the bit-reversal
+    permutation, then the log2(n) decimation-in-time stages of the classic
+    C loop, stage s pairing x[g 2m + p] with x[g 2m + m + p] (m = 2^s)
+    under exp(sign i pi p / m), read from ``stage_twiddles_np``.  (The
+    lanes kernel reads the same values from the n/2-point table.)"""
+    b, n = xr.shape
+    rev = torch.as_tensor(bit_reverse_indices(n), device=xr.device)
+    xr, xi = xr[:, rev], xi[:, rev]
+    tr, ti = _planar(stage_twiddles_np(n, sign), xr)
+    for s in range(n.bit_length() - 1):
+        m = 1 << s
+        g = n // (2 * m)
+        wc, ws = tr[s].reshape(g, m), ti[s].reshape(g, m)
+        ar, ai = xr.reshape(b, g, 2, m), xi.reshape(b, g, 2, m)
+        er, ei = ar[:, :, 0], ai[:, :, 0]
+        pr = ar[:, :, 1] * wc - ai[:, :, 1] * ws
+        pi = ar[:, :, 1] * ws + ai[:, :, 1] * wc
+        xr = torch.cat([er + pr, er - pr], dim=-1).reshape(b, n)
+        xi = torch.cat([ei + pi, ei - pi], dim=-1).reshape(b, n)
+    return xr, xi
+
+
+fft_radix2_lanes_ref = fft_radix2_stages_ref
+
+
+def fft_pease_lanes_ref(xr: torch.Tensor, xi: torch.Tensor, sign: float):
+    """Plain PyTorch version of ``fft_pease_lanes``, any device and dtype:
+    log2(n) identical constant-geometry stages, u = A[:n/2], v = A[n/2:],
+    A' = interleave(u + v, (u - v) w_s) with w_s[k] = exp(sign 2 pi i
+    ((k >> s) << s) / n), then the bit reversal that restores natural
+    order."""
+    b, n = xr.shape
+    h = n // 2
+    k = np.arange(h)
+    tw = _twiddles_np(n) if sign < 0 else _twiddles_np(n).conj()
+    for s in range(n.bit_length() - 1):
+        wc, ws = _planar(tw[(k >> s) << s], xr)
+        ur, ui, vr, vi = xr[:, :h], xi[:, :h], xr[:, h:], xi[:, h:]
+        dr, di = ur - vr, ui - vi
+        xr = torch.stack([ur + vr, dr * wc - di * ws], dim=-1).reshape(b, n)
+        xi = torch.stack([ui + vi, dr * ws + di * wc], dim=-1).reshape(b, n)
+    rev = torch.as_tensor(bit_reverse_indices(n), device=xr.device)
+    return xr[:, rev], xi[:, rev]
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
@@ -127,7 +257,7 @@ class FftArgs(ctypes.Structure):
     ``csrc/fft_kernel.cu``, field for field."""
 
     _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "in_r", "in_i", "out_r", "out_i", "tw", "scratch")]
+        "in_r", "in_i", "out_r", "out_i", "tw", "scratch", "table")]
         + [(name, ctypes.c_int) for name in ("batch", "n", "sign", "rows")])
 
 
@@ -145,9 +275,9 @@ def launch_geometry(m: int, table_n: int) -> tuple[int, int, bool]:
 
 
 def _launch(name: str, what: str, in_r, in_i, out_r, out_i, batch: int, n: int,
-            m: int, sign: int, dev: torch.device) -> None:
-    """Launch one of the three kernels on ``batch`` rows of an m-point
-    transform (n is the row length the caller sees)."""
+            m: int, sign: int, dev: torch.device, table: torch.Tensor | None = None) -> None:
+    """Launch one of the kernels on ``batch`` rows of an m-point transform
+    (n is the row length the caller sees; ``table`` a kernel's own table)."""
     check(0 < batch < 2 ** 31, f"{batch} rows: 1..2^31-1 per launch")
     rows, smem, shared = launch_geometry(m, n)
     tw = fft_twiddles(n, dev)
@@ -155,18 +285,53 @@ def _launch(name: str, what: str, in_r, in_i, out_r, out_i, batch: int, n: int,
                torch.empty((batch, 4 * m), dtype=torch.float32, device=dev))
     ptr = lambda t: None if t is None else t.data_ptr()
     args = FftArgs(ptr(in_r), ptr(in_i), ptr(out_r), ptr(out_i), tw.data_ptr(),
-                   ptr(scratch), batch, n, sign, rows)
+                   ptr(scratch), ptr(table), batch, n, sign, rows)
     rc = kernel_fn(name, 1)(ctypes.byref(args), smem, dev.index,
                             torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, what)
+
+
+def _pairs(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A complex float64 table as float32 (re, im) pairs on ``device``."""
+    return upload(np.ascontiguousarray(a.astype(np.complex64).view(np.float32)),
+                  torch.float32, device)
 
 
 @functools.lru_cache(maxsize=32)
 def fft_twiddles(n: int, device: torch.device) -> torch.Tensor:
     """exp(-2 pi i k / n), k < n/2, as float32 (re, im) pairs on
     ``device``, from float64, uploaded once per size."""
-    tw = _twiddles_np(max(n, 2)).astype(np.complex64).view(np.float32)
-    return upload(np.ascontiguousarray(tw), torch.float32, device)
+    return _pairs(_twiddles_np(max(n, 2)), device)
+
+
+@functools.lru_cache(maxsize=32)
+def fourstep_dft_table(n: int, device: torch.device) -> torch.Tensor:
+    """fft_fourstep's n2 x n2 forward DFT table (the kernel conjugates it
+    for the inverse), float32 pairs from float64, uploaded once per size."""
+    return _pairs(dft_matrix_np(fourstep_split(n)[1]), device)
+
+
+@functools.lru_cache(maxsize=32)
+def stage_table(n: int, sign: int, device: torch.device) -> torch.Tensor:
+    """fft_radix2_stages' (log2 n, n/2) stacked stage table for ``sign``,
+    float32 pairs from float64, uploaded once per size and sign."""
+    return _pairs(stage_twiddles_np(n, sign), device)
+
+
+def _launch_complex(fn, symbol: str, xr: torch.Tensor, xi: torch.Tensor, sign: float,
+                    table=None):
+    """Launch the complex kernel ``symbol`` on planar CUDA float32 rows and
+    count it on ``fn``; ``table(n, sign, device)`` gives its own table."""
+    name = fn.__name__
+    check_cuda_f32(xr, name, "ops.fft routes float64 to torch.fft")
+    b, n = xr.shape
+    s = -1 if sign < 0 else 1
+    xr, xi = xr.contiguous(), xi.contiguous()
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch(symbol, name, xr, xi, yr, yi, b, n, n, s, xr.device,
+            None if table is None else table(n, s, xr.device))
+    fn.launches += 1
+    return yr, yi
 
 
 def _planar_pair(a: torch.Tensor, b: torch.Tensor, name: str) -> None:
@@ -185,17 +350,10 @@ def fft_stockham_lanes(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     launches the kernel: each CTA stages its rows in shared memory and runs
     the log2(n) Stockham stages there.  Any other tensor raises."""
     _planar_pair(xr, xi, "fft_stockham_lanes")
-    b, n = xr.shape
-    _pow2(n, 2)
+    _pow2(xr.shape[1], 2)
     if xr.device.type == "cpu":
         return fft_stockham_lanes_ref(xr, xi, sign)
-    check_cuda_f32(xr, "fft_stockham_lanes", "ops.fft routes float64 to torch.fft")
-    xr, xi = xr.contiguous(), xi.contiguous()
-    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    _launch("asp_fft_stockham", "fft_stockham", xr, xi, yr, yi, b, n, n,
-            -1 if sign < 0 else 1, xr.device)
-    fft_stockham_lanes.launches += 1
-    return yr, yi
+    return _launch_complex(fft_stockham_lanes, "asp_fft_stockham", xr, xi, sign)
 
 
 fft_stockham_lanes.launches = 0
@@ -252,20 +410,96 @@ def irfft_stockham(sr: torch.Tensor, si: torch.Tensor, n: int):
 irfft_stockham.launches = 0
 
 
-@functools.lru_cache(maxsize=8)
-def _dft_np(n: int, sign: float) -> np.ndarray:
-    k = np.arange(n)
-    return np.exp(sign * 2j * np.pi * np.outer(k, k) / n)
+def fft_fourstep(xr: torch.Tensor, xi: torch.Tensor, sign: float):
+    """Batched complex FFT of planar (B, n) rows, n a power of two >= 4, by
+    the four-step factorization (the JAX package's ``impl="pallas"``):
+    (yr, yi), natural order, unnormalized; ``sign`` -1 forward, +1 inverse.
+
+    A CPU tensor runs ``fft_fourstep_ref``.  A CUDA float32 tensor
+    launches the kernel: each CTA stages its rows as (n1, n2) grids in
+    shared memory and computes both DFT products there in float32 FMAs.
+    Any other tensor raises."""
+    _planar_pair(xr, xi, "fft_fourstep")
+    n = xr.shape[1]
+    _pow2(n, 4)
+    if xr.device.type == "cpu":
+        return fft_fourstep_ref(xr, xi, sign)
+    check(launch_geometry(n, n)[0] * fourstep_split(n)[0] % FOURSTEP_TILE == 0,
+          f"fft_fourstep: rows per CTA x n1 must be a multiple of {FOURSTEP_TILE}")
+    return _launch_complex(fft_fourstep, "asp_fft_fourstep", xr, xi, sign,
+                           lambda n, s, dev: fourstep_dft_table(n, dev))
 
 
-def fft_complex(x: torch.Tensor, sign: float) -> torch.Tensor:
-    """Complex (..., n) -> complex (..., n) over ``fft_stockham_lanes``
-    (the JAX package's ``fft_complex`` adapter): a direct DFT for n < 4."""
+fft_fourstep.launches = 0
+
+
+def fft_radix2_lanes(xr: torch.Tensor, xi: torch.Tensor, sign: float):
+    """Batched complex FFT of planar (B, n) rows, n a power of two >= 2, by
+    radix-2 decimation in time (the JAX package's ``impl="pallas_r2"``):
+    the bit reversal, then every stage in one kernel, twiddle
+    exp(sign i pi p / m) at half-size m.
+
+    A CPU tensor runs ``fft_radix2_lanes_ref``.  A CUDA float32 tensor
+    launches the kernel (the bit reversal fused into the load, the stages
+    in place in shared memory, twiddles from the n/2-point table).  Any
+    other tensor raises."""
+    _planar_pair(xr, xi, "fft_radix2_lanes")
+    _pow2(xr.shape[1], 2)
+    if xr.device.type == "cpu":
+        return fft_radix2_lanes_ref(xr, xi, sign)
+    return _launch_complex(fft_radix2_lanes, "asp_fft_radix2_lanes", xr, xi, sign)
+
+
+fft_radix2_lanes.launches = 0
+
+
+def fft_radix2_stages(xr: torch.Tensor, xi: torch.Tensor, sign: float):
+    """``fft_radix2_lanes``' transform with its twiddles read from the
+    stacked per-stage table ``stage_twiddles_np`` (the JAX package's
+    ``impl="pallas_r2_stages"``).
+
+    A CPU tensor runs ``fft_radix2_stages_ref``.  A CUDA float32 tensor
+    launches the kernel.  Any other tensor raises."""
+    _planar_pair(xr, xi, "fft_radix2_stages")
+    _pow2(xr.shape[1], 2)
+    if xr.device.type == "cpu":
+        return fft_radix2_stages_ref(xr, xi, sign)
+    return _launch_complex(fft_radix2_stages, "asp_fft_radix2_stages", xr, xi, sign,
+                           stage_table)
+
+
+fft_radix2_stages.launches = 0
+
+
+def fft_pease_lanes(xr: torch.Tensor, xi: torch.Tensor, sign: float):
+    """Batched complex FFT of planar (B, n) rows, n a power of two,
+    2 <= n <= 2^24, by the constant-geometry (Pease) stages (the JAX
+    package's ``impl="pallas_cg"``): natural order in and out.
+
+    A CPU tensor runs ``fft_pease_lanes_ref``.  A CUDA float32 tensor
+    launches the kernel (one stage body looped over ping-pong buffers in
+    shared memory, the bit reversal fused into the store).  Any other
+    tensor raises."""
+    _planar_pair(xr, xi, "fft_pease_lanes")
+    n = xr.shape[1]
+    _pow2(n, 2)
+    check(n <= PEASE_MAX_N, f"fft_pease_lanes supports n <= 2^24, got {n}")
+    if xr.device.type == "cpu":
+        return fft_pease_lanes_ref(xr, xi, sign)
+    return _launch_complex(fft_pease_lanes, "asp_fft_pease_lanes", xr, xi, sign)
+
+
+fft_pease_lanes.launches = 0
+
+
+def fft_complex(x: torch.Tensor, sign: float, core=fft_fourstep) -> torch.Tensor:
+    """Complex (..., n) -> complex (..., n) over one of the planar kernels
+    (``core``; the JAX package's ``fft_complex`` adapter, whose default is
+    its four-step kernel): a direct DFT for n < 4."""
     n = x.shape[-1]
     if n < 4:
-        return x @ upload(_dft_np(n, sign), x.dtype, x.device)
+        return x @ upload(dft_matrix_np(n, sign), x.dtype, x.device)
     rdt = torch.float64 if x.dtype == torch.complex128 else torch.float32
     xf = x.reshape(-1, n)
-    yr, yi = fft_stockham_lanes(xf.real.to(rdt).contiguous(),
-                                xf.imag.to(rdt).contiguous(), sign)
+    yr, yi = core(xf.real.to(rdt).contiguous(), xf.imag.to(rdt).contiguous(), sign)
     return torch.complex(yr, yi).reshape(x.shape)

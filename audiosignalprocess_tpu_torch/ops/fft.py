@@ -17,14 +17,23 @@ length must be a power of two.  The implementations, in the port's names
   through the fused ``rfft_stockham`` / ``irfft_stockham``;
 - ``"stockham_split"`` (``"pallas_sk_split"``): the even/odd pack and
   untangle of the real transforms in torch around the complex kernel;
+- ``"fourstep"`` (``"pallas"``): the hand-written four-step kernel
+  ``fft_fourstep`` (n1 x 128 grid, two dense DFT products in FMAs);
+- ``"radix2_lanes"`` (``"pallas_r2"``): the hand-written radix-2 DIT
+  kernel ``fft_radix2_lanes`` (bit reversal fused into the load);
+- ``"radix2_stages"`` (``"pallas_r2_stages"``): the same DIT with the
+  stacked per-stage twiddle table, ``fft_radix2_stages``;
+- ``"pease"`` (``"pallas_cg"``): the hand-written constant-geometry
+  kernel ``fft_pease_lanes`` (bit reversal fused into the store);
 - ``"auto"`` (the default): ``"stockham"`` for a CUDA float32 or
   complex64 tensor, ``"torch"`` for anything else (CPU, float64).
 
 The kernel wrappers run their plain PyTorch versions on a CPU tensor, so
 every impl runs on the CPU.  Real transforms of every impl but
-``"torch"`` take the JAX package's route: an n/2-point complex transform
-of z = x[0::2] + i x[1::2] and the untangle.  ``irfft`` ignores the
-imaginary parts of bins 0 and N/2, as torch.fft.irfft does.
+``"torch"`` (and ``"stockham"``'s fused real kernels) take the JAX
+package's route: an n/2-point complex transform of z = x[0::2] +
+i x[1::2] and the untangle.  ``irfft`` ignores the imaginary parts of
+bins 0 and N/2, as torch.fft.irfft does.
 """
 
 from __future__ import annotations
@@ -39,27 +48,27 @@ from audiosignalprocess_tpu_torch.utils.validate import check
 
 DEFAULT_IMPL = "auto"
 
-IMPLS = ("torch", "radix2", "splitradix", "matmul", "stockham", "stockham_split", "auto")
-
-_JAX_NAMES = {"xla": "torch", "pallas_sk": "stockham", "pallas_sk_split": "stockham_split"}
-"""The JAX package's names of the impls the port has."""
-
-_NOT_PORTED = {
-    "pallas": "fft_fourstep",
-    "pallas_r2": "fft_radix2_lanes",
-    "pallas_r2_stages": "fft_radix2_stages",
-    "pallas_cg": "fft_pease_lanes",
+_KERNEL_CORES = {
+    "stockham": "fft_stockham_lanes",
+    "stockham_split": "fft_stockham_lanes",
+    "fourstep": "fft_fourstep",
+    "radix2_lanes": "fft_radix2_lanes",
+    "radix2_stages": "fft_radix2_stages",
+    "pease": "fft_pease_lanes",
 }
-"""JAX impls whose kernels are still to be ported, with the kernel each waits for."""
+"""The impls that run a hand-written complex kernel (``kernels/fft_kernel``)."""
+
+IMPLS = ("torch", "radix2", "splitradix", "matmul", *_KERNEL_CORES, "auto")
+
+_JAX_NAMES = {"xla": "torch", "pallas_sk": "stockham", "pallas_sk_split": "stockham_split",
+              "pallas": "fourstep", "pallas_r2": "radix2_lanes",
+              "pallas_r2_stages": "radix2_stages", "pallas_cg": "pease"}
+"""The JAX package's names of the port's impls."""
 
 
 def _resolve_impl(impl: str, x: torch.Tensor) -> str:
     """A concrete impl for ``impl`` on ``x`` (``"auto"`` by device and dtype)."""
     impl = _JAX_NAMES.get(impl, impl)
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(
-            f"impl={impl!r} is not ported yet: it waits for the kernel "
-            f"{_NOT_PORTED[impl]} (ROADMAP Queue 2, the FFT variants)")
     check(impl in IMPLS, f"unknown FFT impl {impl!r}; one of {IMPLS}")
     if impl == "auto":
         return ("stockham" if x.is_cuda and x.dtype in (torch.float32, torch.complex64)
@@ -186,14 +195,18 @@ def _fft_matmul(x: torch.Tensor, sign: float) -> torch.Tensor:
                          outi.transpose(-1, -2).reshape(batch + (n,)))
 
 
-def _fft_stockham(x: torch.Tensor, sign: float) -> torch.Tensor:
-    from audiosignalprocess_tpu_torch.kernels import fft_kernel
+def _kernel_fft(core: str):
+    """The complex transform of a kernel impl: ``fft_complex`` over the
+    kernel wrapper named ``core``, looked up at each call."""
+    def run(x: torch.Tensor, sign: float) -> torch.Tensor:
+        from audiosignalprocess_tpu_torch.kernels import fft_kernel
 
-    return fft_kernel.fft_complex(x, sign)
+        return fft_kernel.fft_complex(x, sign, core=getattr(fft_kernel, core))
+    return run
 
 
 _COMPLEX = {"radix2": _fft_radix2, "splitradix": _fft_splitradix, "matmul": _fft_matmul,
-            "stockham": _fft_stockham, "stockham_split": _fft_stockham}
+            **{impl: _kernel_fft(core) for impl, core in _KERNEL_CORES.items()}}
 
 
 # ---------------------------------------------------------------------------

@@ -97,8 +97,14 @@ def _run_rank(fn, rank, world, backend, init_method, device, args_path, results)
             dist.destroy_process_group()
 
 
+def _claim(device: str | torch.device) -> None:
+    """Touch ``device`` once: without a GPU a CUDA device raises torch's
+    own error here, before any rank starts (as the api one-shots do)."""
+    torch.empty(0, device=device)
+
+
 def spawn_local(fn, world: int, backend: str = "gloo", args: tuple = (),
-                device: str = "cpu", timeout_s: float = 300.0) -> list:
+                device: str = "cuda", timeout_s: float = 300.0) -> list:
     """Run ``fn(rank, world, *args)`` in ``world`` new processes on this
     host (torch.multiprocessing, start method ``spawn``), joined in one
     process group over a ``file://`` store in a temporary directory (no
@@ -106,9 +112,13 @@ def spawn_local(fn, world: int, backend: str = "gloo", args: tuple = (),
     importable by name and return picklable values (numpy arrays, not
     tensors).  Returns the results in rank order.
 
-    A rank that raises or dies, or a group that outlives ``timeout_s``,
-    raises here, after every process of the group is stopped.
+    ``device`` reaches each rank's ``initialize``: the GPU unless the
+    caller asks for the CPU (``device="cpu"``); without a GPU the default
+    raises torch's own error and starts no process.  A rank that raises
+    or dies, or a group that outlives ``timeout_s``, raises here, after
+    every process of the group is stopped.
     """
+    _claim(device)
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     out: dict = {}

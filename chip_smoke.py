@@ -46,7 +46,14 @@ audio, counting the kernel launches of each run:
   meshes: the time-sharded gate, config 4's halo'd overlap-save (64 x
   384000 at 96 kHz, 4096 taps, nfft 16384) and the sharded config-5
   chain; the config-3 and config-4 drivers with ``--check``, and config 4
-  under torchrun with four ranks.
+  under torchrun with four ranks;
+- the FFT variant impls of ``ops.fft`` (the JAX package's ``pallas``,
+  ``pallas_r2``, ``pallas_r2_stages``, ``pallas_cg``): ``fft_fourstep``,
+  ``fft_radix2_lanes``, ``fft_radix2_stages`` and ``fft_pease_lanes``,
+  each checked alone and driving the unfused chain ``FIRStage(nfft=1024,
+  impl=X) -> GateStage(impl=X)`` at 64 x 480000 (``bench.py``'s False
+  mode with ``impl=X``): four launches of the variant's kernel per call,
+  on the 512-point rows of the real transforms.
 
 It times each kernel against its plain version, each path per stream, and
 the FFTs against torch.fft and a copy-bandwidth probe.  Every phase prints
@@ -1229,6 +1236,148 @@ def sharded_phases(dev, smi, record, kernels, reset_counts):
             raise SystemExit(f"phase 23 failed: {line}\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
 
 
+FFT_VARIANTS = {  # kernel: (ops.fft impl, smallest n, the TPU kernel it replaces)
+    "fft_fourstep": ("fourstep", 4, "fft_kernel.py:652"),
+    "fft_radix2_lanes": ("radix2_lanes", 2, "fft_kernel.py:826"),
+    "fft_radix2_stages": ("radix2_stages", 2, "fft_kernel.py:743"),
+    "fft_pease_lanes": ("pease", 2, "fft_kernel.py:1383"),
+}
+# each kernel's smallest n, then these; 16384 is past launch_geometry's
+# shared-memory limit and runs on buffers in device memory
+VARIANT_SIZES = (8, 512, 1024, 4096, 16384)
+VARIANT_BATCHES = (1, 5, 300)
+SLICE_LAUNCHES = 4  # per whole-file call: an rfft and an irfft (each a 512-point
+# complex transform) in the overlap-save, and another pair in the gate
+
+
+def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
+    """Phase 24: the FFT variant kernels (fft_fourstep, fft_radix2_lanes,
+    fft_radix2_stages, fft_pease_lanes) alone, then the slice: bench.py's
+    False mode (FIRStage -> GateStage, unfused) with each variant's impl at
+    the full width, then times.  Adds the four kernels to ``record``;
+    raises SystemExit on a failure."""
+    from audiosignalprocess_tpu_torch.kernels import fft_kernel as fk
+    from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
+    from audiosignalprocess_tpu_torch.pipeline import Chain, FIRStage, GateStage
+    from audiosignalprocess_tpu_torch.utils.metrics import snr_db
+
+    # ---- phase 24a: each kernel (both signs) vs its float64 plain version
+    # on the card and vs torch.fft in float64
+    rng = np.random.default_rng(24)
+    worst = {}
+    for name, (_, least, _) in FFT_VARIANTS.items():
+        kernel, plain = getattr(fk, name), getattr(fk, f"{name}_ref")
+        for n in (least, *VARIANT_SIZES):
+            parts = []
+            for b in VARIANT_BATCHES:
+                xr = torch.as_tensor(rng.standard_normal((b, n)), device=dev)
+                xi = torch.as_tensor(rng.standard_normal((b, n)), device=dev)
+                z = torch.complex(xr, xi)
+                for sign, lib in ((-1.0, torch.fft.fft(z)), (1.0, torch.fft.ifft(z) * n)):
+                    before = kernel.launches
+                    y = torch.cat(kernel(xr.float(), xi.float(), sign))
+                    torch.cuda.synchronize()
+                    ref = torch.cat(plain(xr, xi, sign))
+                    snr, snr_lib = snr_db(ref, y), snr_db(torch.cat([lib.real, lib.imag]), y)
+                    err = float((y.double() - ref).abs().max())
+                    rec = record.setdefault(name, dict(max_abs_err=0.0, min_snr_db=np.inf))
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                    rec["min_snr_db"] = min(rec["min_snr_db"], snr)
+                    worst[name] = min(worst.get(name, np.inf), snr, snr_lib)
+                    parts.append(f"b={b} {'fwd' if sign < 0 else 'inv'} {snr:.2f}/{snr_lib:.2f}")
+                    if not (tuple(y.shape) == (2 * b, n) and bool(torch.isfinite(y).all())
+                            and min(snr, snr_lib) >= LINEAR_MIN_DB
+                            and kernel.launches == before + 1):
+                        raise SystemExit(f"phase 24 failed: {name} n={n} b={b} sign={sign} "
+                                         f"snr={snr:.2f} snr_vs_torch_fft={snr_lib:.2f} "
+                                         f"launches={kernel.launches - before}")
+            print(f"[24 kernel] {name} n={n} snr_vs_f64_plain/torch.fft_f64 dB: "
+                  + ", ".join(parts))
+    print(f"[24 kernel] FFT variants' worst reading over n in each smallest and "
+          f"{VARIANT_SIZES}, batch in {VARIANT_BATCHES}, both signs (against the float64 "
+          f"plain version and torch.fft float64): "
+          + ", ".join(f"{k} {v:.2f} dB" for k, v in worst.items()))
+
+    # ---- phase 24b: the slice at the full width on tone bursts, each impl
+    # driven with every count at 0 just before and read just after
+    c, n = HEADLINE
+
+    def chain(impl):
+        ch = Chain([FIRStage(h=h, nfft=NFFT, impl=impl),
+                    GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES, impl=impl)])
+        ch.build()
+        return ch
+
+    x64 = torch.as_tensor(tone_burst(rng, c, n), device=dev)
+    x32 = x64.float()
+    ref, os_ref = chain("torch").full_flush(x64), overlap_save(x64, h, NFFT, impl="torch")
+    flips = decision_flips(FIRStage(h=h, nfft=NFFT).full(x64))
+    for name, (impl, _, _) in FFT_VARIANTS.items():
+        slice_chain = chain(impl)
+        for label, run, want, want_ref, bar in (
+                (f"Chain([FIRStage, GateStage](impl={impl!r})).full_flush",
+                 lambda: slice_chain.full_flush(x32), SLICE_LAUNCHES, ref, SNR_MIN_DB),
+                (f"ops.overlap_save(impl={impl!r})", lambda: overlap_save(x32, h, NFFT, impl=impl),
+                 2, os_ref, LINEAR_MIN_DB)):
+            reset_counts()
+            y = run()
+            torch.cuda.synchronize()
+            counts = {k.__name__: k.launches for k in kernels if k.launches}
+            snr = snr_db(want_ref, y)
+            line = (f"[24 slice] {label} {c}x{n} tone bursts: launches={counts} "
+                    f"snr_vs_f64_torch_fft={snr:.2f} dB")
+            if want == SLICE_LAUNCHES:
+                line += f" decision_flips_f32_vs_f64={flips}"
+                record[name]["launches"] = counts.get(name, 0)
+            print(line)
+            if counts != {name: want} or tuple(y.shape) != (c, n) \
+                    or not bool(torch.isfinite(y).all()) or snr < bar:
+                raise SystemExit(f"phase 24 failed: {line} (want {{{name!r}: {want}}})")
+    del x64, x32, ref, os_ref
+
+    # ---- phase 24c: times at FFT_TIMED rows, bound as fft_stockham_lanes'
+    # row (16 B n bytes, 5 n log2 n operations a row); the slice per call
+    src = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)  # 256 MB
+    dst = torch.empty_like(src)
+    copy_bw = 2 * src.numel() * 4 / time_ms(lambda: dst.copy_(src)) * 1e3
+    del src, dst
+    b = FFT_TIMED
+    for m in (1024, 4096):
+        xr = torch.randn(b, m, device=dev)
+        xi = torch.randn(b, m, device=dev)
+        z = torch.complex(xr, xi)
+        lib_ms = time_ms(lambda: torch.fft.fft(z))
+        for name in FFT_VARIANTS:
+            kernel, plain = getattr(fk, name), getattr(fk, f"{name}_ref")
+            ms = time_ms(lambda: kernel(xr, xi, -1.0))
+            plain_ms = time_ms(lambda: plain(xr, xi, -1.0), reps=5, warmup=1)
+            rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
+            set_bound(rec, 16 * b * m, b * fft_flops(m))
+            bw = 16 * b * m / ms * 1e3
+            own = ""
+            if name == "fft_fourstep":
+                n1, n2 = fk.fourstep_split(m)
+                ops = 8.0 * b * m * (n1 + n2)  # its dense products: 8 m (n1 + n2) a row
+                own = (f"; its own operation count {ops / 1e9:.4f} GFLOP, "
+                       f"{ops / ms / 1e9:.2f} TFLOP/s = {ops / ms * 1e3 / PEAK_FLOP_S * 100:.1f} % "
+                       f"of 67 TFLOP/s, bound by them {ops / PEAK_FLOP_S * 1e3:.4f} ms")
+            print(f"[24 times] {name} {b}x{m} f32 on {smi}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, torch.fft (library) {lib_ms:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); {bw / 1e9:.1f} GB/s = "
+                  f"{bw / copy_bw * 100:.1f} % of the copy probe ({copy_bw / 1e12:.4f} TB/s){own}")
+            if m == 1024:
+                record[name].update(rec, source="fft_kernel.cu",
+                                    replaces=FFT_VARIANTS[name][2])
+    xn = torch.as_tensor(np.random.default_rng(0).standard_normal(HEADLINE),
+                         dtype=torch.float32, device=dev)
+    for impl in ("stockham", *(v[0] for v in FFT_VARIANTS.values())):
+        slice_chain = chain(impl)
+        ms = time_ms(lambda: slice_chain.full_flush(xn), reps=10, warmup=2)
+        print(f"[24 times] slice Chain([FIRStage, GateStage](impl={impl!r})).full_flush "
+              f"{c}x{n} f32 white noise on {smi}: {ms:.4f} ms per call "
+              f"({c * n / ms * 1e3:.4e} samples/s)")
+
+
 def main() -> int:
     # ---- phase 1: environment
     t_start = time.perf_counter()
@@ -1264,7 +1413,8 @@ def main() -> int:
     kernels = (fir_noise_gate_fused, fir_gate_step_fused, gate_step_fused,
                overlap_save_fused, fir_mac, resample_mac, resample_fir_gate_fused,
                res_fir_gate_step_fused, noise_gate_fused, fk.fft_stockham_lanes,
-               fk.rfft_stockham, fk.irfft_stockham, stretch_step_fused, gate_shard_fused)
+               fk.rfft_stockham, fk.irfft_stockham, stretch_step_fused, gate_shard_fused,
+               *(getattr(fk, name) for name in FFT_VARIANTS))
 
     def reset_counts():
         for k in kernels:
@@ -1538,6 +1688,8 @@ def main() -> int:
     marks.append(("phases 17-19", time.perf_counter()))
     sharded_phases(dev, smi, record, kernels, reset_counts)
     marks.append(("phases 20-23", time.perf_counter()))
+    fft_variant_phase(dev, smi, record, kernels, reset_counts, h)
+    marks.append(("phase 24", time.perf_counter()))
     res_c = Chain([ResFIRGateStage(UP, DOWN, h=h, nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES)])
     res_c.build()
     earlier_bounds(record, h, h_env, xn, path_a.drain_blocks(n, BLOCK),

@@ -33,7 +33,8 @@ def world():
     h4 = design_fir(4096, 0.1, window_kind="blackman")
     cases = [("config3", "gate", (8, 1), {}, x3),
              ("config4", "overlap_save", (2, 4), dict(h=h4, nfft=16384), x4)]
-    out = spawn_local(torch_dist_workers.run_cases, 8, args=(cases,), timeout_s=240.0)[0]
+    out = spawn_local(torch_dist_workers.run_cases, 8, args=(cases,), device="cpu",
+                      timeout_s=240.0)[0]
     return dict(x3=x3, x4=x4, h4=h4), out
 
 

@@ -73,7 +73,8 @@ def _all_counters():
     return (fir_noise_gate_fused, fir_gate_step_fused, gate_step_fused, overlap_save_fused,
             fir_mac, resample_mac, resample_fir_gate_fused, res_fir_gate_step_fused,
             noise_gate_fused, fk.fft_stockham_lanes, fk.rfft_stockham, fk.irfft_stockham,
-            stretch_step_fused, gate_shard_fused)
+            stretch_step_fused, gate_shard_fused, fk.fft_fourstep, fk.fft_radix2_lanes,
+            fk.fft_radix2_stages, fk.fft_pease_lanes)
 
 
 def _launches(fn):
@@ -452,6 +453,75 @@ def test_fft_kernels_vs_plain(card, n, batch):
     assert k == {"irfft_stockham": 1} and y.shape == (batch, n)
     assert snr_db(fk.irfft_stockham_ref(rr, ri, n), y) >= 100.0
     assert snr_db(torch.fft.irfft(torch.complex(rr, ri), n), y) >= 100.0
+
+
+VARIANTS = {  # the FFT variant kernels: (plain version, ops.fft impl)
+    "fft_fourstep": (fk.fft_fourstep_ref, "fourstep"),
+    "fft_radix2_lanes": (fk.fft_radix2_lanes_ref, "radix2_lanes"),
+    "fft_radix2_stages": (fk.fft_radix2_stages_ref, "radix2_stages"),
+    "fft_pease_lanes": (fk.fft_pease_lanes_ref, "pease"),
+}
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+@pytest.mark.parametrize("n", (4, 8, 512, 4096, 16384))
+@pytest.mark.parametrize("batch", (1, 7, 300))
+def test_fft_variants_vs_plain(card, name, n, batch):
+    """Each FFT variant kernel (both signs) in float32 against its float64
+    plain version and torch.fft: >= 100 dB, one launch each; n = 16384
+    runs on buffers in device memory."""
+    kernel, plain = getattr(fk, name), VARIANTS[name][0]
+    rng = np.random.default_rng(66)
+    xr = torch.as_tensor(rng.standard_normal((batch, n)), device=card)
+    xi = torch.as_tensor(rng.standard_normal((batch, n)), device=card)
+    z = torch.complex(xr, xi)
+    for sign, lib in ((-1.0, torch.fft.fft(z)), (1.0, torch.fft.ifft(z) * n)):
+        (yr, yi), k = _launches(lambda: kernel(xr.float(), xi.float(), sign))
+        assert k == {name: 1} and yr.shape == (batch, n)
+        rr, ri = plain(xr, xi, sign)
+        assert snr_db(torch.cat([rr, ri]), torch.cat([yr, yi])) >= 100.0
+        assert snr_db(torch.cat([lib.real, lib.imag]), torch.cat([yr, yi])) >= 100.0
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_fft_variant_impls_launch_their_kernel(card, name):
+    """ops.fft with each variant impl on CUDA float32: the complex
+    transforms one launch of the kernel, the real ones one launch on the
+    n/2-point rows; float64 raises (the kernels compute in float32)."""
+    impl = VARIANTS[name][1]
+    rng = np.random.default_rng(67)
+    x = torch.as_tensor(rng.standard_normal((2, 3, 1024)), device=card)
+    z = torch.complex(x, x.flip(-1))
+    for call, ref in ((lambda: fft.fft(z.to(torch.complex64), impl=impl), torch.fft.fft(z)),
+                      (lambda: fft.ifft(z.to(torch.complex64), impl=impl), torch.fft.ifft(z)),
+                      (lambda: fft.rfft(x.float(), impl=impl), torch.fft.rfft(x))):
+        out, k = _launches(call)
+        assert k == {name: 1}
+        assert snr_db(torch.view_as_real(ref), torch.view_as_real(out)) >= 100.0
+    y, k = _launches(lambda: fft.irfft(torch.fft.rfft(x).to(torch.complex64), 1024, impl=impl))
+    assert k == {name: 1} and snr_db(x, y) >= 100.0
+    with pytest.raises(ValueError, match="float32"):
+        fft.fft(z, impl=impl)
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_fft_variant_slice_chain(card, name):
+    """The slice, FIRStage -> GateStage (nfft 1024) with each variant impl:
+    four launches of the variant's kernel per whole-file call (a real
+    transform pair in the overlap-save and in the gate), nothing else,
+    >= 60 dB against the float64 chain on torch.fft."""
+    impl = VARIANTS[name][1]
+    rng = np.random.default_rng(68)
+    x = torch.as_tensor(_tone_burst(rng, 4, 48128), device=card)
+    h = design_fir(64, 0.3)
+
+    def chain(impl):
+        return Chain([FIRStage(h=h, nfft=1024, impl=impl),
+                      GateStage(nfft=1024, hop=256, noise_frames=8, impl=impl)])
+
+    y, k = _launches(lambda: chain(impl).full_flush(x.float()))
+    assert k == {name: 4} and y.shape == x.shape
+    assert snr_db(chain("torch").full_flush(x), y) >= 60.0
 
 
 def test_ops_fft_auto_launches_one_kernel(card):

@@ -245,9 +245,12 @@ class TestRouting:
         assert [fft._resolve_impl(n, x) for n in ("xla", "pallas_sk", "pallas_sk_split")] == [
             "torch", "stockham", "stockham_split"]
         assert fft._resolve_impl("matmul", x) == "matmul"
+        assert [fft._resolve_impl(n, x) for n in (
+            "pallas", "pallas_r2", "pallas_r2_stages", "pallas_cg")] == [
+            "fourstep", "radix2_lanes", "radix2_stages", "pease"]
         for name in ("pallas", "pallas_r2", "pallas_r2_stages", "pallas_cg"):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-                fft.fft(torch.zeros(8, dtype=torch.complex64), impl=name)
+            z = fft.fft(torch.ones(8, dtype=torch.complex64), impl=name)
+            np.testing.assert_allclose(z.numpy(), np.fft.fft(np.ones(8)), atol=1e-6)
         with pytest.raises(ValueError, match="unknown FFT impl"):
             fft.fft(torch.zeros(8, dtype=torch.complex64), impl="bogus")
 

@@ -8,6 +8,9 @@ unsharded output and to the JAX sharded output at the JAX tests' own
 tolerances.
 """
 
+import queue
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +21,7 @@ from audiosignalprocess_tpu.parallel import mesh as jax_mesh
 from audiosignalprocess_tpu.parallel import sharded as jax_sharded
 from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.ops.resample import resample_poly
-from audiosignalprocess_tpu_torch.parallel import spawn_local
+from audiosignalprocess_tpu_torch.parallel import launch, spawn_local
 from audiosignalprocess_tpu_torch.pipeline import Chain, GateStage
 
 MESHES = ((1, 8), (8, 1), (2, 4), (4, 2))
@@ -91,7 +94,8 @@ def world():
     """(inputs, port outputs, JAX outputs): one 8-rank world for every case,
     then the JAX outputs in this process."""
     x = _inputs()
-    port = spawn_local(torch_dist_workers.run_cases, 8, args=(_cases(x),), timeout_s=240.0)[0]
+    port = spawn_local(torch_dist_workers.run_cases, 8, args=(_cases(x),), device="cpu",
+                       timeout_s=240.0)[0]
     return x, port, _jax_outputs(x)
 
 
@@ -195,11 +199,51 @@ def test_failing_rank_raises_in_the_parent():
     """A rank that raises makes spawn_local raise, with its traceback,
     though the other ranks wait for it in a collective."""
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
-        spawn_local(torch_dist_workers.fail_on, 2, args=(1,), timeout_s=120.0)
+        spawn_local(torch_dist_workers.fail_on, 2, args=(1,), device="cpu", timeout_s=120.0)
 
 
 def test_hanging_rank_times_out_in_the_parent():
     """A rank that never returns makes spawn_local raise at its timeout and
     stop every process of the group."""
     with pytest.raises(TimeoutError, match="of 2 ranks still running after 3.0 s"):
-        spawn_local(torch_dist_workers.hang_on, 2, args=(1,), timeout_s=3.0)
+        spawn_local(torch_dist_workers.hang_on, 2, args=(1,), device="cpu", timeout_s=3.0)
+
+
+def test_spawn_local_defaults_to_the_card(monkeypatch):
+    """Without device=..., every rank joins its group on "cuda", as
+    ``initialize``'s own default.  A stand-in process context runs each
+    rank's body in this process and ``initialize`` records what reaches
+    it, so no card is needed."""
+    seen = []
+
+    class Proc:  # a stand-in for a spawned process: runs the rank when started
+        def __init__(self, target, args, daemon):
+            self.target, self.args, self.exitcode = target, args, None
+
+        def start(self):
+            self.target(*self.args)
+            self.exitcode = 0
+
+        def join(self, timeout=None):
+            pass
+
+        def is_alive(self):
+            return False
+
+    monkeypatch.setattr(launch.torch.multiprocessing, "get_context",
+                        lambda method: SimpleNamespace(Queue=queue.Queue, Process=Proc))
+    monkeypatch.setattr(launch.torch, "set_num_threads", lambda n: None)
+    monkeypatch.setattr(launch, "_claim", lambda device: seen.append(("claim", device)))
+    monkeypatch.setattr(launch, "initialize", lambda init_method, world, rank, backend, device:
+                        seen.append((rank, backend, device)))
+    assert spawn_local(lambda rank, world: rank * 10 + world, 2) == [2, 12]
+    assert seen == [("claim", "cuda"), (0, "gloo", "cuda"), (1, "gloo", "cuda")]
+
+
+def test_spawn_local_default_without_a_card_raises():
+    """With no GPU the default device raises torch's own error before any
+    rank starts, as the api one-shots do; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises((AssertionError, RuntimeError)):
+        spawn_local(torch_dist_workers.fail_on, 2, args=(1,), timeout_s=30.0)

@@ -101,7 +101,8 @@ def world():
     """(inputs, port outputs, JAX outputs): one 8-rank world for every case,
     then the JAX outputs in this process."""
     x = _inputs()
-    port = spawn_local(torch_dist_workers.run_cases, 8, args=(_cases(x),), timeout_s=240.0)[0]
+    port = spawn_local(torch_dist_workers.run_cases, 8, args=(_cases(x),), device="cpu",
+                       timeout_s=240.0)[0]
     return x, port, _jax_outputs(x)
 
 
