@@ -18,7 +18,8 @@ block-streaming modes (``FIRStage``, ``GateStage``, ``EnvelopeStage``,
 ``StretchStage``), channel/time sharding over torch.distributed
 (``parallel``: a (channel, time) mesh of processes, halo exchange, the
 sharded FIR, overlap-save, resampler, gate, stretch and chain),
-checkpointable carries, WAV I/O and the one-shots
+checkpointable carries, WAV I/O, the roofline model and the debug and
+profiling helpers (``utils``) and the one-shots
 ``api.chain_file``, ``api.resample_file``, ``api.lowpass_file``,
 ``api.bandpass_file``, ``api.noise_gate_file``, ``api.envelope_file``,
 ``api.time_stretch_file`` and ``api.pitch_shift_file``, which run on the
@@ -28,8 +29,9 @@ GPU unless told ``device="cpu"``.  Hand-written kernels (``kernels/``):
 ``resample_fir_gate_fused``, ``res_fir_gate_step_fused``,
 ``noise_gate_fused``, ``fft_stockham_lanes``, ``rfft_stockham``,
 ``irfft_stockham``, ``stretch_step_fused``, ``gate_shard_fused``,
-``fft_fourstep``, ``fft_radix2_lanes``, ``fft_radix2_stages`` and
-``fft_pease_lanes``.
+``fft_fourstep``, ``fft_radix2_lanes``, ``fft_radix2_stages``,
+``fft_pease_lanes`` and ``fft_stockham_manual`` (behind
+``ASP_SK_PIPE=manual``): every kernel of the JAX package.
 """
 
 __version__ = "0.1.0"

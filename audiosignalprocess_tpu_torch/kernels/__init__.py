@@ -10,7 +10,7 @@ from audiosignalprocess_tpu_torch.kernels.chain_kernel import (  # noqa: F401
 )
 from audiosignalprocess_tpu_torch.kernels.fft_kernel import (  # noqa: F401
     fft_complex, fft_fourstep, fft_pease_lanes, fft_radix2_lanes, fft_radix2_stages,
-    fft_stockham_lanes, irfft_stockham, rfft_stockham,
+    fft_stockham_lanes, fft_stockham_manual, irfft_stockham, rfft_stockham,
 )
 from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac  # noqa: F401
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (  # noqa: F401

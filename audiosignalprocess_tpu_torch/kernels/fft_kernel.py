@@ -17,6 +17,12 @@
   around a twiddle, radix-2 decimation in time (twiddles from the n/2
   table, or from the stacked per-stage table) and the constant-geometry
   Pease stages;
+- ``fft_stockham_manual(xr, xi, sign)``: ``fft_stockham_lanes``'
+  transform fed by an explicit copy ring (``csrc/fft_manual_kernel.cu``:
+  a persistent grid, bulk asynchronous copies under an mbarrier per
+  slot); ``fft_stockham_lanes`` launches it instead of its own kernel
+  when ``ASP_SK_PIPE=manual`` (the JAX package's switch, read at each
+  call);
 - ``fft_complex(x, sign, core)``: the complex-tensor adapter behind
   ``ops.fft``'s kernel impls (a direct DFT below n = 4).
 
@@ -32,12 +38,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import numpy as np
 import torch
 
 from audiosignalprocess_tpu_torch.kernels._build import (
-    SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error,
+    SMEM_LIMIT, check_cuda_f32, kernel_fn, load, raise_on_error,
 )
 from audiosignalprocess_tpu_torch.ops.fft import bit_reverse_indices
 from audiosignalprocess_tpu_torch.utils.device import upload
@@ -226,6 +233,9 @@ def fft_radix2_stages_ref(xr: torch.Tensor, xi: torch.Tensor, sign: float):
 
 
 fft_radix2_lanes_ref = fft_radix2_stages_ref
+# fft_stockham_manual runs fft_stockham_lanes' stages: its copy ring changes
+# where the rows wait, not what is computed
+fft_stockham_manual_ref = fft_stockham_lanes_ref
 
 
 def fft_pease_lanes_ref(xr: torch.Tensor, xi: torch.Tensor, sign: float):
@@ -342,21 +352,123 @@ def _planar_pair(a: torch.Tensor, b: torch.Tensor, name: str) -> None:
           f"{name}: both planes on one device with one dtype")
 
 
+def _sk_pipe() -> str:
+    """``ASP_SK_PIPE``, read at each call: ``auto`` (the grid kernel) or
+    ``manual`` (the copy-ring kernel), the JAX package's values."""
+    v = os.environ.get("ASP_SK_PIPE", "auto")
+    check(v in ("auto", "manual"), f"ASP_SK_PIPE must be auto|manual, got {v!r}")
+    return v
+
+
 def fft_stockham_lanes(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     """Batched complex FFT of planar (B, n) rows, n a power of two >= 2:
     (yr, yi), natural order, unnormalized; ``sign`` -1 forward, +1 inverse.
 
     A CPU tensor runs ``fft_stockham_lanes_ref``.  A CUDA float32 tensor
     launches the kernel: each CTA stages its rows in shared memory and runs
-    the log2(n) Stockham stages there.  Any other tensor raises."""
+    the log2(n) Stockham stages there; under ``ASP_SK_PIPE=manual`` it
+    launches ``fft_stockham_manual`` instead and counts no launch of its
+    own.  Any other tensor raises."""
     _planar_pair(xr, xi, "fft_stockham_lanes")
     _pow2(xr.shape[1], 2)
+    pipe = _sk_pipe()
     if xr.device.type == "cpu":
         return fft_stockham_lanes_ref(xr, xi, sign)
+    if pipe == "manual":
+        return fft_stockham_manual(xr, xi, sign)
     return _launch_complex(fft_stockham_lanes, "asp_fft_stockham", xr, xi, sign)
 
 
 fft_stockham_lanes.launches = 0
+
+RING_DEPTH = 3
+"""fft_stockham_manual's ring slots where they fit (the JAX kernel's
+``_SK_NBUF``); 2 where only two do."""
+
+
+class FftManualArgs(ctypes.Structure):
+    """fft_stockham_manual's arguments: ``struct FftManualArgs`` of
+    ``csrc/fft_manual_kernel.cu``, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in ("in_r", "in_i", "out_r", "out_i", "tw")]
+                + [(name, ctypes.c_int) for name in
+                   ("batch", "n", "sign", "rows", "nbuf", "grid")])
+
+
+def manual_ring(n: int) -> tuple[int, int, int]:
+    """(rows per tile, ring slots, dynamic shared memory) of
+    fft_stockham_manual at n points: ``RING_DEPTH`` slots of a tile's re
+    and im planes where they fit, else 2, beside one work tile, the n/2
+    twiddles and a barrier per slot.  Raises ValueError where not even a
+    2-slot ring of one row fits (n > 8192)."""
+    rows = max(1, ROW_POINTS // n)
+
+    def smem(nbuf):
+        return (nbuf + 1) * 8 * rows * n + 4 * n + 8 * nbuf
+
+    nbuf = RING_DEPTH if smem(RING_DEPTH) <= SMEM_LIMIT else 2
+    check(smem(nbuf) <= SMEM_LIMIT,
+          f"fft_stockham_manual: a 2-slot ring of {n}-point rows needs {smem(nbuf)} bytes of "
+          f"shared memory, over SMEM_LIMIT = {SMEM_LIMIT} (n <= 8192)")
+    return rows, nbuf, smem(nbuf)
+
+
+@functools.lru_cache(maxsize=32)
+def manual_ctas(n: int, device: torch.device) -> int:
+    """The CTAs of fft_stockham_manual at n points that fit on the CUDA
+    ``device`` at once (resident per SM times the SM count): its grid,
+    where the batch has as many tiles."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    fn = load().asp_fft_manual_ctas
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ctas = ctypes.c_int(0)
+    raise_on_error(fn(manual_ring(n)[2], index, ctypes.byref(ctas)),
+                   "fft_stockham_manual occupancy")
+    return ctas.value
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous at a 16-byte-aligned address (bulk copies need one): a
+    view that starts elsewhere, such as ``x[1:]`` of 2-point rows, is copied."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def fft_stockham_manual(xr: torch.Tensor, xi: torch.Tensor, sign: float):
+    """``fft_stockham_lanes``' transform through the copy-ring kernel (the
+    JAX package's ``ASP_SK_PIPE=manual`` form), n a power of two,
+    2 <= n <= 8192: (yr, yi), natural order, unnormalized.
+
+    A CPU tensor runs ``fft_stockham_manual_ref``.  A CUDA float32 tensor
+    launches the kernel: a persistent grid whose CTAs walk the row tiles,
+    each fetching its next tiles into a ring in shared memory with bulk
+    asynchronous copies while it runs the Stockham stages on the current
+    one.  Any other tensor raises, and so does a row too long for the ring
+    (``manual_ring``), on every device, before dispatch."""
+    _planar_pair(xr, xi, "fft_stockham_manual")
+    b, n = xr.shape
+    _pow2(n, 2)
+    rows, nbuf, smem = manual_ring(n)
+    if xr.device.type == "cpu":
+        return fft_stockham_manual_ref(xr, xi, sign)
+    check_cuda_f32(xr, "fft_stockham_manual", "ops.fft routes float64 to torch.fft")
+    check(0 < b < 2 ** 31, f"{b} rows: 1..2^31-1 per launch")
+    dev = xr.device
+    xr, xi = _aligned(xr), _aligned(xi)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    grid = min(-(-b // rows), manual_ctas(n, dev))
+    args = FftManualArgs(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                         fft_twiddles(n, dev).data_ptr(), b, n, -1 if sign < 0 else 1,
+                         rows, nbuf, grid)
+    rc = kernel_fn("asp_fft_stockham_manual", 1)(ctypes.byref(args), smem, dev.index,
+                                                  torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(rc, "fft_stockham_manual")
+    fft_stockham_manual.launches += 1
+    return yr, yi
+
+
+fft_stockham_manual.launches = 0
 
 
 def rfft_stockham(x: torch.Tensor):

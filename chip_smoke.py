@@ -53,21 +53,31 @@ audio, counting the kernel launches of each run:
   each checked alone and driving the unfused chain ``FIRStage(nfft=1024,
   impl=X) -> GateStage(impl=X)`` at 64 x 480000 (``bench.py``'s False
   mode with ``impl=X``): four launches of the variant's kernel per call,
-  on the 512-point rows of the real transforms.
+  on the 512-point rows of the real transforms;
+- ``fft_stockham_manual``, the copy-ring Stockham kernel, at the ring's
+  edges and at the rows the main path and the timings give it, and the
+  same chain with ``impl="stockham_split"`` (the JAX
+  package's hardware route for real transforms) under
+  ``ASP_SK_PIPE=manual``: four launches of it per call, none of
+  ``fft_stockham_lanes``; timed beside the grid kernel and torch.fft in
+  the JAX A/B's protocol (arms round-robin, each bracketed by a copy
+  probe).
 
 It times each kernel against its plain version, each path per stream, and
 the FFTs against torch.fft and a copy-bandwidth probe.  Every phase prints
 its lines and raises on failure.  The second-to-last line is the kernels'
 JSON record, each kernel with its bound (``bound_ms``, ``bound_by``: the
-larger of its bytes over 3.35 TB/s and its float32 operations over
-67 TFLOP/s, the H100 SXM's published peaks) and, where one PyTorch call
-computes the same function, that call's time (``library_ms``); the last
+larger of its bytes over the memory rate and its float32 operations over
+the float32 peak, the H100 SXM's published figures in ``utils.metrics``) and,
+where one PyTorch call computes the same function, that call's time
+(``library_ms``); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 1 and prints no result.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -462,7 +472,6 @@ def resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x48):
                                              replaces="res_chain_kernel.py:476")
 
 
-PEAK_BYTES_S, PEAK_FLOP_S = 3.35e12, 67e12  # H100 SXM published peaks at 700 W: HBM3, float32
 FFT_SIZES = (2, 4, 8, 256, 1024, 4096)
 FFT_BATCHES = (1, 100, 4096)
 FFT_TIMED = 4096  # rows of the timed FFTs (benchmarks/roofline.py's sizes)
@@ -474,10 +483,20 @@ def fft_flops(n, transforms=1.0):
     return transforms * 5.0 * n * np.log2(n)
 
 
+def chip_peaks():
+    """(bytes/s, float32 operations/s) of the card's published peaks, from
+    ``utils.metrics`` (``detect_chip()``)."""
+    from audiosignalprocess_tpu_torch.utils.metrics import detect_chip
+
+    chip = detect_chip()
+    return chip.hbm_gbps * 1e9, chip.f32_tflops * 1e12
+
+
 def set_bound(rec, nbytes, flops):
     """bound_ms: the larger of the bytes over the memory rate and the
     operations over the float32 peak, and which of the two it is."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOP_S * 1e3
+    peak_bytes_s, peak_flop_s = chip_peaks()
+    t_bytes, t_ops = nbytes / peak_bytes_s * 1e3, flops / peak_flop_s * 1e3
     rec.update(bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -681,8 +700,10 @@ def gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_main, h):
     dst = torch.empty_like(src)
     copy_ms = time_ms(lambda: dst.copy_(src))
     copy_bw = 2 * src.numel() * 4 / copy_ms * 1e3
+    peak_bytes_s = chip_peaks()[0]
     print(f"[16 times] copy probe (read + write 256 MB) on {smi}: {copy_ms:.4f} ms, "
-          f"{copy_bw / 1e12:.4f} TB/s = {copy_bw / PEAK_BYTES_S * 100:.1f} % of 3.35 TB/s")
+          f"{copy_bw / 1e12:.4f} TB/s = {copy_bw / peak_bytes_s * 100:.1f} % of "
+          f"{peak_bytes_s / 1e12:.2f} TB/s")
     del src, dst
     for n in (1024, 4096):
         xr = torch.randn(FFT_TIMED, n, device=dev)
@@ -709,7 +730,7 @@ def gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_main, h):
                   f"plain {plain_ms:.4f} ms, torch.fft (library) {lib_ms:.4f} ms, bound "
                   f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); {bw / 1e9:.1f} GB/s = "
                   f"{bw / copy_bw * 100:.1f} % of the copy probe, "
-                  f"{bw / PEAK_BYTES_S * 100:.1f} % of 3.35 TB/s")
+                  f"{bw / peak_bytes_s * 100:.1f} % of {peak_bytes_s / 1e12:.2f} TB/s")
             if n == 1024:
                 record[kernel.__name__].update(rec)
     for c in (8, HEADLINE[0]):
@@ -1341,6 +1362,7 @@ def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
     dst = torch.empty_like(src)
     copy_bw = 2 * src.numel() * 4 / time_ms(lambda: dst.copy_(src)) * 1e3
     del src, dst
+    peak_flop_s = chip_peaks()[1]
     b = FFT_TIMED
     for m in (1024, 4096):
         xr = torch.randn(b, m, device=dev)
@@ -1359,8 +1381,10 @@ def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
                 n1, n2 = fk.fourstep_split(m)
                 ops = 8.0 * b * m * (n1 + n2)  # its dense products: 8 m (n1 + n2) a row
                 own = (f"; its own operation count {ops / 1e9:.4f} GFLOP, "
-                       f"{ops / ms / 1e9:.2f} TFLOP/s = {ops / ms * 1e3 / PEAK_FLOP_S * 100:.1f} % "
-                       f"of 67 TFLOP/s, bound by them {ops / PEAK_FLOP_S * 1e3:.4f} ms")
+                       f"{ops / ms / 1e9:.2f} TFLOP/s = "
+                       f"{ops / ms * 1e3 / peak_flop_s * 100:.1f} % of "
+                       f"{peak_flop_s / 1e12:.0f} TFLOP/s, "
+                       f"bound by them {ops / peak_flop_s * 1e3:.4f} ms")
             print(f"[24 times] {name} {b}x{m} f32 on {smi}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, torch.fft (library) {lib_ms:.4f} ms, bound "
                   f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); {bw / 1e9:.1f} GB/s = "
@@ -1376,6 +1400,245 @@ def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
         print(f"[24 times] slice Chain([FIRStage, GateStage](impl={impl!r})).full_flush "
               f"{c}x{n} f32 white noise on {smi}: {ms:.4f} ms per call "
               f"({c * n / ms * 1e3:.4e} samples/s)")
+
+
+MANUAL_SIZES = (2, 8, 256, 512, 1024, 4096, 8192)  # 8192: the ring's longest row, 2 deep
+MANUAL_TIMED = ((4096, 1024), (4096, 4096), (32768, 4096))  # the last: the JAX A/B's point
+MANUAL_PATH = ((32000, 512), (119808, 512), *MANUAL_TIMED)  # the slice's rows, then the timed
+MANUAL_REPS = 4
+
+
+def snr_db_planes(ref, test):
+    """``snr_db`` of planar (re, im) pairs, reduced in float64 on their
+    device (at the largest rows the host would take seconds)."""
+    p_sig = sum(float((r.double() ** 2).sum()) for r in ref)
+    p_err = sum(float(((r.double() - t.double()) ** 2).sum()) for r, t in zip(ref, test))
+    return np.inf if p_err == 0.0 else 10.0 * np.log10(p_sig / p_err)
+
+
+@contextlib.contextmanager
+def sk_pipe(value):
+    """ASP_SK_PIPE set to ``value`` (None: unset) inside the block only."""
+    old = os.environ.pop("ASP_SK_PIPE", None)
+    if value is not None:
+        os.environ["ASP_SK_PIPE"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("ASP_SK_PIPE", None)
+        if old is not None:
+            os.environ["ASP_SK_PIPE"] = old
+
+
+def fft_manual_phase(dev, smi, record, kernels, reset_counts, h):
+    """Phase 25: fft_stockham_manual (the copy-ring Stockham kernel) alone
+    at the ring's edges, then the slice on the JAX package's hardware
+    route for real transforms (``stockham_split``) under ASP_SK_PIPE=manual
+    and without it, then the JAX A/B's timing protocol.  Adds the kernel
+    to ``record``; raises SystemExit on a failure."""
+    from audiosignalprocess_tpu_torch.kernels import fft_kernel as fk
+    from audiosignalprocess_tpu_torch.pipeline import Chain, FIRStage, GateStage
+    from audiosignalprocess_tpu_torch.utils.metrics import (
+        detect_chip, fft_roofline_bytes, roofline_time_s, snr_db,
+    )
+
+    kernel = fk.fft_stockham_manual
+    rec = record.setdefault(kernel.__name__, dict(max_abs_err=0.0, min_snr_db=np.inf))
+
+    # ---- phase 25a: the kernel (both signs) vs its float64 plain version
+    # and torch.fft in float64: one row (fewer tiles than slots; at n = 2
+    # a tile too short for a bulk copy), 300 rows (a partial last tile at
+    # n = 256), 3 grid + 1 tiles (every CTA fills its ring, one takes a
+    # tile more), and 300 rows that start 4 bytes past an aligned address
+    # (copied before any bulk copy)
+    rng = np.random.default_rng(25)
+    worst = np.inf
+    for n in MANUAL_SIZES:
+        rows, nbuf, smem = fk.manual_ring(n)
+        grid = fk.manual_ctas(n, dev)
+        parts = []
+        for b in (1, 300, (3 * grid + 1) * rows, "view"):
+            shape = (300 if b == "view" else b, n)
+            xr = torch.as_tensor(rng.standard_normal(shape), device=dev)
+            xi = torch.as_tensor(rng.standard_normal(shape), device=dev)
+            xr32, xi32 = xr.float(), xi.float()
+            if b == "view":
+                pad = xr32.new_zeros(1)
+                xr32 = torch.cat([pad, xr32.reshape(-1)])[1:].view(shape)
+                xi32 = torch.cat([pad, xi32.reshape(-1)])[1:].view(shape)
+            z = torch.complex(xr, xi)
+            for sign, lib in ((-1.0, torch.fft.fft(z)), (1.0, torch.fft.ifft(z) * n)):
+                before = kernel.launches
+                y = torch.cat(kernel(xr32, xi32, sign))
+                torch.cuda.synchronize()
+                ref = torch.cat(fk.fft_stockham_manual_ref(xr, xi, sign))
+                snr, snr_lib = snr_db(ref, y), snr_db(torch.cat([lib.real, lib.imag]), y)
+                err = float((y.double() - ref).abs().max())
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                rec["min_snr_db"] = min(rec["min_snr_db"], snr)
+                worst = min(worst, snr, snr_lib)
+                parts.append(f"b={b} {'fwd' if sign < 0 else 'inv'} {snr:.2f}/{snr_lib:.2f}")
+                if not (tuple(y.shape) == (2 * shape[0], n) and bool(torch.isfinite(y).all())
+                        and min(snr, snr_lib) >= LINEAR_MIN_DB
+                        and kernel.launches == before + 1):
+                    raise SystemExit(f"phase 25 failed: fft_stockham_manual n={n} b={b} "
+                                     f"sign={sign} snr={snr:.2f} snr_vs_torch_fft={snr_lib:.2f} "
+                                     f"launches={kernel.launches - before}")
+        print(f"[25 kernel] fft_stockham_manual n={n} ({rows} rows a tile, {nbuf} slots, "
+              f"{smem} B of shared memory, {grid} resident CTAs) snr_vs_f64_plain/"
+              f"torch.fft_f64 dB: " + ", ".join(parts))
+    z16 = torch.zeros((2, 16384), dtype=torch.float32, device=dev)
+    before = kernel.launches
+    try:
+        kernel(z16, z16, -1.0)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    line = f"[25 kernel] fft_stockham_manual n=16384 (past the ring): raised {raised!r}"
+    print(line)
+    if "SMEM_LIMIT" not in raised or kernel.launches != before:
+        raise SystemExit(f"phase 25 failed: {line}")
+
+    # the rows the main path gives the kernel (the slice's 512-point
+    # transforms, 20 and 76 tiles a CTA) and the timed points (up to 248):
+    # every slot's barrier parity flips back and forth many times
+    gen = torch.Generator(device=dev).manual_seed(25)
+    for b, n in MANUAL_PATH:
+        rows, nbuf, _ = fk.manual_ring(n)
+        grid = fk.manual_ctas(n, dev)
+        xr = torch.randn((b, n), generator=gen, dtype=torch.float64, device=dev)
+        xi = torch.randn((b, n), generator=gen, dtype=torch.float64, device=dev)
+        parts = []
+        for sign in (-1.0, 1.0):
+            before = kernel.launches
+            y = kernel(xr.float(), xi.float(), sign)
+            torch.cuda.synchronize()
+            launched = kernel.launches - before
+            ref = fk.fft_stockham_manual_ref(xr, xi, sign)
+            z = torch.complex(xr, xi)
+            lib = torch.fft.fft(z) if sign < 0 else torch.fft.ifft(z) * n
+            snr = snr_db_planes(ref, y)
+            snr_lib = snr_db_planes((lib.real, lib.imag), y)
+            del z, lib
+            err = max(float((t.double() - r).abs().max()) for r, t in zip(ref, y))
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["min_snr_db"] = min(rec["min_snr_db"], snr)
+            worst = min(worst, snr, snr_lib)
+            parts.append(f"{'fwd' if sign < 0 else 'inv'} {snr:.2f}/{snr_lib:.2f}")
+            ok = (all(tuple(t.shape) == (b, n) and bool(torch.isfinite(t).all()) for t in y)
+                  and min(snr, snr_lib) >= LINEAR_MIN_DB and launched == 1)
+            del y, ref
+            if not ok:
+                raise SystemExit(f"phase 25 failed: fft_stockham_manual {b}x{n} sign={sign} "
+                                 f"snr={snr:.2f} snr_vs_torch_fft={snr_lib:.2f} "
+                                 f"launches={launched}")
+        del xr, xi
+        tiles = -(-b // rows)
+        print(f"[25 kernel] fft_stockham_manual {b}x{n} ({tiles} tiles on {grid} CTAs, "
+              f"{tiles / grid:.1f} a CTA through {nbuf} slots) snr_vs_f64_plain/"
+              f"torch.fft_f64 dB: " + ", ".join(parts))
+    print(f"[25 kernel] fft_stockham_manual worst reading over n in {MANUAL_SIZES} at the "
+          f"ring-edge batches and {MANUAL_PATH}, both signs (against the float64 plain "
+          f"version and torch.fft float64): {worst:.2f} dB")
+
+    # ---- phase 25b: the slice at the full width on tone bursts, with the
+    # real transforms on the JAX package's hardware route (pack and
+    # untangle around the complex kernel), each pipe driven with every
+    # count at 0 just before and read just after
+    c, n = HEADLINE
+
+    def chain():
+        ch = Chain([FIRStage(h=h, nfft=NFFT, impl="stockham_split"),
+                    GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES,
+                              impl="stockham_split")])
+        ch.build()
+        return ch
+
+    x64 = torch.as_tensor(tone_burst(rng, c, n), device=dev)
+    x32 = x64.float()
+    ref = Chain([FIRStage(h=h, nfft=NFFT, impl="torch"),
+                 GateStage(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES,
+                           impl="torch")]).full_flush(x64)
+    flips = decision_flips(FIRStage(h=h, nfft=NFFT).full(x64))
+    for pipe, name in (("manual", "fft_stockham_manual"), (None, "fft_stockham_lanes")):
+        with sk_pipe(pipe):
+            slice_chain = chain()
+            reset_counts()
+            y = slice_chain.full_flush(x32)
+            torch.cuda.synchronize()
+            counts = {k.__name__: k.launches for k in kernels if k.launches}
+        snr = snr_db(ref, y)
+        line = (f"[25 slice] Chain([FIRStage, GateStage](impl='stockham_split')).full_flush "
+                f"ASP_SK_PIPE={pipe or 'unset'} {c}x{n} tone bursts: launches={counts} "
+                f"snr_vs_f64_torch_fft={snr:.2f} dB decision_flips_f32_vs_f64={flips}")
+        print(line)
+        if counts != {name: SLICE_LAUNCHES} or tuple(y.shape) != (c, n) \
+                or not bool(torch.isfinite(y).all()) or snr < SNR_MIN_DB:
+            raise SystemExit(f"phase 25 failed: {line} (want {{{name!r}: {SLICE_LAUNCHES}}})")
+        if pipe == "manual":
+            rec["launches"] = counts[name]
+    del x64, x32, ref, y
+
+    # ---- phase 25c: times in the JAX A/B's protocol: the arms (grid
+    # kernel, manual kernel, torch.fft) interleaved round-robin over
+    # MANUAL_REPS reps, each timing bracketed by its own copy probe and read
+    # as kernel bytes/s over the mean of the two; then the slice per call
+    # and its device idle share under each pipe
+    chip = detect_chip()
+    with sk_pipe(None):  # the grid arm is fft_stockham_lanes' own kernel
+        src = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)  # 256 MB
+        dst = torch.empty_like(src)
+
+        def probe():
+            return 2 * src.numel() * 4 / time_ms(lambda: dst.copy_(src), reps=10, warmup=2) * 1e3
+
+        for b, m in MANUAL_TIMED:
+            xr = torch.randn(b, m, device=dev)
+            xi = torch.randn(b, m, device=dev)
+            z = torch.complex(xr, xi)
+            nbytes = fft_roofline_bytes(b, m, 4, complex_io=True)
+            bound_ms = roofline_time_s(nbytes, chip) * 1e3
+            arms = {"fft_stockham_lanes (grid)": lambda: fk.fft_stockham_lanes(xr, xi, -1.0),
+                    "fft_stockham_manual": lambda: fk.fft_stockham_manual(xr, xi, -1.0),
+                    "torch.fft (library)": lambda: torch.fft.fft(z)}
+            reps = {arm: [] for arm in arms}
+            for _ in range(MANUAL_REPS):
+                for arm, fn in arms.items():
+                    pre = probe()
+                    ms = time_ms(fn, reps=10, warmup=2)
+                    post = probe()
+                    reps[arm].append((ms, nbytes / ms * 1e3 / (0.5 * (pre + post)), pre, post))
+            med = {arm: (float(np.median([r[0] for r in v])), float(np.median([r[1] for r in v])))
+                   for arm, v in reps.items()}
+            probes = [p for v in reps.values() for r in v for p in r[2:]]
+            print(f"[25 times] {b}x{m} f32 complex on {smi}, {MANUAL_REPS} reps round-robin, "
+                  f"medians: " + "; ".join(
+                      f"{arm} {ms_:.4f} ms = {frac * 100:.1f} % of the paired probe "
+                      f"(reps {', '.join(f'{r[0]:.4f}' for r in reps[arm])} ms)"
+                      for arm, (ms_, frac) in med.items())
+                  + f"; bound {bound_ms:.4f} ms (bytes, utils.metrics {chip.name}); probe "
+                  f"{min(probes) / 1e12:.4f} to {max(probes) / 1e12:.4f} TB/s")
+            if (b, m) == (4096, 1024):
+                plain_ms = time_ms(lambda: fk.fft_stockham_manual_ref(xr, xi, -1.0),
+                                   reps=5, warmup=1)
+                rec.update(ms=med["fft_stockham_manual"][0], plain_ms=plain_ms,
+                           library_ms=med["torch.fft (library)"][0],
+                           source="fft_manual_kernel.cu", replaces="fft_kernel.py:1278")
+                set_bound(rec, nbytes, b * fft_flops(m))
+                print(f"[25 times] fft_stockham_manual {b}x{m}: plain {plain_ms:.4f} ms, bound "
+                      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            del xr, xi, z
+        del src, dst
+    xn = torch.as_tensor(np.random.default_rng(0).standard_normal(HEADLINE),
+                         dtype=torch.float32, device=dev)
+    for pipe in ("manual", None):
+        with sk_pipe(pipe):
+            slice_chain = chain()
+            ms = time_ms(lambda: slice_chain.full_flush(xn), reps=10, warmup=2)
+            idle = device_idle_share(lambda: slice_chain.full_flush(xn))
+        print(f"[25 times] slice Chain([FIRStage, GateStage](impl='stockham_split')).full_flush "
+              f"ASP_SK_PIPE={pipe or 'unset'} {c}x{n} f32 white noise on {smi}: {ms:.4f} ms per "
+              f"call ({c * n / ms * 1e3:.4e} samples/s); device idle {idle_text(idle)}")
 
 
 def main() -> int:
@@ -1414,19 +1677,24 @@ def main() -> int:
                overlap_save_fused, fir_mac, resample_mac, resample_fir_gate_fused,
                res_fir_gate_step_fused, noise_gate_fused, fk.fft_stockham_lanes,
                fk.rfft_stockham, fk.irfft_stockham, stretch_step_fused, gate_shard_fused,
-               *(getattr(fk, name) for name in FFT_VARIANTS))
+               *(getattr(fk, name) for name in FFT_VARIANTS), fk.fft_stockham_manual)
 
     def reset_counts():
         for k in kernels:
             k.launches = 0
 
+    # phases 15, 16 and 24 read fft_stockham_lanes' grid kernel and phase 25
+    # sets ASP_SK_PIPE itself, so a value inherited from the caller is cleared
+    inherited_pipe = os.environ.pop("ASP_SK_PIPE", None)
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"[1 env] device={kind} count={torch.cuda.device_count()} "
-          f"torch={torch.__version__} cuda={torch.version.cuda}")
+          f"torch={torch.__version__} cuda={torch.version.cuda}"
+          + ("" if inherited_pipe is None else f" (inherited ASP_SK_PIPE={inherited_pipe!r} "
+             "cleared)"))
     print(smi)
 
     # ---- phase 2: build the kernels from the checkout's sources
@@ -1690,6 +1958,8 @@ def main() -> int:
     marks.append(("phases 20-23", time.perf_counter()))
     fft_variant_phase(dev, smi, record, kernels, reset_counts, h)
     marks.append(("phase 24", time.perf_counter()))
+    fft_manual_phase(dev, smi, record, kernels, reset_counts, h)
+    marks.append(("phase 25", time.perf_counter()))
     res_c = Chain([ResFIRGateStage(UP, DOWN, h=h, nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES)])
     res_c.build()
     earlier_bounds(record, h, h_env, xn, path_a.drain_blocks(n, BLOCK),

@@ -74,7 +74,7 @@ def _all_counters():
             fir_mac, resample_mac, resample_fir_gate_fused, res_fir_gate_step_fused,
             noise_gate_fused, fk.fft_stockham_lanes, fk.rfft_stockham, fk.irfft_stockham,
             stretch_step_fused, gate_shard_fused, fk.fft_fourstep, fk.fft_radix2_lanes,
-            fk.fft_radix2_stages, fk.fft_pease_lanes)
+            fk.fft_radix2_stages, fk.fft_pease_lanes, fk.fft_stockham_manual)
 
 
 def _launches(fn):
@@ -522,6 +522,117 @@ def test_fft_variant_slice_chain(card, name):
     y, k = _launches(lambda: chain(impl).full_flush(x.float()))
     assert k == {name: 4} and y.shape == x.shape
     assert snr_db(chain("torch").full_flush(x), y) >= 60.0
+
+
+@pytest.mark.parametrize("n", (2, 8, 256, 1024, 4096, 8192))
+@pytest.mark.parametrize("batch", ("one", "partial", "wrap"))
+def test_fft_stockham_manual_vs_plain(card, n, batch):
+    """The copy-ring kernel (both signs) in float32 against its float64
+    plain version and torch.fft: >= 100 dB, one launch each, at the ring's
+    edges: one row (fewer tiles than slots; at n = 2 too short for a bulk
+    copy), 300 rows (a partial last tile below n = 1024), and 3 grid + 1
+    tiles (every CTA fills its ring and one takes a tile more)."""
+    rows = fk.manual_ring(n)[0]
+    b = {"one": 1, "partial": 300, "wrap": (3 * fk.manual_ctas(n, card) + 1) * rows}[batch]
+    rng = np.random.default_rng(69)
+    xr = torch.as_tensor(rng.standard_normal((b, n)), device=card)
+    xi = torch.as_tensor(rng.standard_normal((b, n)), device=card)
+    z = torch.complex(xr, xi)
+    for sign, lib in ((-1.0, torch.fft.fft(z)), (1.0, torch.fft.ifft(z) * n)):
+        (yr, yi), k = _launches(lambda: fk.fft_stockham_manual(xr.float(), xi.float(), sign))
+        assert k == {"fft_stockham_manual": 1} and yr.shape == (b, n)
+        rr, ri = fk.fft_stockham_manual_ref(xr, xi, sign)
+        assert snr_db(torch.cat([rr, ri]), torch.cat([yr, yi])) >= 100.0
+        assert snr_db(torch.cat([lib.real, lib.imag]), torch.cat([yr, yi])) >= 100.0
+
+
+@pytest.mark.parametrize("b,n", ((32000, 512), (119808, 512), (4096, 1024), (4096, 4096)))
+def test_fft_stockham_manual_at_the_main_path_rows(card, b, n):
+    """The copy-ring kernel at the rows the stockham_split slice gives it
+    (32000 and 119808 rows of 512 points) and at two timed points: 5 to 76
+    tiles a CTA, so a slot's barrier parity flips back and forth; >= 100
+    dB against its float64 plain version and torch.fft, one launch each."""
+    gen = torch.Generator(device=card).manual_seed(70)
+    xr = torch.randn((b, n), generator=gen, dtype=torch.float64, device=card)
+    xi = torch.randn((b, n), generator=gen, dtype=torch.float64, device=card)
+    z = torch.complex(xr, xi)
+    for sign, lib in ((-1.0, torch.fft.fft(z)), (1.0, torch.fft.ifft(z) * n)):
+        (yr, yi), k = _launches(lambda: fk.fft_stockham_manual(xr.float(), xi.float(), sign))
+        assert k == {"fft_stockham_manual": 1} and yr.shape == (b, n)
+        rr, ri = fk.fft_stockham_manual_ref(xr, xi, sign)
+        assert snr_db(torch.cat([rr, ri]), torch.cat([yr, yi])) >= 100.0
+        assert snr_db(torch.cat([lib.real, lib.imag]), torch.cat([yr, yi])) >= 100.0
+
+
+def test_sk_pipe_routes_every_stockham_caller(card, monkeypatch):
+    """ASP_SK_PIPE=manual: ops.fft with stockham (complex) and
+    stockham_split (real) and ops.stft/istft launch fft_stockham_manual and
+    not fft_stockham_lanes; the fused rfft_stockham stays as it is; without
+    the pipe the same calls launch fft_stockham_lanes."""
+    from audiosignalprocess_tpu_torch.ops.stft import istft, stft
+
+    rng = np.random.default_rng(70)
+    x = torch.as_tensor(rng.standard_normal((2, 3, 1024)), device=card)
+    z = torch.complex(x, x.flip(-1))
+    sig = torch.as_tensor(rng.standard_normal((2, 8192)), device=card)
+    spec64 = stft(sig, 1024, 256, impl="torch")
+    calls = (
+        (lambda: fft.fft(z.to(torch.complex64), impl="stockham"), torch.fft.fft(z)),
+        (lambda: fft.ifft(z.to(torch.complex64), impl="stockham"), torch.fft.ifft(z)),
+        (lambda: fft.rfft(x.float(), impl="stockham_split"), torch.fft.rfft(x)),
+        (lambda: fft.irfft(torch.fft.rfft(x).to(torch.complex64), 1024, impl="stockham_split"),
+         x),
+        (lambda: stft(sig.float(), 1024, 256, impl="stockham_split"), spec64),
+    )
+    for pipe, name in (("manual", "fft_stockham_manual"), ("auto", "fft_stockham_lanes")):
+        monkeypatch.setenv("ASP_SK_PIPE", pipe)
+        for call, ref in calls:
+            out, k = _launches(call)
+            assert k == {name: 1}
+            if out.is_complex():
+                out, ref = torch.view_as_real(out), torch.view_as_real(ref)
+            assert snr_db(ref, out) >= 100.0
+        y, k = _launches(lambda: istft(spec64.to(torch.complex64), 1024, 256,
+                                       impl="stockham_split"))
+        assert k == {name: 1} and snr_db(istft(spec64, 1024, 256, impl="torch"), y) >= 100.0
+    monkeypatch.setenv("ASP_SK_PIPE", "manual")
+    _, k = _launches(lambda: fft.rfft(x.float(), impl="stockham"))
+    assert k == {"rfft_stockham": 1}
+
+
+def test_fft_stockham_manual_unaligned_input_never_reaches_a_bulk_copy(card):
+    """A contiguous view 4 bytes past an aligned start (x[1:] of 2-point
+    rows) is copied by the wrapper and transforms right; the launcher
+    itself refuses a misaligned plane before any copy is issued."""
+    import ctypes
+
+    from audiosignalprocess_tpu_torch.kernels._build import kernel_fn
+
+    rng = np.random.default_rng(71)
+    x64 = torch.as_tensor(rng.standard_normal((301, 2)), device=card)
+    x = x64.float()
+    assert x[1:].data_ptr() % 16 != 0
+    (yr, yi), k = _launches(lambda: fk.fft_stockham_manual(x[1:], x[1:], -1.0))
+    assert k == {"fft_stockham_manual": 1}
+    rr, ri = fk.fft_stockham_manual_ref(x64[1:], x64[1:], -1.0)
+    assert snr_db(torch.cat([rr, ri]), torch.cat([yr, yi])) >= 100.0
+    rows, nbuf, smem = fk.manual_ring(2)
+    out = torch.empty_like(x)
+    args = fk.FftManualArgs(x[1:].data_ptr(), x.data_ptr(), out.data_ptr(), out.data_ptr(),
+                            fk.fft_twiddles(2, card).data_ptr(), 300, 2, -1, rows, nbuf, 1)
+    rc = kernel_fn("asp_fft_stockham_manual", 1)(ctypes.byref(args), smem, card.index or 0,
+                                                  torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
+def test_fft_stockham_manual_ring_limit_raises(card):
+    """Past n = 8192 not even a 2-slot ring of one row fits in shared
+    memory: a ValueError naming the limit, before any launch."""
+    z = torch.zeros((2, 16384), dtype=torch.float32, device=card)
+    before = fk.fft_stockham_manual.launches
+    with pytest.raises(ValueError, match="SMEM_LIMIT"):
+        fk.fft_stockham_manual(z, z, -1.0)
+    assert fk.fft_stockham_manual.launches == before
 
 
 def test_ops_fft_auto_launches_one_kernel(card):
