@@ -33,28 +33,62 @@
 // registers are later work.
 //
 // The other complex transforms of the package's impl registry, same
-// planar contract, same row staging (shared memory, or device-memory
-// ping-pong buffers for rows too long for it), same host float64 tables:
+// planar contract, rows staged in shared memory (or device-memory buffers
+// for rows too long for it), host float64 tables:
 //
 // - fft_fourstep (replaces kernels/fft_kernel.py fft_fourstep): the
 //   four-step factorization n = n1 n2, n2 = min(128, n), of the row viewed
 //   as the grid X[a][b] = x[a n2 + b]: n1-point DFTs down the columns,
-//   the twiddle W_n^{c b}, n2-point DFTs along the rows, the output
-//   transposed, T[d][c] = S[n1 d + c].  The TPU kernel runs the DFTs as
-//   matrix-unit products; here both are dense products in float32 FMAs on
-//   the SM's cores: the n1-side coefficients W_n1^{a c} = W_n^{(a c mod n1)
-//   n2} and the twiddle from the n/2-point table in shared memory, the
-//   n2 x n2 table read through L1 (128 KB at n2 = 128: too large to stage
-//   beside the rows).  Each thread of the row products holds four grid
-//   rows of one output column, so a table entry read once serves four
-//   MACs and the grid values are warp broadcasts.  What bounds it: it does
-//   8 n (n1 + n2) flops a row against the FFT's 5 n log2 n (at 4096 x
-//   1024: 4.6 GFLOP, 69 us at 67 TFLOP/s, against 20 us of bytes), so
-//   its arithmetic bounds it; the TPU's bf16x3 split does not carry over.
+//   the twiddle W_n^{c b}, n2-point DFTs along the rows, each a dense
+//   product against its table, the output transposed, T[d][c] = S[n1 d +
+//   c].  The TPU kernel runs the products on its matrix unit as 3-pass
+//   bf16 splits; here they run on the tensor cores (mma.sync m16n8k8
+//   TF32) as 3-pass TF32 splits: each operand is big + small, both TF32
+//   (cvt.rna), and each real product is big big + big small + small big,
+//   accumulated in float32, so the products hold float32 accuracy; no
+//   product is a single TF32 pass.  The tables are split on the host from
+//   float64 (fourstep_tc_tables: the n2 and n1 distinct values W_N^j, not
+//   the dense N x N tables, since W_N^{k n} = W_N^{k n mod N}); a CTA keeps
+//   them in shared memory in eight copies side by side, so a fragment's
+//   gather W_N^{(k n) mod N} is free of bank conflicts (lane l reads copy
+//   l mod 8).  The data is split in registers as fragments load.
+//   A CTA takes max(64, n1) grid rows (64 / n1 rows; M a multiple of 32)
+//   and stages them in Z in shared memory by 16-byte cp.async copies (row
+//   stride n2 + 8 floats, so the fragment loads are conflict-free).
+//   Column side, in place in Z: for n1 = 8 to 32 (n = 1024 to 4096) per row
+//   (n2 x n1)(n1 x n1) on the tensor cores, a warp owning all n1 outputs of
+//   its grid columns, the epilogue multiplying by W_n^{c b}; for n1 < 8 in
+//   float32 FMAs, a thread per grid column.  From n1 = 64 the column side
+//   reads its A fragments from device memory, and above n = 16384 (n1 >
+//   128) Z lives in the scratch buffer in device memory and the column
+//   table is read from device memory.  Row side: (gm x n2)(n2 x n2) on the
+//   tensor cores, a warp item 32 grid rows x 32 columns, the store
+//   transposed.  n = 4 pads its 4 x 4 table to k = 8 with zeros.  Each
+//   column-side path is its own kernel instantiation, so each holds only
+//   its own registers.  What bounds it: the tensor work, 24 n (n2 + n1) a
+//   row for n1 >= 8 (at 4096 x 1024 13.7 GFLOP, 28 us at the 495 TFLOP/s
+//   TF32 peak, over 20 us of bytes), and in practice the instructions
+//   around each mma.sync (loading and splitting A, gathering B), which
+//   hold it near 0.1 ms there on an H100 SXM at 700 W (PERF.md).
+//   ptxas (sm_90a): 128 registers in every instantiation (the launch
+//   bounds' cap for two CTAs of 256 threads an SM); spill stores 4 B in
+//   the in-place one (n = 1024 to 4096), 48 B in the n1 >= 64 one, none
+//   in the others.
 // - fft_radix2_lanes (replaces fft_radix2_lanes): the classic C loop,
-//   the bit reversal fused into the load, then all log2 n decimation-in-
-//   time stages in place, twiddle exp(sign i pi p / m) at half-size m read
-//   from the n/2-point table (the TPU kernel computes it with f32 cos/sin).
+//   the bit-reversal permutation and then the log2 n decimation-in-time
+//   stages, twiddle exp(sign i pi p / m) at half-size m, the same float32
+//   values as fft_radix2_stages' table; the TPU kernel computes them with
+//   f32 cos/sin.  The stages run in registers (csrc/fft_regs.cuh): a
+//   thread holds 16 points and runs up to 4 stages on them, so n = 1024
+//   takes 3 passes and 2 barriers where a stage each took 10; the bit
+//   reversal is the first pass's choice of points (coalesced loads, each
+//   thread's 16 points n/16 apart); the exchange planes between passes are
+//   XOR-swizzled (conflict-free); the twiddles come from a per-stage table
+//   (stage s at offset 2^s - 1), read as neighbouring entries or one
+//   broadcast entry.  What bounds it: device memory (every byte moved
+//   once) and the shared-memory exchange, 2 x 8 bytes a point a pass.
+//   ptxas (sm_90a): 58 registers at R = 16 (31 to 40 for n < 16), no
+//   spills.
 // - fft_radix2_stages (replaces fft_radix2_stages, which the TPU ran only
 //   in interpret mode): the same stages, twiddles read from the stacked
 //   (log2 n, n/2) per-stage table of the sign asked for.
@@ -64,12 +98,13 @@
 //   exp(sign 2 pi i ((k >> s) << s) / n), one rolled stage body; the
 //   stages leave the result in bit-reversed order, and the store reads it
 //   through __brev (the TPU package gathers it in XLA afterwards).
-// Like the Stockham kernel, the three butterfly kernels move every byte
-// once and pay a shared-memory pass and a barrier per stage.
+// Like the Stockham kernel, fft_radix2_stages and fft_pease_lanes move
+// every byte once and pay a shared-memory pass and a barrier per stage.
 
 #include <cuda_runtime.h>
 
 #include "fft_device.cuh"
+#include "fft_regs.cuh"
 
 namespace asp {
 
@@ -80,9 +115,10 @@ struct FftArgs {
   float* out_r;        // complex: re (B, n); rfft: re (B, n/2+1); irfft: y (B, n)
   float* out_i;        // complex: im (B, n); rfft: im (B, n/2+1); irfft: unused
   const float* tw;     // n/2 twiddles exp(-2 pi i k / n) as (re, im) pairs
-  float* scratch;      // (B, 2 m) complex ping-pong buffers in device memory, or null
-  const float* table;  // fft_fourstep: the n2 x n2 forward DFT table; fft_radix2_stages:
-                       // the (log2 n, n/2) stage table of `sign`; null for the others
+  float* scratch;      // a kernel's buffers in device memory for long rows, or null
+  const float* table;  // fft_fourstep: the split tables (fourstep_tc_tables);
+                       // fft_radix2_stages: the (log2 n, n/2) stage table of `sign`;
+                       // fft_radix2_lanes: the per-stage table of `sign`; else null
   int batch;           // B rows
   int n;               // the row length the caller sees
   int sign;            // complex transform: -1 forward, +1 inverse
@@ -272,93 +308,435 @@ __device__ __forceinline__ float2 wpow(const float2* tw, int m, int half, bool i
   return w;
 }
 
-// acc + x w, four FMAs
-__device__ __forceinline__ float2 cmac(float2 acc, float2 x, float2 w) {
-  acc.x = fmaf(x.x, w.x, acc.x);
-  acc.x = fmaf(-x.y, w.y, acc.x);
-  acc.y = fmaf(x.x, w.y, acc.y);
-  acc.y = fmaf(x.y, w.x, acc.y);
-  return acc;
+// ---------------------------------------------------------------------------
+// fft_fourstep: the DFT products on the tensor cores, 3xTF32
+// ---------------------------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits, nearest, ties away), as a float's bits
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
 }
 
-constexpr int kTile = 4;  // grid rows per thread in fft_fourstep's row DFTs (FOURSTEP_TILE)
+// x = big + small, both TF32; the remainder x - big is exact in float32
+__device__ __forceinline__ void tf32_split(float x, unsigned& big, unsigned& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
 
-__global__ void __launch_bounds__(kThreads) fft_fourstep_kernel(asp::FftArgs a) {
-  extern __shared__ float4 smem[];
-  const int n = a.n, half = n >> 1, log2n = log2i(n);
-  const int log2n2 = min(7, log2n), log2n1 = log2n - log2n2;
-  const int n1 = 1 << log2n1, n2 = 1 << log2n2;
-  const int rows = min(a.rows, a.batch - static_cast<int>(blockIdx.x) * a.rows);
-  const bool inverse = a.sign > 0;
-  const Bufs bf = setup(a, smem, n);
-  load_rows(a, bf.x, n, rows, false);
-  __syncthreads();
-  // column DFTs and twiddle: y[r][c][b] = W_n^{c b} sum_a x[r][a][b] W_n1^{a c},
-  // a thread per (r, b) and group of up to kTile values of c
-  const int tc = min(n1, kTile), log2g = log2n1 - log2i(tc);
-  for (int t = threadIdx.x; t < (a.rows * n) / tc; t += blockDim.x) {
-    const int b = t & (n2 - 1);
-    const int c0 = ((t >> log2n2) & ((1 << log2g) - 1)) * tc;
-    const int r = t >> (log2n2 + log2g);
-    const float2* x = bf.x + (r << log2n) + b;
-    float2 acc[kTile];
+// d += a b on one m16n8k8 tile: a row-major 16 x 8, b column-major 8 x 8
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A tile's operand split into TF32 halves: the real and imaginary planes
+struct SplitA {
+  unsigned rb[4], rs[4], ib[4], is[4];
+};
+
+// B fragment (two k rows of one n column) of a complex table, split
+struct SplitB {
+  unsigned rb[2], rs[2], ib[2], is[2];
+};
+
+__device__ __forceinline__ void split_a(SplitA& s, int e, float re, float im) {
+  tf32_split(re, s.rb[e], s.rs[e]);
+  tf32_split(im, s.ib[e], s.is[e]);
+}
+
+// (sr, si) += (ar + i ai)(br + i bi) on MT m tiles against one B fragment:
+// four real products, each in three TF32 passes, big x small + small x big
+// + big x big, accumulated in float32.  No pass is a single-TF32 product:
+// small x small (below 2^-22 relative) is the only term dropped.  Issued
+// pass by pass (the small cross terms of every tile, then big x big), so
+// that consecutive tensor instructions feed different accumulators.
+template <int MT, int NT>
+__device__ __forceinline__ void cmma3_tiles(float (&sr)[MT][NT][4], float (&si)[MT][NT][4],
+                                            int nt, const SplitA (&a)[MT], const SplitB& b) {
+  const unsigned nb[2] = {b.ib[0] ^ 0x80000000u, b.ib[1] ^ 0x80000000u};
+  const unsigned ns[2] = {b.is[0] ^ 0x80000000u, b.is[1] ^ 0x80000000u};
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) acc[j] = make_float2(0.0f, 0.0f);
-    for (int k = 0; k < n1; ++k) {
-      const float2 v = x[k << log2n2];
+  for (int mt = 0; mt < MT; ++mt) {
+    mma_tf32(sr[mt][nt], a[mt].rs, b.rb[0], b.rb[1]);
+    mma_tf32(si[mt][nt], a[mt].rs, b.ib[0], b.ib[1]);
+    mma_tf32(sr[mt][nt], a[mt].is, nb[0], nb[1]);
+    mma_tf32(si[mt][nt], a[mt].is, b.rb[0], b.rb[1]);
+  }
 #pragma unroll
-      for (int j = 0; j < kTile; ++j) {
-        if (j < tc) {
-          // W_n1^{k c} = W_n^{(k c mod n1) n2}; the product wraps mod 2^32, n1 divides it
-          const unsigned kc = static_cast<unsigned>(k) * static_cast<unsigned>(c0 + j);
-          acc[j] = cmac(acc[j], v, wpow(bf.tw, static_cast<int>(kc & (n1 - 1)) << log2n2,
-                                        half, inverse));
+  for (int mt = 0; mt < MT; ++mt) {
+    mma_tf32(sr[mt][nt], a[mt].rb, b.rs[0], b.rs[1]);
+    mma_tf32(si[mt][nt], a[mt].rb, b.is[0], b.is[1]);
+    mma_tf32(sr[mt][nt], a[mt].ib, ns[0], ns[1]);
+    mma_tf32(si[mt][nt], a[mt].ib, b.rs[0], b.rs[1]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    mma_tf32(sr[mt][nt], a[mt].rb, b.rb[0], b.rb[1]);
+    mma_tf32(si[mt][nt], a[mt].rb, b.ib[0], b.ib[1]);
+    mma_tf32(sr[mt][nt], a[mt].ib, nb[0], nb[1]);
+    mma_tf32(si[mt][nt], a[mt].ib, b.rb[0], b.rb[1]);
+  }
+}
+
+// Entry e of a split DFT table, {re big, re small, im big, im small}, from
+// shared memory where it is kept in eight copies side by side (copy `lane &
+// 7` of entry e at float4 8 e + (lane & 7): the eight lanes of a quarter
+// warp then read eight different bank groups whatever their entries), or
+// from the compact table in device memory (copies = 1), conjugated there
+// when `conj` (the shared copies are conjugated as they are made; a sign
+// flip is exact on both halves).
+__device__ __forceinline__ float4 table_entry(const float4* t, int e, int copies, bool conj) {
+  if (copies == 8) return t[e * 8 + (threadIdx.x & 7)];
+  float4 v = __ldg(t + e);
+  if (conj) {
+    v.z = -v.z;
+    v.w = -v.w;
+  }
+  return v;
+}
+
+// The B fragment W_N^{k n} of column n (N a power of two) and the two rows
+// k of this lane's slots t and t + 4: k0 + t and k0 + t + 4, or with
+// kPaired k0 + 2 t and k0 + 2 t + 1 (the row side's order, whose A values
+// of one lane then lie side by side); with kPad, zero outside k, n < N
+// (n = 4 pads its 4 x 4 table to 8 x 8).
+template <bool kPaired = false, bool kPad = false>
+__device__ __forceinline__ SplitB dft_fragment(const float4* t, int copies, int N, int k0,
+                                               int col, bool conj) {
+  const int tq = threadIdx.x & 3;
+  SplitB b;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = kPaired ? k0 + 2 * tq + h : k0 + tq + 4 * h;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (!kPad || (k < N && col < N)) v = table_entry(t, (k * col) & (N - 1), copies, conj);
+    b.rb[h] = __float_as_uint(v.x);
+    b.rs[h] = __float_as_uint(v.y);
+    b.ib[h] = __float_as_uint(v.z);
+    b.is[h] = __float_as_uint(v.w);
+  }
+  return b;
+}
+
+constexpr int kFourstepGrid = 64;  // grid rows a CTA takes at least (FOURSTEP_GRID_ROWS)
+constexpr int kZPad = 8;           // Z's row stride is n2 + 8 floats: 8 mod 32 words
+constexpr int kFourstepThreads = 256;
+constexpr int kRowMTiles = 2;      // a row-side warp item: 2 m tiles (32 grid rows)
+constexpr int kRowNTiles = 4;      // x up to 4 n tiles (32 output columns)
+
+// fft_fourstep's shared-memory layout (fourstep_geometry in
+// kernels/fft_kernel.py mirrors it): the row table in eight copies, the
+// column table in eight copies (8 <= n1 <= 128), the n/2 twiddles (n <=
+// 8192), then the planes of Z (n1 <= 128; above, Z lives in the scratch
+// buffer in device memory).
+struct FourstepGeo {
+  int n1, n2, n2p, log2n1, gm, zs;
+  bool z_shared, t1_shared, tw_shared;
+};
+
+__device__ FourstepGeo fourstep_geo(int n) {
+  FourstepGeo g;
+  const int log2n = log2i(n);
+  const int log2n2 = min(7, log2n);
+  g.n2 = 1 << log2n2;
+  g.log2n1 = log2n - log2n2;
+  g.n1 = 1 << g.log2n1;
+  g.n2p = max(8, g.n2);
+  g.gm = max(kFourstepGrid, g.n1);
+  g.zs = g.n2p + kZPad;
+  g.z_shared = g.n1 <= 128;
+  g.t1_shared = g.n1 >= 8 && g.n1 <= 128;
+  g.tw_shared = n <= 8192;
+  return g;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem_dst))),
+               "l"(gmem_src)
+               : "memory");
+}
+
+// Where the column side reads X[r][a][b]: the CTA's input rows in device
+// memory, or Z itself after the load (rows past the batch zero there).
+struct ColSource {
+  const float* re;
+  const float* im;
+  int row_stride, a_stride;
+  bool global;
+};
+
+// The column DFTs and the twiddle of the CTA's rows on the tensor cores
+// (n1 >= 8): per row, Y^T = X^T F1 as (n2 x n1)(n1 x n1), M = the n2 grid
+// columns b, K = a, N = c; the A fragments split in registers as they
+// load; the epilogue multiplies by W_n^{c b} and writes Z[r n1 + c][b].
+// In place (n1 <= 32) a warp reads all its X before it writes, and no
+// other warp touches those grid columns of the row.
+__device__ void fourstep_columns_mma(const FourstepGeo& g, const ColSource& x,
+                                     const float4* t1, int t1_copies, const float2* tw,
+                                     float* zr, float* zi, int rows, int n, bool inverse) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int half = n >> 1;
+  const int nw = min(4, g.n1 >> 3);           // n tiles per item
+  const int ngroups = (g.n1 >> 3) / nw;       // groups of nw tiles along c
+  const int items = (g.gm >> g.log2n1) * 4 * ngroups;  // rows x 4 pairs of b tiles x c groups
+  for (int it = warp; it < items; it += kFourstepThreads / 32) {
+    const int ng = it % ngroups, mg = (it / ngroups) & 3, r = it / (ngroups * 4);
+    const int b0 = mg * 32, c0 = ng * nw * 8;
+    const bool valid = !x.global || r < rows;
+    const float* xr = x.re + static_cast<size_t>(r) * x.row_stride;
+    const float* xi = x.im + static_cast<size_t>(r) * x.row_stride;
+    float sr[2][4][4] = {}, si[2][4][4] = {};
+    for (int k0 = 0; k0 < g.n1; k0 += 8) {
+      SplitA as[2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = (k0 + tq + 4 * (e >> 1)) * x.a_stride + b0 + mt * 16 + gq + 8 * (e & 1);
+          float re = 0.0f, im = 0.0f;
+          if (valid) {
+            re = xr[i];
+            im = xi[i];
+          }
+          split_a(as[mt], e, re, im);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (nt < nw) {
+          const SplitB bf = dft_fragment(t1, t1_copies, g.n1, k0, c0 + nt * 8 + gq, inverse);
+          cmma3_tiles<2>(sr, si, nt, as, bf);
         }
       }
     }
-    float2* y = bf.y + (r << log2n) + b;
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      if (j < tc) y[(c0 + j) << log2n2] = asp::cmul(acc[j], wpow(bf.tw, (c0 + j) * b, half,
-                                                                  inverse));
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (nt < nw) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int b = b0 + mt * 16 + gq + 8 * (e >> 1);
+            const int c = c0 + nt * 8 + 2 * tq + (e & 1);
+            const float2 z = asp::cmul(make_float2(sr[mt][nt][e], si[mt][nt][e]),
+                                       wpow(tw, c * b, half, inverse));
+            const int zi_ = ((r << g.log2n1) + c) * g.zs + b;
+            zr[zi_] = z.x;
+            zi[zi_] = z.y;
+          }
+        }
+      }
     }
   }
-  __syncthreads();
-  // row DFTs: s[m][d] = sum_b y[m][b] W_n2^{b d} over the grid rows m = r n1 + c,
-  // a thread per d and kTile consecutive m, stored transposed: x[r][d][c]
-  const float2* f2 = reinterpret_cast<const float2*>(a.table);
-  for (int t = threadIdx.x; t < (a.rows * n) / kTile; t += blockDim.x) {
-    const int d = t & (n2 - 1);
-    const int m0 = (t >> log2n2) * kTile;
-    const float2* y = bf.y + (m0 << log2n2);
-    float2 acc[kTile];
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) acc[j] = make_float2(0.0f, 0.0f);
-    for (int b = 0; b < n2; ++b) {
-      float2 w = __ldg(f2 + (b << log2n2) + d);
-      if (inverse) w.y = -w.y;
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) acc[j] = cmac(acc[j], y[(j << log2n2) + b], w);
-    }
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const int m = m0 + j;
-      bf.x[((m >> log2n1) << log2n) + (d << log2n1) + (m & (n1 - 1))] = acc[j];
-    }
-  }
-  __syncthreads();
-  store_rows(a, bf.x, n, rows, false);
 }
 
+// The column DFTs and twiddle in float32 FMAs (n1 = N1 <= 4, n <= 512), in
+// place in Z: a thread per (row, grid column b) reads its n1 values, then
+// writes its n1 outputs.
+template <int N1>
+__device__ void fourstep_columns_fma(const FourstepGeo& g, const float2* tw, float* zr,
+                                     float* zi, int rows_cta, int n, bool inverse) {
+  const int half = n >> 1, log2n2 = log2i(g.n2);
+  for (int t = threadIdx.x; t < rows_cta * g.n2; t += blockDim.x) {
+    const int r = t >> log2n2, b = t & (g.n2 - 1);
+    float2 x[N1];
+#pragma unroll
+    for (int k = 0; k < N1; ++k) {
+      const int i = (r * N1 + k) * g.zs + b;
+      x[k] = make_float2(zr[i], zi[i]);
+    }
+#pragma unroll
+    for (int c = 0; c < N1; ++c) {
+      float2 acc = x[0];
+#pragma unroll
+      for (int k = 1; k < N1; ++k) {
+        // W_n1^{k c} = W_n^{(k c mod n1) n2}
+        const float2 w = wpow(tw, ((k * c) & (N1 - 1)) * g.n2, half, inverse);
+        acc.x = fmaf(x[k].x, w.x, fmaf(-x[k].y, w.y, acc.x));
+        acc.y = fmaf(x[k].x, w.y, fmaf(x[k].y, w.x, acc.y));
+      }
+      const float2 z = asp::cmul(acc, wpow(tw, c * b, half, inverse));
+      const int i = (r * N1 + c) * g.zs + b;
+      zr[i] = z.x;
+      zi[i] = z.y;
+    }
+  }
+}
+
+// The row DFTs on the tensor cores: S = Z F2 over the CTA's gm grid rows,
+// M = grid rows, K = N = n2 (8 for n = 4, its table zero-padded); a warp
+// item is 2 m tiles x up to 4 n tiles, the A fragments read from Z in
+// pairs (row stride 8 mod 32: conflict-free) and split in registers, the B
+// fragments from the eight-copy table.  The store is the transpose T[d][c] = S[c][d].
+template <bool kPad>
+__device__ void fourstep_rows_mma(const asp::FftArgs& a, const FourstepGeo& g,
+                                  const float4* t2, const float* zr, const float* zi,
+                                  int rows) {
+  constexpr int MT = kRowMTiles, NT = kRowNTiles;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int n = a.n;
+  const int nw = min(NT, g.n2p >> 3);
+  const int ngroups = (g.n2p >> 3) / nw;
+  const int items = (g.gm / (16 * MT)) * ngroups;
+  const size_t base = static_cast<size_t>(blockIdx.x) * a.rows * n;
+  for (int it = warp; it < items; it += kFourstepThreads / 32) {
+    const int ng = it % ngroups, m0 = (it / ngroups) * 16 * MT, d0 = ng * nw * 8;
+    float sr[MT][NT][4] = {}, si[MT][NT][4] = {};
+    for (int k0 = 0; k0 < g.n2p; k0 += 8) {
+      SplitA as[MT];
+      // slots t and t + 4 hold K indices k0 + 2 t and k0 + 2 t + 1 (the B
+      // fragment follows), so a lane reads each pair of values at once
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = (m0 + mt * 16 + gq + 8 * e) * g.zs + k0 + 2 * tq;
+          const float2 re = *reinterpret_cast<const float2*>(zr + i);
+          const float2 im = *reinterpret_cast<const float2*>(zi + i);
+          split_a(as[mt], e, re.x, im.x);
+          split_a(as[mt], e + 2, re.y, im.y);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt < nw) {
+          const SplitB bf = dft_fragment<true, kPad>(t2, 8, g.n2, k0, d0 + nt * 8 + gq, false);
+          cmma3_tiles<MT>(sr, si, nt, as, bf);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt < nw) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int m = m0 + mt * 16 + gq + 8 * (e >> 1);
+            const int d = d0 + nt * 8 + 2 * tq + (e & 1);
+            const int r = m >> g.log2n1, c = m & (g.n1 - 1);
+            if (r < rows && d < g.n2) {
+              const size_t o = base + static_cast<size_t>(r) * n + (d << g.log2n1) + c;
+              a.out_r[o] = sr[mt][nt][e];
+              a.out_i[o] = si[mt][nt][e];
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// A table's entries into shared memory as eight copies each, conjugated for
+// the inverse.
+__device__ void copy_table8(float4* dst, const float4* src, int entries, bool inverse) {
+  for (int i = threadIdx.x; i < entries * 8; i += blockDim.x) {
+    float4 v = __ldg(src + (i >> 3));
+    if (inverse) {
+      v.z = -v.z;
+      v.w = -v.w;
+    }
+    dst[i] = v;
+  }
+}
+
+// How fft_fourstep's column side runs, by n: one kernel each, so that each
+// holds only its own path's registers.
+enum FourstepCols {
+  kColsPad,     // n = 4: no column DFT (n1 = 1), the 4 x 4 row table padded to 8 x 8
+  kColsFma1,    // n <= 128 (n1 = 1): the rows as they are
+  kColsFma2,    // n = 256 (n1 = 2): float32 FMAs in Z
+  kColsFma4,    // n = 512 (n1 = 4): float32 FMAs in Z
+  kColsInPlace, // 8 <= n1 <= 32: tensor cores, in place in Z
+  kColsGlobal,  // n1 >= 64: tensor cores, X read from device memory
+};
+
+template <int kCols>
+__global__ void __launch_bounds__(kFourstepThreads, 512 / kFourstepThreads)
+    fft_fourstep_kernel(asp::FftArgs a) {
+  extern __shared__ float4 smem[];
+  const FourstepGeo g = fourstep_geo(a.n);
+  const int rows = min(a.rows, a.batch - static_cast<int>(blockIdx.x) * a.rows);
+  const bool inverse = a.sign > 0;
+  const size_t base = static_cast<size_t>(blockIdx.x) * a.rows * a.n;
+  const float4* t2_g = reinterpret_cast<const float4*>(a.table);
+  const float4* t1_g = t2_g + g.n2;
+  // carve shared memory
+  float4* t2 = smem;
+  float4* p = t2 + g.n2p * 8;
+  float4* t1s = p;
+  const float4* t1 = g.t1_shared ? t1s : t1_g;
+  if (g.t1_shared) p += g.n1 * 8;
+  const float2* tw = reinterpret_cast<const float2*>(a.tw);
+  float2* tws = reinterpret_cast<float2*>(p);
+  if (g.tw_shared) p += a.n / 4;
+  float* zr = g.z_shared ? reinterpret_cast<float*>(p)
+                         : a.scratch + static_cast<size_t>(blockIdx.x) * 2 * g.gm * g.zs;
+  float* zi = zr + g.gm * g.zs;
+  constexpr bool kInPlace = kCols != kColsGlobal;
+  if (kInPlace) {
+    // the CTA's rows into Z by asynchronous 16-byte copies (grid row a of row
+    // r at Z row r n1 + a); rows past the batch and n = 4's pad columns zero
+    const int chunks = g.n2 >> 2, log2c = log2i(chunks);
+    for (int i = threadIdx.x; i < (rows * g.n1) << log2c; i += blockDim.x) {
+      const int q = i >> log2c, o = (i & (chunks - 1)) << 2;
+      cp_async16(zr + q * g.zs + o, a.in_r + base + (static_cast<size_t>(q) << log2i(g.n2)) + o);
+      cp_async16(zi + q * g.zs + o, a.in_i + base + (static_cast<size_t>(q) << log2i(g.n2)) + o);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    if (rows < a.rows || g.n2 < g.n2p) {
+      const int log2n2p = log2i(g.n2p);
+      for (int i = threadIdx.x; i < g.gm * g.n2p; i += blockDim.x) {
+        const int q = i >> log2n2p, o = i & (g.n2p - 1);
+        if (q >= rows * g.n1 || o >= g.n2) {
+          zr[q * g.zs + o] = 0.0f;
+          zi[q * g.zs + o] = 0.0f;
+        }
+      }
+    }
+  }
+  copy_table8(t2, t2_g, g.n2, inverse);
+  if (g.t1_shared) copy_table8(t1s, t1_g, g.n1, inverse);
+  if (g.tw_shared) {
+    for (int i = threadIdx.x; i < a.n / 2; i += blockDim.x) tws[i] = __ldg(tw + i);
+    tw = tws;
+  }
+  if (kInPlace) asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();  // the tables, the twiddles and the rows
+  if (kCols == kColsFma2) {
+    fourstep_columns_fma<2>(g, tw, zr, zi, a.rows, a.n, inverse);
+  } else if (kCols == kColsFma4) {
+    fourstep_columns_fma<4>(g, tw, zr, zi, a.rows, a.n, inverse);
+  } else if (kCols == kColsInPlace) {
+    fourstep_columns_mma(g, {zr, zi, g.n1 * g.zs, g.zs, false}, t1, 8, tw, zr, zi, rows, a.n,
+                         inverse);
+  } else if (kCols == kColsGlobal) {
+    fourstep_columns_mma(g, {a.in_r + base, a.in_i + base, a.n, g.n2, true}, t1,
+                         g.t1_shared ? 8 : 1, tw, zr, zi, rows, a.n, inverse);
+  }
+  __syncthreads();  // Z
+  fourstep_rows_mma<kCols == kColsPad>(a, g, t2, zr, zi, rows);
+}
+
+// ---------------------------------------------------------------------------
+// fft_radix2_stages: the stages in shared memory, per-stage table reads
+// ---------------------------------------------------------------------------
+
 // Radix-2 decimation in time: the bit reversal in the load, then the
-// stages in place; twiddles from the n/2-point table (kStageTable false)
-// or from the stacked per-stage table a.table (true).
-template <bool kStageTable>
-__global__ void __launch_bounds__(kThreads) fft_radix2_kernel(asp::FftArgs a) {
+// stages in place, a barrier each, twiddles read from the stacked
+// per-stage table a.table.
+__global__ void __launch_bounds__(kThreads) fft_radix2_stages_kernel(asp::FftArgs a) {
   extern __shared__ float4 smem[];
   const int n = a.n, half = n >> 1, log2n = log2i(n);
   const int rows = min(a.rows, a.batch - static_cast<int>(blockIdx.x) * a.rows);
-  const bool inverse = a.sign > 0;
   const Bufs bf = setup(a, smem, n);
   load_rows(a, bf.x, n, rows, true);
   __syncthreads();
@@ -370,13 +748,7 @@ __global__ void __launch_bounds__(kThreads) fft_radix2_kernel(asp::FftArgs a) {
       const int k = t & (half - 1);  // the butterfly within the row
       const int p = k & (m - 1);
       float2* x = bf.x + (r << log2n) + ((k >> s) << (s + 1)) + p;
-      float2 w;
-      if (kStageTable) {
-        w = __ldg(st + s * half + k);
-      } else {
-        w = bf.tw[p << (log2n - 1 - s)];  // exp(-i pi p / m)
-        if (inverse) w.y = -w.y;
-      }
+      const float2 w = __ldg(st + s * half + k);
       const float2 u = x[0];
       const float2 v = asp::cmul(x[m], w);
       x[0] = make_float2(u.x + v.x, u.y + v.y);
@@ -385,6 +757,101 @@ __global__ void __launch_bounds__(kThreads) fft_radix2_kernel(asp::FftArgs a) {
     __syncthreads();
   }
   store_rows(a, bf.x, n, rows, false);
+}
+
+// ---------------------------------------------------------------------------
+// fft_radix2_lanes: the stages in registers (csrc/fft_regs.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int kRadix2Points = 4096;  // points a CTA takes at least (RADIX2_POINTS)
+
+// k < 2^bits (bits <= 4) bit-reversed: a constant for a constant k
+__device__ __forceinline__ constexpr int brev_bits(int k, int bits) {
+  return (((k & 1) << 3) | ((k & 2) << 1) | ((k & 4) >> 1) | ((k & 8) >> 3)) >> (4 - bits);
+}
+
+// Each thread holds R points of a row (R = 16, or n below 16).  The first
+// pass takes the R points x[v + k n/R] of its group v (coalesced loads:
+// neighbouring threads read neighbouring points), which after the bit
+// reversal are the R consecutive indices brev(v) R + brev_r(k): the bit
+// reversal is only the choice of points and slots.  Each pass runs up to
+// r = log2 R stages in registers; the points go through the exchange
+// planes (shared memory, or this CTA's slice of the scratch buffer in
+// device memory above 8192 points) between passes, one barrier each; the
+// last pass stores natural order, coalesced.  The per-stage table (n
+// entries, stage s at offset 2^s - 1) is copied to shared memory with
+// cp.async during the first pass, which reads its 15 entries from device
+// memory.
+template <int R>
+__global__ void __launch_bounds__(kThreads) fft_radix2_lanes_kernel(asp::FftArgs a) {
+  extern __shared__ float4 smem[];
+  constexpr int r = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+  const int n = a.n, log2n = log2i(n);
+  const int log2g = log2n - r;  // log2 of the groups of a row
+  const int row0 = blockIdx.x * a.rows;
+  const int groups = min(a.rows, a.batch - row0) << log2g;
+  const float2* tw_g = reinterpret_cast<const float2*>(a.table);
+  const float2* tw = tw_g;
+  float* er;
+  if (a.scratch != nullptr) {
+    er = a.scratch + static_cast<size_t>(blockIdx.x) * a.rows * 2 * n;
+  } else {
+    float2* tw_s = reinterpret_cast<float2*>(smem);
+    if (log2n > r) {
+      for (int i = threadIdx.x; i < n / 2; i += blockDim.x) cp_async16(tw_s + 2 * i, tw_g + 2 * i);
+      asm volatile("cp.async.commit_group;" ::: "memory");
+      tw = tw_s;
+    }
+    er = reinterpret_cast<float*>(tw_s + n);
+  }
+  float* ei = er + a.rows * n;
+  const size_t base = static_cast<size_t>(row0) * n;
+  for (int s0 = 0; s0 < log2n;) {
+    const int s1 = min(s0 + r, log2n), f = s1 - r;
+    const bool first = s0 == 0, last = s1 == log2n;
+    for (int v = threadIdx.x; v < groups; v += blockDim.x) {
+      const int row = v >> log2g, q = v & ((1 << log2g) - 1);
+      const size_t rb = base + (static_cast<size_t>(row) << log2n);
+      float* xr = er + (row << log2n);
+      float* xi = ei + (row << log2n);
+      float2 x[R];
+      int g = q;
+      if (first) {
+        g = log2g == 0 ? 0 : static_cast<int>(__brev(static_cast<unsigned>(q)) >> (32 - log2g));
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const size_t i = rb + q + (static_cast<size_t>(k) << log2g);
+          x[brev_bits(k, r)] = make_float2(a.in_r[i], a.in_i[i]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int i = asp::dit_swizzle(asp::dit_index(g, j, f, r));
+          x[j] = make_float2(xr[i], xi[i]);
+        }
+      }
+      asp::dit_pass<R>(x, first ? tw_g : tw, s0, s1, f, g & ((1 << f) - 1));
+      if (last) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const size_t i = rb + asp::dit_index(g, j, f, r);
+          a.out_r[i] = x[j].x;
+          a.out_i[i] = x[j].y;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int i = asp::dit_swizzle(asp::dit_index(g, j, f, r));
+          xr[i] = x[j].x;
+          xi[i] = x[j].y;
+        }
+      }
+    }
+    if (last) break;
+    if (first && a.scratch == nullptr) asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    s0 = s1;
+  }
 }
 
 // Constant geometry: one stage body, run log2 n times between the
@@ -420,14 +887,14 @@ __global__ void __launch_bounds__(kThreads) fft_pease_kernel(asp::FftArgs a) {
 }
 
 int launch(void (*kernel)(asp::FftArgs), const asp::FftArgs* a, int smem_bytes,
-           int device, void* stream) {
+           int device, void* stream, int threads = kThreads) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (a->batch + a->rows - 1) / a->rows;
-  kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(*a);
+  kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -450,15 +917,26 @@ int asp_irfft_stockham(const asp::FftArgs* a, int smem_bytes, int device, void* 
 }
 
 int asp_fft_fourstep(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {
-  return launch(fft_fourstep_kernel, a, smem_bytes, device, stream);
+  const int n = a->n;
+  void (*kernel)(asp::FftArgs) = n < 8       ? fft_fourstep_kernel<kColsPad>
+                                 : n <= 128  ? fft_fourstep_kernel<kColsFma1>
+                                 : n == 256  ? fft_fourstep_kernel<kColsFma2>
+                                 : n == 512  ? fft_fourstep_kernel<kColsFma4>
+                                 : n <= 4096 ? fft_fourstep_kernel<kColsInPlace>
+                                             : fft_fourstep_kernel<kColsGlobal>;
+  return launch(kernel, a, smem_bytes, device, stream, kFourstepThreads);
 }
 
 int asp_fft_radix2_lanes(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {
-  return launch(fft_radix2_kernel<false>, a, smem_bytes, device, stream);
+  void (*kernel)(asp::FftArgs) = a->n >= 16 ? fft_radix2_lanes_kernel<16>
+                                 : a->n == 8 ? fft_radix2_lanes_kernel<8>
+                                 : a->n == 4 ? fft_radix2_lanes_kernel<4>
+                                             : fft_radix2_lanes_kernel<2>;
+  return launch(kernel, a, smem_bytes, device, stream);
 }
 
 int asp_fft_radix2_stages(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {
-  return launch(fft_radix2_kernel<true>, a, smem_bytes, device, stream);
+  return launch(fft_radix2_stages_kernel, a, smem_bytes, device, stream);
 }
 
 int asp_fft_pease_lanes(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {

@@ -14,9 +14,10 @@
   ``fft_pease_lanes``: the other complex FFTs of the JAX package's impl
   registry, same planar contract as ``fft_stockham_lanes``: the four-step
   factorization n = n1 n2 (n2 = min(128, n)) as two dense DFT products
-  around a twiddle, radix-2 decimation in time (twiddles from the n/2
-  table, or from the stacked per-stage table) and the constant-geometry
-  Pease stages;
+  around a twiddle (on the tensor cores, 3-pass TF32 split products),
+  radix-2 decimation in time (stages in registers, or one stage a pass
+  with twiddles from the stacked per-stage table) and the
+  constant-geometry Pease stages;
 - ``fft_stockham_manual(xr, xi, sign)``: ``fft_stockham_lanes``'
   transform fed by an explicit copy ring (``csrc/fft_manual_kernel.cu``:
   a persistent grid, bulk asynchronous copies under an mbarrier per
@@ -59,9 +60,13 @@ def _pow2(n: int, least: int) -> None:
     check(n >= least and n & (n - 1) == 0, f"power-of-two n >= {least} required, got {n}")
 
 
-FOURSTEP_TILE = 4
-"""fft_fourstep's row DFTs give each thread this many grid rows (c) of one
-output column (d); rows per CTA times n1 must be a multiple of it."""
+FOURSTEP_GRID_ROWS = 64
+"""fft_fourstep's CTA takes max(FOURSTEP_GRID_ROWS, n1) grid rows: an M of
+two warp items of 32 rows on the tensor cores."""
+
+RADIX2_POINTS = 4096
+"""fft_radix2_lanes' CTA takes max(1, RADIX2_POINTS / n) rows: 256 threads
+of 16 points each."""
 
 PEASE_MAX_N = 1 << 24
 """fft_pease_lanes' bound, kept from the JAX kernel (its f32 iota
@@ -106,6 +111,48 @@ def stage_twiddles_np(n: int, sign: float) -> np.ndarray:
     halves = [1 << s for s in range(n.bit_length() - 1)]
     return np.stack([np.tile(np.exp(np.copysign(1.0, sign) * 1j * np.pi * np.arange(m) / m),
                              n // (2 * m)) for m in halves])
+
+
+def tf32_round(x: np.ndarray) -> np.ndarray:
+    """float64 values rounded to TF32's 11 significant bits, to nearest,
+    ties away from zero (``cvt.rna.tf32``), as float64."""
+    m, e = np.frexp(np.asarray(x, dtype=np.float64))
+    return np.ldexp(np.sign(m) * np.floor(np.abs(m) * 2.0 ** 11 + 0.5) / 2.0 ** 11, e)
+
+
+def tf32_split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """x as big + small, both on the TF32 grid (float32 exactly): big the
+    nearest TF32 value, small the nearest to the remainder x - big."""
+    big = tf32_round(x)
+    return big, tf32_round(np.asarray(x, dtype=np.float64) - big)
+
+
+@functools.lru_cache(maxsize=64)
+def fourstep_tc_tables_np(n: int) -> np.ndarray:
+    """fft_fourstep's split tables, (n2 + n1, 4) float32: the n2 values
+    W_n2^j, then the n1 values W_n1^j (W_N^j = exp(-2 pi i j / N), from
+    float64), each as (re big, re small, im big, im small).  The dense
+    tables are W_N^{(k n) mod N}; the kernel gathers from these and
+    conjugates for the inverse."""
+    n1, n2 = fourstep_split(n)
+    w = np.concatenate([_unit_roots(n2), _unit_roots(n1)])
+    rb, rs = tf32_split(w.real)
+    ib, is_ = tf32_split(w.imag)
+    return np.stack([rb, rs, ib, is_], axis=1).astype(np.float32)
+
+
+def _unit_roots(m: int) -> np.ndarray:
+    return np.exp(-2j * np.pi * np.arange(m) / m)
+
+
+@functools.lru_cache(maxsize=64)
+def radix2_stage_table_np(n: int, sign: float) -> np.ndarray:
+    """fft_radix2_lanes' per-stage table, n complex float64: stage s's 2^s
+    twiddles exp(sign i pi p / 2^s) at offset 2^s - 1 (the rows of
+    ``stage_twiddles_np`` without their tiling), then one zero so the
+    table is a whole number of 16-byte copies."""
+    return np.concatenate([*(row[: 1 << s] for s, row in enumerate(stage_twiddles_np(n, sign))),
+                           [0.0]])
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +261,8 @@ def fft_radix2_stages_ref(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     permutation, then the log2(n) decimation-in-time stages of the classic
     C loop, stage s pairing x[g 2m + p] with x[g 2m + m + p] (m = 2^s)
     under exp(sign i pi p / m), read from ``stage_twiddles_np``.  (The
-    lanes kernel reads the same values from the n/2-point table.)"""
+    lanes kernel reads the same float32 values from its per-stage table,
+    ``radix2_stage_table_np``.)"""
     b, n = xr.shape
     rev = torch.as_tensor(bit_reverse_indices(n), device=xr.device)
     xr, xi = xr[:, rev], xi[:, rev]
@@ -284,15 +332,51 @@ def launch_geometry(m: int, table_n: int) -> tuple[int, int, bool]:
     return 1, 0, False
 
 
+def fourstep_geometry(n: int) -> tuple[int, int, int]:
+    """(rows per CTA, dynamic shared memory, scratch floats per CTA) of
+    fft_fourstep at n points, as the kernel lays them out
+    (``fourstep_geo``): max(FOURSTEP_GRID_ROWS, n1) grid rows of Z, n2 + 8
+    floats apart, per plane; the row table and (8 <= n1 <= 128) the column
+    table in eight copies of 16 bytes an entry; the n/2 twiddles up to
+    8192 points.  Above n1 = 128 Z goes to a scratch buffer in device
+    memory (scratch > 0)."""
+    n1, n2 = fourstep_split(n)
+    n2p = max(8, n2)
+    gm = max(FOURSTEP_GRID_ROWS, n1)
+    z = 2 * gm * (n2p + 8)
+    smem = (128 * n2p + (128 * n1 if 8 <= n1 <= 128 else 0) + (4 * n if n <= 8192 else 0)
+            + (4 * z if n1 <= 128 else 0))
+    return gm // n1, smem, 0 if n1 <= 128 else z
+
+
+def radix2_lanes_geometry(n: int) -> tuple[int, int, int]:
+    """(rows per CTA, dynamic shared memory, scratch floats per CTA) of
+    fft_radix2_lanes at n points: the per-stage table (n complex) and the
+    exchange planes of its rows (2 n floats a row) in shared memory where
+    they fit, else the planes in a scratch buffer in device memory."""
+    rows = max(1, RADIX2_POINTS // n)
+    smem = 8 * n + 8 * rows * n
+    if smem <= SMEM_LIMIT:
+        return rows, smem, 0
+    return rows, 0, 2 * rows * n
+
+
 def _launch(name: str, what: str, in_r, in_i, out_r, out_i, batch: int, n: int,
-            m: int, sign: int, dev: torch.device, table: torch.Tensor | None = None) -> None:
+            m: int, sign: int, dev: torch.device, table: torch.Tensor | None = None,
+            geometry: tuple[int, int, int] | None = None) -> None:
     """Launch one of the kernels on ``batch`` rows of an m-point transform
-    (n is the row length the caller sees; ``table`` a kernel's own table)."""
+    (n is the row length the caller sees; ``table`` a kernel's own table;
+    ``geometry`` its own (rows, shared memory, scratch floats per CTA),
+    else ``launch_geometry``'s)."""
     check(0 < batch < 2 ** 31, f"{batch} rows: 1..2^31-1 per launch")
-    rows, smem, shared = launch_geometry(m, n)
+    if geometry is None:
+        rows, smem, shared = launch_geometry(m, n)
+        per_cta = 0 if shared else 4 * m * rows
+    else:
+        rows, smem, per_cta = geometry
     tw = fft_twiddles(n, dev)
-    scratch = (None if shared else
-               torch.empty((batch, 4 * m), dtype=torch.float32, device=dev))
+    scratch = (None if per_cta == 0 else
+               torch.empty((-(-batch // rows), per_cta), dtype=torch.float32, device=dev))
     ptr = lambda t: None if t is None else t.data_ptr()
     args = FftArgs(ptr(in_r), ptr(in_i), ptr(out_r), ptr(out_i), tw.data_ptr(),
                    ptr(scratch), ptr(table), batch, n, sign, rows)
@@ -315,10 +399,17 @@ def fft_twiddles(n: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=32)
-def fourstep_dft_table(n: int, device: torch.device) -> torch.Tensor:
-    """fft_fourstep's n2 x n2 forward DFT table (the kernel conjugates it
-    for the inverse), float32 pairs from float64, uploaded once per size."""
-    return _pairs(dft_matrix_np(fourstep_split(n)[1]), device)
+def fourstep_tc_tables(n: int, device: torch.device) -> torch.Tensor:
+    """``fourstep_tc_tables_np(n)`` on ``device``, uploaded once per size
+    (the kernel conjugates it for the inverse)."""
+    return upload(fourstep_tc_tables_np(n), torch.float32, device)
+
+
+@functools.lru_cache(maxsize=32)
+def radix2_lanes_table(n: int, sign: int, device: torch.device) -> torch.Tensor:
+    """fft_radix2_lanes' per-stage table for ``sign`` as float32 (re, im)
+    pairs, from float64, uploaded once per size and sign."""
+    return _pairs(radix2_stage_table_np(n, sign), device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -329,9 +420,10 @@ def stage_table(n: int, sign: int, device: torch.device) -> torch.Tensor:
 
 
 def _launch_complex(fn, symbol: str, xr: torch.Tensor, xi: torch.Tensor, sign: float,
-                    table=None):
+                    table=None, geometry=None):
     """Launch the complex kernel ``symbol`` on planar CUDA float32 rows and
-    count it on ``fn``; ``table(n, sign, device)`` gives its own table."""
+    count it on ``fn``; ``table(n, sign, device)`` gives its own table,
+    ``geometry(n)`` its own launch geometry."""
     name = fn.__name__
     check_cuda_f32(xr, name, "ops.fft routes float64 to torch.fft")
     b, n = xr.shape
@@ -339,7 +431,8 @@ def _launch_complex(fn, symbol: str, xr: torch.Tensor, xi: torch.Tensor, sign: f
     xr, xi = xr.contiguous(), xi.contiguous()
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     _launch(symbol, name, xr, xi, yr, yi, b, n, n, s, xr.device,
-            None if table is None else table(n, s, xr.device))
+            None if table is None else table(n, s, xr.device),
+            None if geometry is None else geometry(n))
     fn.launches += 1
     return yr, yi
 
@@ -528,18 +621,19 @@ def fft_fourstep(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     (yr, yi), natural order, unnormalized; ``sign`` -1 forward, +1 inverse.
 
     A CPU tensor runs ``fft_fourstep_ref``.  A CUDA float32 tensor
-    launches the kernel: each CTA stages its rows as (n1, n2) grids in
-    shared memory and computes both DFT products there in float32 FMAs.
-    Any other tensor raises."""
+    launches the kernel: each CTA takes ``fourstep_geometry(n)[0]`` rows as
+    (n1, n2) grids and runs both DFT products on the tensor cores as
+    3-pass TF32 split products (float32 accuracy; the column side in
+    float32 FMAs below n1 = 8).  Any other tensor raises."""
     _planar_pair(xr, xi, "fft_fourstep")
     n = xr.shape[1]
     _pow2(n, 4)
     if xr.device.type == "cpu":
         return fft_fourstep_ref(xr, xi, sign)
-    check(launch_geometry(n, n)[0] * fourstep_split(n)[0] % FOURSTEP_TILE == 0,
-          f"fft_fourstep: rows per CTA x n1 must be a multiple of {FOURSTEP_TILE}")
-    return _launch_complex(fft_fourstep, "asp_fft_fourstep", xr, xi, sign,
-                           lambda n, s, dev: fourstep_dft_table(n, dev))
+    check_cuda_f32(xr, "fft_fourstep", "ops.fft routes float64 to torch.fft")
+    # its rows reach shared memory by 16-byte asynchronous copies
+    return _launch_complex(fft_fourstep, "asp_fft_fourstep", _aligned(xr), _aligned(xi), sign,
+                           lambda n, s, dev: fourstep_tc_tables(n, dev), fourstep_geometry)
 
 
 fft_fourstep.launches = 0
@@ -552,14 +646,17 @@ def fft_radix2_lanes(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     exp(sign i pi p / m) at half-size m.
 
     A CPU tensor runs ``fft_radix2_lanes_ref``.  A CUDA float32 tensor
-    launches the kernel (the bit reversal fused into the load, the stages
-    in place in shared memory, twiddles from the n/2-point table).  Any
-    other tensor raises."""
+    launches the kernel: each thread holds 16 points of a row and runs up
+    to four stages on them in registers, the points crossing shared memory
+    between groups of stages; the bit reversal is the first group's choice
+    of points; twiddles from the per-stage table
+    (``radix2_stage_table_np``).  Any other tensor raises."""
     _planar_pair(xr, xi, "fft_radix2_lanes")
     _pow2(xr.shape[1], 2)
     if xr.device.type == "cpu":
         return fft_radix2_lanes_ref(xr, xi, sign)
-    return _launch_complex(fft_radix2_lanes, "asp_fft_radix2_lanes", xr, xi, sign)
+    return _launch_complex(fft_radix2_lanes, "asp_fft_radix2_lanes", xr, xi, sign,
+                           radix2_lanes_table, radix2_lanes_geometry)
 
 
 fft_radix2_lanes.launches = 0

@@ -18,9 +18,10 @@ length must be a power of two.  The implementations, in the port's names
 - ``"stockham_split"`` (``"pallas_sk_split"``): the even/odd pack and
   untangle of the real transforms in torch around the complex kernel;
 - ``"fourstep"`` (``"pallas"``): the hand-written four-step kernel
-  ``fft_fourstep`` (n1 x 128 grid, two dense DFT products in FMAs);
+  ``fft_fourstep`` (n1 x 128 grid, two dense DFT products on the tensor
+  cores as 3-pass TF32 split products);
 - ``"radix2_lanes"`` (``"pallas_r2"``): the hand-written radix-2 DIT
-  kernel ``fft_radix2_lanes`` (bit reversal fused into the load);
+  kernel ``fft_radix2_lanes`` (up to four stages a pass in registers);
 - ``"radix2_stages"`` (``"pallas_r2_stages"``): the same DIT with the
   stacked per-stage twiddle table, ``fft_radix2_stages``;
 - ``"pease"`` (``"pallas_cg"``): the hand-written constant-geometry

@@ -932,7 +932,8 @@ def vocoder_phases(dev, smi, record, kernels, reset_counts):
 
 def earlier_bounds(record, h, h_env, xn, blocks, res_blocks):
     """bound_ms and library_ms of the eight kernels of the earlier phases, for
-    the work each timed run did: whole files of HEADLINE (48 kHz) or
+    the work each timed run did: whole files of HEADLINE (48 kHz; fir_mac
+    and overlap_save_fused too, on the input their conv1d takes) or
     RES_HEADLINE -> RES_OUT (config 5), and drained streams of ``blocks``
     blocks of BLOCK (48 kHz) or ``res_blocks`` of RES_BLOCK (config 5)."""
     from audiosignalprocess_tpu_torch.ops.resample import resample_filter
@@ -948,8 +949,8 @@ def earlier_bounds(record, h, h_env, xn, blocks, res_blocks):
         "fir_noise_gate_fused": (8 * c * n, chain_flops(c, n, frames)),
         "fir_gate_step_fused": (8 * c * sn, chain_flops(c, sn, s_frames)),
         "gate_step_fused": (8 * c * sn, c * fft_flops(NFFT, s_frames)),
-        "overlap_save_fused": (8 * c * sn, chain_flops(c, sn, 0)),
-        "fir_mac": (8 * c * sn, 2.0 * len(h_env) * c * sn),
+        "overlap_save_fused": (8 * c * n, chain_flops(c, n, 0)),  # one whole-file launch
+        "fir_mac": (8 * c * n, 2.0 * len(h_env) * c * n),
         "resample_mac": (4 * c * (RES_HEADLINE[1] + RES_OUT), 2.0 * nk * c * RES_OUT),
         "resample_fir_gate_fused": (4 * c * (RES_HEADLINE[1] + RES_OUT),
                                     2.0 * nk * c * RES_OUT + chain_flops(c, RES_OUT, res_frames)),
@@ -1263,12 +1264,18 @@ FFT_VARIANTS = {  # kernel: (ops.fft impl, smallest n, the TPU kernel it replace
     "fft_radix2_stages": ("radix2_stages", 2, "fft_kernel.py:743"),
     "fft_pease_lanes": ("pease", 2, "fft_kernel.py:1383"),
 }
-# each kernel's smallest n, then these; 16384 is past launch_geometry's
-# shared-memory limit and runs on buffers in device memory
+# each kernel's smallest n, then these; 16384 is past the shared-memory limit of
+# every variant but fft_fourstep and runs on buffers in device memory
 VARIANT_SIZES = (8, 512, 1024, 4096, 16384)
 VARIANT_BATCHES = (1, 5, 300)
 SLICE_LAUNCHES = 4  # per whole-file call: an rfft and an irfft (each a 512-point
 # complex transform) in the overlap-save, and another pair in the gate
+# the two kernels redesigned for the card's tensor cores and registers: held at
+# every n from the smallest to 16384 (a partial last CTA), then at the rows the
+# slice (an rfft and an irfft of each block) and the timings give them
+REDESIGNED = {"fft_fourstep": "fourstep_geometry", "fft_radix2_lanes": "radix2_lanes_geometry"}
+REDESIGN_PATH = ((32000, 512), (119808, 512), (FFT_TIMED, 1024), (FFT_TIMED, 4096))
+TF32_PEAK_FLOP_S = 495e12  # dense TF32 tensor-core peak of the H100 SXM (data sheet)
 
 
 def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
@@ -1314,8 +1321,40 @@ def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
                                          f"launches={kernel.launches - before}")
             print(f"[24 kernel] {name} n={n} snr_vs_f64_plain/torch.fft_f64 dB: "
                   + ", ".join(parts))
+    for name, geometry in REDESIGNED.items():
+        kernel, plain = getattr(fk, name), getattr(fk, f"{name}_ref")
+        least = FFT_VARIANTS[name][1]
+        shapes = [(3 * getattr(fk, geometry)(1 << k)[0] + 1, 1 << k)
+                  for k in range(least.bit_length() - 1, 15)] + list(REDESIGN_PATH)
+        for b, n in shapes:
+            gen = torch.Generator(device=dev).manual_seed(24 * b + n)
+            xr = torch.randn((b, n), generator=gen, dtype=torch.float64, device=dev)
+            xi = torch.randn((b, n), generator=gen, dtype=torch.float64, device=dev)
+            z = torch.complex(xr, xi)
+            parts = []
+            for sign, lib in ((-1.0, torch.fft.fft(z)), (1.0, torch.fft.ifft(z) * n)):
+                before = kernel.launches
+                y = kernel(xr.float(), xi.float(), sign)
+                torch.cuda.synchronize()
+                ref = plain(xr, xi, sign)
+                snr, snr_lib = snr_db_planes(ref, y), snr_db_planes((lib.real, lib.imag), y)
+                err = max(float((t.double() - r).abs().max()) for t, r in zip(y, ref))
+                rec = record.setdefault(name, dict(max_abs_err=0.0, min_snr_db=np.inf))
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                rec["min_snr_db"] = min(rec["min_snr_db"], snr)
+                worst[name] = min(worst[name], snr, snr_lib)
+                parts.append(f"{'fwd' if sign < 0 else 'inv'} {snr:.2f}/{snr_lib:.2f}")
+                if not (tuple(y[0].shape) == (b, n) and all(bool(torch.isfinite(t).all()) for t in y)
+                        and min(snr, snr_lib) >= LINEAR_MIN_DB and kernel.launches == before + 1):
+                    raise SystemExit(f"phase 24 failed: redesigned {name} {b}x{n} sign={sign} "
+                                     f"snr={snr:.2f} snr_vs_torch_fft={snr_lib:.2f} "
+                                     f"launches={kernel.launches - before}")
+            print(f"[24 kernel] redesigned {name} {b}x{n} snr_vs_f64_plain/torch.fft_f64 dB: "
+                  + ", ".join(parts))
+            del xr, xi, z, y, ref
     print(f"[24 kernel] FFT variants' worst reading over n in each smallest and "
-          f"{VARIANT_SIZES}, batch in {VARIANT_BATCHES}, both signs (against the float64 "
+          f"{VARIANT_SIZES}, batch in {VARIANT_BATCHES}, both signs, and for "
+          f"{', '.join(REDESIGNED)} every n to 16384 and {REDESIGN_PATH} (against the float64 "
           f"plain version and torch.fft float64): "
           + ", ".join(f"{k} {v:.2f} dB" for k, v in worst.items()))
 
@@ -1380,11 +1419,17 @@ def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
             if name == "fft_fourstep":
                 n1, n2 = fk.fourstep_split(m)
                 ops = 8.0 * b * m * (n1 + n2)  # its dense products: 8 m (n1 + n2) a row
+                # on the tensor cores, 3 passes each: the row side, and the column side
+                # from n1 = 8 (below it the column side is float32 FMAs)
+                tc_ops = 3.0 * 8.0 * b * m * (n2 + (n1 if n1 >= 8 else 0))
                 own = (f"; its own operation count {ops / 1e9:.4f} GFLOP, "
                        f"{ops / ms / 1e9:.2f} TFLOP/s = "
                        f"{ops / ms * 1e3 / peak_flop_s * 100:.1f} % of "
-                       f"{peak_flop_s / 1e12:.0f} TFLOP/s, "
-                       f"bound by them {ops / peak_flop_s * 1e3:.4f} ms")
+                       f"{peak_flop_s / 1e12:.0f} TFLOP/s float32; tensor operations "
+                       f"(3xTF32) {tc_ops / 1e9:.4f} GFLOP, {tc_ops / ms / 1e9:.2f} TFLOP/s = "
+                       f"{tc_ops / ms * 1e3 / TF32_PEAK_FLOP_S * 100:.1f} % of "
+                       f"{TF32_PEAK_FLOP_S / 1e12:.0f} TFLOP/s TF32, bound by them "
+                       f"{tc_ops / TF32_PEAK_FLOP_S * 1e3:.4f} ms")
             print(f"[24 times] {name} {b}x{m} f32 on {smi}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, torch.fft (library) {lib_ms:.4f} ms, bound "
                   f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); {bw / 1e9:.1f} GB/s = "
@@ -1394,12 +1439,15 @@ def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
                                     replaces=FFT_VARIANTS[name][2])
     xn = torch.as_tensor(np.random.default_rng(0).standard_normal(HEADLINE),
                          dtype=torch.float32, device=dev)
-    for impl in ("stockham", *(v[0] for v in FFT_VARIANTS.values())):
+    impl_kernel = {v[0]: k for k, v in FFT_VARIANTS.items()}
+    for impl in ("stockham", *impl_kernel):
         slice_chain = chain(impl)
         ms = time_ms(lambda: slice_chain.full_flush(xn), reps=10, warmup=2)
         print(f"[24 times] slice Chain([FIRStage, GateStage](impl={impl!r})).full_flush "
               f"{c}x{n} f32 white noise on {smi}: {ms:.4f} ms per call "
               f"({c * n / ms * 1e3:.4e} samples/s)")
+        if impl in impl_kernel:
+            record[impl_kernel[impl]]["slice_ms"] = ms
 
 
 MANUAL_SIZES = (2, 8, 256, 512, 1024, 4096, 8192)  # 8192: the ring's longest row, 2 deep
@@ -1937,9 +1985,20 @@ def main() -> int:
     idle_plain = device_idle_share(lambda: fir_gate(False).stream(xn, BLOCK, drain=True))
     print(f"[9 idle] path A stream under torch.profiler on {smi}: device idle "
           f"{idle_text(idle)} of its span; plain version {idle_text(idle_plain)}")
-    for kname, tname in (("fir_gate_step_fused", "path A"), ("gate_step_fused", "gate_step_fused"),
-                         ("overlap_save_fused", "overlap_save_fused"), ("fir_mac", "fir_mac")):
+    for kname, tname in (("fir_gate_step_fused", "path A"), ("gate_step_fused", "gate_step_fused")):
         record[kname].update(ms=times[tname][0], plain_ms=times[tname][1])
+    # the two MAC kernels on the work one conv1d does (earlier_bounds' library_ms):
+    # one whole-file launch on the same input; their streams stay under stream_ms
+    whole = {"fir_mac": (lambda: fir_mac(xn, h_env), lambda: fir_mac_ref(xn, h_env)),
+             "overlap_save_fused": (lambda: overlap_save_fused(xn, h, NFFT),
+                                    lambda: overlap_save_ref(xn, h, NFFT))}
+    for kname, (kern_fn, plain_fn) in whole.items():
+        ms, plain_ms = time_ms(kern_fn), time_ms(plain_fn, reps=5, warmup=1)
+        print(f"[9 times] {kname} one whole-file launch on {HEADLINE[0]}x{HEADLINE[1]} f32 "
+              f"white noise on {smi}: kernel {ms:.4f} ms ({samples / ms * 1e3:.4e} samples/s), "
+              f"plain {plain_ms:.4f} ms; its stream {times[kname][0]:.4f} ms")
+        record[kname].update(ms=ms, plain_ms=plain_ms, stream_ms=times[kname][0],
+                             stream_plain_ms=times[kname][1])
     record["fir_gate_step_fused"].update(source="fir_gate_step_kernel.cu",
                                          replaces="chain_kernel.py:465")
     record["gate_step_fused"].update(source="gate_step_kernel.cu",
@@ -1983,6 +2042,8 @@ def main() -> int:
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
+        "stream_ms": r.get("stream_ms"),
+        "slice_ms": r.get("slice_ms"),
     } for name, r in record.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -524,6 +524,46 @@ def test_fft_variant_slice_chain(card, name):
     assert snr_db(chain("torch").full_flush(x), y) >= 60.0
 
 
+REDESIGNED = {  # the kernels redesigned for the card: (launch geometry, smallest n)
+    "fft_fourstep": (fk.fourstep_geometry, 4),
+    "fft_radix2_lanes": (fk.radix2_lanes_geometry, 2),
+}
+
+
+def _check_redesigned(card, name, b, n, seed):
+    """One kernel of REDESIGNED on b x n rows, both signs: >= 100 dB against
+    its float64 plain version and torch.fft, one launch each."""
+    kernel, plain = getattr(fk, name), VARIANTS[name][0]
+    gen = torch.Generator(device=card).manual_seed(seed)
+    xr = torch.randn((b, n), generator=gen, dtype=torch.float64, device=card)
+    xi = torch.randn((b, n), generator=gen, dtype=torch.float64, device=card)
+    z = torch.complex(xr, xi)
+    for sign, lib in ((-1.0, torch.fft.fft(z)), (1.0, torch.fft.ifft(z) * n)):
+        (yr, yi), k = _launches(lambda: kernel(xr.float(), xi.float(), sign))
+        assert k == {name: 1} and yr.shape == (b, n)
+        rr, ri = plain(xr, xi, sign)
+        assert snr_db(torch.cat([rr, ri]), torch.cat([yr, yi])) >= 100.0
+        assert snr_db(torch.cat([lib.real, lib.imag]), torch.cat([yr, yi])) >= 100.0
+
+
+@pytest.mark.parametrize("name,n", [(name, 1 << k) for name, (_, least) in REDESIGNED.items()
+                                    for k in range(least.bit_length() - 1, 15)])
+def test_fft_redesigned_every_n(card, name, n):
+    """fft_fourstep (tensor cores, 3xTF32) at every n from 4 and
+    fft_radix2_lanes (stages in registers) at every n from 2, to 16384,
+    on 3 CTAs' rows and one more (a partial last CTA), both signs."""
+    _check_redesigned(card, name, 3 * REDESIGNED[name][0](n)[0] + 1, n, 71 + n.bit_length())
+
+
+@pytest.mark.parametrize("name", list(REDESIGNED))
+@pytest.mark.parametrize("b,n", ((32000, 512), (119808, 512), (4096, 1024), (4096, 4096)))
+def test_fft_redesigned_at_the_path_rows(card, name, b, n):
+    """The two redesigned kernels at the rows the slice gives them (32000
+    and 119808 rows of 512 points: an rfft and an irfft of each block) and
+    at the two timed points, both signs."""
+    _check_redesigned(card, name, b, n, 72)
+
+
 @pytest.mark.parametrize("n", (2, 8, 256, 1024, 4096, 8192))
 @pytest.mark.parametrize("batch", ("one", "partial", "wrap"))
 def test_fft_stockham_manual_vs_plain(card, n, batch):
