@@ -90,16 +90,41 @@
 //   ptxas (sm_90a): 58 registers at R = 16 (31 to 40 for n < 16), no
 //   spills.
 // - fft_radix2_stages (replaces fft_radix2_stages, which the TPU ran only
-//   in interpret mode): the same stages, twiddles read from the stacked
-//   (log2 n, n/2) per-stage table of the sign asked for.
-// - fft_pease_lanes (replaces fft_pease_lanes): log2 n identical
-//   constant-geometry stages over ping-pong buffers, u = A[k], v =
-//   A[k + n/2] -> B[2k] = u + v, B[2k+1] = (u - v) w_s[k] with w_s[k] =
-//   exp(sign 2 pi i ((k >> s) << s) / n), one rolled stage body; the
-//   stages leave the result in bit-reversed order, and the store reads it
-//   through __brev (the TPU package gathers it in XLA afterwards).
-// Like the Stockham kernel, fft_radix2_stages and fft_pease_lanes move
-// every byte once and pay a shared-memory pass and a barrier per stage.
+//   in interpret mode): fft_radix2_lanes' transform, the same stages,
+//   pairs and float32 twiddle values, with its twiddles handed over as
+//   the stacked (log2 n, n/2) per-stage table of the sign asked for.  It
+//   is fft_radix2_lanes' kernel instantiated for that table (kStacked):
+//   the first pass (and every pass where the rows live in device memory)
+//   reads row s, entry s n/2 + p; a CTA stages only the n - 1 distinct
+//   entries (row s, p < 2^s) into shared memory in the per-stage layout,
+//   shifted by one entry (stage s at 2^s) so that each cp.async is 16
+//   aligned bytes of one row, as many copies as fft_radix2_lanes makes.
+//   Its results equal fft_radix2_lanes' bit for bit.  ptxas (sm_90a): 60
+//   registers at R = 16 (27 to 40 for n < 16), no spills.
+// - fft_pease_lanes (replaces fft_pease_lanes): the log2 n
+//   constant-geometry stages u = A[k], v = A[k + n/2] -> B[2k] = u + v,
+//   B[2k+1] = (u - v) w_s[k], w_s[k] = exp(sign 2 pi i ((k >> s) << s) /
+//   n), in registers (csrc/fft_regs.cuh): a thread holds the 16 points g +
+//   t n/16 of its group g, whose indices differ in their top four bits, and
+//   runs four stages on them with no exchange, after which they are the 16
+//   consecutive points g 16 + j.  Every pass is that one body, looped
+//   (reads at stride n/16, consecutive writes; a shorter last pass where
+//   log2 n is not a multiple of 4), so n = 1024 takes 4 + 4 + 2 stages and
+//   2 barriers where a stage each took 10.  The bit reversal of the result
+//   is the last pass's choice of points (thread q takes g = brev(q), so
+//   its slot j lands at natural index brev(j) n/16 + q: coalesced stores);
+//   the TPU package gathers it in XLA afterwards.  The exchange between
+//   passes goes through two buffers of re/im planes, XOR-swizzled
+//   (conflict-free), in shared memory up to 8192 points, in the scratch
+//   buffer above; the twiddles come from a per-stage table (stage s's
+//   n/2^(s+1) values w_s[m 2^s] at n - n/2^s), read by the first pass from
+//   device memory as neighbouring entries while cp.async copies the later
+//   stages' n/16 entries to shared memory, where each is one broadcast.
+//   What bounds it: as fft_radix2_lanes.  ptxas (sm_90a): 63 or 64
+//   registers with a shorter last pass, 74 without one (n = 256, 4096,
+//   65536, ...), 25 to 40 for n < 16; no spills.
+// The Stockham kernels still move every byte once and pay a shared-memory
+// pass and a barrier per stage.
 
 #include <cuda_runtime.h>
 
@@ -118,7 +143,8 @@ struct FftArgs {
   float* scratch;      // a kernel's buffers in device memory for long rows, or null
   const float* table;  // fft_fourstep: the split tables (fourstep_tc_tables);
                        // fft_radix2_stages: the (log2 n, n/2) stage table of `sign`;
-                       // fft_radix2_lanes: the per-stage table of `sign`; else null
+                       // fft_radix2_lanes, fft_pease_lanes: their per-stage tables
+                       // of `sign`; else null
   int batch;           // B rows
   int n;               // the row length the caller sees
   int sign;            // complex transform: -1 forward, +1 inverse
@@ -157,32 +183,21 @@ __device__ Bufs setup(const asp::FftArgs& a, float4* smem, int m) {
   return {x, x + a.rows * m, tw_s};
 }
 
-// Load this CTA's `rows` rows of m points into x, natural order, and zero
-// the rest of its a.rows rows; `rev` bit-reverses the order within a row.
-__device__ void load_rows(const asp::FftArgs& a, float2* x, int m, int rows, bool rev) {
-  const int log2m = log2i(m);
+// Load this CTA's `rows` rows of m points into x and zero the rest of its
+// a.rows rows.
+__device__ void load_rows(const asp::FftArgs& a, float2* x, int m, int rows) {
   const size_t base = static_cast<size_t>(blockIdx.x) * a.rows * m;
-  for (int i = threadIdx.x; i < a.rows * m; i += blockDim.x) {
-    const int j = i & (m - 1);
-    const int dst = rev ? (i - j) + static_cast<int>(__brev(static_cast<unsigned>(j)) >>
-                                                     (32 - log2m))
-                        : i;
-    x[dst] = i < rows * m ? make_float2(a.in_r[base + i], a.in_i[base + i])
-                          : make_float2(0.0f, 0.0f);
-  }
+  for (int i = threadIdx.x; i < a.rows * m; i += blockDim.x)
+    x[i] = i < rows * m ? make_float2(a.in_r[base + i], a.in_i[base + i])
+                        : make_float2(0.0f, 0.0f);
 }
 
-// Store this CTA's rows from z; `rev` reads each row in bit-reversed order.
-__device__ void store_rows(const asp::FftArgs& a, const float2* z, int m, int rows, bool rev) {
-  const int log2m = log2i(m);
+// Store this CTA's rows from z.
+__device__ void store_rows(const asp::FftArgs& a, const float2* z, int m, int rows) {
   const size_t base = static_cast<size_t>(blockIdx.x) * a.rows * m;
   for (int i = threadIdx.x; i < rows * m; i += blockDim.x) {
-    const int j = i & (m - 1);
-    const int src = rev ? (i - j) + static_cast<int>(__brev(static_cast<unsigned>(j)) >>
-                                                     (32 - log2m))
-                        : i;
-    a.out_r[base + i] = z[src].x;
-    a.out_i[base + i] = z[src].y;
+    a.out_r[base + i] = z[i].x;
+    a.out_i[base + i] = z[i].y;
   }
 }
 
@@ -227,9 +242,9 @@ __global__ void __launch_bounds__(kThreads) fft_stockham_kernel(asp::FftArgs a) 
   const int row0 = blockIdx.x * a.rows;
   const int rows = min(a.rows, a.batch - row0);
   const Bufs bf = setup(a, smem, m);
-  load_rows(a, bf.x, m, rows, false);
+  load_rows(a, bf.x, m, rows);
   __syncthreads();
-  store_rows(a, stockham(bf.x, bf.y, m, rows, a.sign > 0, bf.tw, log2i(m)), m, rows, false);
+  store_rows(a, stockham(bf.x, bf.y, m, rows, a.sign > 0, bf.tw, log2i(m)), m, rows);
 }
 
 __global__ void __launch_bounds__(kThreads) rfft_stockham_kernel(asp::FftArgs a) {
@@ -727,40 +742,8 @@ __global__ void __launch_bounds__(kFourstepThreads, 512 / kFourstepThreads)
 }
 
 // ---------------------------------------------------------------------------
-// fft_radix2_stages: the stages in shared memory, per-stage table reads
-// ---------------------------------------------------------------------------
-
-// Radix-2 decimation in time: the bit reversal in the load, then the
-// stages in place, a barrier each, twiddles read from the stacked
-// per-stage table a.table.
-__global__ void __launch_bounds__(kThreads) fft_radix2_stages_kernel(asp::FftArgs a) {
-  extern __shared__ float4 smem[];
-  const int n = a.n, half = n >> 1, log2n = log2i(n);
-  const int rows = min(a.rows, a.batch - static_cast<int>(blockIdx.x) * a.rows);
-  const Bufs bf = setup(a, smem, n);
-  load_rows(a, bf.x, n, rows, true);
-  __syncthreads();
-  const float2* st = reinterpret_cast<const float2*>(a.table);
-  for (int s = 0; s < log2n; ++s) {
-    const int m = 1 << s;
-    for (int t = threadIdx.x; t < rows * half; t += blockDim.x) {
-      const int r = t >> (log2n - 1);
-      const int k = t & (half - 1);  // the butterfly within the row
-      const int p = k & (m - 1);
-      float2* x = bf.x + (r << log2n) + ((k >> s) << (s + 1)) + p;
-      const float2 w = __ldg(st + s * half + k);
-      const float2 u = x[0];
-      const float2 v = asp::cmul(x[m], w);
-      x[0] = make_float2(u.x + v.x, u.y + v.y);
-      x[m] = make_float2(u.x - v.x, u.y - v.y);
-    }
-    __syncthreads();
-  }
-  store_rows(a, bf.x, n, rows, false);
-}
-
-// ---------------------------------------------------------------------------
-// fft_radix2_lanes: the stages in registers (csrc/fft_regs.cuh)
+// fft_radix2_lanes and fft_radix2_stages: the stages in registers
+// (csrc/fft_regs.cuh)
 // ---------------------------------------------------------------------------
 
 constexpr int kRadix2Points = 4096;  // points a CTA takes at least (RADIX2_POINTS)
@@ -768,6 +751,11 @@ constexpr int kRadix2Points = 4096;  // points a CTA takes at least (RADIX2_POIN
 // k < 2^bits (bits <= 4) bit-reversed: a constant for a constant k
 __device__ __forceinline__ constexpr int brev_bits(int k, int bits) {
   return (((k & 1) << 3) | ((k & 2) << 1) | ((k & 4) >> 1) | ((k & 8) >> 3)) >> (4 - bits);
+}
+
+// q < 2^bits bit-reversed
+__device__ __forceinline__ int brev_low(int q, int bits) {
+  return bits == 0 ? 0 : static_cast<int>(__brev(static_cast<unsigned>(q)) >> (32 - bits));
 }
 
 // Each thread holds R points of a row (R = 16, or n below 16).  The first
@@ -781,8 +769,12 @@ __device__ __forceinline__ constexpr int brev_bits(int k, int bits) {
 // last pass stores natural order, coalesced.  The per-stage table (n
 // entries, stage s at offset 2^s - 1) is copied to shared memory with
 // cp.async during the first pass, which reads its 15 entries from device
-// memory.
-template <int R>
+// memory.  kStacked (fft_radix2_stages): a.table is the stacked (log2 n,
+// n/2) table, read as row s where the passes read device memory; only its
+// n - 1 distinct entries (row s, p < 2^s) go to shared memory, into the
+// per-stage layout one entry further on, so the two kernels run the same
+// arithmetic on the same float32 values.
+template <int R, bool kStacked>
 __global__ void __launch_bounds__(kThreads) fft_radix2_lanes_kernel(asp::FftArgs a) {
   extern __shared__ float4 smem[];
   constexpr int r = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
@@ -798,9 +790,16 @@ __global__ void __launch_bounds__(kThreads) fft_radix2_lanes_kernel(asp::FftArgs
   } else {
     float2* tw_s = reinterpret_cast<float2*>(smem);
     if (log2n > r) {
-      for (int i = threadIdx.x; i < n / 2; i += blockDim.x) cp_async16(tw_s + 2 * i, tw_g + 2 * i);
+      for (int i = threadIdx.x; i < n / 2; i += blockDim.x) {
+        // kStacked: entries 2i, 2i + 1 of the per-stage layout shifted by one
+        // (stage s at 2^s) are row s's p = 2i - 2^s and p + 1 (for i = 0
+        // row 0's first two, both 1, so entry 1 is stage 0's)
+        const int s = kStacked && i > 0 ? 32 - __clz(i) : 0;
+        const int src = kStacked ? s * (n / 2) + 2 * i - (i > 0 ? 1 << s : 0) : 2 * i;
+        cp_async16(tw_s + 2 * i, tw_g + src);
+      }
       asm volatile("cp.async.commit_group;" ::: "memory");
-      tw = tw_s;
+      tw = kStacked ? tw_s + 1 : tw_s;
     }
     er = reinterpret_cast<float*>(tw_s + n);
   }
@@ -817,7 +816,7 @@ __global__ void __launch_bounds__(kThreads) fft_radix2_lanes_kernel(asp::FftArgs
       float2 x[R];
       int g = q;
       if (first) {
-        g = log2g == 0 ? 0 : static_cast<int>(__brev(static_cast<unsigned>(q)) >> (32 - log2g));
+        g = brev_low(q, log2g);
 #pragma unroll
         for (int k = 0; k < R; ++k) {
           const size_t i = rb + q + (static_cast<size_t>(k) << log2g);
@@ -830,7 +829,11 @@ __global__ void __launch_bounds__(kThreads) fft_radix2_lanes_kernel(asp::FftArgs
           x[j] = make_float2(xr[i], xi[i]);
         }
       }
-      asp::dit_pass<R>(x, first ? tw_g : tw, s0, s1, f, g & ((1 << f) - 1));
+      if (kStacked && (first || a.scratch != nullptr)) {
+        asp::dit_pass<R, true>(x, tw_g, s0, s1, f, g & ((1 << f) - 1), n / 2);
+      } else {
+        asp::dit_pass<R>(x, first ? tw_g : tw, s0, s1, f, g & ((1 << f) - 1));
+      }
       if (last) {
 #pragma unroll
         for (int j = 0; j < R; ++j) {
@@ -854,36 +857,121 @@ __global__ void __launch_bounds__(kThreads) fft_radix2_lanes_kernel(asp::FftArgs
   }
 }
 
-// Constant geometry: one stage body, run log2 n times between the
-// ping-pong buffers; the bit reversal in the store.
+// ---------------------------------------------------------------------------
+// fft_pease_lanes: constant-geometry passes in registers (csrc/fft_regs.cuh)
+// ---------------------------------------------------------------------------
+
+// One Pease pass of RP = 2^rp points a group from stage s0 over this CTA's
+// rows: group v of the CTA is row v >> lg, q = v mod 2^lg (lg = log2 n -
+// rp), and takes g = q, or g = brev(q) in the last pass.  It reads slot t
+// from index g + t n/RP (device memory in the first pass, else the exchange
+// planes sr, si), runs rp stages in registers, and writes slot j to index
+// g RP + j of the planes dr, di, or in the last pass to natural index
+// brev_rp(j) n/RP + q of the output: coalesced stores, the bit reversal
+// being the last pass's choice of points.  Exchange indices are
+// CTA-local (row n + index) and swizzled.
+template <int RP>
+__device__ __forceinline__ void pease_groups(const asp::FftArgs& a, int rows, int s0,
+                                             const float* sr, const float* si, float* dr,
+                                             float* di, const float2* tw, int off) {
+  constexpr int rp = RP == 2 ? 1 : RP == 4 ? 2 : RP == 8 ? 3 : 4;
+  const int n = a.n, log2n = log2i(n);
+  const int lg = log2n - rp;
+  const bool first = s0 == 0, last = s0 + rp == log2n;
+  const size_t base = static_cast<size_t>(blockIdx.x) * a.rows * n;
+  // the swizzled offsets of slot t's reads, bit by bit: swizzle(t << lg)
+  int tsw[rp];
+#pragma unroll
+  for (int k = 0; k < rp; ++k) tsw[k] = asp::pease_swizzle(1 << (lg + k));
+  for (int v = threadIdx.x; v < rows << lg; v += blockDim.x) {
+    const int row = v >> lg, q = v & ((1 << lg) - 1);
+    const int g = last ? brev_low(q, lg) : q;
+    float2 x[RP];
+    if (first) {
+      const size_t i0 = base + (static_cast<size_t>(row) << log2n) + g;
+#pragma unroll
+      for (int t = 0; t < RP; ++t) {
+        const size_t i = i0 + (static_cast<size_t>(t) << lg);
+        x[t] = make_float2(__ldg(a.in_r + i), __ldg(a.in_i + i));
+      }
+    } else {
+      const int i0 = asp::pease_swizzle((row << log2n) | g);
+#pragma unroll
+      for (int t = 0; t < RP; ++t) {
+        int i = i0;
+#pragma unroll
+        for (int k = 0; k < rp; ++k) {
+          if (t & (1 << k)) i ^= tsw[k];
+        }
+        x[t] = make_float2(sr[i], si[i]);
+      }
+    }
+    asp::pease_pass<RP>(x, tw, s0, log2n, g, off);
+    if (last) {
+      const size_t o = base + (static_cast<size_t>(row) << log2n) + q;
+#pragma unroll
+      for (int j = 0; j < RP; ++j) {
+        const size_t i = o + (static_cast<size_t>(brev_bits(j, rp)) << lg);
+        a.out_r[i] = x[j].x;
+        a.out_i[i] = x[j].y;
+      }
+    } else {
+      const int i0 = asp::pease_swizzle((row << log2n) | (g << rp));
+#pragma unroll
+      for (int j = 0; j < RP; ++j) {
+        dr[i0 ^ j] = x[j].x;
+        di[i0 ^ j] = x[j].y;
+      }
+    }
+  }
+}
+
+// Full passes of R = 16 points a group (R = n below 16), then a shorter
+// last pass of RS points where log2 n is not a multiple of 4: n = 1024 runs
+// 4 + 4 + 2 stages with 2 barriers.  The exchange goes through two buffers
+// of re/im planes, a pass reading one and writing the other (one suffices
+// for two passes): in shared memory, or in this CTA's slice of the scratch
+// buffer in device memory where they do not fit.  a.table is the per-stage
+// table (pease_stage_table): the first pass reads its stages 0..3 from
+// device memory (neighbouring entries for neighbouring threads) while
+// cp.async copies the n/16 entries of the later stages to shared memory.
+template <int R, int RS>
 __global__ void __launch_bounds__(kThreads) fft_pease_kernel(asp::FftArgs a) {
   extern __shared__ float4 smem[];
-  const int n = a.n, half = n >> 1, log2n = log2i(n);
+  constexpr int r = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+  const int n = a.n, log2n = log2i(n);
   const int rows = min(a.rows, a.batch - static_cast<int>(blockIdx.x) * a.rows);
-  const bool inverse = a.sign > 0;
-  const Bufs bf = setup(a, smem, n);
-  load_rows(a, bf.x, n, rows, false);
-  __syncthreads();
-  float2* src = bf.x;
-  float2* dst = bf.y;
-  for (int s = 0; s < log2n; ++s) {
-    for (int t = threadIdx.x; t < rows * half; t += blockDim.x) {
-      const int r = t >> (log2n - 1);
-      const int k = t & (half - 1);
-      const float2* in = src + (r << log2n);
-      float2* out = dst + (r << log2n);
-      const float2 u = in[k], v = in[k + half];
-      float2 w = bf.tw[(k >> s) << s];
-      if (inverse) w.y = -w.y;
-      out[2 * k] = make_float2(u.x + v.x, u.y + v.y);
-      out[2 * k + 1] = asp::cmul(make_float2(u.x - v.x, u.y - v.y), w);
-    }
-    __syncthreads();
-    float2* t = src;
-    src = dst;
-    dst = t;
+  const float2* tw_g = reinterpret_cast<const float2*>(a.table);
+  const float2* tw = tw_g;  // the later passes' table, from entry `off` on
+  int off = 0;
+  float* buf;
+  if (a.scratch != nullptr) {
+    buf = a.scratch + static_cast<size_t>(blockIdx.x) * a.rows * 4 * n;
+  } else {
+    float2* tw_s = reinterpret_cast<float2*>(smem);
+    const int tail = log2n > r ? n >> r : 0;
+    for (int i = threadIdx.x; i < tail / 2; i += blockDim.x)
+      cp_async16(tw_s + 2 * i, tw_g + (n - tail) + 2 * i);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    tw = tw_s;
+    off = n - tail;
+    buf = reinterpret_cast<float*>(tw_s + tail);
   }
-  store_rows(a, src, n, rows, true);
+  const int plane = a.rows * n;
+  for (int s0 = 0, p = 0; s0 < log2n; s0 += r, ++p) {
+    // pass p reads buffer (p - 1) mod 2 and writes buffer p mod 2
+    const float* src = buf + ((p + 1) & 1) * 2 * plane;
+    float* dst = buf + (p & 1) * 2 * plane;
+    if (s0 + r >= log2n) {
+      pease_groups<RS>(a, rows, s0, src, src + plane, nullptr, nullptr, s0 == 0 ? tw_g : tw,
+                       s0 == 0 ? 0 : off);
+      break;
+    }
+    pease_groups<R>(a, rows, s0, src, src + plane, dst, dst + plane, s0 == 0 ? tw_g : tw,
+                    s0 == 0 ? 0 : off);
+    if (s0 == 0 && a.scratch == nullptr) asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+  }
 }
 
 int launch(void (*kernel)(asp::FftArgs), const asp::FftArgs* a, int smem_bytes,
@@ -896,6 +984,15 @@ int launch(void (*kernel)(asp::FftArgs), const asp::FftArgs* a, int smem_bytes,
   const int grid = (a->batch + a->rows - 1) / a->rows;
   kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStacked>
+int launch_radix2(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {
+  void (*kernel)(asp::FftArgs) = a->n >= 16 ? fft_radix2_lanes_kernel<16, kStacked>
+                                 : a->n == 8 ? fft_radix2_lanes_kernel<8, kStacked>
+                                 : a->n == 4 ? fft_radix2_lanes_kernel<4, kStacked>
+                                             : fft_radix2_lanes_kernel<2, kStacked>;
+  return launch(kernel, a, smem_bytes, device, stream);
 }
 
 }  // namespace
@@ -928,19 +1025,23 @@ int asp_fft_fourstep(const asp::FftArgs* a, int smem_bytes, int device, void* st
 }
 
 int asp_fft_radix2_lanes(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {
-  void (*kernel)(asp::FftArgs) = a->n >= 16 ? fft_radix2_lanes_kernel<16>
-                                 : a->n == 8 ? fft_radix2_lanes_kernel<8>
-                                 : a->n == 4 ? fft_radix2_lanes_kernel<4>
-                                             : fft_radix2_lanes_kernel<2>;
-  return launch(kernel, a, smem_bytes, device, stream);
+  return launch_radix2<false>(a, smem_bytes, device, stream);
 }
 
 int asp_fft_radix2_stages(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {
-  return launch(fft_radix2_stages_kernel, a, smem_bytes, device, stream);
+  return launch_radix2<true>(a, smem_bytes, device, stream);
 }
 
 int asp_fft_pease_lanes(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {
-  return launch(fft_pease_kernel, a, smem_bytes, device, stream);
+  const int n = a->n, short_pass = __builtin_ctz(static_cast<unsigned>(n)) % 4;
+  void (*kernel)(asp::FftArgs) = n == 2 ? fft_pease_kernel<2, 2>
+                                 : n == 4 ? fft_pease_kernel<4, 4>
+                                 : n == 8 ? fft_pease_kernel<8, 8>
+                                 : short_pass == 1 ? fft_pease_kernel<16, 2>
+                                 : short_pass == 2 ? fft_pease_kernel<16, 4>
+                                 : short_pass == 3 ? fft_pease_kernel<16, 8>
+                                                   : fft_pease_kernel<16, 16>;
+  return launch(kernel, a, smem_bytes, device, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,13 @@
-// Radix-2 decimation-in-time stages held in registers, for Hopper (sm_90a).
+// Radix-2 stages held in registers, for Hopper (sm_90a): the
+// decimation-in-time passes of fft_radix2_lanes and fft_radix2_stages, and
+// the constant-geometry (Pease) passes of fft_pease_lanes.
 //
-// A thread holds R = 2^r points of a row and runs up to r consecutive
-// stages on them with no barrier; points go through a buffer only between
-// groups of stages ("passes").  Pass [s0, s1) acts on index bits s0..s1-1,
-// so a thread's R points are those whose indices differ only in the r-bit
-// field at bit f = s1 - r (f = s0 except in a shorter last pass), and slot
-// j of the thread holds index
+// Decimation in time.  A thread holds R = 2^r points of a row and runs up
+// to r consecutive stages on them with no barrier; points go through a
+// buffer only between groups of stages ("passes").  Pass [s0, s1) acts on
+// index bits s0..s1-1, so a thread's R points are those whose indices
+// differ only in the r-bit field at bit f = s1 - r (f = s0 except in a
+// shorter last pass), and slot j of the thread holds index
 //
 //     dit_index(g, j, f) = ((g >> f) << (f + r)) | (j << f) | (g & (2^f - 1))
 //
@@ -14,12 +16,40 @@
 // j + 2^(s - f), with p = ((j mod 2^(s - f)) << f) | (g mod 2^f).  The
 // twiddles come from a per-stage table: stage s's 2^s values at offset
 // 2^s - 1 (n - 1 entries for n points), so the p of neighbouring groups are
-// neighbouring entries (or one entry, broadcast), never a stride.
+// neighbouring entries (or one entry, broadcast), never a stride; or,
+// where fft_radix2_stages reads device memory (its first pass, and every
+// pass above 8192 points), from its stacked (log2 n, n/2) table, row s
+// (entry s n/2 + p: the same float32 values).
 //
 // The exchange buffer between passes is addressed through dit_swizzle,
 // which XORs the low five bits of an index with bits 4..8 and 9..13: every
 // warp access of the passes above is then conflict-free for n up to 2^14
 // (one address per bank), with no padding.
+//
+// Constant geometry.  A Pease stage butterflies the points whose indices
+// differ in the top bit and rotates every index left by one bit (u =
+// A[k], v = A[k + n/2] -> B[2k] = u + v, B[2k + 1] = (u - v) w_s[k], w_s[k]
+// = exp(sign 2 pi i ((k >> s) << s) / n)).  A thread that holds the R = 2^r
+// points g + t n/R of its group g (indices that differ only in their top r
+// bits) runs r consecutive stages with no exchange, and its slot j then
+// holds index g R + j.  So every pass has one data flow: read R points at
+// stride n/R, write R consecutive points (the radix-R Korn-Lambiotte
+// form).  Within a pass from stage s0, after b stages slot j holds index
+// (j mod 2^(r-b)) 2^(L-r+b) + g 2^b + (j >> (r-b)) (L = log2 n); stage
+// s0 + b pairs slot j with slot j + 2^(r-b-1), and its k >> s is
+// ((j mod 2^(r-b-1)) 2^(L-r) + g) >> s0.  The twiddles come from a
+// per-stage table: stage s's n/2^(s+1) values w_s[m 2^s] at offset
+// n - n/2^s (n - 1 entries), read as neighbouring entries in the first pass
+// and as one broadcast entry in the later ones.
+//
+// The Pease exchange is addressed through pease_swizzle, which XORs bits
+// 5..8 of an index into bits 0..3 and their parity into bit 4, and bits
+// 9..11 into bits 0..2: the writes (a thread's R consecutive points,
+// neighbouring threads R apart), the strided reads and the last pass's
+// bit-reversed reads (below 512 points across rows) then touch 32 banks
+// per warp access for every n up to 2^13 (a search over those patterns).
+// It is XOR-linear, so swizzle(a | b) = swizzle(a) ^ swizzle(b) for a and b
+// on disjoint bits, and it leaves bits 0..3 and every bit above 4 alone.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,18 +66,19 @@ __device__ __forceinline__ int dit_swizzle(int i) {
 
 // The stages s0 <= s < s1 of one pass on a thread's R points (slot j at
 // bit field f), in order; `low` is the group's bits below f, `tw` the
-// per-stage table.  Every slot index is a compile-time constant, so the
-// points stay in registers.
-template <int R>
+// per-stage table, or with kStacked the stacked one (rows of `half`
+// entries).  Every slot index is a compile-time constant, so the points
+// stay in registers.
+template <int R, bool kStacked = false>
 __device__ __forceinline__ void dit_pass(float2 (&v)[R], const float2* tw, int s0, int s1,
-                                         int f, int low) {
+                                         int f, int low, int half = 0) {
   constexpr int r = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
   static_assert(R == 1 << r, "R is 2, 4, 8 or 16");
 #pragma unroll
   for (int b = 0; b < r; ++b) {
     const int s = f + b;
     if (s < s0 || s >= s1) continue;
-    const float2* ws = tw + ((1 << s) - 1);
+    const float2* ws = tw + (kStacked ? s * half : (1 << s) - 1);
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       if (j & (1 << b)) continue;
@@ -57,6 +88,40 @@ __device__ __forceinline__ void dit_pass(float2 (&v)[R], const float2* tw, int s
       const float2 t = make_float2(x.x * w.x - x.y * w.y, x.x * w.y + x.y * w.x);
       v[j] = make_float2(u.x + t.x, u.y + t.y);
       v[j + (1 << b)] = make_float2(u.x - t.x, u.y - t.y);
+    }
+  }
+}
+
+__device__ __forceinline__ int pease_swizzle(int i) {
+  const int x = (i >> 5) & 15;
+  return i ^ x ^ ((__popc(x) & 1) << 4) ^ ((i >> 9) & 7);
+}
+
+// The r = log2 R stages s0 <= s < s0 + r of one Pease pass on the R points
+// of group g (slot t holding index g + t n/R on entry, g R + t on return);
+// `tw` holds the per-stage table from entry `off` on (stage s at n - n/2^s
+// - off).  Every slot index is a compile-time constant, so the points stay
+// in registers.
+template <int R>
+__device__ __forceinline__ void pease_pass(float2 (&v)[R], const float2* tw, int s0, int log2n,
+                                           int g, int off) {
+  constexpr int r = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+  static_assert(R == 1 << r, "R is 2, 4, 8 or 16");
+  const int n = 1 << log2n;
+#pragma unroll
+  for (int b = 0; b < r; ++b) {
+    const int s = s0 + b;
+    const float2* ws = tw + (n - (n >> s) - off);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int h = 1 << (r - b - 1);
+      if (j & h) continue;
+      const float2 w = ws[(((j & (h - 1)) << (log2n - r)) | g) >> s0];
+      const float2 u = v[j];
+      const float2 x = v[j + h];
+      const float dr = u.x - x.x, di = u.y - x.y;
+      v[j] = make_float2(u.x + x.x, u.y + x.y);
+      v[j + h] = make_float2(dr * w.x - di * w.y, dr * w.y + di * w.x);
     }
   }
 }

@@ -15,9 +15,9 @@
   registry, same planar contract as ``fft_stockham_lanes``: the four-step
   factorization n = n1 n2 (n2 = min(128, n)) as two dense DFT products
   around a twiddle (on the tensor cores, 3-pass TF32 split products),
-  radix-2 decimation in time (stages in registers, or one stage a pass
-  with twiddles from the stacked per-stage table) and the
-  constant-geometry Pease stages;
+  radix-2 decimation in time (stages in registers, four a pass; the
+  stages kernel reads the stacked per-stage table) and the
+  constant-geometry Pease stages (in registers, four a pass);
 - ``fft_stockham_manual(xr, xi, sign)``: ``fft_stockham_lanes``'
   transform fed by an explicit copy ring (``csrc/fft_manual_kernel.cu``:
   a persistent grid, bulk asynchronous copies under an mbarrier per
@@ -152,6 +152,18 @@ def radix2_stage_table_np(n: int, sign: float) -> np.ndarray:
     ``stage_twiddles_np`` without their tiling), then one zero so the
     table is a whole number of 16-byte copies."""
     return np.concatenate([*(row[: 1 << s] for s, row in enumerate(stage_twiddles_np(n, sign))),
+                           [0.0]])
+
+
+@functools.lru_cache(maxsize=64)
+def pease_stage_table_np(n: int, sign: float) -> np.ndarray:
+    """fft_pease_lanes' per-stage table, n complex float64: stage s's
+    n/2^(s+1) twiddles w_s[m 2^s] = exp(sign 2 pi i m 2^s / n) (m = k >> s
+    of the stage's w_s[k]) at offset n - n/2^s, the values of the n/2-point
+    table (conjugated for sign > 0), then one zero so the table is a whole
+    number of 16-byte copies."""
+    tw = _twiddles_np(n) if sign < 0 else _twiddles_np(n).conj()
+    return np.concatenate([*(tw[np.arange(n >> (s + 1)) << s] for s in range(n.bit_length() - 1)),
                            [0.0]])
 
 
@@ -361,6 +373,23 @@ def radix2_lanes_geometry(n: int) -> tuple[int, int, int]:
     return rows, 0, 2 * rows * n
 
 
+def pease_geometry(n: int) -> tuple[int, int, int]:
+    """(rows per CTA, dynamic shared memory, scratch floats per CTA) of
+    fft_pease_lanes at n points: RADIX2_POINTS points a CTA (16 a thread)
+    in passes of 4 stages (a shorter last one); the per-stage table's
+    entries past the first pass (n/16 complex) and the exchange buffers of
+    its rows (two of 2 n floats a row; one for two passes, none for one) in
+    shared memory where they fit, else both buffers in a scratch buffer in
+    device memory and the table read from device memory."""
+    rows = max(1, RADIX2_POINTS // n)
+    passes = -(-(n.bit_length() - 1) // 4)
+    bufs = min(2, passes - 1)
+    smem = (8 * (n // 16) if passes > 1 else 0) + bufs * 8 * rows * n
+    if smem <= SMEM_LIMIT:
+        return rows, smem, 0
+    return rows, 0, 4 * rows * n
+
+
 def _launch(name: str, what: str, in_r, in_i, out_r, out_i, batch: int, n: int,
             m: int, sign: int, dev: torch.device, table: torch.Tensor | None = None,
             geometry: tuple[int, int, int] | None = None) -> None:
@@ -410,6 +439,13 @@ def radix2_lanes_table(n: int, sign: int, device: torch.device) -> torch.Tensor:
     """fft_radix2_lanes' per-stage table for ``sign`` as float32 (re, im)
     pairs, from float64, uploaded once per size and sign."""
     return _pairs(radix2_stage_table_np(n, sign), device)
+
+
+@functools.lru_cache(maxsize=32)
+def pease_table(n: int, sign: int, device: torch.device) -> torch.Tensor:
+    """fft_pease_lanes' per-stage table for ``sign`` as float32 (re, im)
+    pairs, from float64, uploaded once per size and sign."""
+    return _pairs(pease_stage_table_np(n, sign), device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -668,13 +704,16 @@ def fft_radix2_stages(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     ``impl="pallas_r2_stages"``).
 
     A CPU tensor runs ``fft_radix2_stages_ref``.  A CUDA float32 tensor
-    launches the kernel.  Any other tensor raises."""
+    launches the kernel: ``fft_radix2_lanes``' register passes and launch
+    geometry on the stacked table, whose n - 1 distinct entries a CTA
+    stages into shared memory, so its result equals ``fft_radix2_lanes``'
+    bit for bit.  Any other tensor raises."""
     _planar_pair(xr, xi, "fft_radix2_stages")
     _pow2(xr.shape[1], 2)
     if xr.device.type == "cpu":
         return fft_radix2_stages_ref(xr, xi, sign)
     return _launch_complex(fft_radix2_stages, "asp_fft_radix2_stages", xr, xi, sign,
-                           stage_table)
+                           stage_table, radix2_lanes_geometry)
 
 
 fft_radix2_stages.launches = 0
@@ -686,16 +725,19 @@ def fft_pease_lanes(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     package's ``impl="pallas_cg"``): natural order in and out.
 
     A CPU tensor runs ``fft_pease_lanes_ref``.  A CUDA float32 tensor
-    launches the kernel (one stage body looped over ping-pong buffers in
-    shared memory, the bit reversal fused into the store).  Any other
-    tensor raises."""
+    launches the kernel: each thread holds 16 points of a row and runs four
+    stages on them in registers, one pass body looped, the points crossing
+    shared memory between passes (``pease_geometry``); the bit reversal is
+    the last pass's choice of points; twiddles from the per-stage table
+    (``pease_stage_table_np``).  Any other tensor raises."""
     _planar_pair(xr, xi, "fft_pease_lanes")
     n = xr.shape[1]
     _pow2(n, 2)
     check(n <= PEASE_MAX_N, f"fft_pease_lanes supports n <= 2^24, got {n}")
     if xr.device.type == "cpu":
         return fft_pease_lanes_ref(xr, xi, sign)
-    return _launch_complex(fft_pease_lanes, "asp_fft_pease_lanes", xr, xi, sign)
+    return _launch_complex(fft_pease_lanes, "asp_fft_pease_lanes", xr, xi, sign, pease_table,
+                           pease_geometry)
 
 
 fft_pease_lanes.launches = 0

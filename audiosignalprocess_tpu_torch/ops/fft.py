@@ -22,10 +22,12 @@ length must be a power of two.  The implementations, in the port's names
   cores as 3-pass TF32 split products);
 - ``"radix2_lanes"`` (``"pallas_r2"``): the hand-written radix-2 DIT
   kernel ``fft_radix2_lanes`` (up to four stages a pass in registers);
-- ``"radix2_stages"`` (``"pallas_r2_stages"``): the same DIT with the
-  stacked per-stage twiddle table, ``fft_radix2_stages``;
+- ``"radix2_stages"`` (``"pallas_r2_stages"``): the same DIT passes on
+  the stacked per-stage twiddle table, ``fft_radix2_stages`` (bit-equal
+  to ``fft_radix2_lanes``);
 - ``"pease"`` (``"pallas_cg"``): the hand-written constant-geometry
-  kernel ``fft_pease_lanes`` (bit reversal fused into the store);
+  kernel ``fft_pease_lanes`` (four stages a pass in registers, the bit
+  reversal as the last pass's choice of points);
 - ``"auto"`` (the default): ``"stockham"`` for a CUDA float32 or
   complex64 tensor, ``"torch"`` for anything else (CPU, float64).
 

@@ -50,10 +50,12 @@ audio, counting the kernel launches of each run:
 - the FFT variant impls of ``ops.fft`` (the JAX package's ``pallas``,
   ``pallas_r2``, ``pallas_r2_stages``, ``pallas_cg``): ``fft_fourstep``,
   ``fft_radix2_lanes``, ``fft_radix2_stages`` and ``fft_pease_lanes``,
-  each checked alone and driving the unfused chain ``FIRStage(nfft=1024,
-  impl=X) -> GateStage(impl=X)`` at 64 x 480000 (``bench.py``'s False
-  mode with ``impl=X``): four launches of the variant's kernel per call,
-  on the 512-point rows of the real transforms;
+  each checked alone (at every n to 16384 and at the slice's rows, and
+  ``fft_radix2_stages`` bit for bit against ``fft_radix2_lanes``) and
+  driving the unfused chain ``FIRStage(nfft=1024, impl=X) ->
+  GateStage(impl=X)`` at 64 x 480000 (``bench.py``'s False mode with
+  ``impl=X``): four launches of the variant's kernel per call, on the
+  512-point rows of the real transforms;
 - ``fft_stockham_manual``, the copy-ring Stockham kernel, at the ring's
   edges and at the rows the main path and the timings give it, and the
   same chain with ``impl="stockham_split"`` (the JAX
@@ -1270,10 +1272,13 @@ VARIANT_SIZES = (8, 512, 1024, 4096, 16384)
 VARIANT_BATCHES = (1, 5, 300)
 SLICE_LAUNCHES = 4  # per whole-file call: an rfft and an irfft (each a 512-point
 # complex transform) in the overlap-save, and another pair in the gate
-# the two kernels redesigned for the card's tensor cores and registers: held at
-# every n from the smallest to 16384 (a partial last CTA), then at the rows the
-# slice (an rfft and an irfft of each block) and the timings give them
-REDESIGNED = {"fft_fourstep": "fourstep_geometry", "fft_radix2_lanes": "radix2_lanes_geometry"}
+# the kernels redesigned for the card's tensor cores and registers, with their
+# launch geometries: held at every n from the smallest to 16384 (a partial last
+# CTA), then at the rows the slice (an rfft and an irfft of each block) and the
+# timings give them; fft_radix2_stages (fft_radix2_lanes' passes on its stacked
+# table) also bit for bit against fft_radix2_lanes there
+REDESIGNED = {"fft_fourstep": "fourstep_geometry", "fft_radix2_lanes": "radix2_lanes_geometry",
+              "fft_radix2_stages": "radix2_lanes_geometry", "fft_pease_lanes": "pease_geometry"}
 REDESIGN_PATH = ((32000, 512), (119808, 512), (FFT_TIMED, 1024), (FFT_TIMED, 4096))
 TF32_PEAK_FLOP_S = 495e12  # dense TF32 tensor-core peak of the H100 SXM (data sheet)
 
@@ -1344,11 +1349,17 @@ def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
                 rec["min_snr_db"] = min(rec["min_snr_db"], snr)
                 worst[name] = min(worst[name], snr, snr_lib)
                 parts.append(f"{'fwd' if sign < 0 else 'inv'} {snr:.2f}/{snr_lib:.2f}")
+                launched = kernel.launches - before
+                same = True
+                if name == "fft_radix2_stages":  # the lanes kernel's passes, its stacked table
+                    lanes = fk.fft_radix2_lanes(xr.float(), xi.float(), sign)
+                    same = all(torch.equal(t, u) for t, u in zip(y, lanes))
+                    parts[-1] += f" {'==' if same else '!='} fft_radix2_lanes"
                 if not (tuple(y[0].shape) == (b, n) and all(bool(torch.isfinite(t).all()) for t in y)
-                        and min(snr, snr_lib) >= LINEAR_MIN_DB and kernel.launches == before + 1):
+                        and min(snr, snr_lib) >= LINEAR_MIN_DB and launched == 1 and same):
                     raise SystemExit(f"phase 24 failed: redesigned {name} {b}x{n} sign={sign} "
                                      f"snr={snr:.2f} snr_vs_torch_fft={snr_lib:.2f} "
-                                     f"launches={kernel.launches - before}")
+                                     f"launches={launched} bit-equal to fft_radix2_lanes={same}")
             print(f"[24 kernel] redesigned {name} {b}x{n} snr_vs_f64_plain/torch.fft_f64 dB: "
                   + ", ".join(parts))
             del xr, xi, z, y, ref

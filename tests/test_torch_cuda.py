@@ -527,7 +527,10 @@ def test_fft_variant_slice_chain(card, name):
 REDESIGNED = {  # the kernels redesigned for the card: (launch geometry, smallest n)
     "fft_fourstep": (fk.fourstep_geometry, 4),
     "fft_radix2_lanes": (fk.radix2_lanes_geometry, 2),
+    "fft_radix2_stages": (fk.radix2_lanes_geometry, 2),
+    "fft_pease_lanes": (fk.pease_geometry, 2),
 }
+REDESIGN_PATH = ((32000, 512), (119808, 512), (4096, 1024), (4096, 4096))
 
 
 def _check_redesigned(card, name, b, n, seed):
@@ -549,19 +552,37 @@ def _check_redesigned(card, name, b, n, seed):
 @pytest.mark.parametrize("name,n", [(name, 1 << k) for name, (_, least) in REDESIGNED.items()
                                     for k in range(least.bit_length() - 1, 15)])
 def test_fft_redesigned_every_n(card, name, n):
-    """fft_fourstep (tensor cores, 3xTF32) at every n from 4 and
-    fft_radix2_lanes (stages in registers) at every n from 2, to 16384,
-    on 3 CTAs' rows and one more (a partial last CTA), both signs."""
+    """fft_fourstep (tensor cores, 3xTF32) at every n from 4, and
+    fft_radix2_lanes, fft_radix2_stages and fft_pease_lanes (stages in
+    registers) at every n from 2, to 16384, on 3 CTAs' rows and one more
+    (a partial last CTA), both signs."""
     _check_redesigned(card, name, 3 * REDESIGNED[name][0](n)[0] + 1, n, 71 + n.bit_length())
 
 
 @pytest.mark.parametrize("name", list(REDESIGNED))
-@pytest.mark.parametrize("b,n", ((32000, 512), (119808, 512), (4096, 1024), (4096, 4096)))
+@pytest.mark.parametrize("b,n", REDESIGN_PATH)
 def test_fft_redesigned_at_the_path_rows(card, name, b, n):
-    """The two redesigned kernels at the rows the slice gives them (32000
-    and 119808 rows of 512 points: an rfft and an irfft of each block) and
-    at the two timed points, both signs."""
+    """The redesigned kernels at the rows the slice gives them (32000 and
+    119808 rows of 512 points: an rfft and an irfft of each block) and at
+    the two timed points, both signs."""
     _check_redesigned(card, name, b, n, 72)
+
+
+@pytest.mark.parametrize("b,n", [(3 * fk.radix2_lanes_geometry(1 << k)[0] + 1, 1 << k)
+                                 for k in range(1, 15)] + list(REDESIGN_PATH))
+def test_fft_radix2_stages_is_radix2_lanes_bit_for_bit(card, b, n):
+    """fft_radix2_stages runs fft_radix2_lanes' passes on its stacked table,
+    whose distinct entries are the same float32 values: the two kernels'
+    results are equal bit for bit, both signs, at every n from 2 to 16384
+    with a partial last CTA and at the slice's and the timed rows."""
+    gen = torch.Generator(device=card).manual_seed(73 + n)
+    xr = torch.randn((b, n), generator=gen, device=card)
+    xi = torch.randn((b, n), generator=gen, device=card)
+    for sign in (-1.0, 1.0):
+        (sr, si), k = _launches(lambda: fk.fft_radix2_stages(xr, xi, sign))
+        assert k == {"fft_radix2_stages": 1}
+        lr, li = fk.fft_radix2_lanes(xr, xi, sign)
+        assert torch.equal(sr, lr) and torch.equal(si, li)
 
 
 @pytest.mark.parametrize("n", (2, 8, 256, 1024, 4096, 8192))
