@@ -11,26 +11,45 @@
 // Design.  Self-sorting Stockham radix-2 stages: stage s views a row as
 // (2^s, R) and writes u + w v, u - w v of each segment's halves to the
 // (2^(s+1), R/2) view of the other buffer, so the result comes out in
-// natural order with no bit-reversal pass.  A CTA stages its rows in
-// shared memory (twiddles, then two ping-pong buffers of m complex points
-// per row, m the transform length), runs the log2(m) stages there with one
-// barrier each, and writes its rows once; short transforms take several
-// rows per CTA (ROW_POINTS in kernels/fft_kernel.py) so each stage still
-// has a few hundred butterflies.  A transform too long for shared memory
-// runs the same stages on ping-pong buffers in device memory, one row per
-// CTA.  The TPU kernels' transposes to a batch-in-lanes layout and their
-// two-pass reversal trick (a Mosaic limitation) do not carry over: a
-// thread reads Z[(n/2 - k) mod n/2] from shared memory directly.  The
-// twiddles exp(-2 pi i k / n) come from a float64 host table; the
-// half-size transforms of the real kernels read it at stride 2, their
-// untangle at stride 1.
+// natural order with no bit-reversal pass.
+//
+// fft_stockham_lanes runs the stages in registers (csrc/fft_regs.cuh,
+// stockham_pass): a thread holds the 16 points of a row that four
+// consecutive stages keep among themselves (the same segment's top bits l
+// and low bits p), runs the four stages on them with no barrier, and
+// writes them back at stride n/16; n = 1024 takes 4 + 4 + 2 stages and 2
+// barriers where a stage each took 10.  The first pass loads from device
+// memory and the last stores there, both coalesced; the exchange planes in
+// between are XOR-swizzled (pease_swizzle: conflict-free for every warp
+// access of these passes); the twiddles come from a per-stage table
+// (stockham_stage_table: stage s's 2^s values at 2^s - 1), whose float32
+// values are the plain version's, read from device memory through the L1
+// cache as neighbouring entries or one broadcast entry.  A CTA takes
+// max(1, 4096 / n) rows (RADIX2_POINTS, 16 points a thread); rows too long
+// for shared memory (n > 8192) run their passes through a scratch buffer
+// in device memory.
+//
+// rfft_stockham and irfft_stockham still run the radix-2 loop stockham():
+// a CTA stages its rows in shared memory (twiddles, then two ping-pong
+// buffers of m complex points per row, m the transform length), runs the
+// log2(m) stages there with one barrier each, and writes its rows once;
+// short transforms take several rows per CTA (ROW_POINTS in
+// kernels/fft_kernel.py) so each stage still has a few hundred
+// butterflies.  A transform too long for shared memory runs the same
+// stages on ping-pong buffers in device memory, one row per CTA.  The TPU
+// kernels' transposes to a batch-in-lanes layout and their two-pass
+// reversal trick (a Mosaic limitation) do not carry over: a thread reads
+// Z[(n/2 - k) mod n/2] from shared memory directly.  The twiddles exp(-2
+// pi i k / n) come from a float64 host table; the half-size transforms of
+// the real kernels read it at stride 2, their untangle at stride 1.
 //
 // What bounds it on an H100: at 4096 rows x 1024 points a complex
 // transform moves 67 MB (20 us at 3.35 TB/s) and does 5 n log2 n flops a
 // row (0.2 GFLOP, 3 us at 67 TFLOP/s), so device memory bounds it, and
-// every byte is read and written once.  This simple design pays a shared
-// memory round trip and a barrier per radix-2 stage; radix-4/8 stages in
-// registers are later work.
+// every byte is read and written once.  fft_stockham_lanes adds the
+// shared-memory exchange (2 x 8 bytes a point a pass) and its barriers;
+// the real kernels still pay a shared-memory round trip and a barrier per
+// radix-2 stage.
 //
 // The other complex transforms of the package's impl registry, same
 // planar contract, rows staged in shared memory (or device-memory buffers
@@ -123,8 +142,8 @@
 //   What bounds it: as fft_radix2_lanes.  ptxas (sm_90a): 63 or 64
 //   registers with a shorter last pass, 74 without one (n = 256, 4096,
 //   65536, ...), 25 to 40 for n < 16; no spills.
-// The Stockham kernels still move every byte once and pay a shared-memory
-// pass and a barrier per stage.
+// rfft_stockham and irfft_stockham still move every byte once and pay a
+// shared-memory pass and a barrier per stage.
 
 #include <cuda_runtime.h>
 
@@ -143,8 +162,8 @@ struct FftArgs {
   float* scratch;      // a kernel's buffers in device memory for long rows, or null
   const float* table;  // fft_fourstep: the split tables (fourstep_tc_tables);
                        // fft_radix2_stages: the (log2 n, n/2) stage table of `sign`;
-                       // fft_radix2_lanes, fft_pease_lanes: their per-stage tables
-                       // of `sign`; else null
+                       // fft_radix2_lanes, fft_pease_lanes, fft_stockham_lanes: their
+                       // per-stage tables of `sign`; else null
   int batch;           // B rows
   int n;               // the row length the caller sees
   int sign;            // complex transform: -1 forward, +1 inverse
@@ -183,24 +202,6 @@ __device__ Bufs setup(const asp::FftArgs& a, float4* smem, int m) {
   return {x, x + a.rows * m, tw_s};
 }
 
-// Load this CTA's `rows` rows of m points into x and zero the rest of its
-// a.rows rows.
-__device__ void load_rows(const asp::FftArgs& a, float2* x, int m, int rows) {
-  const size_t base = static_cast<size_t>(blockIdx.x) * a.rows * m;
-  for (int i = threadIdx.x; i < a.rows * m; i += blockDim.x)
-    x[i] = i < rows * m ? make_float2(a.in_r[base + i], a.in_i[base + i])
-                        : make_float2(0.0f, 0.0f);
-}
-
-// Store this CTA's rows from z.
-__device__ void store_rows(const asp::FftArgs& a, const float2* z, int m, int rows) {
-  const size_t base = static_cast<size_t>(blockIdx.x) * a.rows * m;
-  for (int i = threadIdx.x; i < rows * m; i += blockDim.x) {
-    a.out_r[base + i] = z[i].x;
-    a.out_i[base + i] = z[i].y;
-  }
-}
-
 // The log2(m) Stockham radix-2 stages over `rows` rows of m points, from
 // `src` through `dst` and back, the twiddle exp(sign i pi l / 2^s) read as
 // tw[l << (tw_log2 - 1 - s)] from a table of 2^tw_log2 points.  Every
@@ -234,17 +235,6 @@ __device__ float2* stockham(float2* src, float2* dst, int m, int rows, bool inve
     dst = t;
   }
   return src;
-}
-
-__global__ void __launch_bounds__(kThreads) fft_stockham_kernel(asp::FftArgs a) {
-  extern __shared__ float4 smem[];
-  const int m = a.n;
-  const int row0 = blockIdx.x * a.rows;
-  const int rows = min(a.rows, a.batch - row0);
-  const Bufs bf = setup(a, smem, m);
-  load_rows(a, bf.x, m, rows);
-  __syncthreads();
-  store_rows(a, stockham(bf.x, bf.y, m, rows, a.sign > 0, bf.tw, log2i(m)), m, rows);
 }
 
 __global__ void __launch_bounds__(kThreads) rfft_stockham_kernel(asp::FftArgs a) {
@@ -748,11 +738,6 @@ __global__ void __launch_bounds__(kFourstepThreads, 512 / kFourstepThreads)
 
 constexpr int kRadix2Points = 4096;  // points a CTA takes at least (RADIX2_POINTS)
 
-// k < 2^bits (bits <= 4) bit-reversed: a constant for a constant k
-__device__ __forceinline__ constexpr int brev_bits(int k, int bits) {
-  return (((k & 1) << 3) | ((k & 2) << 1) | ((k & 4) >> 1) | ((k & 8) >> 3)) >> (4 - bits);
-}
-
 // q < 2^bits bit-reversed
 __device__ __forceinline__ int brev_low(int q, int bits) {
   return bits == 0 ? 0 : static_cast<int>(__brev(static_cast<unsigned>(q)) >> (32 - bits));
@@ -820,7 +805,7 @@ __global__ void __launch_bounds__(kThreads) fft_radix2_lanes_kernel(asp::FftArgs
 #pragma unroll
         for (int k = 0; k < R; ++k) {
           const size_t i = rb + q + (static_cast<size_t>(k) << log2g);
-          x[brev_bits(k, r)] = make_float2(a.in_r[i], a.in_i[i]);
+          x[asp::brev_bits(k, r)] = make_float2(a.in_r[i], a.in_i[i]);
         }
       } else {
 #pragma unroll
@@ -911,7 +896,7 @@ __device__ __forceinline__ void pease_groups(const asp::FftArgs& a, int rows, in
       const size_t o = base + (static_cast<size_t>(row) << log2n) + q;
 #pragma unroll
       for (int j = 0; j < RP; ++j) {
-        const size_t i = o + (static_cast<size_t>(brev_bits(j, rp)) << lg);
+        const size_t i = o + (static_cast<size_t>(asp::brev_bits(j, rp)) << lg);
         a.out_r[i] = x[j].x;
         a.out_i[i] = x[j].y;
       }
@@ -974,6 +959,50 @@ __global__ void __launch_bounds__(kThreads) fft_pease_kernel(asp::FftArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// fft_stockham_lanes: Stockham passes in registers (csrc/fft_regs.cuh)
+// ---------------------------------------------------------------------------
+
+// Full passes of R = 16 points a group (R = n below 16), then a shorter
+// last pass of RS points where log2 n is not a multiple of 4: n = 1024 runs
+// 4 + 4 + 2 stages with 2 barriers.  The first pass reads the CTA's rows
+// from device memory (coalesced: neighbouring groups hold neighbouring p)
+// and the last writes them there (slot j of neighbouring groups to
+// neighbouring points); in between the points cross two exchange buffers
+// of re/im planes, pass p writing buffer p mod 2 through pease_swizzle (one
+// buffer serves two passes): in shared memory, or in this CTA's slice of
+// the scratch buffer in device memory where they do not fit.  a.table is
+// the per-stage table (stockham_stage_table), read from device memory
+// through the L1 cache: a pass reads each entry it needs once a group, so a
+// CTA's copy of the table would move as many bytes (at 4096 points, as
+// many as its row) and take the shared memory of a CTA an SM.
+template <int R, int RS>
+__global__ void __launch_bounds__(kThreads) fft_stockham_kernel(asp::FftArgs a) {
+  extern __shared__ float4 smem[];
+  constexpr int r = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+  const int n = a.n, log2n = log2i(n);
+  const int rows = min(a.rows, a.batch - static_cast<int>(blockIdx.x) * a.rows);
+  const size_t base = static_cast<size_t>(blockIdx.x) * a.rows * n;
+  const float2* tw = reinterpret_cast<const float2*>(a.table);
+  float* buf = a.scratch != nullptr
+                   ? a.scratch + static_cast<size_t>(blockIdx.x) * a.rows * 4 * n
+                   : reinterpret_cast<float*>(smem);
+  const int plane = a.rows * n;
+  for (int s0 = 0, p = 0; s0 < log2n; s0 += r, ++p) {
+    // pass p reads buffer (p - 1) mod 2 and writes buffer p mod 2
+    const float* src_r = s0 == 0 ? a.in_r + base : buf + ((p + 1) & 1) * 2 * plane;
+    const float* src_i = s0 == 0 ? a.in_i + base : src_r + plane;
+    if (s0 + r >= log2n) {
+      asp::stockham_groups<RS>(rows, log2n, s0, src_r, src_i, s0 > 0, a.out_r + base,
+                               a.out_i + base, false, tw);
+      break;
+    }
+    float* dst = buf + (p & 1) * 2 * plane;
+    asp::stockham_groups<R>(rows, log2n, s0, src_r, src_i, s0 > 0, dst, dst + plane, true, tw);
+    __syncthreads();
+  }
+}
+
 int launch(void (*kernel)(asp::FftArgs), const asp::FftArgs* a, int smem_bytes,
            int device, void* stream, int threads = kThreads) {
   cudaError_t err = cudaSetDevice(device);
@@ -1002,7 +1031,15 @@ extern "C" {
 // Each launches on `stream` (a cudaStream_t) and returns cudaGetLastError()
 // after the launch: 0 on success.  Nothing is synchronized or allocated.
 int asp_fft_stockham(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {
-  return launch(fft_stockham_kernel, a, smem_bytes, device, stream);
+  const int n = a->n, short_pass = __builtin_ctz(static_cast<unsigned>(n)) % 4;
+  void (*kernel)(asp::FftArgs) = n == 2 ? fft_stockham_kernel<2, 2>
+                                 : n == 4 ? fft_stockham_kernel<4, 4>
+                                 : n == 8 ? fft_stockham_kernel<8, 8>
+                                 : short_pass == 1 ? fft_stockham_kernel<16, 2>
+                                 : short_pass == 2 ? fft_stockham_kernel<16, 4>
+                                 : short_pass == 3 ? fft_stockham_kernel<16, 8>
+                                                   : fft_stockham_kernel<16, 16>;
+  return launch(kernel, a, smem_bytes, device, stream);
 }
 
 int asp_rfft_stockham(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {

@@ -13,27 +13,39 @@
 // Design.  A persistent grid: at most the CTAs that fit on the card at
 // once (resident CTAs per SM, from shared memory and registers, times the
 // SM count), each walking the row tiles t = blockIdx.x, t += gridDim.x.
-// A tile is `rows` = max(1, 1024 / n) rows, as in fft_stockham_lanes.
-// Shared memory holds the ring (nbuf slots, each a tile's re and im
-// planes), one work tile, the n/2 twiddles and the slots' mbarriers.  One
-// elected thread fills a slot with two bulk copies (re, im) after
-// mbarrier.arrive.expect_tx of both planes' bytes; every thread waits on
-// the slot's phase parity, (k / nbuf) & 1 for the CTA's k-th tile.  The
-// log2(n) radix-2 Stockham stages (as fft_kernel.cu's, on planar rows)
-// ping-pong between the slot and the work tile, one barrier each, and
-// the result leaves by bulk stores from whichever of the two holds it.
-// The hazards, each with its guard:
+// A tile is `rows` = max(1, 1024 / n) rows, and a CTA has one thread per
+// 16 points of a tile, at most 256 (manual_launch).  Shared memory holds
+// the ring (nbuf slots, each a tile's re and im planes), one work tile and
+// the slots' mbarriers; the per-stage twiddle table is read from device
+// memory through the L1 cache.  One elected thread fills a slot with two
+// bulk copies (re, im) after mbarrier.arrive.expect_tx of both planes'
+// bytes; every thread waits on the slot's phase parity, (k / nbuf) & 1 for
+// the CTA's k-th tile.  The stages are fft_stockham_lanes' register passes
+// (csrc/fft_regs.cuh: four radix-2 stages a pass in registers, a shorter
+// last one), ping-ponging between the slot and the work tile, pass p
+// reading the slot for even p: the first pass reads the slot in natural
+// order (as the bulk copy leaves it), the last writes natural order (for
+// the bulk store), and the exchanges in between go through pease_swizzle.
+// So the result ends in the work tile for an odd number of passes
+// (`in_work`: n <= 16 and 512 <= n <= 4096), in the slot for an even one,
+// and leaves by bulk stores from there.  A barrier follows each pass, so a
+// tile takes ceil(log2 n / 4) of them (3 at n = 1024, where the radix-2
+// loop took 10).  The hazards, each with its guard:
 // - write after read on a slot: the refill of slot k % nbuf for tile
-//   k + nbuf is issued only after the last stage's barrier (every thread
-//   has read the slot), behind fence.proxy.async from the issuing
-//   thread; when the result sits in the slot (log2 n even), also behind
-//   cp.async.bulk.wait_group.read of the store that reads it;
+//   k + nbuf is issued only after the last pass's barrier (every thread
+//   has read and written the slot), behind fence.proxy.async from the
+//   issuing thread; when the result sits in the slot (an even number of
+//   passes), also behind cp.async.bulk.wait_group.read of the store that
+//   reads it;
 // - generic writes seen by the async proxy: every thread runs
-//   fence.proxy.async before the last stage's barrier, then the bulk
-//   store is issued;
-// - the work tile reused while a store reads it (log2 n odd): the issuing
-//   thread waits with wait_group.read before the barrier that precedes
-//   the next tile's first stage;
+//   fence.proxy.async before the last pass's barrier, then the bulk store
+//   is issued;
+// - the work tile reused while a store reads it (an odd number of
+//   passes): the next tile's first pass writes the work tile, so the
+//   issuing thread waits with wait_group.read before the barrier that
+//   precedes it; with an even number the store reads the slot, and the
+//   work tile, which only the passes touch, is free once the last pass's
+//   barrier is behind;
 // - alignment: a bulk copy needs 16-byte-aligned addresses and a size
 //   that is a multiple of 16.  Tile offsets are multiples of 4 KB and the
 //   launcher refuses misaligned planes (the wrapper copies them), so only
@@ -46,19 +58,20 @@
 // What bounds it on an H100: a complex transform moves 16 n bytes a row
 // (at 4096 rows x 1024 points 67 MB, 20 us at 3.35 TB/s) against
 // 5 n log2 n flops (3 us at 67 TFLOP/s): device memory.  The ring keeps
-// up to nbuf tiles in flight per CTA while the stages run, where the grid
-// kernel loads its rows with ordinary loads before its first stage.  The
-// stages themselves are fft_stockham_lanes': a shared-memory pass and a
-// barrier per radix-2 stage (radix-4 stages in registers are later work).
-// Shared memory: (nbuf + 1) 8 rows n + 4 n + 8 nbuf bytes; the ring is 3
-// deep up to n = 4096 and 2 deep at 8192, and n = 16384 does not fit
-// (the wrapper raises before dispatch).
+// up to nbuf tiles in flight per CTA while the passes run, where the grid
+// kernel loads its rows with ordinary loads in its first pass.  Shared
+// memory: (nbuf + 1) 8 rows n + 8 nbuf bytes; the ring is 3 deep up to
+// n = 4096 and 2 deep at 8192, and n = 16384 does not fit (the wrapper
+// raises before dispatch).  The small rows of a tile make the slot's
+// natural-order accesses collide on shared-memory banks below n = 512 (16
+// ways at n = 16); from n = 512 on every access of the passes is
+// conflict-free.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "fft_device.cuh"
+#include "fft_regs.cuh"
 
 namespace asp {
 
@@ -68,10 +81,10 @@ struct FftManualArgs {
   const float* in_i;  // im plane (B, n)
   float* out_r;       // re plane (B, n)
   float* out_i;       // im plane (B, n)
-  const float* tw;    // n/2 twiddles exp(-2 pi i k / n) as (re, im) pairs
+  const float* tw;    // the per-stage table of `sign` (stockham_stage_table)
   int batch;          // B rows
   int n;              // points per row
-  int sign;           // -1 forward, +1 inverse
+  int sign;           // -1 forward, +1 inverse (the table's)
   int rows;           // rows per tile
   int nbuf;           // ring slots in shared memory
   int grid;           // CTAs launched
@@ -164,35 +177,6 @@ __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-// ---- the transform ---------------------------------------------------------
-
-// One radix-2 Stockham stage s over `rows` planar rows of m = 2^log2m
-// points, (ar, ai) -> (br, bi): the halves u, v of each segment of the
-// (2^s, m/2^s) view give u + w v and u - w v, w = exp(-+ i pi l / 2^s)
-// for segment l, read as tw[l << (log2m - 1 - s)] from the m/2 twiddles.
-__device__ __forceinline__ void stockham_stage(const float* ar, const float* ai, float* br,
-                                               float* bi, int rows, int log2m, int s,
-                                               const float2* tw, bool inverse) {
-  const int half = 1 << (log2m - 1);
-  const int shift = log2m - 1 - s;  // log2 of the half segment
-  for (int t = threadIdx.x; t < rows * half; t += blockDim.x) {
-    const int row = t >> (log2m - 1);
-    const int bf = t & (half - 1);
-    const int l = bf >> shift;
-    const int i0 = (row << log2m) + (l << (shift + 1)) + (bf & ((1 << shift) - 1));
-    const int i1 = i0 + (1 << shift);
-    const int o = (row << log2m) + bf;
-    float2 w = tw[l << shift];
-    if (inverse) w.y = -w.y;
-    const float2 u = make_float2(ar[i0], ai[i0]);
-    const float2 v = asp::cmul(make_float2(ar[i1], ai[i1]), w);
-    br[o] = u.x + v.x;
-    bi[o] = u.y + v.y;
-    br[o + half] = u.x - v.x;
-    bi[o + half] = u.y - v.y;
-  }
-}
-
 // The CTA's k-th tile: tile index, first point of its planes, its rows.
 struct Tile {
   int t;
@@ -226,8 +210,12 @@ __device__ __forceinline__ void fill(const asp::FftManualArgs& a, int k, float* 
   bulk_load(slot + plane, a.in_i + tl.base, bytes, bar);
 }
 
+// R points a group in full passes (R = n below 16), RS in the last pass
+// (a shorter one where log2 n is not a multiple of 4), as fft_stockham_lanes.
+template <int R, int RS>
 __global__ void __launch_bounds__(kThreads) fft_stockham_manual_kernel(asp::FftManualArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int r = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
   const int n = a.n, log2n = log2i(n);
   const int plane = a.rows * n;  // floats in one plane of a tile
   const int tiles = (a.batch + a.rows - 1) / a.rows;
@@ -235,14 +223,12 @@ __global__ void __launch_bounds__(kThreads) fft_stockham_manual_kernel(asp::FftM
   const int nbuf = min(a.nbuf, mine);
   float* ring = reinterpret_cast<float*>(smem);  // a.nbuf slots of 2 planes
   float* work = ring + 2 * a.nbuf * plane;       // 2 planes
-  float2* tw = reinterpret_cast<float2*>(work + 2 * plane);
-  uint64_t* full = reinterpret_cast<uint64_t*>(tw + n / 2);
+  uint64_t* full = reinterpret_cast<uint64_t*>(work + 2 * plane);
   const bool leader = threadIdx.x == 0;
-  const bool inverse = a.sign > 0;
-  const bool in_work = (log2n & 1) != 0;  // an odd number of stages ends in the work tile
+  const int passes = (log2n + r - 1) / r;
+  const bool in_work = (passes & 1) != 0;  // an odd number of passes ends in the work tile
+  const float2* tw = reinterpret_cast<const float2*>(a.tw);
 
-  const float2* tw_g = reinterpret_cast<const float2*>(a.tw);
-  for (int i = threadIdx.x; i < n / 2; i += blockDim.x) tw[i] = tw_g[i];
   if (leader) {
     for (int s = 0; s < nbuf; ++s) mbar_init(full + s, 1);
     mbar_init_fence();
@@ -268,18 +254,23 @@ __global__ void __launch_bounds__(kThreads) fft_stockham_manual_kernel(asp::FftM
     if (in_work && k > 0 && leader) bulk_wait_read();  // the last tile's store read `work`
     __syncthreads();
 
-    float *sr = xr, *si = xi, *dr = work, *di = work + plane;
-    for (int s = 0; s < log2n; ++s) {
-      stockham_stage(sr, si, dr, di, tl.rows, log2n, s, tw, inverse);
-      if (s == log2n - 1) fence_proxy_async();  // the result, seen by the bulk store
+    // pass p reads the slot for even p, the work tile for odd p, and writes the other
+    for (int s0 = 0, p = 0; s0 < log2n; s0 += r, ++p) {
+      float* sr = (p & 1) ? work : xr;
+      float* dr = (p & 1) ? xr : work;
+      if (s0 + r >= log2n) {
+        asp::stockham_groups<RS>(tl.rows, log2n, s0, sr, sr + plane, s0 > 0, dr, dr + plane,
+                                 false, tw);
+        fence_proxy_async();  // the result, seen by the bulk store
+        __syncthreads();
+        break;
+      }
+      asp::stockham_groups<R>(tl.rows, log2n, s0, sr, sr + plane, s0 > 0, dr, dr + plane, true,
+                              tw);
       __syncthreads();
-      float* t = sr;
-      sr = dr;
-      dr = t;
-      t = si;
-      si = di;
-      di = t;
     }
+    const float* sr = in_work ? work : xr;
+    const float* si = sr + plane;
 
     if (tl.bulk) {
       if (leader) {
@@ -296,29 +287,50 @@ __global__ void __launch_bounds__(kThreads) fft_stockham_manual_kernel(asp::FftM
     }
     if (leader && k + nbuf < mine) {
       if (!in_work) bulk_wait_read();  // the store above reads this slot
-      fence_proxy_async();              // the stages' reads of the slot before the refill
+      fence_proxy_async();              // the passes' accesses to the slot before the refill
       fill(a, k + nbuf, xr, plane, full + slot);
     }
   }
   if (leader) bulk_wait_all();
 }
 
+// The kernel instantiation for a->n and its threads a CTA: one per 16
+// points of a tile, at most kThreads.
+struct ManualLaunch {
+  void (*kernel)(asp::FftManualArgs);
+  int threads;
+};
+
+ManualLaunch manual_launch(const asp::FftManualArgs* a) {
+  const int n = a->n, short_pass = __builtin_ctz(static_cast<unsigned>(n)) % 4;
+  void (*kernel)(asp::FftManualArgs) = n == 2 ? fft_stockham_manual_kernel<2, 2>
+                                       : n == 4 ? fft_stockham_manual_kernel<4, 4>
+                                       : n == 8 ? fft_stockham_manual_kernel<8, 8>
+                                       : short_pass == 1 ? fft_stockham_manual_kernel<16, 2>
+                                       : short_pass == 2 ? fft_stockham_manual_kernel<16, 4>
+                                       : short_pass == 3 ? fft_stockham_manual_kernel<16, 8>
+                                                         : fft_stockham_manual_kernel<16, 16>;
+  const int threads = a->rows * n / 16;
+  return {kernel, threads < kThreads ? threads : kThreads};
+}
+
 }  // namespace
 
 extern "C" {
 
-// The CTAs of fft_stockham_manual that fit on `device` at once with
-// `smem_bytes` of dynamic shared memory each, into *ctas.  Returns a CUDA
-// error code: 0 on success.
-int asp_fft_manual_ctas(int smem_bytes, int device, int* ctas) {
+// The CTAs of fft_stockham_manual for a->n and a->rows that fit on `device`
+// at once with `smem_bytes` of dynamic shared memory each, into *ctas.
+// Returns a CUDA error code: 0 on success.
+int asp_fft_manual_ctas(const asp::FftManualArgs* a, int smem_bytes, int device, int* ctas) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(fft_stockham_manual_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  const ManualLaunch ml = manual_launch(a);
+  err = cudaFuncSetAttribute(ml.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fft_stockham_manual_kernel,
-                                                      kThreads, smem_bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ml.kernel, ml.threads,
+                                                      smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -340,11 +352,11 @@ int asp_fft_stockham_manual(const asp::FftManualArgs* a, int smem_bytes, int dev
   if (planes & 15u) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(fft_stockham_manual_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  const ManualLaunch ml = manual_launch(a);
+  err = cudaFuncSetAttribute(ml.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fft_stockham_manual_kernel<<<a->grid, kThreads, smem_bytes,
-                               static_cast<cudaStream_t>(stream)>>>(*a);
+  ml.kernel<<<a->grid, ml.threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 // Radix-2 stages held in registers, for Hopper (sm_90a): the
-// decimation-in-time passes of fft_radix2_lanes and fft_radix2_stages, and
-// the constant-geometry (Pease) passes of fft_pease_lanes.
+// decimation-in-time passes of fft_radix2_lanes and fft_radix2_stages, the
+// constant-geometry (Pease) passes of fft_pease_lanes, and the self-sorting
+// (Stockham) passes of fft_stockham_lanes and fft_stockham_manual.
 //
 // Decimation in time.  A thread holds R = 2^r points of a row and runs up
 // to r consecutive stages on them with no barrier; points go through a
@@ -50,11 +51,39 @@
 // per warp access for every n up to 2^13 (a search over those patterns).
 // It is XOR-linear, so swizzle(a | b) = swizzle(a) ^ swizzle(b) for a and b
 // on disjoint bits, and it leaves bits 0..3 and every bit above 4 alone.
+//
+// Stockham.  The self-sorting radix-2 stage s reads index bits [l: top s
+// bits][c: bit L-1-s][p: low L-1-s bits] (L = log2 n) and writes u + w v,
+// u - w v (w = exp(sign i pi l / 2^s)) to [c][l][p], so r consecutive stages
+// s0 .. s0+r-1 act on disjoint sets of R = 2^r points: those that share l
+// (s0 bits) and p (pw = L-r-s0 bits).  A thread that holds such a set, slot
+// j read from index l 2^(L-s0) + j 2^pw + p (stride 2^pw), runs the r stages
+// in registers: stage s0 + b pairs slot j with slot j + 2^(r-1-b) under the
+// segment l_b = brev_b(j >> (r-b)) 2^s0 + l (the outputs of the earlier
+// stages of the pass are the segment's top bits), and slot j ends at index
+// brev_r(j) 2^(L-r) + l 2^pw + p (stride n/R).  Group v = l 2^pw + p of a
+// row thus reads R points at stride 2^pw from its block of the row and
+// writes them at stride n/R from v: the same stages, pairs, operands and
+// twiddles as the radix-2 loop, four stages a pass.  The twiddles come from
+// a per-stage table (stage s's 2^s values at 2^s - 1, n - 1 entries) read
+// from device memory through the L1 cache: the groups of a warp share l or
+// hold neighbouring l, so they read one broadcast entry or neighbouring
+// ones, never a stride.  The exchange
+// between passes is addressed through pease_swizzle: every warp access of
+// the Stockham passes (the strided reads, the writes at stride n/R) then
+// touches 32 banks for n up to 2^13 (tests/test_torch_fft_stockham_regs.py
+// checks every pattern); dit_swizzle leaves the later passes' reads in
+// conflict.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace asp {
+
+// k < 2^bits (bits <= 4) bit-reversed: a constant for a constant k
+__device__ __forceinline__ constexpr int brev_bits(int k, int bits) {
+  return (((k & 1) << 3) | ((k & 2) << 1) | ((k & 4) >> 1) | ((k & 8) >> 3)) >> (4 - bits);
+}
 
 __device__ __forceinline__ int dit_index(int g, int j, int f, int r) {
   return ((g >> f) << (f + r)) | (j << f) | (g & ((1 << f) - 1));
@@ -122,6 +151,85 @@ __device__ __forceinline__ void pease_pass(float2 (&v)[R], const float2* tw, int
       const float dr = u.x - x.x, di = u.y - x.y;
       v[j] = make_float2(u.x + x.x, u.y + x.y);
       v[j + h] = make_float2(dr * w.x - di * w.y, dr * w.y + di * w.x);
+    }
+  }
+}
+
+// The r = log2 R stages s0 <= s < s0 + r of one Stockham pass on the R
+// points of a group with segment bits l (slot j holding index l 2^(L-s0) +
+// j 2^pw + p on entry, brev_r(j) 2^(L-r) + l 2^pw + p on return); `tw` is
+// the per-stage table (stage s at 2^s - 1) in device memory, read through
+// the L1 cache.  Every slot index is a compile-time constant, so the points
+// stay in registers.
+template <int R>
+__device__ __forceinline__ void stockham_pass(float2 (&v)[R], const float2* tw, int s0, int l) {
+  constexpr int r = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+  static_assert(R == 1 << r, "R is 2, 4, 8 or 16");
+#pragma unroll
+  for (int b = 0; b < r; ++b) {
+    const float2* ws = tw + ((1 << (s0 + b)) - 1) + l;
+    const int h = 1 << (r - 1 - b);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (j & h) continue;
+      const float2 w = __ldg(ws + (brev_bits(j >> (r - b), b) << s0));
+      const float2 u = v[j];
+      const float2 x = v[j + h];
+      const float2 t = make_float2(x.x * w.x - x.y * w.y, x.x * w.y + x.y * w.x);
+      v[j] = make_float2(u.x + t.x, u.y + t.y);
+      v[j + h] = make_float2(u.x - t.x, u.y - t.y);
+    }
+  }
+}
+
+// One Stockham pass of RP = 2^rp points a group from stage s0 over `rows`
+// rows of n = 2^log2n points: group v is row v >> lg, q = v mod 2^lg (lg =
+// log2n - rp), q = l 2^pw + p.  It reads slot j from (sr, si) at the row's
+// index l 2^(log2n - s0) + j 2^pw + p, runs stockham_pass, and writes slot j
+// to (dr, di) at index brev_rp(j) 2^lg + q.  Indices are relative to the
+// planes (row n + index), through pease_swizzle where `swz_in`/`swz_out`
+// (the exchange) and as they are elsewhere (device memory, or the copy
+// ring's slot in natural order).  Every thread of the block calls it.
+template <int RP>
+__device__ __forceinline__ void stockham_groups(int rows, int log2n, int s0, const float* sr,
+                                                const float* si, bool swz_in, float* dr,
+                                                float* di, bool swz_out, const float2* tw) {
+  constexpr int rp = RP == 2 ? 1 : RP == 4 ? 2 : RP == 8 ? 3 : 4;
+  const int lg = log2n - rp, pw = lg - s0;
+  // the (swizzled) offsets of slot bit k, read side and write side
+  int rsw[rp], wsw[rp];
+#pragma unroll
+  for (int k = 0; k < rp; ++k) {
+    rsw[k] = swz_in ? pease_swizzle(1 << (pw + k)) : 1 << (pw + k);
+    wsw[k] = swz_out ? pease_swizzle(1 << (lg + k)) : 1 << (lg + k);
+  }
+  for (int v = threadIdx.x; v < rows << lg; v += blockDim.x) {
+    const int row = v >> lg, q = v & ((1 << lg) - 1);
+    const int l = q >> pw;
+    const int ri = (row << log2n) | (l << (log2n - s0)) | (q & ((1 << pw) - 1));
+    const int i0 = swz_in ? pease_swizzle(ri) : ri;
+    float2 x[RP];
+#pragma unroll
+    for (int j = 0; j < RP; ++j) {
+      int i = i0;
+#pragma unroll
+      for (int k = 0; k < rp; ++k) {
+        if (j & (1 << k)) i ^= rsw[k];
+      }
+      x[j] = make_float2(sr[i], si[i]);
+    }
+    stockham_pass<RP>(x, tw, s0, l);
+    const int wo = (row << log2n) | q;
+    const int o0 = swz_out ? pease_swizzle(wo) : wo;
+#pragma unroll
+    for (int j = 0; j < RP; ++j) {
+      int i = o0;
+#pragma unroll
+      for (int k = 0; k < rp; ++k) {
+        if (brev_bits(j, rp) & (1 << k)) i ^= wsw[k];
+      }
+      dr[i] = x[j].x;
+      di[i] = x[j].y;
     }
   }
 }

@@ -81,10 +81,13 @@ def _rotor_phase(spec: torch.Tensor, s0: torch.Tensor, s1: torch.Tensor):
 def _stretch_at(spec: torch.Tensor, k: np.ndarray, frac: np.ndarray) -> torch.Tensor:
     """Shared stretch body: interpolate magnitudes at analysis positions
     k + frac and rebuild the phase with the exclusive prefix rotors (the
-    expected-advance term omega cancels exactly in the rotor form)."""
+    expected-advance term omega cancels exactly in the rotor form).  Where
+    the float grid of ``stretch_spec`` lands on the last frame (k = nf - 1,
+    frac = 0), its neighbour is clamped to that frame: the interpolation is
+    exact there, where the JAX package's ``jnp.take`` fills NaN."""
     idx = torch.as_tensor(k, dtype=torch.int64, device=spec.device)
     s0 = spec.index_select(-2, idx)
-    s1 = spec.index_select(-2, idx + 1)
+    s1 = spec.index_select(-2, (idx + 1).clamp(max=spec.shape[-2] - 1))
     f = upload(frac, spec.real.dtype, spec.device)[:, None]
     mag = (1.0 - f) * s0.abs() + f * s1.abs()
     pr, pi = _rotor_phase(spec, s0, s1)

@@ -3,7 +3,7 @@
 
 - ``fft_stockham_lanes(xr, xi, sign)``: batched complex FFT of planar
   (B, n) float32 rows, natural order in and out, unnormalized, sign -1
-  forward and +1 inverse;
+  forward and +1 inverse (the Stockham stages in registers, four a pass);
 - ``rfft_stockham(x)``: batched real FFT, (B, n) -> planar (B, n/2+1):
   the even/odd pack z = x[0::2] + i x[1::2], an n/2-point complex FFT and
   the untangle, in one kernel;
@@ -52,8 +52,9 @@ from audiosignalprocess_tpu_torch.utils.device import upload
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 ROW_POINTS = 1024
-"""A CTA takes max(1, ROW_POINTS / m) rows of an m-point transform, so
-short transforms still give each CTA a few hundred butterflies per stage."""
+"""rfft_stockham's and irfft_stockham's CTA, and fft_stockham_manual's
+tile, take max(1, ROW_POINTS / m) rows of an m-point transform, so short
+transforms still give each CTA a few hundred butterflies per stage."""
 
 
 def _pow2(n: int, least: int) -> None:
@@ -65,8 +66,8 @@ FOURSTEP_GRID_ROWS = 64
 two warp items of 32 rows on the tensor cores."""
 
 RADIX2_POINTS = 4096
-"""fft_radix2_lanes' CTA takes max(1, RADIX2_POINTS / n) rows: 256 threads
-of 16 points each."""
+"""fft_radix2_lanes', fft_pease_lanes' and fft_stockham_lanes' CTA takes
+max(1, RADIX2_POINTS / n) rows: 256 threads of 16 points each."""
 
 PEASE_MAX_N = 1 << 24
 """fft_pease_lanes' bound, kept from the JAX kernel (its f32 iota
@@ -153,6 +154,17 @@ def radix2_stage_table_np(n: int, sign: float) -> np.ndarray:
     table is a whole number of 16-byte copies."""
     return np.concatenate([*(row[: 1 << s] for s, row in enumerate(stage_twiddles_np(n, sign))),
                            [0.0]])
+
+
+@functools.lru_cache(maxsize=64)
+def stockham_stage_table_np(n: int, sign: float) -> np.ndarray:
+    """fft_stockham_lanes' and fft_stockham_manual's per-stage table, n - 1
+    complex float64: stage s's 2^s twiddles exp(sign i pi l / 2^s) at
+    offset 2^s - 1, each the value of the n/2-point table at l << (log2 n -
+    1 - s) (conjugated for sign > 0) that the plain version reads."""
+    tw = _twiddles_np(n) if sign < 0 else _twiddles_np(n).conj()
+    big_l = n.bit_length() - 1
+    return np.concatenate([tw[np.arange(1 << s) << (big_l - 1 - s)] for s in range(big_l)])
 
 
 @functools.lru_cache(maxsize=64)
@@ -390,6 +402,31 @@ def pease_geometry(n: int) -> tuple[int, int, int]:
     return rows, 0, 4 * rows * n
 
 
+def stockham_passes(n: int) -> list[tuple[int, int]]:
+    """(first stage, stages) of each register pass of fft_stockham_lanes and
+    fft_stockham_manual at n points: four stages a pass, a shorter last one
+    where log2 n is not a multiple of 4 (n below 16 runs one pass of all its
+    stages)."""
+    big_l = n.bit_length() - 1
+    return [(s0, min(4, big_l - s0)) for s0 in range(0, big_l, 4)]
+
+
+def stockham_geometry(n: int) -> tuple[int, int, int]:
+    """(rows per CTA, dynamic shared memory, scratch floats per CTA) of
+    fft_stockham_lanes at n points: RADIX2_POINTS points a CTA (16 a
+    thread of 256) in passes of four stages (a shorter last one); the
+    exchange buffers of its rows (two of 2 n floats a row; one for two
+    passes, none for one) in shared memory where they fit, else both in a
+    scratch buffer in device memory.  The kernel reads its per-stage table
+    from device memory."""
+    rows = max(1, RADIX2_POINTS // n)
+    passes = len(stockham_passes(n))
+    smem = min(2, passes - 1) * 8 * rows * n
+    if smem <= SMEM_LIMIT:
+        return rows, smem, 0
+    return rows, 0, 4 * rows * n
+
+
 def _launch(name: str, what: str, in_r, in_i, out_r, out_i, batch: int, n: int,
             m: int, sign: int, dev: torch.device, table: torch.Tensor | None = None,
             geometry: tuple[int, int, int] | None = None) -> None:
@@ -439,6 +476,13 @@ def radix2_lanes_table(n: int, sign: int, device: torch.device) -> torch.Tensor:
     """fft_radix2_lanes' per-stage table for ``sign`` as float32 (re, im)
     pairs, from float64, uploaded once per size and sign."""
     return _pairs(radix2_stage_table_np(n, sign), device)
+
+
+@functools.lru_cache(maxsize=32)
+def stockham_table(n: int, sign: int, device: torch.device) -> torch.Tensor:
+    """The Stockham kernels' per-stage table for ``sign`` as float32 (re,
+    im) pairs, from float64, uploaded once per size and sign."""
+    return _pairs(stockham_stage_table_np(n, sign), device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -494,8 +538,10 @@ def fft_stockham_lanes(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     (yr, yi), natural order, unnormalized; ``sign`` -1 forward, +1 inverse.
 
     A CPU tensor runs ``fft_stockham_lanes_ref``.  A CUDA float32 tensor
-    launches the kernel: each CTA stages its rows in shared memory and runs
-    the log2(n) Stockham stages there; under ``ASP_SK_PIPE=manual`` it
+    launches the kernel: each thread holds 16 points of a row and runs four
+    Stockham stages on them in registers, the points crossing shared memory
+    between passes (``stockham_geometry``); twiddles from the per-stage
+    table (``stockham_stage_table_np``).  Under ``ASP_SK_PIPE=manual`` it
     launches ``fft_stockham_manual`` instead and counts no launch of its
     own.  Any other tensor raises."""
     _planar_pair(xr, xi, "fft_stockham_lanes")
@@ -505,7 +551,8 @@ def fft_stockham_lanes(xr: torch.Tensor, xi: torch.Tensor, sign: float):
         return fft_stockham_lanes_ref(xr, xi, sign)
     if pipe == "manual":
         return fft_stockham_manual(xr, xi, sign)
-    return _launch_complex(fft_stockham_lanes, "asp_fft_stockham", xr, xi, sign)
+    return _launch_complex(fft_stockham_lanes, "asp_fft_stockham", xr, xi, sign,
+                           stockham_table, stockham_geometry)
 
 
 fft_stockham_lanes.launches = 0
@@ -527,13 +574,14 @@ class FftManualArgs(ctypes.Structure):
 def manual_ring(n: int) -> tuple[int, int, int]:
     """(rows per tile, ring slots, dynamic shared memory) of
     fft_stockham_manual at n points: ``RING_DEPTH`` slots of a tile's re
-    and im planes where they fit, else 2, beside one work tile, the n/2
-    twiddles and a barrier per slot.  Raises ValueError where not even a
-    2-slot ring of one row fits (n > 8192)."""
+    and im planes where they fit, else 2, beside one work tile and a
+    barrier per slot (the kernel reads its per-stage table from device
+    memory).  Raises ValueError where not even a 2-slot ring of one row
+    fits (n > 8192)."""
     rows = max(1, ROW_POINTS // n)
 
     def smem(nbuf):
-        return (nbuf + 1) * 8 * rows * n + 4 * n + 8 * nbuf
+        return (nbuf + 1) * 8 * rows * n + 8 * nbuf
 
     nbuf = RING_DEPTH if smem(RING_DEPTH) <= SMEM_LIMIT else 2
     check(smem(nbuf) <= SMEM_LIMIT,
@@ -549,10 +597,12 @@ def manual_ctas(n: int, device: torch.device) -> int:
     where the batch has as many tiles."""
     index = torch.cuda.current_device() if device.index is None else device.index
     fn = load().asp_fft_manual_ctas
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    rows, nbuf, smem = manual_ring(n)
+    args = FftManualArgs(None, None, None, None, None, 0, n, -1, rows, nbuf, 0)
     ctas = ctypes.c_int(0)
-    raise_on_error(fn(manual_ring(n)[2], index, ctypes.byref(ctas)),
+    raise_on_error(fn(ctypes.byref(args), smem, index, ctypes.byref(ctas)),
                    "fft_stockham_manual occupancy")
     return ctas.value
 
@@ -572,9 +622,10 @@ def fft_stockham_manual(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     A CPU tensor runs ``fft_stockham_manual_ref``.  A CUDA float32 tensor
     launches the kernel: a persistent grid whose CTAs walk the row tiles,
     each fetching its next tiles into a ring in shared memory with bulk
-    asynchronous copies while it runs the Stockham stages on the current
-    one.  Any other tensor raises, and so does a row too long for the ring
-    (``manual_ring``), on every device, before dispatch."""
+    asynchronous copies while it runs the register Stockham passes of
+    ``fft_stockham_lanes`` on the current one.  Any other tensor raises,
+    and so does a row too long for the ring (``manual_ring``), on every
+    device, before dispatch."""
     _planar_pair(xr, xi, "fft_stockham_manual")
     b, n = xr.shape
     _pow2(n, 2)
@@ -587,9 +638,9 @@ def fft_stockham_manual(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     xr, xi = _aligned(xr), _aligned(xi)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     grid = min(-(-b // rows), manual_ctas(n, dev))
+    s = -1 if sign < 0 else 1
     args = FftManualArgs(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                         fft_twiddles(n, dev).data_ptr(), b, n, -1 if sign < 0 else 1,
-                         rows, nbuf, grid)
+                         stockham_table(n, s, dev).data_ptr(), b, n, s, rows, nbuf, grid)
     rc = kernel_fn("asp_fft_stockham_manual", 1)(ctypes.byref(args), smem, dev.index,
                                                   torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "fft_stockham_manual")

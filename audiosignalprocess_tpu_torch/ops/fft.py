@@ -2,7 +2,7 @@
 
 Forward is unnormalized, the inverse scales by 1/N, ``rfft`` returns the
 N/2+1 bins 0..N/2, and every transform runs on the last axis, whose
-length must be a power of two.  The implementations, in the port's names
+length must be a power of two (except under an explicit ``"torch"``).  The implementations, in the port's names
 (the JAX package's in brackets):
 
 - ``"torch"`` (``"xla"``): torch.fft;
@@ -36,12 +36,14 @@ every impl runs on the CPU.  Real transforms of every impl but
 ``"torch"`` (and ``"stockham"``'s fused real kernels) take the JAX
 package's route: an n/2-point complex transform of z = x[0::2] +
 i x[1::2] and the untangle.  ``irfft`` ignores the imaginary parts of
-bins 0 and N/2, as torch.fft.irfft does.
+bins 0 and N/2, as torch.fft.irfft does.  An explicit ``"torch"`` takes
+any length, as the JAX package's ``"xla"`` does.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -82,6 +84,18 @@ def _resolve_impl(impl: str, x: torch.Tensor) -> str:
 def _check_pow2(n: int, least: int = 1) -> None:
     check(n >= least and n & (n - 1) == 0,
           f"power-of-two length >= {least} required, got {n}")
+
+
+def _resolve_checked(impl: str, x: torch.Tensor, n: int, least: int = 1) -> str:
+    """``_resolve_impl``, then the power-of-two check of length n.  An
+    explicit ``"torch"`` (``"xla"``) skips the check and takes any length,
+    as the JAX package's ``"xla"`` returns before its own; ``"auto"``
+    checks even where it resolves to torch, as the JAX ``"auto"`` does."""
+    explicit_torch = _JAX_NAMES.get(impl, impl) == "torch"
+    impl = _resolve_impl(impl, x)
+    if not explicit_torch:
+        _check_pow2(n, least)
+    return impl
 
 
 def _complex_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -218,8 +232,7 @@ _COMPLEX = {"radix2": _fft_radix2, "splitradix": _fft_splitradix, "matmul": _fft
 
 def fft(x: torch.Tensor, impl: str = DEFAULT_IMPL) -> torch.Tensor:
     """Forward FFT on the last axis (unnormalized)."""
-    impl = _resolve_impl(impl, x)
-    _check_pow2(x.shape[-1])
+    impl = _resolve_checked(impl, x, x.shape[-1])
     if impl == "torch":
         return torch.fft.fft(x)
     return _COMPLEX[impl](x.to(_complex_dtype(x.dtype)), -1.0)
@@ -227,9 +240,8 @@ def fft(x: torch.Tensor, impl: str = DEFAULT_IMPL) -> torch.Tensor:
 
 def ifft(x: torch.Tensor, impl: str = DEFAULT_IMPL) -> torch.Tensor:
     """Inverse FFT on the last axis, scaled 1/N."""
-    impl = _resolve_impl(impl, x)
     n = x.shape[-1]
-    _check_pow2(n)
+    impl = _resolve_checked(impl, x, n)
     if impl == "torch":
         return torch.fft.ifft(x)
     return _COMPLEX[impl](x.to(_complex_dtype(x.dtype)), 1.0) / n
@@ -239,9 +251,8 @@ def rfft(x: torch.Tensor, impl: str = DEFAULT_IMPL) -> torch.Tensor:
     """Real FFT on the last axis: N/2+1 bins."""
     check(not x.is_complex(),
           "rfft requires a real-valued input (use fft for complex signals)")
-    impl = _resolve_impl(impl, x)
     n = x.shape[-1]
-    _check_pow2(n, least=2)
+    impl = _resolve_checked(impl, x, n, least=2)
     if impl == "torch":
         return torch.fft.rfft(x)
     half = n // 2
@@ -264,8 +275,7 @@ def rfft(x: torch.Tensor, impl: str = DEFAULT_IMPL) -> torch.Tensor:
 
 def irfft(spec: torch.Tensor, n: int, impl: str = DEFAULT_IMPL) -> torch.Tensor:
     """Inverse real FFT: n real samples from n/2+1 bins (1/N scaling)."""
-    impl = _resolve_impl(impl, spec)
-    _check_pow2(n, least=2)
+    impl = _resolve_checked(impl, spec, n, least=2)
     if impl == "torch":
         return torch.fft.irfft(spec, n)
     half = n // 2
@@ -292,3 +302,7 @@ def irfft(spec: torch.Tensor, n: int, impl: str = DEFAULT_IMPL) -> torch.Tensor:
     zt = _COMPLEX[impl]((xe + 1j * xo)[..., :half], 1.0) / half
     return torch.stack([zt.real, zt.imag], dim=-1).reshape(spec.shape[:-1] + (n,))
 
+
+def fft_flops(n: int) -> float:
+    """Nominal real-FLOP count of a radix-2 complex FFT (5 N log2 N)."""
+    return 5.0 * n * math.log2(n)

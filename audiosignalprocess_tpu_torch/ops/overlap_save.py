@@ -31,8 +31,11 @@ def overlap_save(x: torch.Tensor, h, nfft: int,
     """Causal FIR via overlap-save on the last axis; output length == input.
 
     ``history``: optional (..., T-1) previous inputs; zeros when absent.
-    ``impl``: the FFT implementation (``ops.fft``).
+    ``impl``: the FFT implementation (``ops.fft``).  An empty signal gives
+    an empty (..., 0) result before any transform.
     """
+    if x.shape[-1] == 0:
+        return x.new_zeros(x.shape)
     if fused:
         from audiosignalprocess_tpu_torch.kernels.os_kernel import overlap_save_fused
 

@@ -78,8 +78,12 @@ def _wola_norm(nf: int, nfft: int, hop: int, window_kind: str) -> np.ndarray:
 
 def istft(spec: torch.Tensor, nfft: int, hop: int, window_kind: str = "hann",
           impl: str = fft_ops.DEFAULT_IMPL) -> torch.Tensor:
-    """WOLA inverse STFT.  Output length = nfft + (frames-1)*hop."""
+    """WOLA inverse STFT.  Output length = nfft + (frames-1)*hop: zeros of
+    length nfft - hop for zero frames, before any transform."""
     nf = spec.shape[-2]
+    if nf == 0:
+        return torch.zeros(spec.shape[:-2] + (nfft - hop,), dtype=spec.real.dtype,
+                           device=spec.device)
     t = fft_ops.irfft(spec, nfft, impl=impl)
     w = window(window_kind, nfft, periodic=True, dtype=t.dtype, device=t.device)
     y = overlap_add(t * w, hop)

@@ -481,8 +481,11 @@ FFT_TIMED = 4096  # rows of the timed FFTs (benchmarks/roofline.py's sizes)
 
 def fft_flops(n, transforms=1.0):
     """Nominal float32 operations of ``transforms`` complex n-point radix-2
-    FFTs, 5 n log2 n each (a real transform of n points counts half)."""
-    return transforms * 5.0 * n * np.log2(n)
+    FFTs, ``ops.fft.fft_flops`` each (a real transform of n points counts
+    half)."""
+    from audiosignalprocess_tpu_torch.ops.fft import fft_flops as one
+
+    return transforms * one(n)
 
 
 def chip_peaks():
@@ -1272,20 +1275,25 @@ VARIANT_SIZES = (8, 512, 1024, 4096, 16384)
 VARIANT_BATCHES = (1, 5, 300)
 SLICE_LAUNCHES = 4  # per whole-file call: an rfft and an irfft (each a 512-point
 # complex transform) in the overlap-save, and another pair in the gate
-# the kernels redesigned for the card's tensor cores and registers, with their
-# launch geometries: held at every n from the smallest to 16384 (a partial last
+# the kernels redesigned for the card's tensor cores and registers (the
+# variants and fft_stockham_lanes), with their launch geometries: held at
+# every n from the smallest to 16384 (a partial last
 # CTA), then at the rows the slice (an rfft and an irfft of each block) and the
 # timings give them; fft_radix2_stages (fft_radix2_lanes' passes on its stacked
 # table) also bit for bit against fft_radix2_lanes there
-REDESIGNED = {"fft_fourstep": "fourstep_geometry", "fft_radix2_lanes": "radix2_lanes_geometry",
-              "fft_radix2_stages": "radix2_lanes_geometry", "fft_pease_lanes": "pease_geometry"}
+REDESIGNED = {"fft_fourstep": ("fourstep_geometry", 4),
+              "fft_radix2_lanes": ("radix2_lanes_geometry", 2),
+              "fft_radix2_stages": ("radix2_lanes_geometry", 2),
+              "fft_pease_lanes": ("pease_geometry", 2),
+              "fft_stockham_lanes": ("stockham_geometry", 2)}  # (geometry, smallest n)
 REDESIGN_PATH = ((32000, 512), (119808, 512), (FFT_TIMED, 1024), (FFT_TIMED, 4096))
 TF32_PEAK_FLOP_S = 495e12  # dense TF32 tensor-core peak of the H100 SXM (data sheet)
 
 
 def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
     """Phase 24: the FFT variant kernels (fft_fourstep, fft_radix2_lanes,
-    fft_radix2_stages, fft_pease_lanes) alone, then the slice: bench.py's
+    fft_radix2_stages, fft_pease_lanes) alone, and with them the register
+    passes of fft_stockham_lanes at every n, then the slice: bench.py's
     False mode (FIRStage -> GateStage, unfused) with each variant's impl at
     the full width, then times.  Adds the four kernels to ``record``;
     raises SystemExit on a failure."""
@@ -1326,9 +1334,8 @@ def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
                                          f"launches={kernel.launches - before}")
             print(f"[24 kernel] {name} n={n} snr_vs_f64_plain/torch.fft_f64 dB: "
                   + ", ".join(parts))
-    for name, geometry in REDESIGNED.items():
+    for name, (geometry, least) in REDESIGNED.items():
         kernel, plain = getattr(fk, name), getattr(fk, f"{name}_ref")
-        least = FFT_VARIANTS[name][1]
         shapes = [(3 * getattr(fk, geometry)(1 << k)[0] + 1, 1 << k)
                   for k in range(least.bit_length() - 1, 15)] + list(REDESIGN_PATH)
         for b, n in shapes:
@@ -1347,7 +1354,7 @@ def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
                 rec = record.setdefault(name, dict(max_abs_err=0.0, min_snr_db=np.inf))
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 rec["min_snr_db"] = min(rec["min_snr_db"], snr)
-                worst[name] = min(worst[name], snr, snr_lib)
+                worst[name] = min(worst.get(name, np.inf), snr, snr_lib)
                 parts.append(f"{'fwd' if sign < 0 else 'inv'} {snr:.2f}/{snr_lib:.2f}")
                 launched = kernel.launches - before
                 same = True
@@ -1461,7 +1468,7 @@ def fft_variant_phase(dev, smi, record, kernels, reset_counts, h):
             record[impl_kernel[impl]]["slice_ms"] = ms
 
 
-MANUAL_SIZES = (2, 8, 256, 512, 1024, 4096, 8192)  # 8192: the ring's longest row, 2 deep
+MANUAL_SIZES = tuple(1 << k for k in range(1, 14))  # 8192: the ring's longest row, 2 deep
 MANUAL_TIMED = ((4096, 1024), (4096, 4096), (32768, 4096))  # the last: the JAX A/B's point
 MANUAL_PATH = ((32000, 512), (119808, 512), *MANUAL_TIMED)  # the slice's rows, then the timed
 MANUAL_REPS = 4

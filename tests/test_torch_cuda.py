@@ -529,6 +529,7 @@ REDESIGNED = {  # the kernels redesigned for the card: (launch geometry, smalles
     "fft_radix2_lanes": (fk.radix2_lanes_geometry, 2),
     "fft_radix2_stages": (fk.radix2_lanes_geometry, 2),
     "fft_pease_lanes": (fk.pease_geometry, 2),
+    "fft_stockham_lanes": (fk.stockham_geometry, 2),
 }
 REDESIGN_PATH = ((32000, 512), (119808, 512), (4096, 1024), (4096, 4096))
 
@@ -536,7 +537,7 @@ REDESIGN_PATH = ((32000, 512), (119808, 512), (4096, 1024), (4096, 4096))
 def _check_redesigned(card, name, b, n, seed):
     """One kernel of REDESIGNED on b x n rows, both signs: >= 100 dB against
     its float64 plain version and torch.fft, one launch each."""
-    kernel, plain = getattr(fk, name), VARIANTS[name][0]
+    kernel, plain = getattr(fk, name), getattr(fk, f"{name}_ref")
     gen = torch.Generator(device=card).manual_seed(seed)
     xr = torch.randn((b, n), generator=gen, dtype=torch.float64, device=card)
     xi = torch.randn((b, n), generator=gen, dtype=torch.float64, device=card)
@@ -553,9 +554,9 @@ def _check_redesigned(card, name, b, n, seed):
                                     for k in range(least.bit_length() - 1, 15)])
 def test_fft_redesigned_every_n(card, name, n):
     """fft_fourstep (tensor cores, 3xTF32) at every n from 4, and
-    fft_radix2_lanes, fft_radix2_stages and fft_pease_lanes (stages in
-    registers) at every n from 2, to 16384, on 3 CTAs' rows and one more
-    (a partial last CTA), both signs."""
+    fft_radix2_lanes, fft_radix2_stages, fft_pease_lanes and
+    fft_stockham_lanes (stages in registers) at every n from 2, to 16384,
+    on 3 CTAs' rows and one more (a partial last CTA), both signs."""
     _check_redesigned(card, name, 3 * REDESIGNED[name][0](n)[0] + 1, n, 71 + n.bit_length())
 
 
@@ -585,14 +586,16 @@ def test_fft_radix2_stages_is_radix2_lanes_bit_for_bit(card, b, n):
         assert torch.equal(sr, lr) and torch.equal(si, li)
 
 
-@pytest.mark.parametrize("n", (2, 8, 256, 1024, 4096, 8192))
+@pytest.mark.parametrize("n", [1 << k for k in range(1, 14)])
 @pytest.mark.parametrize("batch", ("one", "partial", "wrap"))
 def test_fft_stockham_manual_vs_plain(card, n, batch):
     """The copy-ring kernel (both signs) in float32 against its float64
-    plain version and torch.fft: >= 100 dB, one launch each, at the ring's
-    edges: one row (fewer tiles than slots; at n = 2 too short for a bulk
-    copy), 300 rows (a partial last tile below n = 1024), and 3 grid + 1
-    tiles (every CTA fills its ring and one takes a tile more)."""
+    plain version and torch.fft: >= 100 dB, one launch each, at every n
+    from 2 to 8192 (an odd and an even number of register passes, so the
+    result ends in the work tile or in the slot) and at the ring's edges:
+    one row (fewer tiles than slots; at n = 2 too short for a bulk copy),
+    300 rows (a partial last tile below n = 1024), and 3 grid + 1 tiles
+    (every CTA fills its ring and one takes a tile more)."""
     rows = fk.manual_ring(n)[0]
     b = {"one": 1, "partial": 300, "wrap": (3 * fk.manual_ctas(n, card) + 1) * rows}[batch]
     rng = np.random.default_rng(69)
@@ -694,6 +697,51 @@ def test_fft_stockham_manual_ring_limit_raises(card):
     with pytest.raises(ValueError, match="SMEM_LIMIT"):
         fk.fft_stockham_manual(z, z, -1.0)
     assert fk.fft_stockham_manual.launches == before
+
+
+@pytest.mark.parametrize("impl,want", [("auto", {"rfft_stockham": 1, "irfft_stockham": 1}),
+                                       ("stockham_split", {"fft_stockham_lanes": 2})])
+def test_time_stretch_grid_on_the_last_frame(card, impl, want):
+    """Where the float frame grid lands on the last frame ((2, 3000), rate
+    0.7, nfft 256, hop 64), the stretch through the Stockham kernels is
+    finite everywhere and reads >= 60 dB against the port's float64 run
+    on the CPU (which the CPU tests hold to the JAX package wherever it is
+    finite)."""
+    from audiosignalprocess_tpu_torch.effects.phase_vocoder import time_stretch
+
+    x = np.random.default_rng(2).standard_normal((2, 3000))
+    ref = time_stretch(torch.as_tensor(x), 0.7, 256, 64)
+    y, k = _launches(lambda: time_stretch(torch.as_tensor(x, dtype=torch.float32,
+                                                          device=card), 0.7, 256, 64, impl=impl))
+    assert k == want and y.shape == ref.shape and bool(torch.isfinite(y).all())
+    assert snr_db(ref, y.cpu()) >= 60.0
+
+
+@pytest.mark.parametrize("impl", ("auto", "stockham", "stockham_split"))
+def test_empty_inputs_launch_nothing(card, impl):
+    """ops.stft.istft of zero frames (zeros of length nfft - hop) and
+    ops.overlap_save of an empty signal (an empty result), plain and fused,
+    on CUDA float32: the results without a launch of rfft_stockham,
+    irfft_stockham, fft_stockham_lanes or overlap_save_fused, which the
+    same calls reach on non-empty input."""
+    from audiosignalprocess_tpu_torch.ops.stft import istft
+
+    spec = torch.zeros((2, 0, 129), dtype=torch.complex64, device=card)
+    y, k = _launches(lambda: istft(spec, 256, 64, impl=impl))
+    assert k == {} and y.shape == (2, 192) and y.dtype == torch.float32 and y.is_cuda
+    assert not bool(y.any())
+    x = torch.zeros((2, 0), dtype=torch.float32, device=card)
+    h = design_fir(5, 0.3)
+    for fused in (False, True):
+        y, k = _launches(lambda: overlap_save(x, h, 64, impl=impl, fused=fused))
+        assert k == {} and y.shape == (2, 0) and y.is_cuda
+    _, k = _launches(lambda: (istft(torch.ones((2, 1, 129), dtype=torch.complex64, device=card),
+                                    256, 64, impl=impl),
+                              overlap_save(torch.ones((2, 5), device=card), h, 64, impl=impl),
+                              overlap_save(torch.ones((2, 5), device=card), h, 64, fused=True)))
+    cores = ({"fft_stockham_lanes": 3} if impl == "stockham_split"
+             else {"rfft_stockham": 1, "irfft_stockham": 2})
+    assert k == {**cores, "overlap_save_fused": 1}
 
 
 def test_ops_fft_auto_launches_one_kernel(card):
