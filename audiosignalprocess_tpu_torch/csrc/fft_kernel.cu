@@ -29,27 +29,38 @@
 // for shared memory (n > 8192) run their passes through a scratch buffer
 // in device memory.
 //
-// rfft_stockham and irfft_stockham still run the radix-2 loop stockham():
-// a CTA stages its rows in shared memory (twiddles, then two ping-pong
-// buffers of m complex points per row, m the transform length), runs the
-// log2(m) stages there with one barrier each, and writes its rows once;
-// short transforms take several rows per CTA (ROW_POINTS in
-// kernels/fft_kernel.py) so each stage still has a few hundred
-// butterflies.  A transform too long for shared memory runs the same
-// stages on ping-pong buffers in device memory, one row per CTA.  The TPU
-// kernels' transposes to a batch-in-lanes layout and their two-pass
-// reversal trick (a Mosaic limitation) do not carry over: a thread reads
-// Z[(n/2 - k) mod n/2] from shared memory directly.  The twiddles exp(-2
-// pi i k / n) come from a float64 host table; the half-size transforms of
-// the real kernels read it at stride 2, their untangle at stride 1.
+// rfft_stockham and irfft_stockham run the same passes on the m = n/2
+// points z[k] = x[2k] + i x[2k+1] of a real row (kernels/fft_kernel.py
+// real_stockham_passes).  rfft's first pass reads z as one float2 a point;
+// its last pass runs its groups in pairs whose outputs are each other's
+// mirrors, so one thread holds Z[k] and Z[(m - k) mod m] and writes both
+// bins X[k] = E[k] + w^k O[k] from registers.  irfft's first pass runs the
+// same pairs and untangles as it loads, each bin read once (S[k] and S[m -
+// k] from device memory); its last writes z[k] / m as one float2, y[2k]
+// and y[2k+1].  A pair holds at most 16 points: the untangle's pass takes
+// log2 m mod 4 stages (1 where that is 0, beside a pass of three).  A CTA
+// takes max(1, 4096 / m) rows; n = 1024 runs 4 + 4 + 1 stages (rfft) and
+// 1 + 4 + 4 (irfft) with 2 barriers each, where the radix-2 loop took a
+// barrier a stage and 11 in all, and no shared-memory pass or barrier of
+// its own for either untangle.  The m-point per-stage table and the
+// n/2-point untangle table (w^k = exp(-2 pi i k / n), float64 on the host)
+// are read from device memory through the L1 cache; rows past 8192 complex
+// points run their passes through a scratch buffer, as the complex kernel
+// does.  The TPU kernels' transposes to a batch-in-lanes layout and their
+// two-pass reversal trick (a Mosaic limitation) do not carry over.
 //
 // What bounds it on an H100: at 4096 rows x 1024 points a complex
 // transform moves 67 MB (20 us at 3.35 TB/s) and does 5 n log2 n flops a
 // row (0.2 GFLOP, 3 us at 67 TFLOP/s), so device memory bounds it, and
 // every byte is read and written once.  fft_stockham_lanes adds the
 // shared-memory exchange (2 x 8 bytes a point a pass) and its barriers;
-// the real kernels still pay a shared-memory round trip and a barrier per
-// radix-2 stage.
+// a real transform moves half the bytes (n floats in, n + 2 out a row) and
+// pays the same exchange on half the points; its untangle costs registers
+// (two groups a thread in one pass) and, for irfft, the mirror bins' reads
+// through the L1 cache.  ptxas (sm_90a): rfft 64 to 76 registers past 16
+// points (a 4-byte spill at RS = 4), 30 to 54 in the one-pass
+// instantiations (m <= 16); irfft at most 80 past 16 points (three CTAs an
+// SM; a 28-byte spill at RS = 8), 31 to 168 in the one-pass ones.
 //
 // The other complex transforms of the package's impl registry, same
 // planar contract, rows staged in shared memory (or device-memory buffers
@@ -142,8 +153,6 @@
 //   What bounds it: as fft_radix2_lanes.  ptxas (sm_90a): 63 or 64
 //   registers with a shorter last pass, 74 without one (n = 256, 4096,
 //   65536, ...), 25 to 40 for n < 16; no spills.
-// rfft_stockham and irfft_stockham still move every byte once and pay a
-// shared-memory pass and a barrier per stage.
 
 #include <cuda_runtime.h>
 
@@ -163,7 +172,8 @@ struct FftArgs {
   const float* table;  // fft_fourstep: the split tables (fourstep_tc_tables);
                        // fft_radix2_stages: the (log2 n, n/2) stage table of `sign`;
                        // fft_radix2_lanes, fft_pease_lanes, fft_stockham_lanes: their
-                       // per-stage tables of `sign`; else null
+                       // per-stage tables of `sign`; rfft_stockham, irfft_stockham:
+                       // the n/2-point per-stage table (forward, inverse)
   int batch;           // B rows
   int n;               // the row length the caller sees
   int sign;            // complex transform: -1 forward, +1 inverse
@@ -177,133 +187,6 @@ namespace {
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ int log2i(int m) { return __ffs(m) - 1; }
-
-// The two ping-pong buffers and the twiddles of this CTA's rows: in shared
-// memory after the twiddles are copied there, or the rows' slices of the
-// scratch buffers and the table in device memory.  The twiddles are
-// ready on return; the caller fills `x` and then synchronizes.
-struct Bufs {
-  float2* x;
-  float2* y;
-  const float2* tw;
-};
-
-__device__ Bufs setup(const asp::FftArgs& a, float4* smem, int m) {
-  const float2* tw_g = reinterpret_cast<const float2*>(a.tw);
-  if (a.scratch != nullptr) {
-    float2* x = reinterpret_cast<float2*>(a.scratch) +
-                static_cast<size_t>(blockIdx.x) * a.rows * 2 * m;
-    return {x, x + m, tw_g};
-  }
-  float2* tw_s = reinterpret_cast<float2*>(smem);
-  for (int i = threadIdx.x; i < a.n / 2; i += blockDim.x) tw_s[i] = tw_g[i];
-  __syncthreads();  // irfft reads the twiddles while it fills x
-  float2* x = tw_s + a.n / 2;
-  return {x, x + a.rows * m, tw_s};
-}
-
-// The log2(m) Stockham radix-2 stages over `rows` rows of m points, from
-// `src` through `dst` and back, the twiddle exp(sign i pi l / 2^s) read as
-// tw[l << (tw_log2 - 1 - s)] from a table of 2^tw_log2 points.  Every
-// thread calls it; it returns the buffer holding the result after a
-// barrier.
-__device__ float2* stockham(float2* src, float2* dst, int m, int rows, bool inverse,
-                            const float2* tw, int tw_log2) {
-  const int log2m = log2i(m);
-  const int half = m >> 1;
-  const int total = rows * half;
-  for (int s = 0; s < log2m; ++s) {
-    const int shift = log2m - 1 - s;  // log2 of the half segment R/2
-    const int tw_shift = tw_log2 - 1 - s;
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int row = t >> (log2m - 1);
-      const int bf = t & (half - 1);
-      const int l = bf >> shift;
-      const int i0 = (l << (shift + 1)) + (bf & ((1 << shift) - 1));
-      const float2* a = src + row * m;
-      float2* b = dst + row * m;
-      float2 w = tw[l << tw_shift];
-      if (inverse) w.y = -w.y;
-      const float2 u = a[i0];
-      const float2 v = asp::cmul(a[i0 + (1 << shift)], w);
-      b[bf] = make_float2(u.x + v.x, u.y + v.y);
-      b[bf + half] = make_float2(u.x - v.x, u.y - v.y);
-    }
-    __syncthreads();
-    float2* t = src;
-    src = dst;
-    dst = t;
-  }
-  return src;
-}
-
-__global__ void __launch_bounds__(kThreads) rfft_stockham_kernel(asp::FftArgs a) {
-  extern __shared__ float4 smem[];
-  const int m = a.n / 2;
-  const int row0 = blockIdx.x * a.rows;
-  const int rows = min(a.rows, a.batch - row0);
-  const Bufs bf = setup(a, smem, m);
-  // pack z[j] = x[2j] + i x[2j+1]: row r, point j is x[(row0 + r) n + 2j]
-  const float* x = a.in_r + static_cast<size_t>(row0) * a.n;
-  for (int i = threadIdx.x; i < rows * m; i += blockDim.x)
-    bf.x[i] = make_float2(x[2 * i], x[2 * i + 1]);
-  __syncthreads();
-  const float2* z = stockham(bf.x, bf.y, m, rows, false, bf.tw, log2i(a.n));
-  // untangle X[k] = E[k] + w^k O[k], E = (Z[k] + conj Z[-k])/2,
-  // O = -i (Z[k] - conj Z[-k])/2; X[m] = Re Z[0] - Im Z[0]
-  const size_t out = static_cast<size_t>(row0) * (m + 1);
-  for (int i = threadIdx.x; i < rows * (m + 1); i += blockDim.x) {
-    const int r = i / (m + 1);
-    const int k = i - r * (m + 1);
-    const float2* zr = z + r * m;
-    float xr, xi;
-    if (k == m) {
-      xr = zr[0].x - zr[0].y;
-      xi = 0.0f;
-    } else {
-      const float2 zk = zr[k];
-      const float2 zn = zr[(m - k) & (m - 1)];
-      const float er = 0.5f * (zk.x + zn.x), ei = 0.5f * (zk.y - zn.y);
-      const float orr = 0.5f * (zk.y + zn.y), oi = -0.5f * (zk.x - zn.x);
-      const float2 w = bf.tw[k];
-      xr = er + w.x * orr - w.y * oi;
-      xi = ei + w.x * oi + w.y * orr;
-    }
-    a.out_r[out + i] = xr;
-    a.out_i[out + i] = xi;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) irfft_stockham_kernel(asp::FftArgs a) {
-  extern __shared__ float4 smem[];
-  const int m = a.n / 2;
-  const int row0 = blockIdx.x * a.rows;
-  const int rows = min(a.rows, a.batch - row0);
-  const Bufs bf = setup(a, smem, m);
-  // z[k] = E[k] + i O[k], E = (S[k] + conj S[m-k])/2,
-  // O = (S[k] - conj S[m-k])/2 * conj(w^k); Im S[0] and Im S[m] dropped
-  const int log2m = log2i(m);
-  for (int i = threadIdx.x; i < rows * m; i += blockDim.x) {
-    const int r = i >> log2m;
-    const int k = i & (m - 1);
-    const size_t s = static_cast<size_t>(row0 + r) * (m + 1);
-    const float ar = a.in_r[s + k], ai = k == 0 ? 0.0f : a.in_i[s + k];
-    const float cr = a.in_r[s + m - k], ci = k == 0 ? 0.0f : -a.in_i[s + m - k];
-    const float er = 0.5f * (ar + cr), ei = 0.5f * (ai + ci);
-    const float dr = 0.5f * (ar - cr), di = 0.5f * (ai - ci);
-    const float2 w = bf.tw[k];  // conj(w^k) = (w.x, -w.y)
-    const float orr = dr * w.x + di * w.y, oi = di * w.x - dr * w.y;
-    bf.x[i] = make_float2(er - oi, ei + orr);
-  }
-  __syncthreads();
-  const float2* z = stockham(bf.x, bf.y, m, rows, true, bf.tw, log2i(a.n));
-  const float inv = 1.0f / static_cast<float>(m);
-  float* y = a.out_r + static_cast<size_t>(row0) * a.n;
-  for (int i = threadIdx.x; i < rows * m; i += blockDim.x) {
-    y[2 * i] = z[i].x * inv;
-    y[2 * i + 1] = z[i].y * inv;
-  }
-}
 
 // W_n^m = exp(-2 pi i m / n) for 0 <= m < n from the n/2-point table
 // (W_n^(m + n/2) = -W_n^m), conjugated for the inverse.
@@ -1003,6 +886,290 @@ __global__ void __launch_bounds__(kThreads) fft_stockham_kernel(asp::FftArgs a) 
   }
 }
 
+// ---------------------------------------------------------------------------
+// rfft_stockham and irfft_stockham: the half-size transform on the same passes
+// ---------------------------------------------------------------------------
+
+// A row of n = 2m real points is m complex points z[k] = x[2k] + i x[2k+1],
+// so rfft_stockham runs fft_stockham_kernel's passes on the m-point rows
+// with the pack in the first pass's loads: slot j of group v reads z as
+// one 8-byte float2 of the row, neighbouring groups neighbouring k.  The
+// untangle X[k] = E[k] + w^k O[k] pairs Z[k] with Z[(m - k) mod m], and the
+// last pass puts the two in the registers of one thread: slot j of group q
+// ends at k = brev(j) 2^lg + q (lg = log2 m - log2 RS), whose mirror is
+// slot RS - 1 - j of group 2^lg - q (in group 0, slot brev(-brev(j) mod
+// RS) of group 0; group 2^(lg-1) is its own partner too).  So unit u of a
+// row runs groups u and 2^lg - u (u = 0: groups 0 and 2^(lg-1)) and writes
+// the bins of both from registers, the thread of u = 0 also X[m] = Re Z[0]
+// - Im Z[0], in the plain version's float32 order: no exchange, no barrier
+// and no shared-memory read for the untangle.  So that a pair holds at most
+// 16 points, the last pass takes log2 m mod 4 stages, or 1 after a first
+// pass of 3 where log2 m is a multiple of 4 (real_stockham_passes); the
+// exchange between the other passes is the complex kernel's, two buffers
+// of swizzled planes (real_stockham_geometry).  n = 1024 runs 4 + 4 + 1
+// stages with 2 barriers.  a.table is the m-point per-stage
+// table (stockham_table(m, -1)), a.tw the n/2-point table of w^k = exp(-2
+// pi i k / n), both read through the L1 cache.
+
+// Bin k of a row, X[k] = E[k] + w^k O[k] with E = (Z[k] + C)/2, O = -i (Z[k]
+// - C)/2, C = conj Z[(m - k) mod m], from z = Z[k] and zc = Z[(m - k) mod m],
+// in the plain version's float32 order.
+__device__ __forceinline__ void untangle_bin(float* xr, float* xi, const float2* w, int k,
+                                             float2 z, float2 zc) {
+  const float cr = zc.x, ci = -zc.y;
+  const float er = 0.5f * (z.x + cr), ei = 0.5f * (z.y + ci);
+  const float orr = 0.5f * (z.y - ci), oi = -0.5f * (z.x - cr);
+  const float2 wk = __ldg(w + k);
+  xr[k] = er + wk.x * orr - wk.y * oi;
+  xi[k] = ei + wk.x * oi + wk.y * orr;
+}
+
+// rfft_stockham's last pass, from stage s0, with the untangle (above);
+// kOne: the row is one group (m = RS, one pass), its own partner.
+template <int RS, bool kOne, class Load>
+__device__ __forceinline__ void untangle_pass(const asp::FftArgs& a, int row0, int rows,
+                                              int log2m, int s0, Load load, bool swz_in,
+                                              const float2* tw) {
+  constexpr int rs = asp::pass_bits(RS);
+  const int m = 1 << log2m, lg = log2m - rs;
+  const int lu = lg > 0 ? lg - 1 : 0;  // log2 of the units a row
+  const float2* w = reinterpret_cast<const float2*>(a.tw);
+  int rsw[rs];
+  asp::stockham_read_offsets<RS>(rsw, log2m, s0, swz_in);
+  for (int u = threadIdx.x; u < rows << lu; u += blockDim.x) {
+    const int row = u >> lu, q = u & ((1 << lu) - 1);
+    float* xr = a.out_r + static_cast<size_t>(row0 + row) * (m + 1);
+    float* xi = a.out_i + static_cast<size_t>(row0 + row) * (m + 1);
+    float2 z[RS];
+    asp::stockham_group<RS>(z, (row << lg) | q, log2m, s0, load, swz_in, rsw, tw);
+    if (q == 0) {
+      xr[m] = z[0].x - z[0].y;
+      xi[m] = 0.0f;
+    }
+    if constexpr (kOne) {
+#pragma unroll
+      for (int j = 0; j < RS; ++j) {
+        untangle_bin(xr, xi, w, asp::brev_bits(j, rs), z[j],
+                     z[asp::brev_bits((RS - asp::brev_bits(j, rs)) & (RS - 1), rs)]);
+      }
+      continue;
+    }
+    const bool own = q == 0;  // groups 0 and 2^(lg-1): each its own partner
+    const int q2 = own ? 1 << (lg - 1) : (1 << lg) - q;
+    float2 y[RS];
+    asp::stockham_group<RS>(y, (row << lg) | q2, log2m, s0, load, swz_in, rsw, tw);
+#pragma unroll
+    for (int j = 0; j < RS; ++j) {
+      const int k = asp::brev_bits(j, rs) << lg;
+      const float2 zc = own ? z[asp::brev_bits((RS - asp::brev_bits(j, rs)) & (RS - 1), rs)]
+                            : y[RS - 1 - j];
+      const float2 yc = own ? y[RS - 1 - j] : z[RS - 1 - j];
+      untangle_bin(xr, xi, w, k + q, z[j], zc);
+      untangle_bin(xr, xi, w, k + q2, y[j], yc);
+    }
+  }
+}
+
+template <int R, int RS>
+__global__ void __launch_bounds__(kThreads) rfft_stockham_kernel(asp::FftArgs a) {
+  extern __shared__ float4 smem[];
+  constexpr int rs = asp::pass_bits(RS);
+  const int m = a.n / 2, log2m = log2i(m);
+  const int row0 = blockIdx.x * a.rows;
+  const int rows = min(a.rows, a.batch - row0);
+  const float2* tw = reinterpret_cast<const float2*>(a.table);
+  float* buf = a.scratch != nullptr
+                   ? a.scratch + static_cast<size_t>(blockIdx.x) * a.rows * 4 * m
+                   : reinterpret_cast<float*>(smem);
+  const int plane = a.rows * m;
+  const float2* x = reinterpret_cast<const float2*>(a.in_r) + static_cast<size_t>(row0) * m;
+  const auto pack = [x](int i) { return x[i]; };
+  if constexpr (R == RS) {  // m <= 16: one pass
+    untangle_pass<RS, true>(a, row0, rows, log2m, 0, pack, false, tw);
+    return;
+  }
+  const float* src = buf;
+  int s0 = 0, p = 0;
+  if (((log2m - rs) & 3) == 3) {  // where log2 m is a multiple of 4: a pass of 8 first
+    asp::stockham_groups<8>(rows, log2m, 0, pack, false, asp::PlanarOut{buf, buf + plane}, true,
+                            tw);
+    __syncthreads();
+    s0 = 3;
+    p = 1;
+  }
+  for (; s0 + rs < log2m; s0 += 4, ++p) {
+    float* dst = buf + (p & 1) * 2 * plane;
+    const asp::PlanarOut ex{dst, dst + plane};
+    if (s0 == 0) {
+      asp::stockham_groups<R>(rows, log2m, 0, pack, false, ex, true, tw);
+    } else {
+      asp::stockham_groups<R>(rows, log2m, s0, asp::PlanarIn{src, src + plane}, true, ex, true,
+                              tw);
+    }
+    __syncthreads();
+    src = dst;
+  }
+  untangle_pass<RS, false>(a, row0, rows, log2m, s0, asp::PlanarIn{src, src + plane}, true,
+                           tw);
+}
+
+// irfft_stockham: the inverse on the same passes, the untangle's pass first
+// (n = 1024: 1 + 4 + 4 stages, 2 barriers; where log2 m is a multiple of 4,
+// 1 + 3 + 4 + ...).  The first pass (stages 0 ..
+// rs - 1, RS = 2^rs points a group) forms its points as it loads them:
+// z[k] = E[k] + i O[k], E = (S[k] + conj S[m - k])/2, O = (S[k] - conj S[m -
+// k])/2 conj(w^k), with Im S[0] and Im S[m] dropped, in the plain version's
+// float32 order.  Slot j of group q holds k = j 2^pw + q (pw = log2 m - rs),
+// whose mirror m - k is slot RS - 1 - j of group 2^pw - q (in group 0, slot
+// RS - j, and S[m] for slot 0; group 2^(pw-1) is its own partner), so unit
+// u of a row runs groups u and 2^pw - u (u = 0: groups 0 and 2^(pw-1)) and
+// reads each bin once from the (sr, si) planes, through the L1 cache.  The
+// last pass writes y[2k], y[2k+1] = z[k] / m as one 8-byte float2 in natural
+// order (1/m is a power of two: the product is the plain version's
+// quotient).  The exchange between the passes is rfft's.  a.table is
+// stockham_table(m, +1), a.tw the n/2-point table.
+
+// z[k] from S[k] = s and S[m - k] = sc (imaginary parts already dropped
+// where they must be), in the plain version's float32 order.
+__device__ __forceinline__ float2 retangle_bin(const float2* w, int k, float2 s, float2 sc) {
+  const float cr = sc.x, ci = -sc.y;
+  const float er = 0.5f * (s.x + cr), ei = 0.5f * (s.y + ci);
+  const float dr = 0.5f * (s.x - cr), di = 0.5f * (s.y - ci);
+  const float2 wk = __ldg(w + k);  // conj(w^k) = (wc, ws)
+  const float wc = wk.x, ws = -wk.y;
+  const float orr = dr * wc - di * ws, oi = dr * ws + di * wc;
+  return make_float2(er - oi, ei + orr);
+}
+
+// irfft_stockham's first pass with the untangle (above), its points stored
+// through `store` (the exchange, or the scaled row for a one-pass row);
+// kOne: the row is one group (m = RS), its own partner.
+template <int RS, bool kOne, class Store>
+__device__ __forceinline__ void retangle_pass(const asp::FftArgs& a, int row0, int rows,
+                                              int log2m, Store store, bool swz_out,
+                                              const float2* tw) {
+  constexpr int rs = asp::pass_bits(RS);
+  const int m = 1 << log2m, pw = log2m - rs;
+  const int lu = pw > 0 ? pw - 1 : 0;  // log2 of the units a row
+  const float2* w = reinterpret_cast<const float2*>(a.tw);
+  int wsw[rs];
+  asp::stockham_write_offsets<RS>(wsw, log2m, swz_out);
+  for (int u = threadIdx.x; u < rows << lu; u += blockDim.x) {
+    const int row = u >> lu, q = u & ((1 << lu) - 1);
+    const float* sr = a.in_r + static_cast<size_t>(row0 + row) * (m + 1);
+    const float* si = a.in_i + static_cast<size_t>(row0 + row) * (m + 1);
+    const bool own = q == 0;  // groups 0 and 2^(pw-1): each its own partner
+    const float2 sm = make_float2(__ldg(sr + m), 0.0f);  // S[m], the mirror of S[0]
+    float2 s[RS];
+#pragma unroll
+    for (int j = 0; j < RS; ++j) {
+      s[j] = make_float2(__ldg(sr + ((j << pw) | q)), __ldg(si + ((j << pw) | q)));
+    }
+    if (own) s[0].y = 0.0f;  // Im S[0]
+    if constexpr (kOne) {
+      float2 z[RS];
+#pragma unroll
+      for (int j = 0; j < RS; ++j) z[j] = retangle_bin(w, j, s[j], j == 0 ? sm : s[RS - j]);
+      asp::stockham_pass<RS>(z, tw, 0, 0);
+      asp::stockham_put<RS>(z, row << log2m, swz_out, wsw, store);
+      continue;
+    }
+    const int q2 = own ? 1 << (pw - 1) : (1 << pw) - q;
+    float2 t[RS];
+#pragma unroll
+    for (int j = 0; j < RS; ++j) {
+      t[j] = make_float2(__ldg(sr + ((j << pw) | q2)), __ldg(si + ((j << pw) | q2)));
+    }
+    float2 z[RS], y[RS];
+#pragma unroll
+    for (int j = 0; j < RS; ++j) {
+      const float2 sc = j == 0 ? (own ? sm : t[RS - 1]) : own ? s[RS - j] : t[RS - 1 - j];
+      const float2 tc = own ? t[RS - 1 - j] : s[RS - 1 - j];
+      z[j] = retangle_bin(w, (j << pw) | q, s[j], sc);
+      y[j] = retangle_bin(w, (j << pw) | q2, t[j], tc);
+    }
+    asp::stockham_pass<RS>(z, tw, 0, 0);
+    asp::stockham_put<RS>(z, (row << log2m) | q, swz_out, wsw, store);
+    asp::stockham_pass<RS>(y, tw, 0, 0);
+    asp::stockham_put<RS>(y, (row << log2m) | q2, swz_out, wsw, store);
+  }
+}
+
+// Three CTAs an SM (at most 80 registers) where the exchange lets three in:
+// the first pass holds two groups' points and their bins, and at RS = 8
+// ptxas would take 106 registers (two CTAs) where it now spills 28 bytes.
+template <int R, int RS>
+__global__ void __launch_bounds__(kThreads, R == 16 && RS < 16 ? 3 : 1)
+    irfft_stockham_kernel(asp::FftArgs a) {
+  extern __shared__ float4 smem[];
+  constexpr int rs = asp::pass_bits(RS);
+  const int m = a.n / 2, log2m = log2i(m);
+  const int row0 = blockIdx.x * a.rows;
+  const int rows = min(a.rows, a.batch - row0);
+  const float2* tw = reinterpret_cast<const float2*>(a.table);
+  float* buf = a.scratch != nullptr
+                   ? a.scratch + static_cast<size_t>(blockIdx.x) * a.rows * 4 * m
+                   : reinterpret_cast<float*>(smem);
+  const int plane = a.rows * m;
+  const float inv = 1.0f / static_cast<float>(m);
+  float2* yo = reinterpret_cast<float2*>(a.out_r) + static_cast<size_t>(row0) * m;
+  const auto scaled = [yo, inv](int i, float2 v) { yo[i] = make_float2(v.x * inv, v.y * inv); };
+  if constexpr (R == RS) {  // m <= 16: one pass
+    retangle_pass<RS, true>(a, row0, rows, log2m, scaled, false, tw);
+    return;
+  }
+  retangle_pass<RS, false>(a, row0, rows, log2m, asp::PlanarOut{buf, buf + plane}, true, tw);
+  __syncthreads();
+  const float* src = buf;
+  int s0 = rs, p = 1;
+  if (((log2m - rs) & 3) == 3) {  // where log2 m is a multiple of 4
+    float* dst = buf + 2 * plane;
+    asp::stockham_groups<8>(rows, log2m, s0, asp::PlanarIn{src, src + plane}, true,
+                            asp::PlanarOut{dst, dst + plane}, true, tw);
+    __syncthreads();
+    src = dst;
+    s0 += 3;
+    ++p;
+  }
+  for (;; s0 += 4, ++p) {
+    const asp::PlanarIn in{src, src + plane};
+    if (s0 + 4 >= log2m) {
+      asp::stockham_groups<R>(rows, log2m, s0, in, true, scaled, false, tw);
+      break;
+    }
+    float* dst = buf + (p & 1) * 2 * plane;
+    asp::stockham_groups<R>(rows, log2m, s0, in, true, asp::PlanarOut{dst, dst + plane}, true,
+                            tw);
+    __syncthreads();
+    src = dst;
+  }
+}
+
+enum Kind { kComplex, kRfft, kIrfft };
+
+template <int R, int RS>
+void (*kind_kernel(Kind kind))(asp::FftArgs) {
+  return kind == kComplex ? fft_stockham_kernel<R, RS>
+         : kind == kRfft  ? rfft_stockham_kernel<R, RS>
+                          : irfft_stockham_kernel<R, RS>;
+}
+
+// The instantiation for an m-point transform: R = m below 16 points, else
+// 16 with a shorter pass of RS = 2^(log2 m mod 4) points (16 where that is
+// 0; the real kernels pair their untangle pass's groups, so past 16 points
+// they take RS = 2 there, after a pass of 8).
+void (*stockham_kernel(Kind kind, int m))(asp::FftArgs) {
+  const int short_pass = __builtin_ctz(static_cast<unsigned>(m)) % 4;
+  return m == 2 ? kind_kernel<2, 2>(kind)
+         : m == 4 ? kind_kernel<4, 4>(kind)
+         : m == 8 ? kind_kernel<8, 8>(kind)
+         : short_pass == 1 || (short_pass == 0 && kind != kComplex && m > 16)
+             ? kind_kernel<16, 2>(kind)
+         : short_pass == 2 ? kind_kernel<16, 4>(kind)
+         : short_pass == 3 ? kind_kernel<16, 8>(kind)
+                           : kind_kernel<16, 16>(kind);
+}
+
 int launch(void (*kernel)(asp::FftArgs), const asp::FftArgs* a, int smem_bytes,
            int device, void* stream, int threads = kThreads) {
   cudaError_t err = cudaSetDevice(device);
@@ -1031,23 +1198,15 @@ extern "C" {
 // Each launches on `stream` (a cudaStream_t) and returns cudaGetLastError()
 // after the launch: 0 on success.  Nothing is synchronized or allocated.
 int asp_fft_stockham(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {
-  const int n = a->n, short_pass = __builtin_ctz(static_cast<unsigned>(n)) % 4;
-  void (*kernel)(asp::FftArgs) = n == 2 ? fft_stockham_kernel<2, 2>
-                                 : n == 4 ? fft_stockham_kernel<4, 4>
-                                 : n == 8 ? fft_stockham_kernel<8, 8>
-                                 : short_pass == 1 ? fft_stockham_kernel<16, 2>
-                                 : short_pass == 2 ? fft_stockham_kernel<16, 4>
-                                 : short_pass == 3 ? fft_stockham_kernel<16, 8>
-                                                   : fft_stockham_kernel<16, 16>;
-  return launch(kernel, a, smem_bytes, device, stream);
+  return launch(stockham_kernel(kComplex, a->n), a, smem_bytes, device, stream);
 }
 
 int asp_rfft_stockham(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {
-  return launch(rfft_stockham_kernel, a, smem_bytes, device, stream);
+  return launch(stockham_kernel(kRfft, a->n / 2), a, smem_bytes, device, stream);
 }
 
 int asp_irfft_stockham(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {
-  return launch(irfft_stockham_kernel, a, smem_bytes, device, stream);
+  return launch(stockham_kernel(kIrfft, a->n / 2), a, smem_bytes, device, stream);
 }
 
 int asp_fft_fourstep(const asp::FftArgs* a, int smem_bytes, int device, void* stream) {

@@ -1,7 +1,8 @@
 // Radix-2 stages held in registers, for Hopper (sm_90a): the
 // decimation-in-time passes of fft_radix2_lanes and fft_radix2_stages, the
 // constant-geometry (Pease) passes of fft_pease_lanes, and the self-sorting
-// (Stockham) passes of fft_stockham_lanes and fft_stockham_manual.
+// (Stockham) passes of fft_stockham_lanes, fft_stockham_manual and the
+// half-size transforms of rfft_stockham and irfft_stockham.
 //
 // Decimation in time.  A thread holds R = 2^r points of a row and runs up
 // to r consecutive stages on them with no barrier; points go through a
@@ -73,7 +74,14 @@
 // the Stockham passes (the strided reads, the writes at stride n/R) then
 // touches 32 banks for n up to 2^13 (tests/test_torch_fft_stockham_regs.py
 // checks every pattern); dit_swizzle leaves the later passes' reads in
-// conflict.
+// conflict.  A pass reads its points through a loader and writes them
+// through a storer, and its halves are routines of their own
+// (stockham_group: the loads and the stages of one group; stockham_put: its
+// stores), so the real kernels run the same body on their own ends:
+// rfft_stockham's pack (z[k] = x[2k] + i x[2k+1], one float2 load) and its
+// last pass, which untangles two groups in registers; irfft_stockham's
+// first pass, which untangles two groups as it loads them, and its scaled,
+// interleaved store.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,6 +91,11 @@ namespace asp {
 // k < 2^bits (bits <= 4) bit-reversed: a constant for a constant k
 __device__ __forceinline__ constexpr int brev_bits(int k, int bits) {
   return (((k & 1) << 3) | ((k & 2) << 1) | ((k & 4) >> 1) | ((k & 8) >> 3)) >> (4 - bits);
+}
+
+// log2 of a pass's points a group (2, 4, 8 or 16)
+__device__ __forceinline__ constexpr int pass_bits(int rp) {
+  return rp == 2 ? 1 : rp == 4 ? 2 : rp == 8 ? 3 : 4;
 }
 
 __device__ __forceinline__ int dit_index(int g, int j, int f, int r) {
@@ -163,7 +176,7 @@ __device__ __forceinline__ void pease_pass(float2 (&v)[R], const float2* tw, int
 // stay in registers.
 template <int R>
 __device__ __forceinline__ void stockham_pass(float2 (&v)[R], const float2* tw, int s0, int l) {
-  constexpr int r = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+  constexpr int r = pass_bits(R);
   static_assert(R == 1 << r, "R is 2, 4, 8 or 16");
 #pragma unroll
   for (int b = 0; b < r; ++b) {
@@ -182,56 +195,121 @@ __device__ __forceinline__ void stockham_pass(float2 (&v)[R], const float2* tw, 
   }
 }
 
-// One Stockham pass of RP = 2^rp points a group from stage s0 over `rows`
-// rows of n = 2^log2n points: group v is row v >> lg, q = v mod 2^lg (lg =
-// log2n - rp), q = l 2^pw + p.  It reads slot j from (sr, si) at the row's
-// index l 2^(log2n - s0) + j 2^pw + p, runs stockham_pass, and writes slot j
-// to (dr, di) at index brev_rp(j) 2^lg + q.  Indices are relative to the
-// planes (row n + index), through pease_swizzle where `swz_in`/`swz_out`
-// (the exchange) and as they are elsewhere (device memory, or the copy
-// ring's slot in natural order).  Every thread of the block calls it.
+// A pair of re/im planes, read and written at an index.
+struct PlanarIn {
+  const float* re;
+  const float* im;
+  __device__ __forceinline__ float2 operator()(int i) const { return make_float2(re[i], im[i]); }
+};
+
+struct PlanarOut {
+  float* re;
+  float* im;
+  __device__ __forceinline__ void operator()(int i, float2 v) const {
+    re[i] = v.x;
+    im[i] = v.y;
+  }
+};
+
+// The read side of one group of a Stockham pass of RP = 2^rp points a group
+// from stage s0 over rows of n = 2^log2n points: group v is row v >> lg, q
+// = v mod 2^lg (lg = log2n - rp), q = l 2^pw + p.  It reads slot j as
+// load(i) at the row's index l 2^(log2n - s0) + j 2^pw + p (`rsw` holds
+// slot bit k's offset, swizzled where `swz_in`) and runs stockham_pass.
+// Returns the group's write base, row n + q: slot j belongs at base +
+// brev_rp(j) 2^lg.
+template <int RP, class Load>
+__device__ __forceinline__ int stockham_group(float2 (&x)[RP], int v, int log2n, int s0,
+                                              Load load, bool swz_in,
+                                              const int (&rsw)[pass_bits(RP)],
+                                              const float2* tw) {
+  constexpr int rp = pass_bits(RP);
+  const int lg = log2n - rp, pw = lg - s0;
+  const int row = v >> lg, q = v & ((1 << lg) - 1);
+  const int l = q >> pw;
+  const int ri = (row << log2n) | (l << (log2n - s0)) | (q & ((1 << pw) - 1));
+  const int i0 = swz_in ? pease_swizzle(ri) : ri;
+#pragma unroll
+  for (int j = 0; j < RP; ++j) {
+    int i = i0;
+#pragma unroll
+    for (int k = 0; k < rp; ++k) {
+      if (j & (1 << k)) i ^= rsw[k];
+    }
+    x[j] = load(i);
+  }
+  stockham_pass<RP>(x, tw, s0, l);
+  return (row << log2n) | q;
+}
+
+// Slot bit k's read offset 2^(pw + k) of a pass from s0, swizzled where `swz`.
+template <int RP>
+__device__ __forceinline__ void stockham_read_offsets(int (&rsw)[pass_bits(RP)], int log2n,
+                                                      int s0, bool swz) {
+  const int pw = log2n - pass_bits(RP) - s0;
+#pragma unroll
+  for (int k = 0; k < pass_bits(RP); ++k) {
+    rsw[k] = swz ? pease_swizzle(1 << (pw + k)) : 1 << (pw + k);
+  }
+}
+
+// Slot bit k's write offset 2^(lg + k) of a pass, swizzled where `swz`.
+template <int RP>
+__device__ __forceinline__ void stockham_write_offsets(int (&wsw)[pass_bits(RP)], int log2n,
+                                                       bool swz) {
+  const int lg = log2n - pass_bits(RP);
+#pragma unroll
+  for (int k = 0; k < pass_bits(RP); ++k) {
+    wsw[k] = swz ? pease_swizzle(1 << (lg + k)) : 1 << (lg + k);
+  }
+}
+
+// The write side of one group of a pass: slot j as store(i, x[j]) at index
+// wo + brev_rp(j) 2^lg (`wsw` from stockham_write_offsets), through
+// pease_swizzle where `swz_out`.
+template <int RP, class Store>
+__device__ __forceinline__ void stockham_put(const float2 (&x)[RP], int wo, bool swz_out,
+                                             const int (&wsw)[pass_bits(RP)], Store store) {
+  constexpr int rp = pass_bits(RP);
+  const int o0 = swz_out ? pease_swizzle(wo) : wo;
+#pragma unroll
+  for (int j = 0; j < RP; ++j) {
+    int i = o0;
+#pragma unroll
+    for (int k = 0; k < rp; ++k) {
+      if (brev_bits(j, rp) & (1 << k)) i ^= wsw[k];
+    }
+    store(i, x[j]);
+  }
+}
+
+// One Stockham pass of RP points a group from stage s0 over `rows` rows:
+// stockham_group and stockham_put on every group.  Indices are relative to
+// the CTA's rows (row n + index), through pease_swizzle where `swz_in`/
+// `swz_out` (the exchange) and as they are elsewhere (device memory, or the
+// copy ring's slot in natural order).  Every thread of the block calls it.
+template <int RP, class Load, class Store>
+__device__ __forceinline__ void stockham_groups(int rows, int log2n, int s0, Load load,
+                                                bool swz_in, Store store, bool swz_out,
+                                                const float2* tw) {
+  constexpr int rp = pass_bits(RP);
+  int rsw[rp], wsw[rp];
+  stockham_read_offsets<RP>(rsw, log2n, s0, swz_in);
+  stockham_write_offsets<RP>(wsw, log2n, swz_out);
+  for (int v = threadIdx.x; v < rows << (log2n - rp); v += blockDim.x) {
+    float2 x[RP];
+    const int wo = stockham_group<RP>(x, v, log2n, s0, load, swz_in, rsw, tw);
+    stockham_put<RP>(x, wo, swz_out, wsw, store);
+  }
+}
+
+// The same pass from the planes (sr, si) to the planes (dr, di).
 template <int RP>
 __device__ __forceinline__ void stockham_groups(int rows, int log2n, int s0, const float* sr,
                                                 const float* si, bool swz_in, float* dr,
                                                 float* di, bool swz_out, const float2* tw) {
-  constexpr int rp = RP == 2 ? 1 : RP == 4 ? 2 : RP == 8 ? 3 : 4;
-  const int lg = log2n - rp, pw = lg - s0;
-  // the (swizzled) offsets of slot bit k, read side and write side
-  int rsw[rp], wsw[rp];
-#pragma unroll
-  for (int k = 0; k < rp; ++k) {
-    rsw[k] = swz_in ? pease_swizzle(1 << (pw + k)) : 1 << (pw + k);
-    wsw[k] = swz_out ? pease_swizzle(1 << (lg + k)) : 1 << (lg + k);
-  }
-  for (int v = threadIdx.x; v < rows << lg; v += blockDim.x) {
-    const int row = v >> lg, q = v & ((1 << lg) - 1);
-    const int l = q >> pw;
-    const int ri = (row << log2n) | (l << (log2n - s0)) | (q & ((1 << pw) - 1));
-    const int i0 = swz_in ? pease_swizzle(ri) : ri;
-    float2 x[RP];
-#pragma unroll
-    for (int j = 0; j < RP; ++j) {
-      int i = i0;
-#pragma unroll
-      for (int k = 0; k < rp; ++k) {
-        if (j & (1 << k)) i ^= rsw[k];
-      }
-      x[j] = make_float2(sr[i], si[i]);
-    }
-    stockham_pass<RP>(x, tw, s0, l);
-    const int wo = (row << log2n) | q;
-    const int o0 = swz_out ? pease_swizzle(wo) : wo;
-#pragma unroll
-    for (int j = 0; j < RP; ++j) {
-      int i = o0;
-#pragma unroll
-      for (int k = 0; k < rp; ++k) {
-        if (brev_bits(j, rp) & (1 << k)) i ^= wsw[k];
-      }
-      dr[i] = x[j].x;
-      di[i] = x[j].y;
-    }
-  }
+  stockham_groups<RP>(rows, log2n, s0, PlanarIn{sr, si}, swz_in, PlanarOut{dr, di}, swz_out,
+                      tw);
 }
 
 }  // namespace asp

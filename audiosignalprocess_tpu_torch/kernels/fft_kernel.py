@@ -52,9 +52,8 @@ from audiosignalprocess_tpu_torch.utils.device import upload
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 ROW_POINTS = 1024
-"""rfft_stockham's and irfft_stockham's CTA, and fft_stockham_manual's
-tile, take max(1, ROW_POINTS / m) rows of an m-point transform, so short
-transforms still give each CTA a few hundred butterflies per stage."""
+"""fft_stockham_manual's tile takes max(1, ROW_POINTS / n) rows of an
+n-point transform: one thread per 16 points of a tile."""
 
 
 def _pow2(n: int, least: int) -> None:
@@ -67,7 +66,9 @@ two warp items of 32 rows on the tensor cores."""
 
 RADIX2_POINTS = 4096
 """fft_radix2_lanes', fft_pease_lanes' and fft_stockham_lanes' CTA takes
-max(1, RADIX2_POINTS / n) rows: 256 threads of 16 points each."""
+max(1, RADIX2_POINTS / n) rows (rfft_stockham's and irfft_stockham's
+max(1, RADIX2_POINTS / m) rows of their m = n/2-point transform): 256
+threads of 16 points each."""
 
 PEASE_MAX_N = 1 << 24
 """fft_pease_lanes' bound, kept from the JAX kernel (its f32 iota
@@ -343,19 +344,6 @@ class FftArgs(ctypes.Structure):
         + [(name, ctypes.c_int) for name in ("batch", "n", "sign", "rows")])
 
 
-def launch_geometry(m: int, table_n: int) -> tuple[int, int, bool]:
-    """(rows per CTA, dynamic shared memory, in shared memory?) of an
-    m-point transform with a table_n-point twiddle table: the twiddles
-    (table_n/2 complex) and two ping-pong buffers of m complex points per
-    row.  A transform too long for shared memory runs one row per CTA on
-    ping-pong buffers in device memory."""
-    rows = max(1, ROW_POINTS // m)
-    smem = 8 * (table_n // 2) + 16 * m * rows
-    if smem <= SMEM_LIMIT:
-        return rows, smem, True
-    return 1, 0, False
-
-
 def fourstep_geometry(n: int) -> tuple[int, int, int]:
     """(rows per CTA, dynamic shared memory, scratch floats per CTA) of
     fft_fourstep at n points, as the kernel lays them out
@@ -411,35 +399,59 @@ def stockham_passes(n: int) -> list[tuple[int, int]]:
     return [(s0, min(4, big_l - s0)) for s0 in range(0, big_l, 4)]
 
 
-def stockham_geometry(n: int) -> tuple[int, int, int]:
+def stockham_geometry(n: int, passes: int | None = None) -> tuple[int, int, int]:
     """(rows per CTA, dynamic shared memory, scratch floats per CTA) of
-    fft_stockham_lanes at n points: RADIX2_POINTS points a CTA (16 a
-    thread of 256) in passes of four stages (a shorter last one); the
-    exchange buffers of its rows (two of 2 n floats a row; one for two
-    passes, none for one) in shared memory where they fit, else both in a
-    scratch buffer in device memory.  The kernel reads its per-stage table
-    from device memory."""
+    fft_stockham_lanes at n points, in ``passes`` register passes (by
+    default ``stockham_passes(n)``'s): RADIX2_POINTS points a CTA (16 a
+    thread of 256); the exchange buffers of its rows (two of 2 n floats a
+    row; one for two passes, none for one) in shared memory where they fit,
+    else both in a scratch buffer in device memory.  The kernel reads its
+    per-stage table from device memory."""
     rows = max(1, RADIX2_POINTS // n)
-    passes = len(stockham_passes(n))
+    passes = len(stockham_passes(n)) if passes is None else passes
     smem = min(2, passes - 1) * 8 * rows * n
     if smem <= SMEM_LIMIT:
         return rows, smem, 0
     return rows, 0, 4 * rows * n
 
 
+def real_stockham_passes(n: int, inverse: bool = False) -> list[tuple[int, int]]:
+    """(first stage, stages) of each register pass of rfft_stockham (or,
+    ``inverse``, irfft_stockham) at n real points, on the m = n/2-point
+    transform: passes of four stages and the untangle's pass of rs = log2 m
+    mod 4 stages, whose groups go in pairs, last in rfft and first in
+    irfft.  Where log2 m is a multiple of 4, rs = 1 and a pass of three
+    takes the other stages of a fourth pass, first in rfft and second in
+    irfft (where each keeps the exchange free of bank conflicts).  m <= 16
+    runs one pass of all its stages."""
+    big_l = (n // 2).bit_length() - 1
+    if big_l <= 4:
+        return [(0, big_l)]
+    rs = big_l % 4 or 1
+    mid = [3] if (big_l - rs) % 4 else []
+    full = [4] * ((big_l - rs) // 4)
+    sizes = [rs] + mid + full if inverse else mid + full + [rs]
+    return [(sum(sizes[:i]), r) for i, r in enumerate(sizes)]
+
+
+@functools.lru_cache(maxsize=64)
+def real_stockham_geometry(n: int) -> tuple[int, int, int]:
+    """(rows per CTA, dynamic shared memory, scratch floats per CTA) of
+    rfft_stockham and irfft_stockham at n real points: ``stockham_geometry``
+    of the m = n/2-point transform in ``real_stockham_passes(n)``'s passes
+    (both kernels read their first pass from device memory and write their
+    last there; scratch past m = 8192)."""
+    return stockham_geometry(n // 2, len(real_stockham_passes(n)))
+
+
 def _launch(name: str, what: str, in_r, in_i, out_r, out_i, batch: int, n: int,
-            m: int, sign: int, dev: torch.device, table: torch.Tensor | None = None,
-            geometry: tuple[int, int, int] | None = None) -> None:
-    """Launch one of the kernels on ``batch`` rows of an m-point transform
-    (n is the row length the caller sees; ``table`` a kernel's own table;
-    ``geometry`` its own (rows, shared memory, scratch floats per CTA),
-    else ``launch_geometry``'s)."""
+            sign: int, dev: torch.device, table: torch.Tensor,
+            geometry: tuple[int, int, int]) -> None:
+    """Launch one of the kernels on ``batch`` rows (n is the row length the
+    caller sees; ``table`` the kernel's own table, ``geometry`` its (rows,
+    shared memory, scratch floats per CTA))."""
     check(0 < batch < 2 ** 31, f"{batch} rows: 1..2^31-1 per launch")
-    if geometry is None:
-        rows, smem, shared = launch_geometry(m, n)
-        per_cta = 0 if shared else 4 * m * rows
-    else:
-        rows, smem, per_cta = geometry
+    rows, smem, per_cta = geometry
     tw = fft_twiddles(n, dev)
     scratch = (None if per_cta == 0 else
                torch.empty((-(-batch // rows), per_cta), dtype=torch.float32, device=dev))
@@ -500,7 +512,7 @@ def stage_table(n: int, sign: int, device: torch.device) -> torch.Tensor:
 
 
 def _launch_complex(fn, symbol: str, xr: torch.Tensor, xi: torch.Tensor, sign: float,
-                    table=None, geometry=None):
+                    table, geometry):
     """Launch the complex kernel ``symbol`` on planar CUDA float32 rows and
     count it on ``fn``; ``table(n, sign, device)`` gives its own table,
     ``geometry(n)`` its own launch geometry."""
@@ -510,9 +522,8 @@ def _launch_complex(fn, symbol: str, xr: torch.Tensor, xi: torch.Tensor, sign: f
     s = -1 if sign < 0 else 1
     xr, xi = xr.contiguous(), xi.contiguous()
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    _launch(symbol, name, xr, xi, yr, yi, b, n, n, s, xr.device,
-            None if table is None else table(n, s, xr.device),
-            None if geometry is None else geometry(n))
+    _launch(symbol, name, xr, xi, yr, yi, b, n, s, xr.device, table(n, s, xr.device),
+            geometry(n))
     fn.launches += 1
     return yr, yi
 
@@ -656,19 +667,25 @@ def rfft_stockham(x: torch.Tensor):
     of two >= 4.
 
     A CPU tensor runs ``rfft_stockham_ref``.  A CUDA float32 tensor
-    launches the kernel (pack, n/2-point stages and untangle in one pass
-    through shared memory).  Any other tensor raises."""
+    launches the kernel: ``fft_stockham_lanes``' register passes on the
+    n/2-point rows (``real_stockham_passes``, ``real_stockham_geometry``),
+    the even/odd pack in the first pass's loads and the untangle in the
+    last pass's registers, two groups a thread whose bins mirror each
+    other's; twiddles from the n/2-point per-stage table
+    (``stockham_table``) and the n/2-point untangle table.  Any other
+    tensor raises."""
     check(x.ndim == 2, f"rfft_stockham takes (B, n) rows, got {tuple(x.shape)}")
     b, n = x.shape
     _pow2(n, 4)
     if x.device.type == "cpu":
         return rfft_stockham_ref(x)
     check_cuda_f32(x, "rfft_stockham", "ops.fft routes float64 to torch.fft")
-    x = x.contiguous()
-    sr = torch.empty((b, n // 2 + 1), dtype=torch.float32, device=x.device)
+    x = _aligned(x)  # read as float2 pairs
+    dev = x.device
+    sr = torch.empty((b, n // 2 + 1), dtype=torch.float32, device=dev)
     si = torch.empty_like(sr)
-    _launch("asp_rfft_stockham", "rfft_stockham", x, None, sr, si, b, n, n // 2, -1,
-            x.device)
+    _launch("asp_rfft_stockham", "rfft_stockham", x, None, sr, si, b, n, -1, dev,
+            stockham_table(n // 2, -1, dev), real_stockham_geometry(n))
     rfft_stockham.launches += 1
     return sr, si
 
@@ -682,8 +699,11 @@ def irfft_stockham(sr: torch.Tensor, si: torch.Tensor, n: int):
     ignored.
 
     A CPU tensor runs ``irfft_stockham_ref``.  A CUDA float32 tensor
-    launches the kernel (untangle, n/2-point inverse stages, scale and
-    interleave in one pass).  Any other tensor raises."""
+    launches the kernel: ``fft_stockham_lanes``' register passes on the
+    n/2-point rows (``real_stockham_passes(n, inverse=True)``,
+    ``real_stockham_geometry``), the untangle in the first pass's loads
+    (two groups a thread, each bin read once), the scale and the re/im
+    interleave in the last pass's stores.  Any other tensor raises."""
     _planar_pair(sr, si, "irfft_stockham")
     b, nb = sr.shape
     _pow2(n, 4)
@@ -692,9 +712,10 @@ def irfft_stockham(sr: torch.Tensor, si: torch.Tensor, n: int):
         return irfft_stockham_ref(sr, si, n)
     check_cuda_f32(sr, "irfft_stockham", "ops.fft routes float64 to torch.fft")
     sr, si = sr.contiguous(), si.contiguous()
-    y = torch.empty((b, n), dtype=torch.float32, device=sr.device)
-    _launch("asp_irfft_stockham", "irfft_stockham", sr, si, y, None, b, n, n // 2, 1,
-            sr.device)
+    dev = sr.device
+    y = torch.empty((b, n), dtype=torch.float32, device=dev)
+    _launch("asp_irfft_stockham", "irfft_stockham", sr, si, y, None, b, n, 1, dev,
+            stockham_table(n // 2, 1, dev), real_stockham_geometry(n))
     irfft_stockham.launches += 1
     return y
 

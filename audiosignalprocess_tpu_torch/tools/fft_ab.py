@@ -1,19 +1,34 @@
-"""Paired A/B of the Stockham FFT kernels between two checkouts, on one card.
+"""Paired A/B of the Stockham FFT kernels between checkouts, on one card.
 
-    python -m audiosignalprocess_tpu_torch.tools.fft_ab PARENT CHANGE [--out DIR]
+    python -m audiosignalprocess_tpu_torch.tools.fft_ab PARENT CHANGE [MORE ...]
+        [--out DIR] [--quick] [--sizes N ...]
 
-runs, from each checkout's own ``chip_smoke.py`` and package, phases 14 to
-16 (the FFT kernels' checks against their float64 plain versions and
-torch.fft, the entry points' launches, and phase 16's times of
-``fft_stockham_lanes``, ``rfft_stockham`` and ``irfft_stockham`` beside a
-copy probe and torch.fft) and phase 25 (``fft_stockham_manual``'s checks,
-the slice under each pipe, and its round-robin times of the grid kernel,
-the ring and torch.fft, each bracketed by its own copy probe), in turns
-parent, change, change, parent: one process each, so the two versions of
-the package never share one.  Each checkout builds its kernels at first
-use.  Every process's output goes to ``DIR/fft_ab_<i>_<label>.log``; the
-timing lines are printed, prefixed with the run.  Needs a CUDA device;
-exits non-zero if a run fails.
+runs, from each checkout's own ``chip_smoke.py`` and package:
+
+- phases 14 to 16 (the FFT kernels' checks against their float64 plain
+  versions and torch.fft, the entry points' launches, phase 16's times of
+  ``fft_stockham_lanes``, ``rfft_stockham`` and ``irfft_stockham`` beside a
+  copy probe and torch.fft) and phase 25 (``fft_stockham_manual``'s checks,
+  the slice under each pipe, the grid kernel, the ring and torch.fft timed
+  round-robin);
+- then this file's own timing, the same in every checkout (lines ``[ab
+  real]``): on 4096 rows of each ``--sizes`` (1024 and 4096 unless told),
+  ``rfft_stockham``, ``torch.fft.rfft``, ``irfft_stockham``,
+  ``torch.fft.irfft``, the complex kernel on the same points and
+  ``ops.fft.rfft``/``irfft`` (the kernels with the complex tensor's glue
+  around them), round-robin: chip_smoke's ``time_ms`` (events around
+  back-to-back calls, which a launch's host cost can pace) as a share of
+  a paired copy probe, and the device time of
+  launches queued behind ``torch.cuda._sleep``, which the host's launch
+  cost cannot hide in; ``[ab ptxas]`` lines give the real kernels'
+  registers and spills where the process built them.
+
+``--quick`` runs only the timing.  The checkouts run in mirrored turns
+(parent, change, change, parent; A, B, C, C, B, A for three), one process
+each, so two versions of the package never share one; each builds its
+kernels at first use.  Every process's output goes to
+``DIR/fft_ab_<i>_<label>.log``; the timing lines are printed, prefixed
+with the run.  Needs a CUDA device; exits non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -42,8 +57,15 @@ from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import (
 from audiosignalprocess_tpu_torch.kernels.resample_kernel import resample_mac
 from audiosignalprocess_tpu_torch.kernels.stretch_kernel import stretch_step_fused
 from audiosignalprocess_tpu_torch.ops.fir import design_fir
+from audiosignalprocess_tpu_torch.ops import fft as ops_fft
 
-_build.build()
+log = _build.build()[1].splitlines()
+for i, line in enumerate(log):  # ptxas's report of the real kernels, where this call built them
+    if "Compiling entry function" in line and "rfft_stockham_kernel" in line:
+        name = line.split("'")[1]
+        used = next((x.split(":", 1)[-1].strip() for x in log[i + 1:i + 6] if "Used" in x), "")
+        spill = next((x.split(":", 1)[-1].strip() for x in log[i + 1:i + 6] if "spill" in x), "")
+        print(f"[ab ptxas] {name}: {used}; {spill}")
 kernels = (fir_noise_gate_fused, fir_gate_step_fused, gate_step_fused, overlap_save_fused,
            fir_mac, resample_mac, resample_fir_gate_fused, res_fir_gate_step_fused,
            noise_gate_fused, fk.fft_stockham_lanes, fk.rfft_stockham, fk.irfft_stockham,
@@ -64,28 +86,91 @@ rng = np.random.default_rng(0)
 h = design_fir(cs.TAPS, 0.3)
 x = torch.as_tensor(cs.tone_burst(rng, *cs.HEADLINE), dtype=torch.float32, device=dev)
 record = collections.defaultdict(dict)
-cs.gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x, h)
-cs.fft_manual_phase(dev, smi, record, kernels, reset_counts, h)
+if "--quick" not in sys.argv:
+    cs.gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x, h)
+    cs.fft_manual_phase(dev, smi, record, kernels, reset_counts, h)
+del x
+
+src = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)  # 256 MB
+dst = torch.empty_like(src)
+
+
+def probe():
+    return 2 * src.numel() * 4 / cs.time_ms(lambda: dst.copy_(src), reps=10, warmup=2) * 1e3
+
+
+def queued_ms(fn, reps=20):
+    # device time of fn() over reps launches queued while the card sleeps
+    # (about 5 ms at 2 GHz): the events bracket device work only
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10 ** 7)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+sizes = [int(a) for a in sys.argv[1:] if a.isdigit()] or [1024, 4096]
+for n in sizes:
+    xr = torch.randn(4096, n, device=dev)
+    sr, si = fk.rfft_stockham(xr)
+    spec = torch.complex(sr, si)
+    zr, zi = sr[:, : n // 2].contiguous(), si[:, : n // 2].contiguous()  # the same points, complex
+    nbytes = 4 * 4096 * (n + 2 * (n // 2 + 1))
+    arms = {"rfft_stockham": lambda: fk.rfft_stockham(xr),
+            "torch.fft.rfft": lambda: torch.fft.rfft(xr),
+            "irfft_stockham": lambda: fk.irfft_stockham(sr, si, n),
+            "torch.fft.irfft": lambda: torch.fft.irfft(spec, n),
+            f"fft_stockham_lanes 4096x{n // 2}": lambda: fk.fft_stockham_lanes(zr, zi, -1.0),
+            "ops.fft.rfft": lambda: ops_fft.rfft(xr),
+            "ops.fft.irfft": lambda: ops_fft.irfft(spec, n)}
+    got = {arm: [] for arm in arms}
+    for _ in range(6):
+        for arm, fn in arms.items():
+            pre = probe()
+            ms = cs.time_ms(fn, reps=10, warmup=2)
+            post = probe()
+            got[arm].append((ms, nbytes / ms * 1e3 / (0.5 * (pre + post)), queued_ms(fn)))
+    print(f"[ab real] 4096x{n} f32 on {smi}, 6 reps round-robin, medians: " + "; ".join(
+        f"{arm} {np.median([r[0] for r in v]):.4f} ms = "
+        f"{np.median([r[1] for r in v]) * 100:.1f} % of the paired probe "
+        f"(reps {', '.join(f'{r[0]:.4f}' for r in v)}), queued device "
+        f"{np.median([r[2] for r in v]):.4f} ms (reps {', '.join(f'{r[2]:.4f}' for r in v)})"
+        for arm, v in got.items()))
 """
 
-SHOWN = ("[16 times] fft_stockham_lanes", "[16 times] copy probe", "[25 times]",
-         "[14 kernel] FFT worst", "[25 kernel] fft_stockham_manual worst")
+SHOWN = ("[16 times] fft_stockham_lanes", "[16 times] rfft_stockham",
+         "[16 times] irfft_stockham", "[16 times] bench.py", "[16 times] copy probe",
+         "[25 times]", "[14 kernel] FFT worst", "[14 real] worst",
+         "[25 kernel] fft_stockham_manual worst", "[ab real]", "[ab ptxas]")
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("parent", help="root of the parent's checkout")
-    p.add_argument("change", help="root of the change's checkout")
+    p.add_argument("roots", nargs="+", metavar="ROOT",
+                   help="checkout roots, the parent's first (two or more)")
     p.add_argument("--out", default="_scratch/fft_ab", help="directory for the runs' logs")
+    p.add_argument("--quick", action="store_true", help="only the [ab real] timing")
+    p.add_argument("--sizes", type=int, nargs="+", default=[1024, 4096],
+                   help="row lengths of the [ab real] timing (4096 rows each)")
     args = p.parse_args(argv)
+    if len(args.roots) < 2:
+        p.error("two or more checkouts")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     env = {k: v for k, v in os.environ.items() if k != "ASP_SK_PIPE"}
-    runs = (("parent", args.parent), ("change", args.change), ("change", args.change),
-            ("parent", args.parent))
-    for i, (label, root) in enumerate(runs):
-        proc = subprocess.run([sys.executable, "-c", CHILD], cwd=root, env=env,
-                              capture_output=True, text=True)
+    roots = args.roots + args.roots[::-1]
+    labels = ["parent", "change"] if len(args.roots) == 2 else [Path(r).name for r in args.roots]
+    labels = labels + labels[::-1]
+    child = ([sys.executable, "-c", CHILD] + (["--quick"] if args.quick else [])
+             + [str(n) for n in args.sizes])
+    for i, (label, root) in enumerate(zip(labels, roots)):
+        proc = subprocess.run(child, cwd=root, env=env, capture_output=True, text=True)
         log = out / f"fft_ab_{i}_{label}.log"
         log.write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
         for line in proc.stdout.splitlines():

@@ -72,8 +72,9 @@ JSON record, each kernel with its bound (``bound_ms``, ``bound_by``: the
 larger of its bytes over the memory rate and its float32 operations over
 the float32 peak, the H100 SXM's published figures in ``utils.metrics``) and,
 where one PyTorch call computes the same function, that call's time
-(``library_ms``); the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+(``library_ms``), and for the real FFT kernels both again on launches
+queued behind a sleep of the card (``device_ms``, ``library_device_ms``);
+the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 1 and prints no result.  Imports nothing of JAX.
 """
 
@@ -149,6 +150,59 @@ def time_ms(fn, reps=20, warmup=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def copy_probe(dev):
+    """() -> bytes/s of a 256 MB device copy (read + write), timed anew at
+    each call."""
+    src = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    return lambda: 2 * src.numel() * 4 / time_ms(lambda: dst.copy_(src), reps=10, warmup=2) * 1e3
+
+
+def queued_ms(fn, reps=20):
+    """Device time of fn() over reps calls queued while the card sleeps
+    (torch.cuda._sleep, about 5 ms at 2 GHz): the events bracket device
+    work only, so a kernel shorter than its launch's host cost is timed
+    as the card runs it."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10 ** 7)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def round_robin(arms, nbytes, probe, reps, timer=None):
+    """Time each arm (name: fn) ``reps`` times in turns, each timing
+    (``timer(fn)``, else time_ms over 10 calls) bracketed by its own copy
+    probe; per arm the medians (ms, bytes/s as a share of the mean of its
+    two probes) and every rep's ms, and the probes' range (bytes/s)."""
+    timer = timer or (lambda fn: time_ms(fn, reps=10, warmup=2))
+    got = {arm: [] for arm in arms}
+    probes = []
+    for _ in range(reps):
+        for arm, fn in arms.items():
+            pre = probe()
+            ms = timer(fn)
+            post = probe()
+            got[arm].append((ms, nbytes / ms * 1e3 / (0.5 * (pre + post))))
+            probes += [pre, post]
+    med = {arm: (float(np.median([r[0] for r in v])), float(np.median([r[1] for r in v])),
+                 [r[0] for r in v]) for arm, v in got.items()}
+    return med, (min(probes), max(probes))
+
+
+def round_robin_text(med, probes):
+    return "; ".join(f"{arm} {ms:.4f} ms = {frac * 100:.1f} % of the paired probe (reps "
+                     f"{', '.join(f'{r:.4f}' for r in each)} ms)"
+                     for arm, (ms, frac, each) in med.items()) + (
+        f"; probe {probes[0] / 1e12:.4f} to {probes[1] / 1e12:.4f} TB/s")
 
 
 def stream_ms(fn, reps=3):
@@ -477,6 +531,12 @@ def resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x48):
 FFT_SIZES = (2, 4, 8, 256, 1024, 4096)
 FFT_BATCHES = (1, 100, 4096)
 FFT_TIMED = 4096  # rows of the timed FFTs (benchmarks/roofline.py's sizes)
+# rfft_stockham and irfft_stockham on the register passes: with FFT_SIZES,
+# every pass count, each shorter last pass, the leading pass of three (n =
+# 512, 8192, 131072) and the scratch path (n = 32768, 131072)
+REAL_SIZES = (16, 32, 64, 128, 512, 2048, 8192, 16384, 32768, 131072)
+REAL_MIN_DB = 130.0  # the register kernels read >= 136 dB against float64
+REAL_TIMED = (1024, 4096)  # rows of FFT_TIMED, timed round-robin against torch.fft
 
 
 def fft_flops(n, transforms=1.0):
@@ -542,6 +602,29 @@ def gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_main, h):
     from audiosignalprocess_tpu_torch.pipeline import Chain, GateStage
     from audiosignalprocess_tpu_torch.utils.metrics import snr_db
 
+    def check_runs(runs, n, b, bar, worst):
+        """Launch each (kernel, launch, plain f64, torch.fft f64) once: its
+        SNR against both at least ``bar``, its shape, finite values and one
+        launch; the readings as text."""
+        parts = []
+        for kernel, launch, ref, lib_ref in runs:
+            before = kernel.launches
+            y = launch()
+            torch.cuda.synchronize()
+            snr, snr_lib = snr_db(ref, y), snr_db(lib_ref, y)
+            err = float((y.double() - ref).abs().max())
+            rec = record.setdefault(kernel.__name__, dict(max_abs_err=0.0, min_snr_db=np.inf))
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["min_snr_db"] = min(rec["min_snr_db"], snr)
+            worst[kernel.__name__] = min(worst.get(kernel.__name__, np.inf), snr, snr_lib)
+            parts.append(f"{kernel.__name__} {snr:.2f}/{snr_lib:.2f}")
+            if not (tuple(y.shape) == tuple(ref.shape) and bool(torch.isfinite(y).all())
+                    and min(snr, snr_lib) >= bar and kernel.launches == before + 1):
+                raise SystemExit(f"phase 14 failed: {kernel.__name__} n={n} b={b} "
+                                 f"snr={snr:.2f} snr_vs_torch_fft={snr_lib:.2f} (bar {bar}) "
+                                 f"launches={kernel.launches - before}")
+        return ", ".join(parts)
+
     # ---- phase 14: the four kernels vs their float64 plain versions
     worst = {}
     for n in FFT_SIZES:
@@ -565,29 +648,30 @@ def gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_main, h):
                 runs.append((fk.irfft_stockham,
                              lambda: fk.irfft_stockham(sr.float(), si.float(), n),
                              fk.irfft_stockham_ref(sr, si, n), xr))
-            parts = []
-            for kernel, launch, ref, lib_ref in runs:
-                before = kernel.launches
-                y = launch()
-                torch.cuda.synchronize()
-                snr, snr_lib = snr_db(ref, y), snr_db(lib_ref, y)
-                err = float((y.double() - ref).abs().max())
-                rec = record.setdefault(kernel.__name__, dict(max_abs_err=0.0, min_snr_db=np.inf))
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                rec["min_snr_db"] = min(rec["min_snr_db"], snr)
-                worst[kernel.__name__] = min(worst.get(kernel.__name__, np.inf), snr, snr_lib)
-                parts.append(f"{kernel.__name__} {snr:.2f}/{snr_lib:.2f}")
-                if not (tuple(y.shape) == tuple(ref.shape) and bool(torch.isfinite(y).all())
-                        and min(snr, snr_lib) >= LINEAR_MIN_DB
-                        and kernel.launches == before + 1):
-                    raise SystemExit(f"phase 14 failed: {kernel.__name__} n={n} b={b} "
-                                     f"snr={snr:.2f} snr_vs_torch_fft={snr_lib:.2f} "
-                                     f"launches={kernel.launches - before}")
             print(f"[14 kernel] FFT n={n} batch={b}: snr_vs_f64_plain/torch.fft_f64 dB: "
-                  + ", ".join(parts))
+                  + check_runs(runs, n, b, LINEAR_MIN_DB, worst))
     print(f"[14 kernel] FFT worst reading over n in {FFT_SIZES}, batch in {FFT_BATCHES} "
           f"(against the float64 plain version and torch.fft float64): "
           + ", ".join(f"{k} {v:.2f} dB" for k, v in worst.items()))
+
+    # ---- phase 14b: the real kernels at every pass shape, batches 1 and a
+    # CTA's rows + 1, the edge bins' imaginary parts set (both drop them)
+    worst_real = {}
+    for n in REAL_SIZES:
+        for b in (1, fk.real_stockham_geometry(n)[0] + 1):
+            x = torch.as_tensor(rng.standard_normal((b, n)), device=dev)
+            spec = torch.fft.rfft(x)
+            sr, si = spec.real.contiguous(), spec.imag.clone()
+            si[:, 0], si[:, -1] = 1.0, -1.0
+            runs = [(fk.rfft_stockham, lambda: torch.cat(fk.rfft_stockham(x.float())),
+                     torch.cat(fk.rfft_stockham_ref(x)), torch.cat([spec.real, spec.imag])),
+                    (fk.irfft_stockham, lambda: fk.irfft_stockham(sr.float(), si.float(), n),
+                     fk.irfft_stockham_ref(sr, si, n), torch.fft.irfft(torch.complex(sr, si), n))]
+            print(f"[14 real] n={n} batch={b}: snr_vs_f64_plain/torch.fft_f64 dB: "
+                  + check_runs(runs, n, b, REAL_MIN_DB, worst_real))
+    print(f"[14 real] worst reading over n in {REAL_SIZES}, batches 1 and a CTA's rows + 1 "
+          f"(bar {REAL_MIN_DB:.0f} dB against the float64 plain version and torch.fft float64): "
+          + ", ".join(f"{k} {v:.2f} dB" for k, v in worst_real.items()))
 
     noise = np.random.default_rng(1).standard_normal(HEADLINE)
     for name, x64, kw in (
@@ -756,6 +840,33 @@ def gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_main, h):
             print(f"[16 times] bench.py modes through the port, {c}x{HEADLINE[1]} f32 white "
                   f"noise on {smi}: True (overlap_save_fused + noise_gate_fused) "
                   f"{true_ms:.4f} ms, False (ops with Stockham FFTs) {false_ms:.4f} ms")
+    # ---- phase 16b: the real kernels against torch.fft round-robin, each
+    # timing bracketed by its own copy probe (phase 25c's protocol) and
+    # taken on launches queued behind a sleep of the card (queued_ms): at
+    # 4096 x 1024 a launch's host cost exceeds the kernel's time.  Their
+    # medians at n = 1024 go to the JSON line as device_ms and
+    # library_device_ms, beside phase 16's ms and library_ms
+    probe = copy_probe(dev)
+    b = FFT_TIMED
+    for n in REAL_TIMED:
+        x = torch.randn(b, n, device=dev)
+        sr, si = fk.rfft_stockham(x)
+        spec = torch.complex(sr, si)
+        arms = {"rfft_stockham": lambda: fk.rfft_stockham(x),
+                "torch.fft.rfft (library)": lambda: torch.fft.rfft(x),
+                "irfft_stockham": lambda: fk.irfft_stockham(sr, si, n),
+                "torch.fft.irfft (library)": lambda: torch.fft.irfft(spec, n)}
+        med, probes = round_robin(arms, 4 * b * (n + 2 * (n // 2 + 1)), probe, MANUAL_REPS,
+                                  queued_ms)
+        print(f"[16 real] {b}x{n} f32 on {smi}, {MANUAL_REPS} reps round-robin, device time "
+              f"of queued launches, medians: "
+              f"{round_robin_text(med, probes)}")
+        if n == 1024:
+            for k, lib in (("rfft_stockham", "torch.fft.rfft (library)"),
+                           ("irfft_stockham", "torch.fft.irfft (library)")):
+                record[k].update(device_ms=med[k][0], library_device_ms=med[lib][0])
+        del x, sr, si, spec
+    del probe
     for k, src_, rep in (("noise_gate_fused", "gate_kernel.cu", "gate_kernel.py:188"),
                          ("fft_stockham_lanes", "fft_kernel.cu", "fft_kernel.py:1147"),
                          ("rfft_stockham", "fft_kernel.cu", "fft_kernel.py:1486"),
@@ -1652,12 +1763,7 @@ def fft_manual_phase(dev, smi, record, kernels, reset_counts, h):
     # and its device idle share under each pipe
     chip = detect_chip()
     with sk_pipe(None):  # the grid arm is fft_stockham_lanes' own kernel
-        src = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)  # 256 MB
-        dst = torch.empty_like(src)
-
-        def probe():
-            return 2 * src.numel() * 4 / time_ms(lambda: dst.copy_(src), reps=10, warmup=2) * 1e3
-
+        probe = copy_probe(dev)
         for b, m in MANUAL_TIMED:
             xr = torch.randn(b, m, device=dev)
             xi = torch.randn(b, m, device=dev)
@@ -1667,23 +1773,10 @@ def fft_manual_phase(dev, smi, record, kernels, reset_counts, h):
             arms = {"fft_stockham_lanes (grid)": lambda: fk.fft_stockham_lanes(xr, xi, -1.0),
                     "fft_stockham_manual": lambda: fk.fft_stockham_manual(xr, xi, -1.0),
                     "torch.fft (library)": lambda: torch.fft.fft(z)}
-            reps = {arm: [] for arm in arms}
-            for _ in range(MANUAL_REPS):
-                for arm, fn in arms.items():
-                    pre = probe()
-                    ms = time_ms(fn, reps=10, warmup=2)
-                    post = probe()
-                    reps[arm].append((ms, nbytes / ms * 1e3 / (0.5 * (pre + post)), pre, post))
-            med = {arm: (float(np.median([r[0] for r in v])), float(np.median([r[1] for r in v])))
-                   for arm, v in reps.items()}
-            probes = [p for v in reps.values() for r in v for p in r[2:]]
+            med, probes = round_robin(arms, nbytes, probe, MANUAL_REPS)
             print(f"[25 times] {b}x{m} f32 complex on {smi}, {MANUAL_REPS} reps round-robin, "
-                  f"medians: " + "; ".join(
-                      f"{arm} {ms_:.4f} ms = {frac * 100:.1f} % of the paired probe "
-                      f"(reps {', '.join(f'{r[0]:.4f}' for r in reps[arm])} ms)"
-                      for arm, (ms_, frac) in med.items())
-                  + f"; bound {bound_ms:.4f} ms (bytes, utils.metrics {chip.name}); probe "
-                  f"{min(probes) / 1e12:.4f} to {max(probes) / 1e12:.4f} TB/s")
+                  f"medians: {round_robin_text(med, probes)}; bound {bound_ms:.4f} ms (bytes, "
+                  f"utils.metrics {chip.name})")
             if (b, m) == (4096, 1024):
                 plain_ms = time_ms(lambda: fk.fft_stockham_manual_ref(xr, xi, -1.0),
                                    reps=5, warmup=1)
@@ -1694,7 +1787,7 @@ def fft_manual_phase(dev, smi, record, kernels, reset_counts, h):
                 print(f"[25 times] fft_stockham_manual {b}x{m}: plain {plain_ms:.4f} ms, bound "
                       f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
             del xr, xi, z
-        del src, dst
+        del probe
     xn = torch.as_tensor(np.random.default_rng(0).standard_normal(HEADLINE),
                          dtype=torch.float32, device=dev)
     for pipe in ("manual", None):
@@ -2061,6 +2154,8 @@ def main() -> int:
         "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
         "stream_ms": r.get("stream_ms"),
+        "device_ms": r.get("device_ms"),
+        "library_device_ms": r.get("library_device_ms"),
         "slice_ms": r.get("slice_ms"),
     } for name, r in record.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -455,6 +455,34 @@ def test_fft_kernels_vs_plain(card, n, batch):
     assert snr_db(torch.fft.irfft(torch.complex(rr, ri), n), y) >= 100.0
 
 
+REAL_SIZES = (16, 32, 64, 128, 512, 2048, 8192, 16384, 32768, 131072)  # chip_smoke's 14b
+
+
+@pytest.mark.parametrize("n", REAL_SIZES)
+def test_real_stockham_every_pass_shape(card, n):
+    """rfft_stockham and irfft_stockham on the register Stockham passes of
+    their n/2-point transform: every pass count and shorter last pass, the
+    leading pass of three (n = 512, 8192, 131072) and the exchange in
+    scratch (n = 32768, 131072), on one row and on a CTA's rows + 1:
+    >= 130 dB against the float64 plain version and torch.fft, one launch
+    each; the imaginary parts of the edge bins drop."""
+    rng = np.random.default_rng(130 + n)
+    for b in (1, fk.real_stockham_geometry(n)[0] + 1):
+        x = torch.as_tensor(rng.standard_normal((b, n)), device=card)
+        (sr, si), k = _launches(lambda: fk.rfft_stockham(x.float()))
+        assert k == {"rfft_stockham": 1} and sr.shape == (b, n // 2 + 1)
+        spec = torch.fft.rfft(x)
+        got = torch.cat([sr, si])
+        assert snr_db(torch.cat(fk.rfft_stockham_ref(x)), got) >= 130.0
+        assert snr_db(torch.cat([spec.real, spec.imag]), got) >= 130.0
+        rr, ri = spec.real.contiguous(), spec.imag.clone()
+        ri[:, 0], ri[:, -1] = 1.0, -1.0
+        y, k = _launches(lambda: fk.irfft_stockham(rr.float(), ri.float(), n))
+        assert k == {"irfft_stockham": 1} and y.shape == (b, n)
+        assert snr_db(fk.irfft_stockham_ref(rr, ri, n), y) >= 130.0
+        assert snr_db(torch.fft.irfft(torch.complex(rr, ri), n), y) >= 130.0
+
+
 VARIANTS = {  # the FFT variant kernels: (plain version, ops.fft impl)
     "fft_fourstep": (fk.fft_fourstep_ref, "fourstep"),
     "fft_radix2_lanes": (fk.fft_radix2_lanes_ref, "radix2_lanes"),
