@@ -41,46 +41,69 @@
 // arithmetic is about 500 float32 flops per sample with full complex
 // 1024-point FFTs (two for the FIR per 961 samples, two for the gate per
 // 256-sample hop), about 15 GFLOP in all.  So FFT arithmetic and the
-// shared-memory traffic of the butterflies bound it, not device memory.
-// This simple design halves the FFT count with the two-for-one packing,
-// keeps every intermediate (raw span, filtered span, spectra, OLA tile)
-// in shared memory, and pays for it with radix-2 stages (one shared
-// memory round trip and one barrier per stage) and the halo recompute
-// (MF + nfft/hop - 1 frames and about MF*hop + 2*(nfft-hop) filtered
-// samples per MF*hop output samples).  Radix-8 in registers and a
-// persistent schedule are later work.
+// shared-memory traffic of the transforms bound it, not device memory.
 //
-// The body is asp::fir_gate_tiles (chain_device.cuh), shared with the
+// The body is asp::fir_gate_regs (chain_regs_device.cuh), shared with the
 // resampling variant res_chain_kernel.cu; this kernel feeds it raw samples.
+// It runs the transforms of a batch (4 at nfft 1024) as register Stockham
+// passes, 3 each way at nfft 1024 with the per-bin work (the tap product,
+// the gate's untangle, mask and retangle) between the forward's last and
+// the inverse's first pass in registers: 4 exchanges a batch of 8 frames,
+// each transform's two warps meeting at their own barrier between passes
+// and the CTA twice a batch, where the radix-2 body took 27 CTA barriers a
+// frame pair.
 
 #include <cuda_runtime.h>
 
-#include "chain_device.cuh"
+#include "chain_regs_device.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
+template <int R, int RS, bool kRelease>
+__global__ void __launch_bounds__(asp::kRegsThreads, 2)
 fir_noise_gate_kernel(const float* __restrict__ x, int n, float* __restrict__ out,
                       const float* __restrict__ noise_floor,
                       const float* __restrict__ win,
                       const float2* __restrict__ hf,
-                      const float2* __restrict__ tw,
+                      const float2* __restrict__ twf,
+                      const float2* __restrict__ twi,
                       const float* __restrict__ inv_tab, asp::ChainGeo g) {
   extern __shared__ float4 smem[];
   const int c = blockIdx.y;
   const float* xc = x + static_cast<size_t>(c) * n;
-  const auto fill = [xc, n](float* span, int s, int len) {
+  const auto fill = [xc, n](float* span, int s, int len, float*) {
     for (int i = threadIdx.x; i < len; i += blockDim.x) {
       const int gi = s + i;
       span[i] = (gi >= 0 && gi < n) ? xc[gi] : 0.0f;
     }
     __syncthreads();
   };
-  asp::fir_gate_tiles(g, reinterpret_cast<float*>(smem), c,
-                      out + static_cast<size_t>(c) * g.out_len, noise_floor, win,
-                      hf, tw, inv_tab, fill);
+  asp::fir_gate_regs<R, RS, kRelease>(g, reinterpret_cast<float*>(smem), c,
+                            out + static_cast<size_t>(c) * g.out_len, noise_floor, win, hf,
+                            twf, twi, inv_tab, fill);
+}
+
+using Kernel = void (*)(const float*, int, float*, const float*, const float*, const float2*,
+                        const float2*, const float2*, const float*, asp::ChainGeo);
+
+// The instantiation for nfft (regs_pass_plan in kernels/chain_kernel.py):
+// one pass each way below 32 points, else passes of 16 points a group and
+// the merged pass of 2^(log2 nfft mod 4) points (2 where that is 0); the
+// sequential (release > 0) launch's own.
+template <bool kRelease>
+Kernel kernel_for(int nfft) {
+  const int rs = __builtin_ctz(static_cast<unsigned>(nfft)) % 4;
+  return nfft == 2 ? fir_noise_gate_kernel<2, 2, kRelease>
+         : nfft == 4 ? fir_noise_gate_kernel<4, 4, kRelease>
+         : nfft == 8 ? fir_noise_gate_kernel<8, 8, kRelease>
+         : nfft == 16 ? fir_noise_gate_kernel<16, 16, kRelease>
+         : rs == 2 ? fir_noise_gate_kernel<16, 4, kRelease>
+         : rs == 3 ? fir_noise_gate_kernel<16, 8, kRelease>
+                   : fir_noise_gate_kernel<16, 2, kRelease>;
+}
+
+Kernel kernel_for(int nfft, int sequential) {
+  return sequential ? kernel_for<true>(nfft) : kernel_for<false>(nfft);
 }
 
 }  // namespace
@@ -90,7 +113,7 @@ extern "C" {
 // Launch on `stream` (a cudaStream_t).  Returns cudaGetLastError() after
 // the launch: 0 on success.  Nothing is synchronized or allocated here.
 int asp_fir_noise_gate(const float* x, float* out, const float* noise_floor,
-                       const float* win, const float* hf, const float* tw,
+                       const float* win, const float* hf, const float* twf, const float* twi,
                        const float* inv_tab, int channels, int n, int nfft,
                        int log2n, int hop, int taps, int nframes, int mf,
                        int sequential, float thresh_gain,
@@ -100,16 +123,31 @@ int asp_fir_noise_gate(const float* x, float* out, const float* noise_floor,
   if (err != cudaSuccess) return static_cast<int>(err);
   const asp::ChainGeo g = asp::chain_geo(nfft, log2n, hop, taps, nframes, mf, sequential,
                                          thresh_gain, att, release);
-  err = cudaFuncSetAttribute(fir_noise_gate_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
+  const Kernel kernel = kernel_for(nfft, sequential);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(sequential ? 1 : g.ntiles, channels);
-  fir_noise_gate_kernel<<<grid, kThreads, smem_bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, asp::kRegsThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       x, n, out, noise_floor, win, reinterpret_cast<const float2*>(hf),
-      reinterpret_cast<const float2*>(tw), inv_tab, g);
+      reinterpret_cast<const float2*>(twf), reinterpret_cast<const float2*>(twi), inv_tab, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation for nfft and the launch: info = {registers a thread,
+// local memory bytes a thread (spills), resident CTAs an SM at smem_bytes}.
+int asp_fir_noise_gate_info(int nfft, int sequential, int smem_bytes, int device, int* info) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Kernel kernel = kernel_for(nfft, sequential);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[2], kernel, asp::kRegsThreads, smem_bytes));
 }
 
 const char* asp_error_string(int code) {

@@ -1,0 +1,511 @@
+// The whole-file FIR -> spectral noise gate body on batched register
+// Stockham transforms, for Hopper (sm_90a): what chain_kernel.cu and
+// res_chain_kernel.cu share.  They differ only in where the FIR's input
+// comes from (the raw samples, or the resampled stream), which each kernel
+// passes in as a `fill` functor.  (gate_kernel.cu's two kernels run
+// chain_device.cuh's radix-2 body.)
+//
+// Per channel the body computes oracle.noise_gate(oracle.fir_direct(u, h),
+// nfft, hop, ...) of its input u, as chain_device.cuh documents: causal FIR
+// by FFT overlap-save, frames at k*hop, periodic window, forward FFT, a hard
+// per-bin mask against the noise floor (an input), optional max-with-decay
+// release along frames, inverse FFT, window, overlap-add, times the clamped
+// 1/WOLA norm.  The schedule is chain_device.cuh's: with release == 0, one
+// CTA per (channel, tile of mf hops of output) recomputes the halo its tile
+// needs; with release > 0, one CTA per channel walks its tiles in order.
+//
+// Transforms.  A thread holds R = 16 points of a transform (R = nfft below
+// 16), so an N-point transform takes N/R threads and the 256 threads of a
+// CTA run B = 256 R / N transforms at once (a batch: 4 at N = 1024).  The
+// passes are fft_regs.cuh's Stockham routines (stockham_group,
+// stockham_pass, stockham_put) on the plan of rfft_stockham's half-size
+// transform: forward passes of 4 stages (a pass of 3 first where log2 N -
+// rs is not a multiple of 4) and a last pass of rs = log2 N mod 4 stages (1
+// where that is 0); the inverse runs the same sizes in reverse order.
+// Between passes the points of a batch cross two exchange buffers of
+// re/im planes through pease_swizzle; the twiddles come from the per-stage
+// tables (stockham_table(N, -1) and (N, +1)) in device memory, through L1.
+// From nfft 512 on, the N/16 threads of transform t (whole warps) run its
+// groups alone, lane i taking groups i, i + N/16, ..., and meet between
+// passes at a named barrier of their own, so the transforms of a batch do
+// not wait for each other; below 512 points a warp would span transforms,
+// and all 256 threads take the batch's groups as stockham_groups does
+// (group v: transform v >> lg, group v mod 2^lg of it) and meet at
+// __syncthreads.  A round trip ends at __syncthreads (the stage, or the
+// span the FIR writes, is read across transforms next), and the FIR's
+// first pass is followed by one too (its last pass writes span a
+// neighbouring transform's first pass reads).
+//
+// The per-bin work between the transforms runs in registers.  After the
+// forward's last pass, slot j of group q (of 2^lg = N/RS, RS = 2^rs) holds
+// bin brev_rs(j) 2^lg + q, and group q of the inverse's first pass (stage
+// 0) reads bins j 2^lg + q: the same bins, slot j' = brev_rs(j).  So the
+// forward's last pass, the per-bin product and the inverse's first pass
+// are one pass with no exchange and no barrier:
+// - the FIR multiplies bin k by the tap spectrum hf[k];
+// - the gate needs bins k and N - k of a frame pair (frames q and q+1 as
+//   re/im of one transform), so a thread takes two mirror groups, q and
+//   2^lg - q (slot j's mirror is slot RS-1-j of the other); groups 0 and
+//   2^(lg-1) are each their own partner and go to unit 0.  It untangles A
+//   = (Z[k] + conj Z[N-k])/2, B = (Z[k] - conj Z[N-k])/2i, masks each
+//   against thr[min(k, N-k)], puts Y = ma A + i mb B back together at both
+//   bins and runs the inverse's first pass on them.  With release > 0 the
+//   mask of frame q depends on frame q-1's: the raw masks of a batch go to
+//   shared memory, one thread per bin scans the batch's frames in order
+//   (s = max(m_q, release s), s carried across batches), and each thread
+//   reads its masks back; the points stay in registers across the two
+//   barriers (16 a thread).
+//
+// Overlap-save: two blocks of the FIR's span as re/im of one transform (the
+// taps are real), 2B blocks a batch; the filtered blocks overwrite the span
+// in place (each batch reads all its blocks in its first pass, and the
+// next batch's blocks start past this batch's outputs).  Gate: frames q,
+// q+1 of transform t, 2B frames a batch, windowed as the first pass loads
+// them; the inverse's last pass stores the windowed, 1/N-scaled frames of
+// the batch into the first exchange buffer in natural order (the stage).
+// Then one pass sums each output position's covering frames of the batch:
+// position p of the batch (from its first frame's start) belongs to thread
+// p mod 256, which adds the carry (the nfft-hop samples the frames before
+// spilled past them) and the stage's frames, and writes the output sample
+// if no later frame covers it (p < nf*hop, or the file's last frame is in
+// the batch) or else the new carry.  No atomics; the carry alternates
+// between two buffers.
+//
+// Shared memory (floats), in order: thr (N/2+1), rel (N/2+1), carry (2 (N-H)),
+// span (regs_span), masks (2B (N/2+1), release > 0 only), then the tail:
+// the two exchange buffers (4 * 256 R), which the kernel's fill may also use
+// as scratch before the FIR starts (res_chain_kernel.cu: its phase bank and
+// raw window).  kernels/chain_kernel.py (regs_geometry) sizes it in the
+// same order.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "chain_device.cuh"
+#include "fft_regs.cuh"
+
+namespace asp {
+
+constexpr int kRegsThreads = 256;
+
+// Points a thread holds in a full pass: 16, or the whole transform below 16.
+__host__ __device__ __forceinline__ constexpr int regs_points(int nfft) {
+  return nfft < 16 ? nfft : 16;
+}
+
+// Floats of the span a tile filters: its frames (the halo's too in the
+// parallel launch) in whole overlap-save blocks, plus the FIR history.
+__host__ __device__ __forceinline__ int regs_span(const ChainGeo& g) {
+  const int halo = g.sequential ? 0 : g.r - 1;
+  const int len = (g.mf + halo - 1) * g.hop + g.nfft;
+  return (len + g.blk - 1) / g.blk * g.blk + g.taps - 1;
+}
+
+// Floats of shared memory before the tail (the exchange buffers).
+__host__ __device__ __forceinline__ int regs_head_floats(const ChainGeo& g) {
+  const int nb = g.nfft / 2 + 1;
+  const int nfb = 2 * kRegsThreads * regs_points(g.nfft) / g.nfft;
+  return 2 * nb + 2 * g.d + regs_span(g) + (g.sequential ? nfb * nb : 0);
+}
+
+// The threads that share the passes of transforms first .. first + count
+// - 1: `size` of them, this one lane `lane`, meeting at named barrier `id`
+// (the CTA's own barrier where size is the whole CTA).
+struct Team {
+  int first, count, lane, size, id;
+  __device__ __forceinline__ void sync() const {
+    if (size == kRegsThreads) {
+      __syncthreads();
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(size) : "memory");
+    }
+  }
+};
+
+// Transform t's N/R threads from 32 on (whole warps), else the CTA on all
+// nt transforms.
+__device__ __forceinline__ Team regs_team(int log2n, int nt, int points) {
+  const int g = (1 << log2n) / points;
+  const int tid = threadIdx.x;
+  if (g < 32) return Team{0, nt, tid, kRegsThreads, 0};
+  const int t = tid / g;
+  return Team{t, 1, tid - t * g, g, 1 + t};
+}
+
+// One pass of RP points a group from stage s0 over the team's transforms:
+// group v (transform v >> lg, group v mod 2^lg of it) to lane v mod size.
+// Indices are batch-local (t N + index); through pease_swizzle where
+// swz_in / swz_out.
+template <int RP, class Load, class Store>
+__device__ __forceinline__ void regs_pass(int log2n, int s0, const Team& tm, Load load,
+                                          bool swz_in, Store store, bool swz_out,
+                                          const float2* tw) {
+  constexpr int rp = pass_bits(RP);
+  const int lg = log2n - rp;
+  int rsw[rp], wsw[rp];
+  stockham_read_offsets<RP>(rsw, log2n, s0, swz_in);
+  stockham_write_offsets<RP>(wsw, log2n, swz_out);
+  for (int v = (tm.first << lg) + tm.lane; v < (tm.first + tm.count) << lg; v += tm.size) {
+    float2 x[RP];
+    const int wo = stockham_group<RP>(x, v, log2n, s0, load, swz_in, rsw, tw);
+    stockham_put<RP>(x, wo, swz_out, wsw, store);
+  }
+}
+
+// The inverse's first pass (stage 0) on the bins of forward group q (slot j
+// holding bin brev(j) 2^lg + q), stored through `store`.
+template <int RS, class Store>
+__device__ __forceinline__ void inverse_first(const float2 (&x)[RS], int log2n, int t, int q,
+                                              Store store, bool swz_out,
+                                              const int (&wsw)[pass_bits(RS)],
+                                              const float2* twi) {
+  constexpr int rs = pass_bits(RS);
+  float2 y[RS];
+#pragma unroll
+  for (int j = 0; j < RS; ++j) y[j] = x[brev_bits(j, rs)];
+  stockham_pass<RS>(y, twi, 0, 0);
+  stockham_put<RS>(y, (t << log2n) | q, swz_out, wsw, store);
+}
+
+// The FIR's merged pass: the forward's last pass from s0, the product with
+// hf, the inverse's first pass.  kHold: every thread loads its group before
+// any thread stores (a one-pass transform reads and writes the span).
+template <int RS, bool kHold, class Load, class Store>
+__device__ __forceinline__ void fir_middle(int log2n, int s0, const Team& tm, Load load,
+                                           bool swz_in, Store store, bool swz_out,
+                                           const float2* twf, const float2* twi,
+                                           const float2* __restrict__ hf) {
+  constexpr int rs = pass_bits(RS);
+  const int lg = log2n - rs;
+  int rsw[rs], wsw[rs];
+  stockham_read_offsets<RS>(rsw, log2n, s0, swz_in);
+  stockham_write_offsets<RS>(wsw, log2n, swz_out);
+  for (int v = (tm.first << lg) + tm.lane; v < (tm.first + tm.count) << lg; v += tm.size) {
+    const int t = v >> lg, q = v & ((1 << lg) - 1);
+    float2 x[RS];
+    stockham_group<RS>(x, v, log2n, s0, load, swz_in, rsw, twf);
+#pragma unroll
+    for (int j = 0; j < RS; ++j) x[j] = cmul(x[j], __ldg(hf + ((brev_bits(j, rs) << lg) | q)));
+    if constexpr (kHold) __syncthreads();
+    inverse_first<RS>(x, log2n, t, q, store, swz_out, wsw, twi);
+  }
+}
+
+// Every bin pair (k, N-k) of unit u's groups (z: group u, or 0 for u = 0;
+// y: group 2^lg - u, or 2^(lg-1) for u = 0; y unused where lg = 0), once:
+// f(Z[k], Z[N-k], k), the two references equal where k = N-k.
+template <int RS, class F>
+__device__ __forceinline__ void for_bin_pairs(float2 (&z)[RS], float2 (&y)[RS], int u, int lg,
+                                              F&& f) {
+  constexpr int rs = pass_bits(RS);
+  if (u != 0) {
+#pragma unroll
+    for (int j = 0; j < RS; ++j) f(z[j], y[RS - 1 - j], (brev_bits(j, rs) << lg) + u);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < RS; ++j) {  // group 0: bin b 2^lg mirrors (RS - b) 2^lg
+    const int b = brev_bits(j, rs);
+    if (b > RS / 2) continue;
+    f(z[j], z[brev_bits((RS - b) & (RS - 1), rs)], b << lg);
+  }
+  if (lg == 0) return;
+#pragma unroll
+  for (int j = 0; j < RS / 2; ++j) {  // group 2^(lg-1): slot j mirrors slot RS-1-j
+    f(y[j], y[RS - 1 - j], (brev_bits(j, rs) << lg) + (1 << (lg - 1)));
+  }
+}
+
+// The gate's merged pass on a batch of nf frames (frames 2t and 2t + 1 of
+// the batch in transform t): the forward's last pass from s0, untangle,
+// mask, retangle, the inverse's first pass.  A transform has 2^(lg-1)
+// units (1 where lg = 0), each two mirror groups; lane i of the team takes
+// its units i + size k, kUnits of them: one at a time, or with kRelease
+// (the masks scanned along the frames) all at once, their points held in
+// registers across the scan's barriers.
+template <int R, int RS, bool kRelease, class Load, class Store>
+__device__ __forceinline__ void gate_middle(const ChainGeo& g, int s0, const Team& tm, Load load,
+                                            bool swz_in, Store store, bool swz_out,
+                                            const float2* twf, const float2* twi,
+                                            const float* thr, float* masks, float* rel, int nf) {
+  constexpr int rs = pass_bits(RS);
+  constexpr int kUnits = R == RS ? 1 : 8 / RS;
+  const int log2n = g.log2n, n = 1 << log2n, lg = log2n - rs, nb = n / 2 + 1;
+  const int lu = lg > 0 ? lg - 1 : 0;  // log2 of the units a transform
+  int rsw[rs], wsw[rs];
+  stockham_read_offsets<RS>(rsw, log2n, s0, swz_in);
+  stockham_write_offsets<RS>(wsw, log2n, swz_out);
+  const int w0 = (tm.first << lu) + tm.lane;
+  const float att = g.att;
+  // unit i's transform t holds frames 2t (A, the real part) and 2t + 1 (B)
+  const auto frames = [lu, w0, &tm](int i) { return 2 * ((w0 + i * tm.size) >> lu); };
+  const auto unit = [lu, w0, &tm](int i) { return (w0 + i * tm.size) & ((1 << lu) - 1); };
+  const auto mirror = [lg](int u) { return u == 0 ? (lg > 0 ? 1 << (lg - 1) : 0) : (1 << lg) - u; };
+  const auto load_unit = [&](int i, float2 (&z)[RS], float2 (&y)[RS]) {
+    const int t = frames(i) / 2, u = unit(i);
+    stockham_group<RS>(z, (t << lg) | u, log2n, s0, load, swz_in, rsw, twf);
+    if (lg > 0) stockham_group<RS>(y, (t << lg) | mirror(u), log2n, s0, load, swz_in, rsw, twf);
+  };
+  const auto store_unit = [&](int i, const float2 (&z)[RS], const float2 (&y)[RS]) {
+    const int t = frames(i) / 2, u = unit(i);
+    inverse_first<RS>(z, log2n, t, u, store, swz_out, wsw, twi);
+    if (lg > 0) inverse_first<RS>(y, log2n, t, mirror(u), store, swz_out, wsw, twi);
+  };
+  // Y = ma*A + i*mb*B at k, and its Hermitian partner at N-k, with
+  // A = (Z[k] + conj Z[N-k])/2, B = (Z[k] - conj Z[N-k])/2i
+  const auto gate = [](float2& zk, float2& zn, float ma, float mb) {
+    const float ar = 0.5f * (zk.x + zn.x), ai = 0.5f * (zk.y - zn.y);
+    const float br = 0.5f * (zk.y + zn.y), bi = -0.5f * (zk.x - zn.x);
+    zk = make_float2(ma * ar - mb * bi, ma * ai + mb * br);
+    zn = make_float2(ma * ar + mb * bi, mb * br - ma * ai);
+  };
+  // the raw masks of a pair's frames: |A| and |B| against thr
+  const auto raw = [att](const float2& zk, const float2& zn, float th, float& ma, float& mb) {
+    const float ar = 0.5f * (zk.x + zn.x), ai = 0.5f * (zk.y - zn.y);
+    const float br = 0.5f * (zk.y + zn.y), bi = -0.5f * (zk.x - zn.x);
+    ma = sqrtf(ar * ar + ai * ai) > th ? 1.0f : att;
+    mb = sqrtf(br * br + bi * bi) > th ? 1.0f : att;
+  };
+  if constexpr (!kRelease) {
+#pragma unroll 1
+    for (int i = 0; i < kUnits; ++i) {
+      float2 z[RS], y[RS];
+      load_unit(i, z, y);
+      const int fa = frames(i);
+      for_bin_pairs<RS>(z, y, unit(i), lg, [&](float2& zk, float2& zn, int k) {
+        float ma, mb;
+        raw(zk, zn, thr[min(k, n - k)], ma, mb);
+        gate(zk, zn, fa < nf ? ma : 0.0f, fa + 1 < nf ? mb : 0.0f);
+      });
+      store_unit(i, z, y);
+    }
+  } else {
+    float2 z[kUnits][RS], y[kUnits][RS];
+#pragma unroll
+    for (int i = 0; i < kUnits; ++i) load_unit(i, z[i], y[i]);
+    // raw masks to shared memory, a scan along the batch's frames, back
+#pragma unroll
+    for (int i = 0; i < kUnits; ++i) {
+      const int fa = frames(i);
+      for_bin_pairs<RS>(z[i], y[i], unit(i), lg, [&](float2& zk, float2& zn, int k) {
+        const int kk = min(k, n - k);
+        float ma, mb;
+        raw(zk, zn, thr[kk], ma, mb);
+        if (fa < nf) masks[fa * nb + kk] = ma;
+        if (fa + 1 < nf) masks[(fa + 1) * nb + kk] = mb;
+      });
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < nb; k += kRegsThreads) {
+      float s = rel[k];
+      for (int f = 0; f < nf; ++f) {
+        s = fmaxf(masks[f * nb + k], g.release * s);
+        masks[f * nb + k] = s;
+      }
+      rel[k] = s;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kUnits; ++i) {
+      const int fa = frames(i);
+      for_bin_pairs<RS>(z[i], y[i], unit(i), lg, [&](float2& zk, float2& zn, int k) {
+        const int kk = min(k, n - k);
+        gate(zk, zn, fa < nf ? masks[fa * nb + kk] : 0.0f,
+             fa + 1 < nf ? masks[(fa + 1) * nb + kk] : 0.0f);
+      });
+      store_unit(i, z[i], y[i]);
+    }
+  }
+}
+
+// A forward and inverse transform of the batch around a merged middle pass
+// (mid(s0, load, swz_in, store, swz_out)): the first pass reads through
+// `first`, the last writes through `last`, the passes between cross the
+// exchange buffers ex0, ex1 (planes of `cap` floats), pass p writing
+// ex[p mod 2], the team meeting between passes (the CTA after the first
+// where kFullFirst).  The plan has an odd number of passes, so a stage
+// written to ex0 by `last` is not the buffer the last pass reads.  Returns
+// after a __syncthreads().
+template <int R, int RS, bool kFullFirst, class First, class Mid, class Last>
+__device__ __forceinline__ void regs_round_trip(int log2n, const Team& tm, float* ex, int cap,
+                                                First first, Mid mid, Last last,
+                                                const float2* twf, const float2* twi) {
+  if constexpr (R == RS) {  // one pass each way: nfft <= 16
+    mid(0, first, false, last, false);
+    __syncthreads();
+    return;
+  } else {
+    constexpr int rs = pass_bits(RS);
+    const auto in = [ex, cap](int p) {
+      return PlanarIn{ex + (p & 1) * 2 * cap, ex + (p & 1) * 2 * cap + cap};
+    };
+    const auto out = [ex, cap](int p) {
+      return PlanarOut{ex + (p & 1) * 2 * cap, ex + (p & 1) * 2 * cap + cap};
+    };
+    const bool mid3 = (log2n - rs) % 4 == 3;
+    int s0, p = 0;
+    if (mid3) {
+      regs_pass<8>(log2n, 0, tm, first, false, out(p), true, twf);
+      s0 = 3;
+    } else {
+      regs_pass<16>(log2n, 0, tm, first, false, out(p), true, twf);
+      s0 = 4;
+    }
+    if (kFullFirst) {
+      __syncthreads();
+    } else {
+      tm.sync();
+    }
+    for (; s0 < log2n - rs; s0 += 4) {
+      ++p;
+      regs_pass<16>(log2n, s0, tm, in(p - 1), true, out(p), true, twf);
+      tm.sync();
+    }
+    ++p;
+    mid(s0, in(p - 1), true, out(p), true);
+    tm.sync();
+    s0 = rs;
+    if (mid3) {
+      ++p;
+      regs_pass<8>(log2n, s0, tm, in(p - 1), true, out(p), true, twi);
+      tm.sync();
+      s0 += 3;
+    }
+    for (; s0 + 4 < log2n; s0 += 4) {
+      ++p;
+      regs_pass<16>(log2n, s0, tm, in(p - 1), true, out(p), true, twi);
+      tm.sync();
+    }
+    regs_pass<16>(log2n, s0, tm, in(p), true, last, false, twi);
+    __syncthreads();
+  }
+}
+
+// The tiles of channel c that this CTA owns (blockIdx.x, step gridDim.x),
+// written to oc; kRelease: g.release > 0 (the sequential launch).  fill(span, s, len, scratch): every thread calls it; it
+// stores the FIR input u[s + i] in span[i] for i < len (zero where s + i <
+// 0 or past the end of u), may use `scratch` (the exchange buffers) and
+// returns after a __syncthreads().  twf / twi: stockham_table(N, -1) and
+// (N, +1); hf: the N-point spectrum of the zero-padded taps.
+template <int R, int RS, bool kRelease, class Fill>
+__device__ void fir_gate_regs(const ChainGeo& g, float* smem, int c, float* __restrict__ oc,
+                              const float* __restrict__ noise_floor,
+                              const float* __restrict__ win,
+                              const float2* __restrict__ hf,
+                              const float2* __restrict__ twf,
+                              const float2* __restrict__ twi,
+                              const float* __restrict__ inv_tab, const Fill& fill) {
+  const int N = g.nfft, L = g.log2n, H = g.hop, nb = N / 2 + 1;
+  const int cap = kRegsThreads * R;  // complex points of a batch
+  const int B = cap >> L, nfb = 2 * B;
+  const int tid = threadIdx.x;
+  const int lh = __ffs(H) - 1;  // log2 hop
+  const Team tm = regs_team(L, B, R);
+  // inv_norm_at with the hop a power of two
+  const auto inv_norm = [&g, inv_tab, H](int p) {
+    if (p < g.d) return inv_tab[p];
+    if (p >= g.out_len - g.d) return inv_tab[g.d + H + p - (g.out_len - g.d)];
+    return inv_tab[g.d + (p & (H - 1))];
+  };
+  float* thr = smem;
+  float* rel = thr + nb;
+  float* carry = rel + nb;  // two buffers of d
+  float* span = carry + 2 * g.d;
+  float* masks = span + regs_span(g);
+  float* ex = smem + regs_head_floats(g);
+  float* stage_re = ex;
+  float* stage_im = ex + cap;
+
+  for (int k = tid; k < nb; k += kRegsThreads) {
+    thr[k] = noise_floor[static_cast<size_t>(c) * nb + k] * g.thresh_gain;
+    rel[k] = 0.0f;
+  }
+  for (int i = tid; i < g.d; i += kRegsThreads) carry[i] = 0.0f;
+  int cur = 0;  // the carry buffer the next batch reads
+  __syncthreads();
+
+  for (int j = blockIdx.x; j < g.ntiles; j += gridDim.x) {
+    const int ts = j * g.tile;
+    int qa = j * g.mf - (g.sequential ? 0 : g.r - 1);
+    qa = qa < 0 ? 0 : qa;
+    const int qb = min((j + 1) * g.mf, g.nframes);
+    // output positions this tile writes: all of them when one CTA walks
+    // the channel, else the tile's own
+    const int lo = g.sequential ? 0 : ts;
+    const int hi = g.sequential ? g.out_len : min(ts + g.tile, g.out_len);
+    if (!g.sequential) {
+      for (int i = tid; i < g.d; i += kRegsThreads) carry[cur * g.d + i] = 0.0f;
+    }
+    if (qb <= qa) continue;
+    // ---- FIR: span[m] ends up holding the filtered y[y0 + m]
+    const int y0 = qa * H;
+    const int len = (qb - 1) * H + N - y0;
+    const int nblk = (len + g.blk - 1) / g.blk;
+    fill(span, y0 - (g.taps - 1), nblk * g.blk + g.taps - 1, ex);
+    for (int k0 = 0; k0 < nblk; k0 += 2 * B) {
+      // transform t (index i >> L) takes blocks k0 + 2t (re) and k0 + 2t + 1 (im)
+      const auto load = [span, &g, k0, nblk, L, N](int i) {
+        const int kb = k0 + 2 * (i >> L), o = kb * g.blk + (i & (N - 1));
+        return make_float2(kb < nblk ? span[o] : 0.0f, kb + 1 < nblk ? span[o + g.blk] : 0.0f);
+      };
+      const auto store = [span, &g, k0, nblk, L, N](int i, float2 v) {
+        const int kb = k0 + 2 * (i >> L), o = (i & (N - 1)) - (g.taps - 1);
+        if (o < 0) return;
+        if (kb < nblk) span[kb * g.blk + o] = v.x * g.inv_n;
+        if (kb + 1 < nblk) span[(kb + 1) * g.blk + o] = v.y * g.inv_n;
+      };
+      const auto mid = [&](int s0, auto ld, bool si, auto st, bool so) {
+        fir_middle<RS, R == RS>(L, s0, tm, ld, si, st, so, twf, twi, hf);
+      };
+      regs_round_trip<R, RS, true>(L, tm, ex, cap, load, mid, store, twf, twi);
+    }
+    // ---- gate: a batch of frames q0 .. q0 + nf - 1, frames q0 + 2t and
+    // q0 + 2t + 1 as re/im of transform t
+    for (int q0 = qa; q0 < qb; q0 += nfb) {
+      const int nf = min(nfb, qb - q0);
+      const float* f0 = span + (q0 - qa) * H;
+      const auto load = [f0, win, nf, H, L, N](int i) {
+        const int fa = 2 * (i >> L), k = i & (N - 1);
+        const float w = __ldg(win + k);
+        const float* a = f0 + fa * H + k;
+        return make_float2(fa < nf ? a[0] * w : 0.0f, fa + 1 < nf ? a[H] * w : 0.0f);
+      };
+      const auto store = [stage_re, stage_im, win, &g, N](int i, float2 v) {
+        const float w = __ldg(win + (i & (N - 1))) * g.inv_n;
+        stage_re[i] = v.x * w;
+        stage_im[i] = v.y * w;
+      };
+      const auto mid = [&](int s0, auto ld, bool si, auto st, bool so) {
+        gate_middle<R, RS, kRelease>(g, s0, tm, ld, si, st, so, twf, twi, thr, masks, rel, nf);
+      };
+      regs_round_trip<R, RS, false>(L, tm, ex, cap, load, mid, store, twf, twi);
+      // ---- overlap-add: position p of the batch (from q0's start) is
+      // thread p mod 256's; frame f of the batch is stage (f odd ? im : re)
+      // of transform f/2
+      const float* cin = carry + cur * g.d;
+      float* cout = carry + (cur ^ 1) * g.d;
+      const int fin = nf * H;
+      const bool end = q0 + nf == g.nframes;
+      for (int p = tid; p < fin + g.d; p += kRegsThreads) {
+        // frames f of the batch with f H <= p < f H + N (hop and nfft are
+        // powers of two: shifts, no division)
+        float v = p < g.d ? cin[p] : 0.0f;
+        const int k = p >> lh;
+        const int f_hi = min(nf - 1, k);
+        for (int f = max(0, k - g.r + 1); f <= f_hi; ++f) {
+          v += ((f & 1) ? stage_im : stage_re)[(f >> 1) * N + p - (f << lh)];
+        }
+        if (p < fin || end) {
+          const int gp = q0 * H + p;
+          if (gp >= lo && gp < hi) oc[gp] = v * inv_norm(gp);
+        } else {
+          cout[p - fin] = v;
+        }
+      }
+      cur ^= 1;
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace asp

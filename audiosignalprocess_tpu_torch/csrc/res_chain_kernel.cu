@@ -9,19 +9,20 @@
 // STFT gate with WOLA, output length nfft + (F-1)*hop for the frames F of
 // the resampled length.
 //
-// Design.  The body is chain_kernel.cu's (asp::fir_gate_tiles, same
-// schedule: one CTA per (channel, 16-hop tile) recomputing its halo, or
-// one CTA per channel walking its tiles when release > 0); only the
-// FIR's input changes.  Each time the body asks for a span of the
-// resampled stream (its tile's frames, the halo frames and the FIR
-// history, about 5.8 k samples at the headline), the CTA stages the raw
-// samples that span reads (about 5.4 k at 160/147, the polyphase history
-// included, zeros before the file) in shared memory and resamples them
-// with the phase bank, also in shared memory (asp::res_range).  The
-// resampled signal never leaves the CTA.  The TPU kernel instead feeds
-// its matrix unit dense per-row "supercycle" phase matrices, because
-// Mosaic cannot reshape 160 lanes into 128; here each resampled sample is
-// its nk multiply-adds (21 at 160/147).
+// Design.  The body is chain_kernel.cu's (asp::fir_gate_regs,
+// chain_regs_device.cuh: the same schedule, batched register Stockham
+// transforms, the per-bin work in registers); only the FIR's input
+// changes.  Each time the body asks for a span of the resampled stream
+// (its tile's frames, the halo frames and the FIR history, about 7.8 k
+// samples at the headline), the CTA stages the raw samples that span reads
+// (about 7.2 k at 160/147, the polyphase history included, zeros before
+// the file) and the phase bank in the tail of its shared memory (the
+// exchange buffers, free until the FIR's first pass) and resamples them
+// there (res_span: asp::res_range's arithmetic with the phases stepped,
+// not divided).  The resampled signal never leaves the CTA.  The
+// TPU kernel instead feeds its matrix unit dense per-row "supercycle"
+// phase matrices, because Mosaic cannot reshape 160 lanes into 128; here
+// each resampled sample is its nk multiply-adds (21 at 160/147).
 //
 // What bounds it on an H100: as chain_kernel.cu, the FFT work (about 500
 // float32 flops per output sample); the resample adds 2*nk = 42 flops per
@@ -30,36 +31,103 @@
 
 #include <cuda_runtime.h>
 
-#include "chain_device.cuh"
+#include "chain_regs_device.cuh"
 #include "resample_device.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+// floor(a / b) for b > 0
+__device__ __forceinline__ long long floor_div(long long a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
 
-__global__ void __launch_bounds__(kThreads)
+// The resampled outputs [j0, j0 + count) into span[0, count), zero outside
+// [0, n_res): asp::res_range's values (the same staged raw window, taps and
+// fmaf order), but each thread steps its outputs' phase and newest raw
+// index by 256 outputs at a time instead of dividing (64-bit) per output.
+// Returns after a __syncthreads().
+__device__ __forceinline__ void res_span(const asp::ResGeo& g, const float* bank_s,
+                                         float* win_s, const asp::RawSrc& src, int j0,
+                                         int count, int n_res, float* span) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int jf = max(j0, 0), jl = min(j0 + count, n_res);
+  int r0 = 0;
+  if (jl > jf) {
+    r0 = static_cast<int>(static_cast<long long>(jf) * g.down / g.up) - (g.nk - 1);
+    const int rn = static_cast<int>(static_cast<long long>(jl - 1) * g.down / g.up) - r0 + 1;
+    for (int i = tid; i < rn; i += nt) win_s[i] = src(r0 + i);
+  }
+  __syncthreads();
+  // output j = j0 + i reads raw m - k (m = floor(j down / up)) with phase
+  // p = j down - m up; thread tid starts at i = tid and steps by nt
+  const long long pos = static_cast<long long>(j0 + tid) * g.down;
+  long long m = floor_div(pos, g.up);
+  int p = static_cast<int>(pos - m * g.up);
+  const int step_m = nt * g.down / g.up, step_p = nt * g.down - step_m * g.up;
+  for (int i = tid; i < count; i += nt) {
+    const int j = j0 + i;
+    float acc = 0.0f;
+    if (j >= jf && j < jl) {
+      const float* w = win_s + (static_cast<int>(m) - (g.nk - 1) - r0);
+      const float* b = bank_s + p * g.nk;
+      for (int t = 0; t < g.nk; ++t) acc = fmaf(b[t], w[t], acc);
+    }
+    span[i] = acc;
+    m += step_m;
+    p += step_p;
+    if (p >= g.up) {
+      p -= g.up;
+      ++m;
+    }
+  }
+  __syncthreads();
+}
+
+template <int R, int RS, bool kRelease>
+__global__ void __launch_bounds__(asp::kRegsThreads, 2)
 res_fir_noise_gate_kernel(const float* __restrict__ x, int n, int n_res,
                           float* __restrict__ out,
                           const float* __restrict__ noise_floor,
                           const float* __restrict__ win,
                           const float2* __restrict__ hf,
-                          const float2* __restrict__ tw,
+                          const float2* __restrict__ twf,
+                          const float2* __restrict__ twi,
                           const float* __restrict__ inv_tab,
                           const float* __restrict__ bank, asp::ResGeo rg,
                           asp::ChainGeo g) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* bank_s = smem + asp::chain_smem_floats(g);  // up * nk
-  float* raw_s = bank_s + rg.up * rg.nk;              // raw window of a span
   const int c = blockIdx.y;
-  asp::res_load_bank(bank_s, bank, rg);  // read after res_range's first barrier
   const asp::RawSrc src{nullptr, 0, x + static_cast<size_t>(c) * n, n};
-  const auto fill = [&](float* span, int s, int len) {
-    asp::res_range(rg, bank_s, raw_s, src, s, len, 0, n_res,
-                   [span](int i, float v) { span[i] = v; });
+  const auto fill = [&](float* span, int s, int len, float* scratch) {
+    float* bank_s = scratch;             // up * nk
+    float* raw_s = bank_s + rg.up * rg.nk;  // raw window of the span
+    asp::res_load_bank(bank_s, bank, rg);  // read after res_span's first barrier
+    res_span(rg, bank_s, raw_s, src, s, len, n_res, span);
   };
-  asp::fir_gate_tiles(g, smem, c, out + static_cast<size_t>(c) * g.out_len, noise_floor,
-                      win, hf, tw, inv_tab, fill);
+  asp::fir_gate_regs<R, RS, kRelease>(g, reinterpret_cast<float*>(smem4), c,
+                            out + static_cast<size_t>(c) * g.out_len, noise_floor, win, hf,
+                            twf, twi, inv_tab, fill);
+}
+
+using Kernel = void (*)(const float*, int, int, float*, const float*, const float*,
+                        const float2*, const float2*, const float2*, const float*,
+                        const float*, asp::ResGeo, asp::ChainGeo);
+
+// The instantiation for nfft, as chain_kernel.cu's kernel_for.
+template <bool kRelease>
+Kernel kernel_for(int nfft) {
+  const int rs = __builtin_ctz(static_cast<unsigned>(nfft)) % 4;
+  return nfft == 2 ? res_fir_noise_gate_kernel<2, 2, kRelease>
+         : nfft == 4 ? res_fir_noise_gate_kernel<4, 4, kRelease>
+         : nfft == 8 ? res_fir_noise_gate_kernel<8, 8, kRelease>
+         : nfft == 16 ? res_fir_noise_gate_kernel<16, 16, kRelease>
+         : rs == 2 ? res_fir_noise_gate_kernel<16, 4, kRelease>
+         : rs == 3 ? res_fir_noise_gate_kernel<16, 8, kRelease>
+                   : res_fir_noise_gate_kernel<16, 2, kRelease>;
+}
+
+Kernel kernel_for(int nfft, int sequential) {
+  return sequential ? kernel_for<true>(nfft) : kernel_for<false>(nfft);
 }
 
 }  // namespace
@@ -70,9 +138,9 @@ extern "C" {
 // the launch: 0 on success.  Nothing is synchronized or allocated here.
 // n: raw samples per channel; n_res = ceil(n*up/down).
 int asp_res_fir_noise_gate(const float* x, float* out, const float* noise_floor,
-                           const float* win, const float* hf, const float* tw,
-                           const float* inv_tab, const float* bank, int channels,
-                           int n, int n_res, int up, int down, int nk, int nfft,
+                           const float* win, const float* hf, const float* twf,
+                           const float* twi, const float* inv_tab, const float* bank,
+                           int channels, int n, int n_res, int up, int down, int nk, int nfft,
                            int log2n, int hop, int taps, int nframes, int mf,
                            int sequential, float thresh_gain, float att,
                            float release, int smem_bytes, int device, void* stream) {
@@ -81,16 +149,31 @@ int asp_res_fir_noise_gate(const float* x, float* out, const float* noise_floor,
   const asp::ChainGeo g = asp::chain_geo(nfft, log2n, hop, taps, nframes, mf, sequential,
                                          thresh_gain, att, release);
   const asp::ResGeo rg{up, down, nk, 0};
-  err = cudaFuncSetAttribute(res_fir_noise_gate_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
+  const Kernel kernel = kernel_for(nfft, sequential);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(sequential ? 1 : g.ntiles, channels);
-  res_fir_noise_gate_kernel<<<grid, kThreads, smem_bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, asp::kRegsThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       x, n, n_res, out, noise_floor, win, reinterpret_cast<const float2*>(hf),
-      reinterpret_cast<const float2*>(tw), inv_tab, bank, rg, g);
+      reinterpret_cast<const float2*>(twf), reinterpret_cast<const float2*>(twi), inv_tab,
+      bank, rg, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// As asp_fir_noise_gate_info, for this kernel's instantiation for nfft.
+int asp_res_fir_noise_gate_info(int nfft, int sequential, int smem_bytes, int device, int* info) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Kernel kernel = kernel_for(nfft, sequential);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[2], kernel, asp::kRegsThreads, smem_bytes));
 }
 
 }  // extern "C"

@@ -6,7 +6,9 @@ kernels and their plain PyTorch versions.
   kernel: raw audio is read from device memory once, filtered, framed,
   gated, resynthesized and written once.  Same conventions as
   ``oracle.noise_gate(oracle.fir_direct(x, h), ...)``; the output length
-  is nfft + (F-1)*hop.
+  is nfft + (F-1)*hop.  Its body (``csrc/chain_regs_device.cuh``, shared
+  with ``resample_fir_gate_fused``) runs batches of register Stockham
+  transforms; ``regs_geometry`` sizes its tiles and shared memory.
 - ``fir_gate_step_fused`` (``csrc/fir_gate_step_kernel.cu``): one
   streaming block of the same chain, with an optional envelope tail
   (|y| -> FIR ``env_h`` -> * ``env_scale``) folded into the same launch.
@@ -32,6 +34,7 @@ from audiosignalprocess_tpu_torch.kernels import _build
 from audiosignalprocess_tpu_torch.kernels._build import (
     SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
 )
+from audiosignalprocess_tpu_torch.kernels.fft_kernel import real_stockham_passes, stockham_table
 from audiosignalprocess_tpu_torch.kernels.fir_kernel import reversed_taps
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (  # noqa: F401
     FRAMES_PER_TILE, _geometry, _inv_norm_table, check_gate_guards, file_tables,
@@ -58,10 +61,128 @@ def _check_guards(h: np.ndarray, n: int, nfft: int, hop: int,
 def gate_tables(h_bytes: bytes, nfft: int, hop: int, window_kind: str,
                 device: torch.device) -> tuple:
     """The whole-file FIR -> gate kernels' constant tables on ``device``:
-    the gate's (``gate_kernel.file_tables``: window, twiddles, 1/WOLA
-    norm) and the tap spectrum (``os_kernel.fft_tables``)."""
-    win, tw, inv_tab = file_tables(nfft, hop, window_kind, device)
-    return win, fft_tables(h_bytes, nfft, device)[0], tw, inv_tab
+    the window, the tap spectrum (``os_kernel.fft_tables``), the forward
+    and inverse per-stage tables (``fft_kernel.stockham_table``) and the
+    1/WOLA norm (``gate_kernel.file_tables``)."""
+    win, _, inv_tab = file_tables(nfft, hop, window_kind, device)
+    return (win, fft_tables(h_bytes, nfft, device)[0], stockham_table(nfft, -1, device),
+            stockham_table(nfft, 1, device), inv_tab)
+
+
+# ---------------------------------------------------------------------------
+# the batched register body's geometry (csrc/chain_regs_device.cuh)
+# ---------------------------------------------------------------------------
+
+REGS_THREADS = 256
+"""Threads of a whole-file chain CTA (``asp::kRegsThreads``)."""
+
+SM_SMEM = 233472
+"""Shared memory of one Hopper SM (228 KB); each resident CTA also takes 1 KB."""
+
+REGS_CTAS = 2
+"""CTAs an SM the parallel launch aims at: ``__launch_bounds__(256, 2)``
+caps a thread at 128 registers, so no more than two fit."""
+
+REGS_MAX_TILE_BATCHES = 16
+"""How many tile sizes ``regs_geometry`` weighs (whole gate batches a tile,
+from the fewest that leave it an own frame)."""
+
+
+def regs_points(nfft: int) -> int:
+    """Points a thread holds in a full pass (``asp::regs_points``)."""
+    return min(16, nfft)
+
+
+def regs_batch(nfft: int) -> int:
+    """Transforms a CTA runs at once (a batch): 256 threads of
+    ``regs_points`` points, 4 at nfft 1024; a gate batch is twice as many
+    frames and a FIR batch twice as many overlap-save blocks."""
+    return REGS_THREADS * regs_points(nfft) // nfft
+
+
+def regs_pass_plan(nfft: int) -> tuple[list[tuple[int, int]], list[tuple[int, int]]]:
+    """(forward, inverse) passes, (first stage, stages) each, of the body's
+    nfft-point transforms: ``rfft_stockham``'s plan for its nfft-point
+    half-size transform, so the forward's last pass and the inverse's
+    first have the same points a group (log2 nfft mod 4 stages, 1 where
+    that is 0), which the body merges into one pass with the per-bin work."""
+    return real_stockham_passes(2 * nfft), real_stockham_passes(2 * nfft, inverse=True)
+
+
+def regs_span(nfft: int, hop: int, taps: int, mf: int, sequential: bool) -> int:
+    """Floats of the span a tile filters (``asp::regs_span``): its mf
+    frames and, in the parallel launch, the nfft/hop - 1 halo frames, in
+    whole overlap-save blocks, plus the FIR history."""
+    halo = 0 if sequential else nfft // hop - 1
+    blk = nfft - (taps - 1)
+    return -(-((mf + halo - 1) * hop + nfft) // blk) * blk + taps - 1
+
+
+def regs_smem(nfft: int, hop: int, taps: int, mf: int, sequential: bool,
+              tail: int = 0) -> int:
+    """Dynamic shared memory of one CTA, in the order
+    ``asp::fir_gate_regs`` carves it: threshold and release state (nfft/2+1
+    each), two OLA carries (nfft-hop each), the span, the batch's masks
+    (release > 0), then the two exchange buffers, or ``tail`` floats if
+    the kernel's fill needs more there."""
+    nb = nfft // 2 + 1
+    head = (2 * nb + 2 * (nfft - hop) + regs_span(nfft, hop, taps, mf, sequential)
+            + (2 * regs_batch(nfft) * nb if sequential else 0))
+    return 4 * (head + max(4 * REGS_THREADS * regs_points(nfft), tail))
+
+
+def regs_geometry(nfft: int, hop: int, taps: int, sequential: bool = False,
+                  tail=None) -> dict:
+    """Frames per tile (mf), span and shared memory of the batched body.
+
+    A tile's frames (its mf and, in the parallel launch, the nfft/hop - 1
+    halo frames) fill whole gate batches: mf = k * 2B - halo, k from the
+    fewest batches that leave the tile an own frame, REGS_MAX_TILE_BATCHES
+    values.  Among those whose shared memory fits SMEM_LIMIT, the parallel
+    launch takes the most CTAs an SM (up to REGS_CTAS), then the fewest
+    batches (gate and FIR) per own frame, then the smaller tile; the
+    sequential launch (one CTA a channel) only the fewest batches.
+    ``tail(span)`` gives the floats the kernel's fill needs in the tail
+    (``resample_fir_gate_fused``: its phase bank and raw window).  At
+    nfft 1024, hop 256, 64 taps: mf = 21 (24 frames, three gate batches,
+    one FIR batch of 8 blocks), 2 CTAs an SM."""
+    check(regs_batch(nfft) >= 1,
+          f"nfft={nfft}: a batch of the whole-file chain is {REGS_THREADS * 16} points, "
+          f"so nfft <= {REGS_THREADS * 16}")
+    halo = 0 if sequential else nfft // hop - 1
+    nfb = 2 * regs_batch(nfft)
+    blk = nfft - (taps - 1)
+    best = None
+    k0 = halo // nfb + 1  # the fewest batches that leave an own frame
+    for k in range(k0, k0 + REGS_MAX_TILE_BATCHES):
+        mf = k * nfb - halo
+        span = regs_span(nfft, hop, taps, mf, sequential)
+        smem = regs_smem(nfft, hop, taps, mf, sequential, tail(span) if tail else 0)
+        if smem > SMEM_LIMIT:
+            break
+        nblk = -(-((mf + halo - 1) * hop + nfft) // blk)
+        ctas = 1 if sequential else min(REGS_CTAS, SM_SMEM // (smem + 1024))
+        key = (-ctas, (k + -(-nblk // nfb)) / mf, mf)
+        if best is None or key < best[0]:
+            best = (key, dict(mf=mf, span=span, smem=smem))
+    check(best is not None,
+          f"nfft={nfft}, hop={hop}, taps={taps} need more shared memory per block "
+          f"than SMEM_LIMIT ({SMEM_LIMIT} bytes) for one batch of frames")
+    return best[1]
+
+
+def regs_info(symbol: str, nfft: int, sequential: bool, smem: int,
+              device: torch.device) -> dict:
+    """The built kernel's instantiation for nfft and the launch, from the
+    CUDA runtime: registers a thread, local memory a thread (spills) and
+    resident CTAs an SM at ``smem`` bytes of shared memory (the occupancy
+    API)."""
+    fn = getattr(_build.load(), symbol)
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 3)()
+    raise_on_error(fn(nfft, int(sequential), smem, device.index or 0, info), symbol)
+    return dict(registers=info[0], local_bytes=info[1], ctas=info[2])
 
 
 def filtered_floor(head: torch.Tensor, h: np.ndarray, nfft: int, hop: int,
@@ -77,7 +198,7 @@ def filtered_floor(head: torch.Tensor, h: np.ndarray, nfft: int, hop: int,
 @functools.cache
 def _lib():
     fn = _build.load().asp_fir_noise_gate
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -106,7 +227,8 @@ def fir_noise_gate_fused(x: torch.Tensor, h, nfft: int = 1024,
     A CPU tensor runs ``fir_noise_gate_ref``.  A CUDA float32 tensor
     launches the kernel: one CTA per (channel, tile) when ``release`` is
     0, one CTA per channel walking its frames in order when it is not
-    (the release is a scan over all frames).  Any other tensor raises.
+    (the release is a scan over all frames); ``regs_geometry`` gives the
+    tile.  Any other tensor raises.
     """
     h = np.asarray(h, dtype=np.float64)
     n = x.shape[-1]
@@ -122,20 +244,17 @@ def fir_noise_gate_fused(x: torch.Tensor, h, nfft: int = 1024,
     xf = x.reshape(-1, n).contiguous()
     channels = xf.shape[0]
     check(0 < channels <= 65535, f"{channels} channels: 1..65535 per launch")
-    geo = _geometry(nfft, hop, len(h))
-    check(geo["smem"] <= SMEM_LIMIT,
-          f"nfft={nfft}, hop={hop}, taps={len(h)} need {geo['smem']} bytes "
-          f"of shared memory per block, more than {SMEM_LIMIT}")
+    geo = regs_geometry(nfft, hop, len(h), release > 0.0)
     dev = xf.device
     out_len = nfft + (nframes - 1) * hop
-    win, hf, tw, inv_tab = gate_tables(h.tobytes(), nfft, hop, window_kind, dev)
+    win, hf, twf, twi, inv_tab = gate_tables(h.tobytes(), nfft, hop, window_kind, dev)
     head = xf[:, : min(n, nfft - hop + noise_frames * hop + nfft)]
     floor = filtered_floor(head, h, nfft, hop, noise_frames, win)
     out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
 
     rc = _lib()(
         xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(),
-        hf.data_ptr(), tw.data_ptr(), inv_tab.data_ptr(),
+        hf.data_ptr(), twf.data_ptr(), twi.data_ptr(), inv_tab.data_ptr(),
         channels, n, nfft, nfft.bit_length() - 1, hop, len(h), nframes,
         geo["mf"], int(release > 0.0),
         float(10.0 ** (threshold_db / 20.0)),
@@ -148,6 +267,17 @@ def fir_noise_gate_fused(x: torch.Tensor, h, nfft: int = 1024,
 
 
 fir_noise_gate_fused.launches = 0
+
+
+def fir_noise_gate_info(nfft: int = 1024, hop: int = 256, taps: int = 64,
+                        release: float = 0.0, device=None) -> dict:
+    """``fir_noise_gate_fused``'s kernel at this geometry on a CUDA device:
+    ``regs_info`` (registers, local bytes, CTAs an SM) with the frames per
+    tile and shared memory of its launch."""
+    geo = regs_geometry(nfft, hop, taps, release > 0.0)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return dict(regs_info("asp_fir_noise_gate_info", nfft, release > 0.0, geo["smem"], dev),
+                mf=geo["mf"], smem=geo["smem"])
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ PyTorch versions.
   file in one kernel.  Same conventions as
   ``oracle.noise_gate(oracle.fir_direct(oracle.resample_poly(x, up, down,
   zero_phase=False), h), ...)``; the output length is nfft + (F-1)*hop
-  with F the frames of the resampled length ceil(n*up/down).
+  with F the frames of the resampled length ceil(n*up/down).  Its body is
+  ``fir_noise_gate_fused``'s (``csrc/chain_regs_device.cuh``).
 - ``res_fir_gate_step_fused`` (``csrc/res_fir_gate_step_kernel.cu``): one
   streaming block of the same chain, raw block in, b_in*up/down samples
   out, with an optional envelope tail folded into the same launch.  Its
@@ -35,8 +36,8 @@ from audiosignalprocess_tpu_torch.kernels._build import (
     SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
 )
 from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
-    _check_guards, _geometry, filtered_floor, fir_gate_step_args, fir_gate_step_ref,
-    fir_noise_gate_ref, gate_tables,
+    _check_guards, filtered_floor, fir_gate_step_args, fir_gate_step_ref,
+    fir_noise_gate_ref, gate_tables, regs_geometry, regs_info,
 )
 from audiosignalprocess_tpu_torch.kernels.os_kernel import check_os_geometry
 from audiosignalprocess_tpu_torch.kernels.resample_kernel import bank_table, res_window
@@ -71,7 +72,7 @@ def resample_fir_gate_ref(x: torch.Tensor, up: int, down: int, h_fir, h_res=None
 @functools.cache
 def _lib():
     fn = _build.load().asp_res_fir_noise_gate
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 13
                    + [ctypes.c_float] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -89,7 +90,8 @@ def resample_fir_gate_fused(x: torch.Tensor, up: int, down: int, h_fir, h_res=No
     A CPU tensor runs ``resample_fir_gate_ref``.  A CUDA float32 tensor
     launches the kernel: one CTA per (channel, tile) when ``release`` is
     0, one CTA per channel walking its tiles when it is not; each CTA
-    resamples the span its tile filters.  Any other tensor raises.
+    resamples the span its tile filters (``res_geometry``).  Any other
+    tensor raises.
     """
     up, down, h_res = _ratio(up, down, h_res)
     h = np.asarray(h_fir, dtype=np.float64)
@@ -105,16 +107,11 @@ def resample_fir_gate_fused(x: torch.Tensor, up: int, down: int, h_fir, h_res=No
     xf = x.reshape(-1, n).contiguous()
     channels = xf.shape[0]
     check(0 < channels <= 65535, f"{channels} channels: 1..65535 per launch")
-    geo = _geometry(nfft, hop, len(h))
     nk = taps_per_phase(len(h_res), up)
-    smem = geo["smem"] + 4 * (up * nk + res_window(geo["span"], up, down, nk))
-    check(smem <= SMEM_LIMIT,
-          f"nfft={nfft}, hop={hop}, taps={len(h)}, {up}/{down} with {len(h_res)} "
-          f"resampler taps need {smem} bytes of shared memory per block, "
-          f"more than {SMEM_LIMIT}")
+    geo = res_geometry(up, down, nk, nfft, hop, len(h), release > 0.0)
     dev = xf.device
     out_len = nfft + (nframes - 1) * hop
-    win, hf, tw, inv_tab = gate_tables(h.tobytes(), nfft, hop, window_kind, dev)
+    win, hf, twf, twi, inv_tab = gate_tables(h.tobytes(), nfft, hop, window_kind, dev)
     # the floor's head: the raw samples the first d + noise_frames*hop
     # resampled samples read (the plain resampler, so no kernel launch)
     need = nfft - hop + noise_frames * hop
@@ -124,19 +121,42 @@ def resample_fir_gate_fused(x: torch.Tensor, up: int, down: int, h_fir, h_res=No
     out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
     rc = _lib()(
         xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(),
-        hf.data_ptr(), tw.data_ptr(), inv_tab.data_ptr(),
+        hf.data_ptr(), twf.data_ptr(), twi.data_ptr(), inv_tab.data_ptr(),
         bank_table(h_res.tobytes(), up, dev).data_ptr(),
         channels, n, n_res, up, down, nk, nfft, nfft.bit_length() - 1, hop, len(h),
         nframes, geo["mf"], int(release > 0.0),
         float(10.0 ** (threshold_db / 20.0)),
         float(10.0 ** (-reduction_db / 20.0)), float(release),
-        smem, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        geo["smem"], dev.index, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "res_fir_noise_gate")
     resample_fir_gate_fused.launches += 1
     return out.reshape(batch + (out_len,))
 
 
 resample_fir_gate_fused.launches = 0
+
+
+def res_geometry(up: int, down: int, nk: int, nfft: int, hop: int, taps: int,
+                 sequential: bool = False) -> dict:
+    """``regs_geometry`` of the resampling kernel: its fill stages the
+    (up, nk) phase bank and the raw window of a span in the tail of its
+    shared memory (``up`` and ``down`` reduced)."""
+    return regs_geometry(nfft, hop, taps, sequential,
+                         tail=lambda span: up * nk + res_window(span, up, down, nk))
+
+
+def resample_fir_gate_info(up: int, down: int, h_fir, h_res=None, nfft: int = 1024,
+                           hop: int = 256, release: float = 0.0, device=None) -> dict:
+    """``resample_fir_gate_fused``'s kernel at this geometry on a CUDA
+    device: ``regs_info`` (registers, local bytes, CTAs an SM) with the
+    frames per tile and shared memory of its launch."""
+    up, down, h_res = _ratio(up, down, h_res)
+    geo = res_geometry(up, down, taps_per_phase(len(h_res), up), nfft, hop, len(h_fir),
+                       release > 0.0)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return dict(regs_info("asp_res_fir_noise_gate_info", nfft, release > 0.0, geo["smem"],
+                          dev),
+                mf=geo["mf"], smem=geo["smem"])
 
 
 # ---------------------------------------------------------------------------

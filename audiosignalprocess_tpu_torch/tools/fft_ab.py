@@ -1,7 +1,8 @@
-"""Paired A/B of the Stockham FFT kernels between checkouts, on one card.
+"""Paired A/B of the Stockham FFT kernels (or, with ``--chain``, the
+whole-file chain kernels) between checkouts, on one card.
 
     python -m audiosignalprocess_tpu_torch.tools.fft_ab PARENT CHANGE [MORE ...]
-        [--out DIR] [--quick] [--sizes N ...]
+        [--out DIR] [--quick] [--sizes N ...] [--chain]
 
 runs, from each checkout's own ``chip_smoke.py`` and package:
 
@@ -22,6 +23,21 @@ runs, from each checkout's own ``chip_smoke.py`` and package:
   launches queued behind ``torch.cuda._sleep``, which the host's launch
   cost cannot hide in; ``[ab ptxas]`` lines give the real kernels'
   registers and spills where the process built them.
+
+With ``--chain`` the timing is the whole-file chain kernels' instead
+(lines ``[ab chain]``): ``fir_noise_gate_fused`` at 64 x 480000 and
+``resample_fir_gate_fused`` at 64 x 441000 -> 480000 (160/147) on
+``bench.py``'s white noise, each call with its wrapper's prologue, 6 reps
+round-robin: the device time of 10 calls queued behind
+``torch.cuda._sleep`` (about 50 ms, so the wrappers' host prologues do not
+pace them) and chip_smoke's ``time_ms``; ``[ab ptxas]`` then
+gives both kernels' registers and spills, and ``[ab chain]`` their
+registers, local memory and CTAs an SM from the CUDA runtime where the
+checkout has the query.  Without ``--quick`` each checkout first runs its
+own kernels on chip_smoke's phase 3 and 10 cases (tone bursts from fixed
+seeds) and prints ``[ab chain] reading`` lines: SNR against the float64
+plain version and the plain gate's flipped decisions, so the parent's
+readings stand beside the change's.
 
 ``--quick`` runs only the timing.  The checkouts run in mirrored turns
 (parent, change, change, parent; A, B, C, C, B, A for three), one process
@@ -58,10 +74,24 @@ from audiosignalprocess_tpu_torch.kernels.resample_kernel import resample_mac
 from audiosignalprocess_tpu_torch.kernels.stretch_kernel import stretch_step_fused
 from audiosignalprocess_tpu_torch.ops.fir import design_fir
 from audiosignalprocess_tpu_torch.ops import fft as ops_fft
+from audiosignalprocess_tpu_torch.utils.metrics import snr_db
+
+CHAIN_CASES = [  # (resampling, channels, n, taps, release, nfft, hop): phases 3 and 10's
+    (False, 2, 48128, 64, 0.0, 1024, 256), (False, 4, 32768, 64, 0.6, 1024, 256),
+    (False, 2, 32768, 384, 0.0, 1024, 256), (False, 2, 48128, 64, 0.0, 256, 64),
+    (False, 2, 48128, 64, 0.6, 512, 128), (False, 2, 48128, 30, 0.0, 512, 256),
+    (False, 3, 48128, 1, 0.0, 1024, 512), (False, 5, 48128, 64, 0.0, 1024, 128),
+    (False, 2, 60000, 64, 0.0, 2048, 512), (False, 1, 60000, 384, 0.6, 2048, 256),
+    (True, 2, 47040, 64, 0.0, 1024, 256), (True, 1, 47040, 384, 0.0, 1024, 256),
+    (True, 2, 47040, 64, 0.0, 256, 64), (True, 3, 47040, 64, 0.6, 512, 128),
+    (True, 1, 47040, 30, 0.0, 1024, 512), (True, 2, 55125, 64, 0.0, 2048, 256),
+]
 
 log = _build.build()[1].splitlines()
-for i, line in enumerate(log):  # ptxas's report of the real kernels, where this call built them
-    if "Compiling entry function" in line and "rfft_stockham_kernel" in line:
+chain = "--chain" in sys.argv
+kern = "fir_noise_gate_kernel" if chain else "rfft_stockham_kernel"
+for i, line in enumerate(log):  # ptxas's report of the timed kernels, where this call built them
+    if "Compiling entry function" in line and kern in line:
         name = line.split("'")[1]
         used = next((x.split(":", 1)[-1].strip() for x in log[i + 1:i + 6] if "Used" in x), "")
         spill = next((x.split(":", 1)[-1].strip() for x in log[i + 1:i + 6] if "spill" in x), "")
@@ -86,7 +116,7 @@ rng = np.random.default_rng(0)
 h = design_fir(cs.TAPS, 0.3)
 x = torch.as_tensor(cs.tone_burst(rng, *cs.HEADLINE), dtype=torch.float32, device=dev)
 record = collections.defaultdict(dict)
-if "--quick" not in sys.argv:
+if "--quick" not in sys.argv and not chain:
     cs.gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x, h)
     cs.fft_manual_phase(dev, smi, record, kernels, reset_counts, h)
 del x
@@ -99,14 +129,14 @@ def probe():
     return 2 * src.numel() * 4 / cs.time_ms(lambda: dst.copy_(src), reps=10, warmup=2) * 1e3
 
 
-def queued_ms(fn, reps=20):
+def queued_ms(fn, reps=20, cycles=10 ** 7):
     # device time of fn() over reps launches queued while the card sleeps
-    # (about 5 ms at 2 GHz): the events bracket device work only
+    # (10^7 cycles: about 5 ms at 2 GHz): the events bracket device work only
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10 ** 7)
+    torch.cuda._sleep(cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -114,6 +144,53 @@ def queued_ms(fn, reps=20):
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
 
+
+if chain:
+    from audiosignalprocess_tpu_torch.kernels import chain_kernel as ck
+    from audiosignalprocess_tpu_torch.kernels import res_chain_kernel as rk
+    h = design_fir(cs.TAPS, 0.3)
+    xa = torch.as_tensor(np.random.default_rng(0).standard_normal(cs.HEADLINE).astype(np.float32),
+                         device=dev)
+    xr = torch.as_tensor(np.random.default_rng(0).standard_normal(cs.RES_HEADLINE)
+                         .astype(np.float32), device=dev)
+    for name, info in (("fir_noise_gate_fused", lambda: ck.fir_noise_gate_info(device=dev)),
+                       ("resample_fir_gate_fused",
+                        lambda: rk.resample_fir_gate_info(cs.UP, cs.DOWN, h, device=dev))):
+        if hasattr(ck, "fir_noise_gate_info"):
+            print(f"[ab chain] {name} on {smi}: {info()}")
+    if "--quick" not in sys.argv:  # the readings of chip_smoke's phase 3 and 10 cases
+        from audiosignalprocess_tpu_torch.kernels.chain_kernel import fir_noise_gate_ref
+        from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import resample_fir_gate_ref
+        from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
+        from audiosignalprocess_tpu_torch.ops.resample import resample_poly
+        for i, (res, c, n, taps, release, nfft, hop) in enumerate(CHAIN_CASES):
+            g = torch.as_tensor(cs.tone_burst(np.random.default_rng(1000 + i), c, n), device=dev)
+            hc = design_fir(taps, 0.2 if taps == 384 else 0.3)
+            kw = dict(nfft=nfft, hop=hop, release=release)
+            if res:
+                y = resample_fir_gate_fused(g.float(), cs.UP, cs.DOWN, hc, **kw)
+                ref = resample_fir_gate_ref(g, cs.UP, cs.DOWN, hc, **kw)
+                g = resample_poly(g, cs.UP, cs.DOWN, zero_phase=False)
+            else:
+                y = fir_noise_gate_fused(g.float(), hc, **kw)
+                ref = fir_noise_gate_ref(g, hc, **kw)
+            flips = cs.decision_flips(overlap_save(g, hc, nfft, impl="torch"), nfft, hop)
+            name = "resample_fir_gate_fused" if res else "fir_noise_gate_fused"
+            print(f"[ab chain] reading {name} {c}x{n} nfft={nfft} hop={hop} taps={taps} "
+                  f"release={release}: snr_vs_f64_plain={snr_db(ref, y):.2f} dB "
+                  f"decision_flips_f32_vs_f64={flips}")
+    arms = {"fir_noise_gate_fused": lambda: fir_noise_gate_fused(xa, h),
+            "resample_fir_gate_fused": lambda: resample_fir_gate_fused(xr, cs.UP, cs.DOWN, h)}
+    got = {arm: [] for arm in arms}
+    for _ in range(6):
+        for arm, fn in arms.items():
+            got[arm].append((queued_ms(fn, reps=10, cycles=10 ** 8),  # the prologue's host time
+                             cs.time_ms(fn, reps=10, warmup=2)))
+    print(f"[ab chain] {smi}, 6 reps round-robin, medians: " + "; ".join(
+        f"{arm} queued device {np.median([r[0] for r in v]):.4f} ms (reps "
+        f"{', '.join(f'{r[0]:.4f}' for r in v)}), time_ms {np.median([r[1] for r in v]):.4f} ms"
+        for arm, v in got.items()))
+    sys.exit(0)
 
 sizes = [int(a) for a in sys.argv[1:] if a.isdigit()] or [1024, 4096]
 for n in sizes:
@@ -147,7 +224,8 @@ for n in sizes:
 SHOWN = ("[16 times] fft_stockham_lanes", "[16 times] rfft_stockham",
          "[16 times] irfft_stockham", "[16 times] bench.py", "[16 times] copy probe",
          "[25 times]", "[14 kernel] FFT worst", "[14 real] worst",
-         "[25 kernel] fft_stockham_manual worst", "[ab real]", "[ab ptxas]")
+         "[25 kernel] fft_stockham_manual worst", "[ab real]", "[ab ptxas]", "[ab chain]",
+         "[5 times]", "[13 times] whole")
 
 
 def main(argv=None) -> int:
@@ -158,6 +236,8 @@ def main(argv=None) -> int:
     p.add_argument("--quick", action="store_true", help="only the [ab real] timing")
     p.add_argument("--sizes", type=int, nargs="+", default=[1024, 4096],
                    help="row lengths of the [ab real] timing (4096 rows each)")
+    p.add_argument("--chain", action="store_true",
+                   help="time the whole-file chain kernels ([ab chain]) instead")
     args = p.parse_args(argv)
     if len(args.roots) < 2:
         p.error("two or more checkouts")
@@ -168,7 +248,7 @@ def main(argv=None) -> int:
     labels = ["parent", "change"] if len(args.roots) == 2 else [Path(r).name for r in args.roots]
     labels = labels + labels[::-1]
     child = ([sys.executable, "-c", CHILD] + (["--quick"] if args.quick else [])
-             + [str(n) for n in args.sizes])
+             + (["--chain"] if args.chain else []) + [str(n) for n in args.sizes])
     for i, (label, root) in enumerate(zip(labels, roots)):
         proc = subprocess.run(child, cwd=root, env=env, capture_output=True, text=True)
         log = out / f"fft_ab_{i}_{label}.log"

@@ -160,16 +160,17 @@ def copy_probe(dev):
     return lambda: 2 * src.numel() * 4 / time_ms(lambda: dst.copy_(src), reps=10, warmup=2) * 1e3
 
 
-def queued_ms(fn, reps=20):
+def queued_ms(fn, reps=20, cycles=10 ** 7):
     """Device time of fn() over reps calls queued while the card sleeps
-    (torch.cuda._sleep, about 5 ms at 2 GHz): the events bracket device
-    work only, so a kernel shorter than its launch's host cost is timed
-    as the card runs it."""
+    (torch.cuda._sleep(cycles), about 5 ms at 2 GHz by default): the events
+    bracket device work only, so a kernel shorter than its launch's host
+    cost is timed as the card runs it.  A wrapper with a long host prologue
+    needs the sleep to outlast the enqueue of all reps calls."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10 ** 7)
+    torch.cuda._sleep(cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -228,6 +229,35 @@ def decision_flips(g_in, nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES,
         mag64 = mag
     loud = mag64 > 1e-3 * mag64.amax(dim=(-2, -1), keepdim=True)
     return int(((dec[0] != dec[1]) & loud).sum())
+
+
+def flips_text(snr, flips):
+    """The flipped bins beside a gate reading (the plain gate's, float32
+    against float64: a kernel's own float32 rounding may flip others), and
+    where it counts none whether the reading holds 100 dB."""
+    return f" decision_flips_f32_vs_f64={flips}" + (
+        "" if flips else f" (none counted: >= 100 dB {'held' if snr >= 100.0 else 'not held'})")
+
+
+def chain_ptxas(log, res):
+    """ptxas's registers and spills of each instantiation <R, RS, release>
+    of the whole-file chain kernel (``res``: the resampling one) in the
+    build log (none where this process did not build)."""
+    import re
+
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            ent = line.split("'")[1]
+            hit = "fir_noise_gate_kernel" in ent and (("res_fir_noise_gate" in ent) == res)
+            m = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", ent)
+            name = f"<{m[1]},{m[2]},{m[3]}>" if hit and m else None
+        elif name and "spill stores" in line:
+            spill = line.split(",")[1].strip()
+        elif name and "Used" in line:
+            out.append(f"{name} {line.split('Used')[1].split(',')[0].strip()} {spill}")
+            name = None
+    return "; ".join(out) if out else "not built in this process"
 
 
 def check_kernel(record, phase, name, y, ref, kernel, before, calls, bar, extra=""):
@@ -299,7 +329,7 @@ def upfirdn_oracle(x, h, up, down):
     return np.stack([upfirdn(h, r, up, down)[:n_out] for r in x])
 
 
-def resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x48):
+def resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x48, log=""):
     """Phases 10-13: the config-5 resampler front end (resample_mac,
     resample_fir_gate_fused, res_fir_gate_step_fused).  Adds the three
     kernels to ``record``; raises SystemExit on a failure."""
@@ -350,24 +380,32 @@ def resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x48):
                      resample_mac_ref(x64, up, down, zero_phase=zp, history=hist),
                      resample_mac, before, 1, LINEAR_MIN_DB, extra)
 
-    for ch, n, up, down, taps, release in ((2, 47040, UP, DOWN, TAPS, 0.0),
-                                           (2, 16384, 2, 1, 96, 0.7),
-                                           (1, 47040, UP, DOWN, 384, 0.0),
-                                           (*RES_HEADLINE, UP, DOWN, TAPS, 0.0)):
-        hc = design_fir(taps, {TAPS: 0.3, 96: 0.25, 384: 0.2}[taps])
+    for ch, n, up, down, taps, release, nfft, hop in (
+            (2, 47040, UP, DOWN, TAPS, 0.0, NFFT, HOP),
+            (2, 16384, 2, 1, 96, 0.7, NFFT, HOP),
+            (1, 47040, UP, DOWN, 384, 0.0, NFFT, HOP),
+            (*RES_HEADLINE, UP, DOWN, TAPS, 0.0, NFFT, HOP),
+            (2, 47040, UP, DOWN, TAPS, 0.0, 256, 64),
+            (3, 47040, UP, DOWN, TAPS, 0.6, 512, 128),
+            (1, 47040, UP, DOWN, 30, 0.0, NFFT, 512),
+            (2, 55125, UP, DOWN, TAPS, 0.0, 2048, 256)):
+        hc = design_fir(taps, {TAPS: 0.3, 96: 0.25, 384: 0.2, 30: 0.3}[taps])
         x64 = torch.as_tensor(tone_burst(rng, ch, n), device=dev)
         before = (resample_fir_gate_fused.launches, resample_mac.launches)
-        y = resample_fir_gate_fused(x64.float(), up, down, hc, release=release)
+        y = resample_fir_gate_fused(x64.float(), up, down, hc, nfft=nfft, hop=hop,
+                                    release=release)
         torch.cuda.synchronize()
         if resample_mac.launches != before[1]:
             raise SystemExit("phase 10 failed: the whole-file kernel's floor launched resample_mac")
-        extra = ""
-        if (ch, n) == (2, 47040) and taps == TAPS:
+        ref = resample_fir_gate_ref(x64, up, down, hc, nfft=nfft, hop=hop, release=release)
+        flips = decision_flips(FIRStage(h=hc, nfft=nfft).full(ResampleStage(up, down).full(x64)),
+                               nfft, hop)
+        extra = flips_text(snr_db(ref, y), flips)
+        if (ch, n, nfft) == (2, 47040, NFFT) and taps == TAPS:
             u = upfirdn_oracle(x64.cpu().numpy(), resample_filter(up, down), up, down)
-            extra = f" snr_vs_f64_oracle={snr_db(oracle_chain(u, hc), y):.2f} dB"
-        check_kernel(record, 10, f"resample_fir_gate_fused {up}/{down} {ch}x{n} "
-                     f"taps={taps} release={release}", y,
-                     resample_fir_gate_ref(x64, up, down, hc, release=release),
+            extra += f" snr_vs_f64_oracle={snr_db(oracle_chain(u, hc), y):.2f} dB"
+        check_kernel(record, 10, f"resample_fir_gate_fused {up}/{down} {ch}x{n} nfft={nfft} "
+                     f"hop={hop} taps={taps} release={release}", y, ref,
                      resample_fir_gate_fused, before[0], 1, SNR_MIN_DB, extra)
 
     n_short = 16 * RES_BLOCK
@@ -480,11 +518,23 @@ def resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x48):
     two = path_d()
     two.build()
     two_ms = time_ms(lambda: two.full_flush(xn))
+    device_ms = queued_ms(lambda: resample_fir_gate_fused(xn, UP, DOWN, h), reps=10,
+                          cycles=10 ** 8)
+    two_device_ms = queued_ms(lambda: two.full_flush(xn), reps=10, cycles=10 ** 8)
     print(f"[13 times] whole file {RES_HEADLINE[0]}x{RES_HEADLINE[1]} -> {RES_OUT} f32 white "
           f"noise on {smi}: resample_fir_gate_fused {ms:.4f} ms "
           f"({samples / ms * 1e3:.4e} out samples/s), plain {plain_ms:.4f} ms, "
-          f"res_two (resample_mac + fir_noise_gate_fused) {two_ms:.4f} ms")
-    record["resample_fir_gate_fused"].update(ms=ms, plain_ms=plain_ms)
+          f"res_two (resample_mac + fir_noise_gate_fused) {two_ms:.4f} ms; device time of "
+          f"queued calls: resample_fir_gate_fused {device_ms:.4f} ms, res_two "
+          f"{two_device_ms:.4f} ms")
+    record["resample_fir_gate_fused"].update(ms=ms, plain_ms=plain_ms, device_ms=device_ms)
+    from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import resample_fir_gate_info
+
+    print(f"[13 kernel] resample_fir_gate_fused {UP}/{DOWN} on {smi}, from the CUDA runtime "
+          f"(registers, local bytes a thread, CTAs an SM by the occupancy API): parallel "
+          f"launch {resample_fir_gate_info(UP, DOWN, h, device=dev)}, sequential (release > 0) "
+          f"{resample_fir_gate_info(UP, DOWN, h, release=0.6, device=dev)}; ptxas <R,RS>: "
+          f"{chain_ptxas(log, True)}")
     mac_ms = time_ms(lambda: resample_mac(xn, UP, DOWN, zero_phase=False))
     mac_plain_ms = time_ms(lambda: resample_mac_ref(xn, UP, DOWN, zero_phase=False))
     print(f"[13 times] resample_mac whole file {RES_HEADLINE[0]}x{RES_HEADLINE[1]} -> "
@@ -1863,30 +1913,43 @@ def main() -> int:
                        for ln in log.splitlines() if "registers" in ln or "spill" in ln)
     print(f"[2 build] {time.perf_counter() - t0:.2f} s -> {lib_path.name}; {ptxas}")
 
-    # ---- phase 3: kernel vs its plain version, float64 on the same card
+    # ---- phase 3: kernel vs its plain version, float64 on the same card,
+    # at the headline's nfft/hop and at others (the batched body's every
+    # pass plan and tile shape), flipped gate decisions counted
+    from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
+
     rng = np.random.default_rng(47)
-    cases = [  # (channels, n, taps, release)
-        (2, 48128, TAPS, 0.0),
-        (4, 32768, TAPS, 0.6),
-        (2, 32768, 384, 0.0),
-        (*HEADLINE, TAPS, 0.0),
+    cases = [  # (channels, n, taps, release, nfft, hop)
+        (2, 48128, TAPS, 0.0, NFFT, HOP),
+        (4, 32768, TAPS, 0.6, NFFT, HOP),
+        (2, 32768, 384, 0.0, NFFT, HOP),
+        (*HEADLINE, TAPS, 0.0, NFFT, HOP),
+        (2, 48128, TAPS, 0.0, 256, 64),
+        (2, 48128, TAPS, 0.6, 512, 128),
+        (2, 48128, 30, 0.0, 512, 256),
+        (3, 48128, 1, 0.0, NFFT, 512),
+        (5, 48128, TAPS, 0.0, NFFT, 128),
+        (2, 60000, TAPS, 0.0, 2048, 512),
+        (1, 60000, 384, 0.6, 2048, 256),
     ]
     max_err, min_snr = 0.0, np.inf
-    for c, n, taps, release in cases:
+    for c, n, taps, release, nfft, hop in cases:
         h = design_fir(taps, 0.2 if taps == 384 else 0.3)
         x64 = torch.as_tensor(tone_burst(rng, c, n), device=dev)
         before = fir_noise_gate_fused.launches
-        y = fir_noise_gate_fused(x64.float(), h, release=release)
+        y = fir_noise_gate_fused(x64.float(), h, nfft=nfft, hop=hop, release=release)
         torch.cuda.synchronize()
-        ref = fir_noise_gate_ref(x64, h, release=release)
-        out_len = NFFT + ((n - NFFT) // HOP) * HOP
+        ref = fir_noise_gate_ref(x64, h, nfft=nfft, hop=hop, release=release)
+        out_len = nfft + ((n - nfft) // hop) * hop
         snr = snr_db(ref, y)
         err = float((y.double() - ref).abs().max())
         ok = (tuple(y.shape) == (c, out_len) and bool(torch.isfinite(y).all())
               and snr >= SNR_MIN_DB and fir_noise_gate_fused.launches == before + 1)
-        line = (f"[3 kernel] {c}x{n} taps={taps} release={release}: shape "
-                f"{tuple(y.shape)} snr_vs_f64_plain={snr:.2f} dB max_abs_err={err:.3e}")
-        if (c, n) == (2, 48128):
+        flips = decision_flips(overlap_save(x64, h, nfft, impl="torch"), nfft, hop)
+        line = (f"[3 kernel] {c}x{n} nfft={nfft} hop={hop} taps={taps} release={release}: "
+                f"shape {tuple(y.shape)} snr_vs_f64_plain={snr:.2f} dB max_abs_err={err:.3e}"
+                + flips_text(snr, flips))
+        if (c, n, nfft) == (2, 48128, NFFT):
             oracle = oracle_chain(x64.cpu().numpy(), h)
             line += f" snr_vs_f64_oracle={snr_db(oracle, y):.2f} dB"
         print(line)
@@ -1935,16 +1998,26 @@ def main() -> int:
     xn = torch.as_tensor(noise, device=dev)
     ms = time_ms(lambda: fir_noise_gate_fused(xn, h))
     plain_ms = time_ms(lambda: fir_noise_gate_ref(xn, h))
+    device_ms = queued_ms(lambda: fir_noise_gate_fused(xn, h), reps=10, cycles=10 ** 8)
     samples = HEADLINE[0] * HEADLINE[1]
     snr_noise = snr_db(fir_noise_gate_ref(xn.double(), h), fir_noise_gate_fused(xn, h))
     print(f"[5 times] {HEADLINE[0]}x{HEADLINE[1]} f32 white noise on {smi}: "
-          f"kernel {ms:.4f} ms ({samples / ms * 1e3:.4e} samples/s), plain "
+          f"kernel {ms:.4f} ms ({samples / ms * 1e3:.4e} samples/s; device time of "
+          f"queued calls {device_ms:.4f} ms), plain "
           f"{plain_ms:.4f} ms ({samples / plain_ms * 1e3:.4e} samples/s); "
           f"white-noise snr_vs_f64_plain={snr_noise:.2f} dB (record only)")
+    from audiosignalprocess_tpu_torch.kernels.chain_kernel import fir_noise_gate_info
+
+    print(f"[5 kernel] fir_noise_gate_fused on {smi}, from the CUDA runtime (registers, "
+          f"local bytes a thread, CTAs an SM by the occupancy API): parallel launch "
+          f"{fir_noise_gate_info(NFFT, HOP, TAPS, 0.0, dev)}, sequential (release > 0) "
+          f"{fir_noise_gate_info(NFFT, HOP, TAPS, 0.6, dev)}; ptxas <R,RS>: "
+          f"{chain_ptxas(log, False)}")
 
     record = {"fir_noise_gate_fused": dict(
         source="chain_kernel.cu", replaces="chain_kernel.py:151", launches=launches,
-        max_abs_err=max_err, min_snr_db=min_snr, ms=ms, plain_ms=plain_ms)}
+        max_abs_err=max_err, min_snr_db=min_snr, ms=ms, plain_ms=plain_ms,
+        device_ms=device_ms)}
 
     # ---- phase 6: the streaming paths' kernels vs their float64 plain
     # versions on the card, at the shapes the paths give them
@@ -2118,7 +2191,7 @@ def main() -> int:
     record["fir_mac"].update(source="fir_kernel.cu", replaces="fir_kernel.py:65")
 
     marks = [("phases 1-9", time.perf_counter())]
-    resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x)
+    resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x, log)
     marks.append(("phases 10-13", time.perf_counter()))
     gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_dev, h)
     marks.append(("phases 14-16", time.perf_counter()))

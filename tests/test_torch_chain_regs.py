@@ -1,0 +1,759 @@
+"""The host side of fir_noise_gate_fused and resample_fir_gate_fused,
+redesigned for Hopper on batched register Stockham transforms
+(``csrc/chain_regs_device.cuh``), on the CPU.
+
+- A numpy model of the kernels' body in float64: tiles (with the halo of
+  the parallel launch, or one walker per channel when release > 0),
+  batches of 2B frames or overlap-save blocks (B = 256 R / N transforms),
+  every pass of ``regs_pass_plan`` on the threads' groups, the swizzled
+  exchange (NaN-filled, so a read of an unwritten point shows), the
+  forward's last pass merged with the per-bin work and the inverse's first
+  pass (the slot identity), the gate's mirror pairs (``for_bin_pairs``),
+  the release scan along a batch's frames, and the overlap-add's
+  ownership of output positions (each written once).  It agrees with
+  ``fir_noise_gate_ref`` and ``resample_fir_gate_ref`` to rounding
+  (>= 200 dB) with no mask decision that differs, at nfft 256 to 2048,
+  hops nfft/2 to nfft/8, 1 to 384 taps, release 0 and 0.6, one tile and
+  many, odd frame counts.
+- The slot identity and the mirror pairing hold for every pass plan (nfft
+  2 to 4096): the forward's last pass leaves bin brev(j) 2^lg + q in slot
+  j of group q, the inverse's first pass reads exactly those bins, and the
+  pairs visit every bin of a transform once, each with its mirror.
+- Every exchange access of the plan touches 32 banks under the swizzle.
+- ``regs_geometry`` fills whole batches, fits SMEM_LIMIT (both kernels,
+  config 5's 3201 resampler taps included) and accepts every geometry the
+  radix-2 body accepted.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from audiosignalprocess_tpu_torch.kernels import chain_kernel as ck
+from audiosignalprocess_tpu_torch.kernels import fft_kernel as fk
+from audiosignalprocess_tpu_torch.kernels import res_chain_kernel as rk
+from audiosignalprocess_tpu_torch.kernels._build import SMEM_LIMIT
+from audiosignalprocess_tpu_torch.kernels.gate_kernel import _geometry, _inv_norm_table
+from audiosignalprocess_tpu_torch.ops.fir import design_fir
+from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
+from audiosignalprocess_tpu_torch.ops.resample import (
+    reduce_ratio, resample_filter, resample_poly, taps_per_phase,
+)
+from audiosignalprocess_tpu_torch.ops.stft import stft
+from audiosignalprocess_tpu_torch.ops.windows import window_np
+
+THREADS = ck.REGS_THREADS
+NOISE_FRAMES = 4
+PLAN_SIZES = [1 << k for k in range(1, 13)]  # 2 to 4096
+
+
+def _brev(v, bits):
+    out = 0
+    for k in range(bits):
+        out |= ((v >> k) & 1) << (bits - 1 - k)
+    return out
+
+
+def _brev_np(v, bits):
+    v = np.asarray(v)
+    out = np.zeros_like(v)
+    for k in range(bits):
+        out |= ((v >> k) & 1) << (bits - 1 - k)
+    return out
+
+
+def _swizzle(i):
+    """csrc/fft_regs.cuh pease_swizzle."""
+    x = (i >> 5) & 15
+    parity = (x ^ (x >> 1) ^ (x >> 2) ^ (x >> 3)) & 1
+    return i ^ x ^ (parity << 4) ^ ((i >> 9) & 7)
+
+
+def _snr(ref, got):
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    err = np.sum((ref - got) ** 2)
+    return np.inf if err == 0 else 10 * np.log10(np.sum(ref ** 2) / err)
+
+
+# ---------------------------------------------------------------------------
+# the body's index maps
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _layout(n):
+    """(R, RS, rs, lg, G, B): points a thread, points a group of the merged
+    pass (2^rs), log2 of its groups a transform, threads a transform,
+    transforms a batch."""
+    fwd, inv = ck.regs_pass_plan(n)
+    rs = fwd[-1][1]
+    assert inv[0] == (0, rs)
+    big_r = ck.regs_points(n)
+    return big_r, 1 << rs, rs, n.bit_length() - 1 - rs, n // big_r, ck.regs_batch(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _bin_pairs(n):
+    """for_bin_pairs of every unit of a transform: rows (unit, q_a, j_a, q_b,
+    j_b, k), slot j_a of group q_a holding bin k and slot j_b of group q_b
+    its mirror (the same slot where k = n - k)."""
+    _, rs_pts, rs, lg, _, _ = _layout(n)
+    units = 1 if lg == 0 else 1 << (lg - 1)
+    rows = []
+    for u in range(units):
+        if u != 0:
+            q2 = (1 << lg) - u
+            rows += [(u, u, j, q2, rs_pts - 1 - j, (_brev(j, rs) << lg) + u)
+                     for j in range(rs_pts)]
+            continue
+        for j in range(rs_pts):
+            b = _brev(j, rs)
+            if b <= rs_pts // 2:
+                rows.append((0, 0, j, 0, _brev((rs_pts - b) & (rs_pts - 1), rs), b << lg))
+        if lg > 0:
+            q2 = 1 << (lg - 1)
+            rows += [(0, q2, j, q2, rs_pts - 1 - j, (_brev(j, rs) << lg) + q2)
+                     for j in range(rs_pts // 2)]
+    return np.array(rows, dtype=np.int64)
+
+
+def _read_idx(n, nt, s0, r):
+    """Batch-local indices (nt, 2^lg, 2^r) a pass from s0 reads (group q of
+    transform t, slot j) and the groups' segments l."""
+    big_l = n.bit_length() - 1
+    lg = big_l - r
+    pw = lg - s0
+    q = np.arange(1 << lg)
+    l, p = q >> pw, q & ((1 << pw) - 1)
+    base = np.arange(nt)[:, None] * n + (l << (big_l - s0)) + p
+    return base[..., None] + (np.arange(1 << r) << pw), np.broadcast_to(l, (nt, 1 << lg))
+
+
+def _write_idx(n, nt, r):
+    """Batch-local indices (nt, 2^lg, 2^r) a pass writes: slot j of group q
+    at q + brev_r(j) 2^lg."""
+    big_l = n.bit_length() - 1
+    lg = big_l - r
+    q = np.arange(1 << lg)
+    return (np.arange(nt)[:, None, None] * n + q[None, :, None]
+            + (_brev_np(np.arange(1 << r), r) << lg))
+
+
+def _stages(pts, s0, r, tab, l):
+    """stockham_pass: r stages from s0 on (..., 2^r) points of segment l."""
+    big_r = 1 << r
+    for b in range(r):
+        h = 1 << (r - 1 - b)
+        for j in range(big_r):
+            if j & h:
+                continue
+            w = tab[(1 << (s0 + b)) - 1 + l + (_brev(j >> (r - b), b) << s0)]
+            u, x = pts[..., j].copy(), pts[..., j + h] * w
+            pts[..., j] = u + x
+            pts[..., j + h] = u - x
+
+
+class _Exchange:
+    """Two exchange buffers of a CTA (cap complex points each), addressed
+    through the swizzle; NaN until written."""
+
+    def __init__(self, cap):
+        self.buf = [np.full(cap, np.nan + 0j), np.full(cap, np.nan + 0j)]
+
+    def load(self, p):
+        def ld(idx):
+            v = self.buf[p % 2][_swizzle(idx)]
+            assert not np.isnan(v).any(), "a pass read a point no pass wrote"
+            return v
+        return ld
+
+    def store(self, p):
+        def st(idx, v):
+            self.buf[p % 2][_swizzle(idx)] = v
+        return st
+
+
+def _round_trip(n, load, middle, store, twf, twi):
+    """regs_round_trip: the forward passes, the merged pass (``middle(x)``:
+    the forward's last pass's registers (nt, 2^lg, RS) -> the inverse's
+    first pass's inputs, slot j' holding bin j' 2^lg + q), the inverse
+    passes; pass p writes exchange buffer p mod 2."""
+    _, rs_pts, rs, lg, _, nt = _layout(n)
+    fwd, inv = ck.regs_pass_plan(n)
+    ex = _Exchange(nt * n)
+    src, p = load, 0
+    for s0, r in fwd[:-1]:
+        idx, l = _read_idx(n, nt, s0, r)
+        pts = src(idx)
+        _stages(pts, s0, r, twf, l)
+        ex.store(p)(_write_idx(n, nt, r), pts)
+        src, p = ex.load(p), p + 1
+    s0, r = fwd[-1]
+    idx, l = _read_idx(n, nt, s0, r)
+    x = src(idx)
+    _stages(x, s0, r, twf, l)
+    y = middle(x)
+    _stages(y, 0, rs, twi, np.zeros((nt, 1 << lg), np.int64))
+    dst = store if len(inv) == 1 else ex.store(p)
+    dst(_write_idx(n, nt, rs), y)
+    src, p = ex.load(p), p + 1
+    for k, (s0, r) in enumerate(inv[1:]):
+        idx, l = _read_idx(n, nt, s0, r)
+        pts = src(idx)
+        _stages(pts, s0, r, twi, l)
+        last = k == len(inv) - 2
+        (store if last else ex.store(p))(_write_idx(n, nt, r), pts)
+        src, p = ex.load(p), p + 1
+
+
+def _to_inverse_slots(x, rs):
+    """Inverse's first pass slot j' <- forward's last pass slot brev(j')."""
+    return x[..., _brev_np(np.arange(1 << rs), rs)]
+
+
+# ---------------------------------------------------------------------------
+# the model of the body
+# ---------------------------------------------------------------------------
+
+def body_model(u, floor, h, nfft, hop, release=0.0, threshold_db=6.0, reduction_db=60.0,
+               window_kind="hann", tail=None):
+    """asp::fir_gate_regs in float64 on the FIR input u (C, n): returns the
+    output (C, nfft + (F-1) hop) and each frame's mask decisions (C, F,
+    nfft/2+1), |A| > floor * gain, checked equal wherever a frame is
+    computed twice (the halo)."""
+    n_ch, n = u.shape
+    big_n, hp, taps = nfft, hop, len(h)
+    _, rs_pts, rs, lg, _, nt = _layout(big_n)
+    nb, d, r = big_n // 2 + 1, big_n - hp, big_n // hp
+    nframes = 1 + (n - big_n) // hp
+    out_len = big_n + (nframes - 1) * hp
+    seq = release > 0.0
+    geo = ck.regs_geometry(big_n, hp, taps, seq, tail)
+    mf, blk, nfb = geo["mf"], big_n - (taps - 1), 2 * nt
+    tile = mf * hp
+    ntiles = -(-out_len // tile)
+    twf = fk.stockham_stage_table_np(big_n, -1.0)
+    twi = fk.stockham_stage_table_np(big_n, 1.0)
+    hf = np.fft.fft(np.concatenate([h, np.zeros(big_n - taps)]))
+    win = window_np(window_kind, big_n, periodic=True)
+    inv_tab = _inv_norm_table(win, big_n, hp)
+    gain, att = 10.0 ** (threshold_db / 20.0), 10.0 ** (-reduction_db / 20.0)
+    pairs = _bin_pairs(big_n)
+    ka = np.minimum(pairs[:, 5], big_n - pairs[:, 5])
+
+    def inv_norm(gp):
+        return np.where(gp < d, inv_tab[np.minimum(gp, max(d - 1, 0))],
+                        np.where(gp >= out_len - d, inv_tab[np.clip(d + hp + gp - (out_len - d), 0,
+                                                                    len(inv_tab) - 1)],
+                                 inv_tab[d + gp % hp]))
+
+    out = np.zeros((n_ch, out_len))
+    written = np.zeros((n_ch, out_len), np.int64)
+    dec = np.full((n_ch, nframes, nb), -1, np.int64)
+    for c in range(n_ch):
+        thr = floor[c] * gain
+        rel = np.zeros(nb)
+        carry = np.zeros(d)
+        for j in range(ntiles):
+            ts = j * tile
+            qa = max(0, j * mf - (0 if seq else r - 1))
+            qb = min((j + 1) * mf, nframes)
+            lo, hi = (0, out_len) if seq else (ts, min(ts + tile, out_len))
+            if not seq:
+                carry = np.zeros(d)
+            assert qb > qa
+            y0 = qa * hp
+            length = (qb - 1) * hp + big_n - y0
+            nblk = -(-length // blk)
+            s = y0 - (taps - 1)
+            span = np.zeros(nblk * blk + taps - 1)
+            src = np.arange(s, s + len(span))
+            ok = (src >= 0) & (src < n)
+            span[ok] = u[c, src[ok]]
+            assert len(span) <= geo["span"]
+            # ---- FIR batches, in place
+            for k0 in range(0, nblk, nfb):
+                def load(idx, k0=k0):
+                    t, i = idx // big_n, idx % big_n
+                    kb = k0 + 2 * t
+                    re = np.where(kb < nblk, span[np.minimum(kb * blk + i, len(span) - 1)], 0.0)
+                    im = np.where(kb + 1 < nblk,
+                                  span[np.minimum((kb + 1) * blk + i, len(span) - 1)], 0.0)
+                    return re + 1j * im
+
+                def middle(x):
+                    q = np.arange(1 << lg)[None, :, None]
+                    bins = (_brev_np(np.arange(rs_pts), rs) << lg) + q
+                    return _to_inverse_slots(x * hf[bins], rs)
+
+                writes = []
+
+                def store(idx, v, k0=k0):
+                    writes.append((idx, v, k0))
+
+                _round_trip(big_n, load, middle, store, twf, twi)
+                for idx, v, kk0 in writes:  # after every read of the batch
+                    t, i = idx // big_n, idx % big_n
+                    o = i - (taps - 1)
+                    kb = kk0 + 2 * t
+                    for part, kbb in ((v.real, kb), (v.imag, kb + 1)):
+                        sel = (o >= 0) & (kbb < nblk)
+                        span[(kbb * blk + o)[sel]] = part[sel] / big_n
+            # ---- gate batches and overlap-add
+            for q0 in range(qa, qb, nfb):
+                nf = min(nfb, qb - q0)
+                has_a = 2 * np.arange(nt) < nf
+                has_b = 2 * np.arange(nt) + 1 < nf
+
+                def load(idx, q0=q0):
+                    t, i = idx // big_n, idx % big_n
+                    base = (q0 - qa + 2 * t) * hp + i
+                    re = np.where(has_a[t], span[np.minimum(base, len(span) - 1)] * win[i], 0.0)
+                    im = np.where(has_b[t], span[np.minimum(base + hp, len(span) - 1)] * win[i],
+                                  0.0)
+                    return re + 1j * im
+
+                def middle(x, q0=q0, nf=nf):
+                    nonlocal rel
+                    zk = x[:, pairs[:, 1], pairs[:, 2]]
+                    zn = x[:, pairs[:, 3], pairs[:, 4]]
+                    a = 0.5 * (zk + np.conj(zn))
+                    b = -0.5j * (zk - np.conj(zn))
+                    th = thr[ka]
+                    ma = np.where(np.abs(a) > th, 1.0, att)
+                    mb = np.where(np.abs(b) > th, 1.0, att)
+                    for t in range(nt):  # the decisions of each frame, once per bin
+                        for f, m in ((2 * t, ma[t]), (2 * t + 1, mb[t])):
+                            if f < nf:
+                                got = dec[c, q0 + f, ka]
+                                new = (m == 1.0).astype(np.int64)
+                                assert ((got == -1) | (got == new)).all()
+                                dec[c, q0 + f, ka] = new
+                    if seq:  # raw masks to the batch's buffer, the scan, back
+                        masks = np.full((nfb, nb), np.nan)
+                        for t in range(nt):
+                            if has_a[t]:
+                                masks[2 * t, ka] = ma[t]
+                            if has_b[t]:
+                                masks[2 * t + 1, ka] = mb[t]
+                        for f in range(nf):
+                            rel = np.maximum(masks[f], release * rel)
+                            masks[f] = rel
+                        ma, mb = masks[0::2][:, ka], masks[1::2][:, ka]
+                    ma = np.where(has_a[:, None], ma, 0.0)
+                    mb = np.where(has_b[:, None], mb, 0.0)
+                    yk = ma * a + 1j * mb * b
+                    yn = ma * np.conj(a) + 1j * mb * np.conj(b)
+                    x = x.copy()
+                    x[:, pairs[:, 1], pairs[:, 2]] = yk
+                    x[:, pairs[:, 3], pairs[:, 4]] = yn
+                    return _to_inverse_slots(x, rs)
+
+                stage = np.full(nt * big_n, np.nan + 0j)
+
+                def store(idx, v):
+                    stage[idx] = v * (win[idx % big_n] / big_n)
+
+                _round_trip(big_n, load, middle, store, twf, twi)
+                fin = nf * hp
+                p = np.arange(fin + d)
+                v = np.concatenate([carry, np.zeros(fin)])
+                for f in range(nf):
+                    fr = stage[(f >> 1) * big_n: (f >> 1) * big_n + big_n]
+                    v[f * hp: f * hp + big_n] += fr.imag if f & 1 else fr.real
+                end = q0 + nf == nframes
+                final = (p < fin) | end
+                gp = q0 * hp + p
+                emit = final & (gp >= lo) & (gp < hi)
+                out[c, gp[emit]] = v[emit] * inv_norm(gp[emit])
+                written[c, gp[emit]] += 1
+                carry = v[fin:]
+    assert (written == 1).all(), "an output position was written twice or never"
+    assert (dec >= 0).all()
+    return out, dec
+
+
+def _plain_decisions(y, floor, nfft, hop, threshold_db=6.0):
+    mag = stft(torch.as_tensor(y), nfft, hop, impl="torch").abs().numpy()
+    return (mag > floor[:, None, :] * 10.0 ** (threshold_db / 20.0)).astype(np.int64)
+
+
+def _tone_burst(rng, c, n, fs=48000):
+    t = np.arange(n) / fs
+    x = 0.01 * rng.standard_normal((c, n))
+    x += np.where((t > 0.25 * n / fs) & (t < 0.7 * n / fs), np.sin(2 * np.pi * 440.0 * t), 0.0)
+    return x
+
+
+def _frames_for(nfft, hop, taps, release, tiles):
+    """An odd frame count giving one tile (the fewest frames the guards
+    allow), or three or more."""
+    mf = ck.regs_geometry(nfft, hop, taps, release > 0.0)["mf"]
+    if tiles == 1:
+        nfr = max(2 * (nfft // hop) - 2, NOISE_FRAMES) | 1
+        assert nfft + (nfr - 1) * hop <= mf * hop
+        return nfr
+    return 2 * mf + 1
+
+
+def _run_chain(nfft, hop, taps, release, tiles, seed):
+    rng = np.random.default_rng(seed)
+    nfr = _frames_for(nfft, hop, taps, release, tiles)
+    nfr = max(nfr, NOISE_FRAMES, -(-2 * (nfft - hop) // hop))
+    n = nfft + (nfr - 1) * hop + hop // 2  # a partial hop past the last frame
+    x = _tone_burst(rng, 2, n)
+    h = design_fir(taps, 0.3) if taps > 1 else np.ones(1)
+    xt = torch.as_tensor(x)
+    win_t = torch.as_tensor(window_np("hann", nfft, periodic=True))
+    head = xt[:, : min(n, nfft - hop + NOISE_FRAMES * hop + nfft)]
+    floor = ck.filtered_floor(head, h, nfft, hop, NOISE_FRAMES, win_t).numpy()
+    got, dec = body_model(x, floor, h, nfft, hop, release)
+    ref = ck.fir_noise_gate_ref(xt, h, nfft, hop, noise_frames=NOISE_FRAMES,
+                                release=release).numpy()
+    y = overlap_save(xt, h, nfft, impl="torch").numpy()
+    return got, ref, dec, _plain_decisions(y, floor, nfft, hop)
+
+
+CASES = [(nfft, nfft // div, taps, release)
+         for nfft in (256, 512, 1024, 2048) for div in (2, 4, 8)
+         for taps in (1, 30, 64, 384) for release in (0.0, 0.6) if taps - 1 < nfft]
+
+
+@pytest.mark.parametrize("nfft,hop,taps,release", CASES)
+def test_model_is_the_plain_chain(nfft, hop, taps, release):
+    """The body's model, on a tone burst over three or more tiles (an odd
+    frame count), against fir_noise_gate_ref in float64: >= 200 dB, the
+    same mask decision at every frame and bin, each output position written
+    once."""
+    got, ref, dec, want = _run_chain(nfft, hop, taps, release, 3, 7 + nfft + hop + taps)
+    assert got.shape == ref.shape
+    assert np.array_equal(dec, want)
+    assert _snr(ref, got) >= 200.0
+
+
+@pytest.mark.parametrize("nfft,hop,release", [
+    (256, 64, 0.0), (256, 64, 0.6), (512, 128, 0.0), (512, 128, 0.6), (1024, 256, 0.0),
+    (1024, 256, 0.6), (2048, 256, 0.6), (2048, 512, 0.6),
+])
+def test_model_one_tile(nfft, hop, release):
+    """A file of one tile (the halo clamped at frame 0, the last frame's
+    spill written by the same batch); at nfft 2048 only the sequential
+    walker's tile holds the shortest file the guards allow."""
+    got, ref, dec, want = _run_chain(nfft, hop, 64, release, 1, 3 + nfft)
+    assert np.array_equal(dec, want)
+    assert _snr(ref, got) >= 200.0
+
+
+@pytest.mark.parametrize("nfft,hop", [(2, 1), (4, 2), (8, 2), (16, 4), (32, 8), (64, 16),
+                                      (128, 32), (4096, 1024)])
+def test_model_small_and_large_nfft(nfft, hop):
+    """The one-pass transforms (nfft <= 16, the FIR's loads held before its
+    stores), the two-pass plans, and the plan of four passes at 4096."""
+    rng = np.random.default_rng(nfft)
+    nfr = max(2 * (nfft // hop) + 3, 9) | 1
+    n = nfft + (nfr - 1) * hop
+    x = rng.standard_normal((1, n))
+    taps = min(nfft - 1, 9) | 1
+    h = design_fir(taps, 0.3) if taps > 1 else np.array([0.7])
+    xt = torch.as_tensor(x)
+    win_t = torch.as_tensor(window_np("hann", nfft, periodic=True))
+    floor = ck.filtered_floor(xt[:, : min(n, nfft - hop + 4 * hop + nfft)], h, nfft, hop, 4,
+                              win_t).numpy()
+    for release in (0.0, 0.6):
+        got, dec = body_model(x, floor, h, nfft, hop, release)
+        ref = ck.fir_noise_gate_ref(xt, h, nfft, hop, noise_frames=4, release=release).numpy()
+        y = overlap_save(xt, h, nfft, impl="torch").numpy()
+        assert np.array_equal(dec, _plain_decisions(y, floor, nfft, hop))
+        assert _snr(ref, got) >= 200.0
+
+
+@pytest.mark.parametrize("up,down,taps,release", [(160, 147, 64, 0.0), (160, 147, 64, 0.6),
+                                                  (2, 1, 96, 0.7), (147, 160, 384, 0.0)])
+def test_model_is_the_plain_resampling_chain(up, down, taps, release):
+    """The resampling kernel's body: the model on the causal polyphase
+    resample of the file (what its fill stages) against
+    resample_fir_gate_ref in float64, with its own geometry (the phase bank
+    and raw window in the tail)."""
+    rng = np.random.default_rng(up + taps)
+    nfft, hop = 1024, 256
+    up_r, down_r, h_res = reduce_ratio(up, down, None)
+    nk = taps_per_phase(len(h_res), up_r)
+    tail = lambda span: up_r * nk + rk.res_window(span, up_r, down_r, nk)  # noqa: E731
+    mf = ck.regs_geometry(nfft, hop, taps, release > 0.0, tail)["mf"]
+    n_res = nfft + 2 * mf * hop + 333
+    n = -(-n_res * down // up)
+    x = _tone_burst(rng, 2, n, fs=44100)
+    h = design_fir(taps, 0.2 if taps == 384 else 0.25)
+    xt = torch.as_tensor(x)
+    u = resample_poly(xt, up, down, zero_phase=False)
+    win_t = torch.as_tensor(window_np("hann", nfft, periodic=True))
+    need = nfft - hop + 8 * hop
+    head = resample_poly(xt[:, : min(n, -(-need * down // up) + 1)], up, down,
+                         zero_phase=False)
+    floor = ck.filtered_floor(head, h, nfft, hop, 8, win_t).numpy()
+    got, dec = body_model(u.numpy(), floor, h, nfft, hop, release, tail=tail)
+    ref = rk.resample_fir_gate_ref(xt, up, down, h, release=release).numpy()
+    y = overlap_save(u, h, nfft, impl="torch").numpy()
+    assert np.array_equal(dec, _plain_decisions(y, floor, nfft, hop))
+    assert _snr(ref, got) >= 200.0
+
+
+# ---------------------------------------------------------------------------
+# the slot identity and the mirror pairs, every plan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", PLAN_SIZES)
+def test_slot_identity_and_mirror_pairs(n):
+    """The forward passes leave bin brev(j) 2^lg + q in slot j of group q
+    (checked against np.fft on random rows, every transform of a batch);
+    the inverse's first pass (stage 0) reads bin j' 2^lg + q in its slot
+    j', which is the forward's slot brev(j'); for_bin_pairs visits each
+    (group, slot) of a transform once, pairing bin k with n - k."""
+    big_r, rs_pts, rs, lg, g_threads, nt = _layout(n)
+    rng = np.random.default_rng(n)
+    data = rng.standard_normal((nt, n)) + 1j * rng.standard_normal((nt, n))
+    fwd, _ = ck.regs_pass_plan(n)
+    twf = fk.stockham_stage_table_np(n, -1.0)
+    flat = data.reshape(-1)
+    src, ex = (lambda idx: flat[idx]), _Exchange(nt * n)
+    for p, (s0, r) in enumerate(fwd[:-1]):
+        idx, l = _read_idx(n, nt, s0, r)
+        pts = src(idx)
+        _stages(pts, s0, r, twf, l)
+        ex.store(p)(_write_idx(n, nt, r), pts)
+        src = ex.load(p)
+    s0, r = fwd[-1]
+    idx, l = _read_idx(n, nt, s0, r)
+    x = src(idx)
+    _stages(x, s0, r, twf, l)
+    q = np.arange(1 << lg)[:, None]
+    bins = (_brev_np(np.arange(rs_pts), rs) << lg) + q
+    spec = np.fft.fft(data, axis=-1)
+    np.testing.assert_allclose(x, spec[:, bins], rtol=0, atol=1e-9 * n)
+    inv_idx, _ = _read_idx(n, nt, 0, rs)
+    assert np.array_equal(inv_idx % n, np.broadcast_to(_to_inverse_slots(bins, rs), inv_idx.shape))
+    pairs = _bin_pairs(n)
+    seen = np.zeros((1 << lg, rs_pts), np.int64)
+    for u_, qa, ja, qb, jb, k in pairs:
+        assert bins[qa, ja] == k and bins[qb, jb] == (n - k) % n
+        seen[qa, ja] += 1
+        if (qa, ja) != (qb, jb):
+            seen[qb, jb] += 1
+        else:
+            assert k in (0, n // 2)
+    assert (seen == 1).all()
+    # the units of a transform share its threads evenly: kUnits = 8 / RS a
+    # thread (one where the transform is one group)
+    units = 1 if lg == 0 else 1 << (lg - 1)
+    assert set(pairs[:, 0]) == set(range(units))
+    assert units == (1 if big_r == rs_pts else 8 // rs_pts) * g_threads
+
+
+@pytest.mark.parametrize("n", PLAN_SIZES)
+def test_plan_is_the_real_kernels_plan(n):
+    """The forward runs rfft_stockham's passes of its n-point half-size
+    transform and the inverse irfft_stockham's: every stage once, the
+    merged pass (the forward's last, the inverse's first) of 1 to 3 stages
+    from 32 points on, so a pair of groups holds at most 16 points; an odd
+    number of passes a round trip (the stage is not the buffer the last
+    pass reads)."""
+    fwd, inv = ck.regs_pass_plan(n)
+    big_l = n.bit_length() - 1
+    for plan in (fwd, inv):
+        assert [s for s0, r in plan for s in range(s0, s0 + r)] == list(range(big_l))
+    assert fwd[-1][1] == inv[0][1]
+    assert [r for _, r in inv] == [fwd[-1][1]] + [r for _, r in fwd[:-1]]
+    if n >= 32:
+        assert 1 <= fwd[-1][1] <= 3
+    assert (len(fwd) + len(inv) - 1) % 2 == 1
+    if n == 1024:
+        assert fwd == [(0, 4), (4, 4), (8, 2)] and inv == [(0, 2), (2, 4), (6, 4)]
+
+
+# ---------------------------------------------------------------------------
+# the exchange's banks
+# ---------------------------------------------------------------------------
+
+def _exchange_accesses(n, gate, mirrors_only=False, no_mirrors=False):
+    """Every warp access of the exchange in a round trip, as batch-local
+    indices, one row of 32 lanes per access: each pass's loads of slot j
+    and stores of slot j (the first pass's loads from the span and the last
+    pass's stores to the span or the stage left out).  The team (``Team``):
+    from 512 points transform t's N/16 threads, lane i taking its groups i
+    + N/16 k; below, the CTA, thread i taking groups i + 256 k of the batch
+    (group v: transform v >> lg, group v mod 2^lg); in the gate's merged
+    pass the same over units (transform w >> lu, unit w mod 2^lu: groups u
+    and its mirror, unit 0 groups 0 and 2^(lg-1))."""
+    big_r, rs_pts, rs, lg, g_threads, nt = _layout(n)
+    fwd, inv = ck.regs_pass_plan(n)
+    big_l = n.bit_length() - 1
+    tid = np.arange(THREADS).reshape(-1, 32)
+    if g_threads >= 32:  # first index of the team's items, lane, team size
+        size = g_threads
+        team, lane = tid // size, tid % size
+    else:
+        size, team, lane = THREADS, np.zeros_like(tid), tid
+    per_team = 1 if g_threads >= 32 else nt  # transforms a team
+    rows = []
+
+    def reads(t, groups, s0, r):
+        lgp = big_l - r
+        pw = lgp - s0
+        l, p = groups >> pw, groups & ((1 << pw) - 1)
+        base = t * n + (l << (big_l - s0)) + p
+        return [base + (j << pw) for j in range(1 << r)]
+
+    def writes(t, groups, r):
+        lgp = big_l - r
+        return [t * n + groups + (_brev(j, r) << lgp) for j in range(1 << r)]
+
+    passes = [("f", s0, r) for s0, r in fwd[:-1]] + [("m", fwd[-1][0], rs)] + [
+        ("i", s0, r) for s0, r in inv[1:]]
+    for k, (kind, s0, r) in enumerate(passes):
+        first, last = k == 0, k == len(passes) - 1
+        lgp = big_l - r
+        tg = []  # (transform, group) of each lane, one entry per load/store instruction
+        if kind == "m" and gate:
+            lu = max(lg - 1, 0)
+            for i in range(max(1, per_team * (1 << lu) // size)):
+                w = ((team * per_team) << lu) + lane + i * size
+                t, u = w >> lu, w & ((1 << lu) - 1)
+                if not mirrors_only:
+                    tg.append((t, u))
+                if lg > 0 and not no_mirrors:
+                    tg.append((t, np.where(u == 0, 1 << (lg - 1), (1 << lg) - u)))
+        else:
+            for i in range(max(1, per_team * (1 << lgp) // size)):
+                v = ((team * per_team) << lgp) + lane + i * size
+                if not mirrors_only:
+                    tg.append((v >> lgp, v & ((1 << lgp) - 1)))
+        for t, gq in tg:
+            if not first:
+                rows += reads(t, gq, s0, r)
+            if not last:
+                rows += writes(t, gq, r)
+    return np.array(rows).reshape(-1, 32) if rows else np.zeros((0, 32), np.int64)
+
+
+def _ways(idx):
+    return max(np.bincount(row & 31, minlength=32).max() for row in idx)
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(5, 13)])
+@pytest.mark.parametrize("gate", (False, True), ids=("fir", "gate"))
+def test_exchange_banks(n, gate):
+    """Under pease_swizzle each warp access of every pass to the exchange
+    touches 32 distinct banks (4-byte planes), at every n from 32 (the
+    first with an exchange) to 4096, except in the gate's merged pass: a
+    warp's 32 units take aligned groups u, whose mirrors 2^lg - u are 32
+    consecutive groups one off the alignment, so those accesses meet 2
+    ways (below 256 points, where a warp spans several transforms, the
+    units' own groups too); the FIR's merged pass has no mirror.  Without
+    the swizzle the strided reads collide from 64 on."""
+    def ways(acc):
+        return np.array([np.bincount(row & 31, minlength=32).max() for row in _swizzle(acc)])
+
+    own = ways(_exchange_accesses(n, gate, no_mirrors=True))
+    mirror = ways(_exchange_accesses(n, gate, mirrors_only=True))
+    if not gate:
+        assert len(mirror) == 0 and (own == 1).all()
+    else:
+        assert len(mirror) > 0 and mirror.max() == 2
+        assert own.max() == (1 if n >= 256 else 2)
+        # each warp's loads and stores of its 8 mirror points a thread
+        assert len(mirror) == THREADS // 32 * 16
+    if n >= 64:
+        assert _ways(_exchange_accesses(n, gate)) > 1
+
+
+# ---------------------------------------------------------------------------
+# the geometry
+# ---------------------------------------------------------------------------
+
+def test_headline_geometry():
+    """At nfft 1024, hop 256, 64 taps the parallel tile is 21 hops (24
+    frames: three gate batches of 8, one FIR batch of 8 blocks) in 106788
+    bytes, two CTAs an SM; the sequential walker takes 56 (7 batches)."""
+    geo = ck.regs_geometry(1024, 256, 64)
+    assert geo["mf"] == 21 and (geo["mf"] + 3) % 8 == 0
+    assert geo["smem"] == ck.regs_smem(1024, 256, 64, 21, False) == 106788
+    assert 2 * (geo["smem"] + 1024) <= ck.SM_SMEM
+    assert ck.regs_geometry(1024, 256, 64, True)["mf"] % 8 == 0
+    assert ck.regs_batch(1024) == 4 and ck.regs_batch(4096) == 1 and ck.regs_batch(8) == 256
+
+
+@pytest.mark.parametrize("release", (0.0, 0.6))
+def test_config5_geometry_fits(release):
+    """Both kernels at config 5 (160/147, 3201 resampler taps, 64 FIR
+    taps): within SMEM_LIMIT at the same tile; in the parallel launch the
+    phase bank and raw window fit inside the tail (the exchange buffers),
+    so the resampling kernel takes the 48 kHz kernel's shared memory (the
+    sequential walker's longer span needs a larger tail)."""
+    up, down = 160, 147
+    h_res = resample_filter(up, down)
+    assert len(h_res) == 3201
+    nk = taps_per_phase(len(h_res), up)
+    geo = rk.res_geometry(up, down, nk, 1024, 256, 64, release > 0.0)
+    base = ck.regs_geometry(1024, 256, 64, release > 0.0)
+    assert geo["smem"] <= SMEM_LIMIT and geo["mf"] == base["mf"]
+    if release == 0.0:  # the bank and raw window fit in the exchange buffers
+        assert geo == base
+        assert up * nk + rk.res_window(geo["span"], up, down, nk) <= 4 * THREADS * 16
+
+
+def _old_accepts(nfft, hop, taps):
+    return _geometry(nfft, hop, taps)["smem"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("nfft", [1 << k for k in range(1, 14)])
+def test_every_old_geometry_is_accepted(nfft):
+    """Every (nfft, hop, taps) the radix-2 body's geometry fitted in
+    SMEM_LIMIT (nfft 2 to 4096) has a batched geometry within it whose
+    tile frames fill whole batches; the rest raise a ValueError naming
+    SMEM_LIMIT."""
+    for hop in [nfft >> k for k in range(0, 13) if nfft >> k >= 1]:
+        for taps in sorted({1, 2, min(64, nfft), nfft // 2 + 1, nfft}):
+            for seq in (False, True):
+                if not _old_accepts(nfft, hop, taps):
+                    continue
+                geo = ck.regs_geometry(nfft, hop, taps, seq)
+                halo = 0 if seq else nfft // hop - 1
+                assert geo["smem"] <= SMEM_LIMIT and geo["mf"] >= 1
+                assert (geo["mf"] + halo) % (2 * ck.regs_batch(nfft)) == 0
+                assert geo["span"] == ck.regs_span(nfft, hop, taps, geo["mf"], seq)
+    if nfft == 8192:  # beyond a batch (and the radix-2 body's SMEM_LIMIT)
+        with pytest.raises(ValueError, match="nfft <= 4096"):
+            ck.regs_geometry(8192, 2048, 64)
+
+
+def test_gate_tables_hold_the_stockham_tables():
+    """The wrappers hand both kernels the window, the tap spectrum, the
+    forward and inverse per-stage tables (stockham_table(nfft, -1), (nfft,
+    +1)) in place of the radix-2 twiddles, and the 1/WOLA table."""
+    dev = torch.device("cpu")
+    h = design_fir(64, 0.3)
+    win, hf, twf, twi, inv_tab = ck.gate_tables(h.tobytes(), 1024, 256, "hann", dev)
+    assert torch.equal(twf, fk.stockham_table(1024, -1, dev))
+    assert torch.equal(twi, fk.stockham_table(1024, 1, dev))
+    assert hf.shape == (2 * 1024,) and win.shape == (1024,)
+    assert inv_tab.shape == (2 * (1024 - 256) + 256,)
+
+
+def test_chip_smoke_reads_both_kernels_ptxas():
+    """chip_smoke's phases 5 and 13 report each instantiation <R, RS,
+    release> of the two chain kernels from nvcc's ptxas log, each kernel's
+    own (the resampling kernel's name holds the other's)."""
+    import chip_smoke
+
+    entry = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{n}{name}"
+             "ILi16ELi{rs}ELb{rel}EEEvPKf' for 'sm_90a'\n"
+             "    8 bytes stack frame, {sp} bytes spill stores, {sp} bytes spill loads\n"
+             "ptxas info    : Used {regs} registers, used 1 barriers\n")
+    log = (entry.format(n=21, name="fir_noise_gate_kernel", rs=4, rel=0, sp=8, regs=128)
+           + entry.format(n=25, name="res_fir_noise_gate_kernel", rs=2, rel=1, sp=0, regs=120)
+           + "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117noise_gate_kernelEv'"
+             " for 'sm_90a'\nptxas info    : Used 30 registers\n")
+    assert chip_smoke.chain_ptxas(log, False) == "<16,4,0> 128 registers 8 bytes spill stores"
+    assert chip_smoke.chain_ptxas(log, True) == "<16,2,1> 120 registers 0 bytes spill stores"
+    assert chip_smoke.chain_ptxas("", True) == "not built in this process"

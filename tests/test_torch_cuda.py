@@ -94,23 +94,33 @@ def _tone_burst(rng, c, n, fs=48000):
     return x
 
 
-@pytest.mark.parametrize("release,taps,hop", [
-    (0.0, 64, 256), (0.6, 64, 256), (0.0, 384, 256), (0.0, 30, 512),
-    (0.6, 64, 128),
+CHAIN_GRID = [(nfft, nfft // div, taps, release)
+              for nfft in (256, 512, 1024, 2048) for div in (2, 4, 8)
+              for taps in (1, 30, 64, 384) for release in (0.0, 0.6) if taps - 1 < nfft]
+
+
+@pytest.mark.parametrize("c,nfft,hop,taps,release", [
+    (3, 1024, 256, 64, 0.0), (3, 1024, 256, 64, 0.6), (3, 1024, 256, 384, 0.0),
+    (3, 1024, 512, 30, 0.0), (3, 1024, 128, 64, 0.6),
+    *((1 if k % 2 else 5, *case) for k, case in enumerate(CHAIN_GRID)),
 ])
-def test_fir_noise_gate_kernel_vs_plain(card, release, taps, hop):
+def test_fir_noise_gate_kernel_vs_plain(card, c, nfft, hop, taps, release):
     """float32 kernel vs the float64 plain version on the same card:
     exact output length, finite, >= 60 dB (the gate's hard thresholds
-    flip a few borderline bins under float32 rounding), one launch."""
+    flip a few borderline bins under float32 rounding), one launch; nfft
+    256 to 2048 at hops nfft/2 to nfft/8, 1 to 384 taps, release 0 and
+    0.6, on 1, 3 or 5 channels (a file's last tile leaves a batch part
+    empty)."""
     rng = np.random.default_rng(50)
-    x = torch.as_tensor(_tone_burst(rng, 3, 40000), device=card)
-    h = design_fir(taps, 0.2 if taps == 384 else 0.3)
+    n = 40000 if nfft <= 1024 else 60000
+    x = torch.as_tensor(_tone_burst(rng, c, n), device=card)
+    h = design_fir(taps, 0.2 if taps == 384 else 0.3) if taps > 1 else np.array([0.7])
     before = fir_noise_gate_fused.launches
-    out = fir_noise_gate_fused(x.float(), h, hop=hop, release=release)
+    out = fir_noise_gate_fused(x.float(), h, nfft=nfft, hop=hop, release=release)
     torch.cuda.synchronize()
     assert fir_noise_gate_fused.launches == before + 1
-    ref = fir_noise_gate_ref(x, h, hop=hop, release=release)
-    assert out.shape == ref.shape == (3, 1024 + ((40000 - 1024) // hop) * hop)
+    ref = fir_noise_gate_ref(x, h, nfft=nfft, hop=hop, release=release)
+    assert out.shape == ref.shape == (c, nfft + ((n - nfft) // hop) * hop)
     assert bool(torch.isfinite(out).all())
     assert snr_db(ref, out) >= 60.0
 
@@ -331,23 +341,30 @@ def test_resample_mac_vs_plain(card, up, down, mode):
     assert snr_db(ref, out) >= 100.0
 
 
-@pytest.mark.parametrize("up,down,taps,n,release", [
-    (160, 147, 64, 47040, 0.0), (2, 1, 96, 16384, 0.7), (160, 147, 384, 47040, 0.0),
-    (147, 160, 64, 40960 + 333, 0.0), (160, 147, 64, 20000, 0.6),
+@pytest.mark.parametrize("c,up,down,taps,n,release,nfft,hop", [
+    (2, 160, 147, 64, 47040, 0.0, 1024, 256), (2, 2, 1, 96, 16384, 0.7, 1024, 256),
+    (2, 160, 147, 384, 47040, 0.0, 1024, 256), (2, 147, 160, 64, 40960 + 333, 0.0, 1024, 256),
+    (2, 160, 147, 64, 20000, 0.6, 1024, 256),
+    *((1 if k % 2 else 3, 160, 147, taps, 44100, release, nfft, hop)
+      for k, (nfft, hop, taps, release) in enumerate(CHAIN_GRID)),
 ])
-def test_resample_fir_gate_vs_plain(card, up, down, taps, n, release):
+def test_resample_fir_gate_vs_plain(card, c, up, down, taps, n, release, nfft, hop):
     """resample_fir_gate_fused float32 against its float64 plain version on
     a tone burst: >= 60 dB, exact length, one launch and no resample_mac
-    (the floor prologue runs the plain resampler)."""
+    (the floor prologue runs the plain resampler); the chain kernel's
+    nfft/hop/taps grid at 160/147 on 1 or 3 channels."""
     rng = np.random.default_rng(58)
-    x = torch.as_tensor(_tone_burst(rng, 2, n, fs=44100), device=card)
-    h = design_fir(taps, 0.2 if taps == 384 else (0.25 if taps == 96 else 0.3))
+    x = torch.as_tensor(_tone_burst(rng, c, n, fs=44100), device=card)
+    h = (design_fir(taps, 0.2 if taps == 384 else (0.25 if taps == 96 else 0.3)) if taps > 1
+         else np.array([0.7]))
     before = (resample_fir_gate_fused.launches, resample_mac.launches)
-    out = resample_fir_gate_fused(x.float(), up, down, h, noise_frames=4, release=release)
+    out = resample_fir_gate_fused(x.float(), up, down, h, nfft=nfft, hop=hop, noise_frames=4,
+                                  release=release)
     torch.cuda.synchronize()
     assert (resample_fir_gate_fused.launches, resample_mac.launches) == (before[0] + 1,
                                                                           before[1])
-    ref = resample_fir_gate_ref(x, up, down, h, noise_frames=4, release=release)
+    ref = resample_fir_gate_ref(x, up, down, h, nfft=nfft, hop=hop, noise_frames=4,
+                                release=release)
     assert out.shape == ref.shape and bool(torch.isfinite(out).all())
     assert snr_db(ref, out) >= 60.0
 
