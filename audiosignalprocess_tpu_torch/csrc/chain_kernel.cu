@@ -78,7 +78,7 @@ fir_noise_gate_kernel(const float* __restrict__ x, int n, float* __restrict__ ou
     }
     __syncthreads();
   };
-  asp::fir_gate_regs<R, RS, kRelease>(g, reinterpret_cast<float*>(smem), c,
+  asp::fir_gate_regs<R, RS, kRelease, true>(g, reinterpret_cast<float*>(smem), c,
                             out + static_cast<size_t>(c) * g.out_len, noise_floor, win, hf,
                             twf, twi, inv_tab, fill);
 }
@@ -86,25 +86,10 @@ fir_noise_gate_kernel(const float* __restrict__ x, int n, float* __restrict__ ou
 using Kernel = void (*)(const float*, int, float*, const float*, const float*, const float2*,
                         const float2*, const float2*, const float*, asp::ChainGeo);
 
-// The instantiation for nfft (regs_pass_plan in kernels/chain_kernel.py):
-// one pass each way below 32 points, else passes of 16 points a group and
-// the merged pass of 2^(log2 nfft mod 4) points (2 where that is 0); the
-// sequential (release > 0) launch's own.
-template <bool kRelease>
-Kernel kernel_for(int nfft) {
-  const int rs = __builtin_ctz(static_cast<unsigned>(nfft)) % 4;
-  return nfft == 2 ? fir_noise_gate_kernel<2, 2, kRelease>
-         : nfft == 4 ? fir_noise_gate_kernel<4, 4, kRelease>
-         : nfft == 8 ? fir_noise_gate_kernel<8, 8, kRelease>
-         : nfft == 16 ? fir_noise_gate_kernel<16, 16, kRelease>
-         : rs == 2 ? fir_noise_gate_kernel<16, 4, kRelease>
-         : rs == 3 ? fir_noise_gate_kernel<16, 8, kRelease>
-                   : fir_noise_gate_kernel<16, 2, kRelease>;
-}
-
-Kernel kernel_for(int nfft, int sequential) {
-  return sequential ? kernel_for<true>(nfft) : kernel_for<false>(nfft);
-}
+template <int R, int RS, bool kRelease>
+struct FirNoiseGate {
+  static Kernel fn() { return fir_noise_gate_kernel<R, RS, kRelease>; }
+};
 
 }  // namespace
 
@@ -123,7 +108,7 @@ int asp_fir_noise_gate(const float* x, float* out, const float* noise_floor,
   if (err != cudaSuccess) return static_cast<int>(err);
   const asp::ChainGeo g = asp::chain_geo(nfft, log2n, hop, taps, nframes, mf, sequential,
                                          thresh_gain, att, release);
-  const Kernel kernel = kernel_for(nfft, sequential);
+  const Kernel kernel = asp::regs_kernel_for<FirNoiseGate>(nfft, sequential);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(sequential ? 1 : g.ntiles, channels);
@@ -136,18 +121,8 @@ int asp_fir_noise_gate(const float* x, float* out, const float* noise_floor,
 // The instantiation for nfft and the launch: info = {registers a thread,
 // local memory bytes a thread (spills), resident CTAs an SM at smem_bytes}.
 int asp_fir_noise_gate_info(int nfft, int sequential, int smem_bytes, int device, int* info) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Kernel kernel = kernel_for(nfft, sequential);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &info[2], kernel, asp::kRegsThreads, smem_bytes));
+  const Kernel kernel = asp::regs_kernel_for<FirNoiseGate>(nfft, sequential);
+  return asp::regs_kernel_info(kernel, smem_bytes, device, info);
 }
 
 const char* asp_error_string(int code) {

@@ -1,18 +1,29 @@
 // The whole-file FIR -> spectral noise gate body on batched register
-// Stockham transforms, for Hopper (sm_90a): what chain_kernel.cu and
-// res_chain_kernel.cu share.  They differ only in where the FIR's input
-// comes from (the raw samples, or the resampled stream), which each kernel
-// passes in as a `fill` functor.  (gate_kernel.cu's two kernels run
-// chain_device.cuh's radix-2 body.)
+// Stockham transforms, for Hopper (sm_90a): what chain_kernel.cu,
+// res_chain_kernel.cu and gate_kernel.cu share.  The first two differ only
+// in where the FIR's input comes from (the raw samples, or the resampled
+// stream), which each kernel passes in as a `fill` functor; gate_kernel.cu
+// runs the gate alone (kFir false: no FIR section, the fill stores the
+// gate's input and the span holds only the tile's frames).
 //
 // Per channel the body computes oracle.noise_gate(oracle.fir_direct(u, h),
-// nfft, hop, ...) of its input u, as chain_device.cuh documents: causal FIR
-// by FFT overlap-save, frames at k*hop, periodic window, forward FFT, a hard
-// per-bin mask against the noise floor (an input), optional max-with-decay
-// release along frames, inverse FFT, window, overlap-add, times the clamped
-// 1/WOLA norm.  The schedule is chain_device.cuh's: with release == 0, one
-// CTA per (channel, tile of mf hops of output) recomputes the halo its tile
-// needs; with release > 0, one CTA per channel walks its tiles in order.
+// nfft, hop, ...) of its input u: causal FIR with zero history by FFT
+// overlap-save, frames at k*hop, periodic window, forward FFT, a hard
+// per-bin mask against the noise floor (an input, computed by the wrapper),
+// optional max-with-decay release along frames, inverse FFT, window,
+// overlap-add, times the clamped 1/WOLA norm.  Schedule: with release == 0,
+// one CTA per (channel, tile of mf hops of output) recomputes the halo its
+// tile needs (the nfft/hop - 1 frames before it and the FIR history before
+// those), so no CTA reads another's result; with release > 0 (a scan over
+// all frames), one CTA per channel walks its tiles in order, carrying the
+// overlap-add spill and the release state in shared memory.
+//
+// Emission.  With inv_tab null the output is the un-normalized overlap-add
+// (one time shard of the gate, whose caller adds the spill into its right
+// neighbour and divides by the WOLA norm at global positions).  The output
+// length is g.out_len, which may run past the last frame's end (a shard's
+// l + d samples with only its first n_valid frames analysed, n_valid maybe
+// 0): each tile writes 0 at its positions past that end.
 //
 // Transforms.  A thread holds R = 16 points of a transform (R = nfft below
 // 16), so an N-point transform takes N/R threads and the 256 threads of a
@@ -75,16 +86,82 @@
 // span (regs_span), masks (2B (N/2+1), release > 0 only), then the tail:
 // the two exchange buffers (4 * 256 R), which the kernel's fill may also use
 // as scratch before the FIR starts (res_chain_kernel.cu: its phase bank and
-// raw window).  kernels/chain_kernel.py (regs_geometry) sizes it in the
+// raw window).  kernels/gate_kernel.py (regs_geometry) sizes it in the
 // same order.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include "chain_device.cuh"
+#include "fft_device.cuh"
 #include "fft_regs.cuh"
 
 namespace asp {
+
+// Geometry, filled by chain_geo from the wrapper's arguments; the Python
+// wrappers (kernels/gate_kernel.py, regs_geometry) size the dynamic shared
+// memory from the same fields, in the order fir_gate_regs carves it.
+struct ChainGeo {
+  int nfft;       // N, a power of two
+  int log2n;
+  int hop;        // H, divides N
+  int taps;       // T, T - 1 < N (1 for the gate alone)
+  int nframes;    // F = 1 + (u - N) / H for an input u of the gate
+  int out_len;    // N + (F - 1) * H, or a shard's length (shard_geo)
+  int mf;         // frames per tile (>= 1)
+  int tile;       // mf * H output samples per tile
+  int d;          // N - H
+  int r;          // N / H
+  int blk;        // overlap-save block, N - (T - 1)
+  int ntiles;     // ceil(out_len / tile)
+  int sequential; // 1: one CTA per channel walks its tiles in order
+  float thresh_gain;
+  float att;
+  float release;
+  float inv_n;
+};
+
+inline ChainGeo chain_geo(int nfft, int log2n, int hop, int taps, int nframes,
+                          int mf, int sequential, float thresh_gain, float att,
+                          float release) {
+  ChainGeo g;
+  g.nfft = nfft;
+  g.log2n = log2n;
+  g.hop = hop;
+  g.taps = taps;
+  g.nframes = nframes;
+  g.out_len = nfft + (nframes - 1) * hop;
+  g.mf = mf;
+  g.tile = mf * hop;
+  g.d = nfft - hop;
+  g.r = nfft / hop;
+  g.blk = nfft - (taps - 1);
+  g.ntiles = (g.out_len + g.tile - 1) / g.tile;
+  g.sequential = sequential;
+  g.thresh_gain = thresh_gain;
+  g.att = att;
+  g.release = release;
+  g.inv_n = 1.0f / static_cast<float>(nfft);
+  return g;
+}
+
+// The geometry of one time shard of the gate (gate_kernel.cu's
+// asp_gate_shard): the first `nvalid` frames are computed, but the output
+// covers `out_len` samples (the shard and its spill), zero past the frames.
+inline ChainGeo shard_geo(ChainGeo g, int out_len) {
+  g.out_len = out_len;
+  g.ntiles = (out_len + g.tile - 1) / g.tile;
+  return g;
+}
+
+// The 1/WOLA norm at output position p from tab = [head ramp (d) | one
+// interior period (H) | tail ramp (d)] (hop a power of two); 1 where tab
+// is null (an un-normalized shard).
+__device__ __forceinline__ float inv_norm_at(const ChainGeo& g, const float* tab, int p) {
+  if (tab == nullptr) return 1.0f;
+  if (p < g.d) return tab[p];
+  if (p >= g.out_len - g.d) return tab[g.d + g.hop + p - (g.out_len - g.d)];
+  return tab[g.d + (p & (g.hop - 1))];
+}
 
 constexpr int kRegsThreads = 256;
 
@@ -93,19 +170,20 @@ __host__ __device__ __forceinline__ constexpr int regs_points(int nfft) {
   return nfft < 16 ? nfft : 16;
 }
 
-// Floats of the span a tile filters: its frames (the halo's too in the
-// parallel launch) in whole overlap-save blocks, plus the FIR history.
-__host__ __device__ __forceinline__ int regs_span(const ChainGeo& g) {
+// Floats of the span a tile's frames read (the halo's too in the parallel
+// launch); with the FIR (fir) in whole overlap-save blocks, plus the FIR
+// history.
+__host__ __device__ __forceinline__ int regs_span(const ChainGeo& g, bool fir) {
   const int halo = g.sequential ? 0 : g.r - 1;
   const int len = (g.mf + halo - 1) * g.hop + g.nfft;
-  return (len + g.blk - 1) / g.blk * g.blk + g.taps - 1;
+  return fir ? (len + g.blk - 1) / g.blk * g.blk + g.taps - 1 : len;
 }
 
 // Floats of shared memory before the tail (the exchange buffers).
-__host__ __device__ __forceinline__ int regs_head_floats(const ChainGeo& g) {
+__host__ __device__ __forceinline__ int regs_head_floats(const ChainGeo& g, bool fir) {
   const int nb = g.nfft / 2 + 1;
   const int nfb = 2 * kRegsThreads * regs_points(g.nfft) / g.nfft;
-  return 2 * nb + 2 * g.d + regs_span(g) + (g.sequential ? nfb * nb : 0);
+  return 2 * nb + 2 * g.d + regs_span(g, fir) + (g.sequential ? nfb * nb : 0);
 }
 
 // The threads that share the passes of transforms first .. first + count
@@ -382,12 +460,15 @@ __device__ __forceinline__ void regs_round_trip(int log2n, const Team& tm, float
 }
 
 // The tiles of channel c that this CTA owns (blockIdx.x, step gridDim.x),
-// written to oc; kRelease: g.release > 0 (the sequential launch).  fill(span, s, len, scratch): every thread calls it; it
-// stores the FIR input u[s + i] in span[i] for i < len (zero where s + i <
-// 0 or past the end of u), may use `scratch` (the exchange buffers) and
+// written to oc; kRelease: g.release > 0 (the sequential launch); kFir
+// false: the gate alone (g.taps 1, hf unused).  fill(span, s, len,
+// scratch): every thread calls it; it stores the FIR input (kFir false:
+// the gate's input) u[s + i] in span[i] for i < len (zero where s + i < 0
+// or past the end of u), may use `scratch` (the exchange buffers) and
 // returns after a __syncthreads().  twf / twi: stockham_table(N, -1) and
-// (N, +1); hf: the N-point spectrum of the zero-padded taps.
-template <int R, int RS, bool kRelease, class Fill>
+// (N, +1); hf: the N-point spectrum of the zero-padded taps; inv_tab: the
+// 1/WOLA table (inv_norm_at), or null for the un-normalized overlap-add.
+template <int R, int RS, bool kRelease, bool kFir, class Fill>
 __device__ void fir_gate_regs(const ChainGeo& g, float* smem, int c, float* __restrict__ oc,
                               const float* __restrict__ noise_floor,
                               const float* __restrict__ win,
@@ -401,18 +482,14 @@ __device__ void fir_gate_regs(const ChainGeo& g, float* smem, int c, float* __re
   const int tid = threadIdx.x;
   const int lh = __ffs(H) - 1;  // log2 hop
   const Team tm = regs_team(L, B, R);
-  // inv_norm_at with the hop a power of two
-  const auto inv_norm = [&g, inv_tab, H](int p) {
-    if (p < g.d) return inv_tab[p];
-    if (p >= g.out_len - g.d) return inv_tab[g.d + H + p - (g.out_len - g.d)];
-    return inv_tab[g.d + (p & (H - 1))];
-  };
+  // the end of the last frame: positions past it (a shard's) are 0
+  const int frames_end = g.nframes > 0 ? N + (g.nframes - 1) * H : 0;
   float* thr = smem;
   float* rel = thr + nb;
   float* carry = rel + nb;  // two buffers of d
   float* span = carry + 2 * g.d;
-  float* masks = span + regs_span(g);
-  float* ex = smem + regs_head_floats(g);
+  float* masks = span + regs_span(g, kFir);
+  float* ex = smem + regs_head_floats(g, kFir);
   float* stage_re = ex;
   float* stage_im = ex + cap;
 
@@ -436,28 +513,38 @@ __device__ void fir_gate_regs(const ChainGeo& g, float* smem, int c, float* __re
     if (!g.sequential) {
       for (int i = tid; i < g.d; i += kRegsThreads) carry[cur * g.d + i] = 0.0f;
     }
+    for (int gp = max(ts, frames_end) + tid; gp < min(ts + g.tile, g.out_len);
+         gp += kRegsThreads) {
+      oc[gp] = 0.0f;
+    }
     if (qb <= qa) continue;
-    // ---- FIR: span[m] ends up holding the filtered y[y0 + m]
+    // ---- FIR: span[m] ends up holding the filtered y[y0 + m]; without
+    // it, the gate's input
     const int y0 = qa * H;
     const int len = (qb - 1) * H + N - y0;
-    const int nblk = (len + g.blk - 1) / g.blk;
-    fill(span, y0 - (g.taps - 1), nblk * g.blk + g.taps - 1, ex);
-    for (int k0 = 0; k0 < nblk; k0 += 2 * B) {
-      // transform t (index i >> L) takes blocks k0 + 2t (re) and k0 + 2t + 1 (im)
-      const auto load = [span, &g, k0, nblk, L, N](int i) {
-        const int kb = k0 + 2 * (i >> L), o = kb * g.blk + (i & (N - 1));
-        return make_float2(kb < nblk ? span[o] : 0.0f, kb + 1 < nblk ? span[o + g.blk] : 0.0f);
-      };
-      const auto store = [span, &g, k0, nblk, L, N](int i, float2 v) {
-        const int kb = k0 + 2 * (i >> L), o = (i & (N - 1)) - (g.taps - 1);
-        if (o < 0) return;
-        if (kb < nblk) span[kb * g.blk + o] = v.x * g.inv_n;
-        if (kb + 1 < nblk) span[(kb + 1) * g.blk + o] = v.y * g.inv_n;
-      };
-      const auto mid = [&](int s0, auto ld, bool si, auto st, bool so) {
-        fir_middle<RS, R == RS>(L, s0, tm, ld, si, st, so, twf, twi, hf);
-      };
-      regs_round_trip<R, RS, true>(L, tm, ex, cap, load, mid, store, twf, twi);
+    if constexpr (!kFir) {
+      fill(span, y0, len, ex);
+    } else {
+      const int nblk = (len + g.blk - 1) / g.blk;
+      fill(span, y0 - (g.taps - 1), nblk * g.blk + g.taps - 1, ex);
+      for (int k0 = 0; k0 < nblk; k0 += 2 * B) {
+        // transform t (index i >> L) takes blocks k0 + 2t (re) and k0 + 2t + 1 (im)
+        const auto load = [span, &g, k0, nblk, L, N](int i) {
+          const int kb = k0 + 2 * (i >> L), o = kb * g.blk + (i & (N - 1));
+          return make_float2(kb < nblk ? span[o] : 0.0f,
+                             kb + 1 < nblk ? span[o + g.blk] : 0.0f);
+        };
+        const auto store = [span, &g, k0, nblk, L, N](int i, float2 v) {
+          const int kb = k0 + 2 * (i >> L), o = (i & (N - 1)) - (g.taps - 1);
+          if (o < 0) return;
+          if (kb < nblk) span[kb * g.blk + o] = v.x * g.inv_n;
+          if (kb + 1 < nblk) span[(kb + 1) * g.blk + o] = v.y * g.inv_n;
+        };
+        const auto mid = [&](int s0, auto ld, bool si, auto st, bool so) {
+          fir_middle<RS, R == RS>(L, s0, tm, ld, si, st, so, twf, twi, hf);
+        };
+        regs_round_trip<R, RS, true>(L, tm, ex, cap, load, mid, store, twf, twi);
+      }
     }
     // ---- gate: a batch of frames q0 .. q0 + nf - 1, frames q0 + 2t and
     // q0 + 2t + 1 as re/im of transform t
@@ -497,7 +584,7 @@ __device__ void fir_gate_regs(const ChainGeo& g, float* smem, int c, float* __re
         }
         if (p < fin || end) {
           const int gp = q0 * H + p;
-          if (gp >= lo && gp < hi) oc[gp] = v * inv_norm(gp);
+          if (gp >= lo && gp < hi) oc[gp] = v * inv_norm_at(g, inv_tab, gp);
         } else {
           cout[p - fin] = v;
         }
@@ -506,6 +593,46 @@ __device__ void fir_gate_regs(const ChainGeo& g, float* smem, int c, float* __re
       __syncthreads();
     }
   }
+}
+
+// The launch's kernel for nfft, from a kernel template K<R, RS, kRelease>
+// (a class whose static fn() returns the __global__ function): one pass
+// each way below 32 points, else passes of 16 points a group and the
+// merged pass of 2^(log2 nfft mod 4) points (2 where that is 0), as
+// regs_pass_plan (kernels/gate_kernel.py) plans them; the sequential
+// (release > 0) launch's own.
+template <template <int, int, bool> class K, bool kRelease>
+auto regs_kernel_for(int nfft) {
+  const int rs = __builtin_ctz(static_cast<unsigned>(nfft)) % 4;
+  return nfft == 2 ? K<2, 2, kRelease>::fn()
+         : nfft == 4 ? K<4, 4, kRelease>::fn()
+         : nfft == 8 ? K<8, 8, kRelease>::fn()
+         : nfft == 16 ? K<16, 16, kRelease>::fn()
+         : rs == 2 ? K<16, 4, kRelease>::fn()
+         : rs == 3 ? K<16, 8, kRelease>::fn()
+                   : K<16, 2, kRelease>::fn();
+}
+
+template <template <int, int, bool> class K>
+auto regs_kernel_for(int nfft, int sequential) {
+  return sequential ? regs_kernel_for<K, true>(nfft) : regs_kernel_for<K, false>(nfft);
+}
+
+// A built kernel at smem_bytes of dynamic shared memory: info = {registers
+// a thread, local memory bytes a thread (spills), resident CTAs an SM}.
+template <class Kernel>
+int regs_kernel_info(Kernel kernel, int smem_bytes, int device, int* info) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[2], kernel, kRegsThreads, smem_bytes));
 }
 
 }  // namespace asp

@@ -104,7 +104,7 @@ res_fir_noise_gate_kernel(const float* __restrict__ x, int n, int n_res,
     asp::res_load_bank(bank_s, bank, rg);  // read after res_span's first barrier
     res_span(rg, bank_s, raw_s, src, s, len, n_res, span);
   };
-  asp::fir_gate_regs<R, RS, kRelease>(g, reinterpret_cast<float*>(smem4), c,
+  asp::fir_gate_regs<R, RS, kRelease, true>(g, reinterpret_cast<float*>(smem4), c,
                             out + static_cast<size_t>(c) * g.out_len, noise_floor, win, hf,
                             twf, twi, inv_tab, fill);
 }
@@ -113,22 +113,10 @@ using Kernel = void (*)(const float*, int, int, float*, const float*, const floa
                         const float2*, const float2*, const float2*, const float*,
                         const float*, asp::ResGeo, asp::ChainGeo);
 
-// The instantiation for nfft, as chain_kernel.cu's kernel_for.
-template <bool kRelease>
-Kernel kernel_for(int nfft) {
-  const int rs = __builtin_ctz(static_cast<unsigned>(nfft)) % 4;
-  return nfft == 2 ? res_fir_noise_gate_kernel<2, 2, kRelease>
-         : nfft == 4 ? res_fir_noise_gate_kernel<4, 4, kRelease>
-         : nfft == 8 ? res_fir_noise_gate_kernel<8, 8, kRelease>
-         : nfft == 16 ? res_fir_noise_gate_kernel<16, 16, kRelease>
-         : rs == 2 ? res_fir_noise_gate_kernel<16, 4, kRelease>
-         : rs == 3 ? res_fir_noise_gate_kernel<16, 8, kRelease>
-                   : res_fir_noise_gate_kernel<16, 2, kRelease>;
-}
-
-Kernel kernel_for(int nfft, int sequential) {
-  return sequential ? kernel_for<true>(nfft) : kernel_for<false>(nfft);
-}
+template <int R, int RS, bool kRelease>
+struct ResFirNoiseGate {
+  static Kernel fn() { return res_fir_noise_gate_kernel<R, RS, kRelease>; }
+};
 
 }  // namespace
 
@@ -149,7 +137,7 @@ int asp_res_fir_noise_gate(const float* x, float* out, const float* noise_floor,
   const asp::ChainGeo g = asp::chain_geo(nfft, log2n, hop, taps, nframes, mf, sequential,
                                          thresh_gain, att, release);
   const asp::ResGeo rg{up, down, nk, 0};
-  const Kernel kernel = kernel_for(nfft, sequential);
+  const Kernel kernel = asp::regs_kernel_for<ResFirNoiseGate>(nfft, sequential);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(sequential ? 1 : g.ntiles, channels);
@@ -162,18 +150,8 @@ int asp_res_fir_noise_gate(const float* x, float* out, const float* noise_floor,
 
 // As asp_fir_noise_gate_info, for this kernel's instantiation for nfft.
 int asp_res_fir_noise_gate_info(int nfft, int sequential, int smem_bytes, int device, int* info) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Kernel kernel = kernel_for(nfft, sequential);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &info[2], kernel, asp::kRegsThreads, smem_bytes));
+  const Kernel kernel = asp::regs_kernel_for<ResFirNoiseGate>(nfft, sequential);
+  return asp::regs_kernel_info(kernel, smem_bytes, device, info);
 }
 
 }  // extern "C"

@@ -7,8 +7,9 @@ kernels and their plain PyTorch versions.
   gated, resynthesized and written once.  Same conventions as
   ``oracle.noise_gate(oracle.fir_direct(x, h), ...)``; the output length
   is nfft + (F-1)*hop.  Its body (``csrc/chain_regs_device.cuh``, shared
-  with ``resample_fir_gate_fused``) runs batches of register Stockham
-  transforms; ``regs_geometry`` sizes its tiles and shared memory.
+  with ``resample_fir_gate_fused`` and the gate alone) runs batches of
+  register Stockham transforms; ``gate_kernel.regs_geometry`` sizes its
+  tiles and shared memory.
 - ``fir_gate_step_fused`` (``csrc/fir_gate_step_kernel.cu``): one
   streaming block of the same chain, with an optional envelope tail
   (|y| -> FIR ``env_h`` -> * ``env_scale``) folded into the same launch.
@@ -34,11 +35,10 @@ from audiosignalprocess_tpu_torch.kernels import _build
 from audiosignalprocess_tpu_torch.kernels._build import (
     SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
 )
-from audiosignalprocess_tpu_torch.kernels.fft_kernel import real_stockham_passes, stockham_table
 from audiosignalprocess_tpu_torch.kernels.fir_kernel import reversed_taps
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (  # noqa: F401
-    FRAMES_PER_TILE, _geometry, _inv_norm_table, check_gate_guards, file_tables,
-    gate_step_args, gate_step_ref, noise_floor, step_smem_bytes,
+    _inv_norm_table, check_gate_guards, file_tables, gate_step_args, gate_step_ref,
+    noise_floor, regs_geometry, regs_info, step_smem_bytes,
 )
 from audiosignalprocess_tpu_torch.kernels.os_kernel import check_os_geometry, fft_tables
 from audiosignalprocess_tpu_torch.ops.fir import fir_direct
@@ -61,128 +61,11 @@ def _check_guards(h: np.ndarray, n: int, nfft: int, hop: int,
 def gate_tables(h_bytes: bytes, nfft: int, hop: int, window_kind: str,
                 device: torch.device) -> tuple:
     """The whole-file FIR -> gate kernels' constant tables on ``device``:
-    the window, the tap spectrum (``os_kernel.fft_tables``), the forward
-    and inverse per-stage tables (``fft_kernel.stockham_table``) and the
-    1/WOLA norm (``gate_kernel.file_tables``)."""
-    win, _, inv_tab = file_tables(nfft, hop, window_kind, device)
-    return (win, fft_tables(h_bytes, nfft, device)[0], stockham_table(nfft, -1, device),
-            stockham_table(nfft, 1, device), inv_tab)
-
-
-# ---------------------------------------------------------------------------
-# the batched register body's geometry (csrc/chain_regs_device.cuh)
-# ---------------------------------------------------------------------------
-
-REGS_THREADS = 256
-"""Threads of a whole-file chain CTA (``asp::kRegsThreads``)."""
-
-SM_SMEM = 233472
-"""Shared memory of one Hopper SM (228 KB); each resident CTA also takes 1 KB."""
-
-REGS_CTAS = 2
-"""CTAs an SM the parallel launch aims at: ``__launch_bounds__(256, 2)``
-caps a thread at 128 registers, so no more than two fit."""
-
-REGS_MAX_TILE_BATCHES = 16
-"""How many tile sizes ``regs_geometry`` weighs (whole gate batches a tile,
-from the fewest that leave it an own frame)."""
-
-
-def regs_points(nfft: int) -> int:
-    """Points a thread holds in a full pass (``asp::regs_points``)."""
-    return min(16, nfft)
-
-
-def regs_batch(nfft: int) -> int:
-    """Transforms a CTA runs at once (a batch): 256 threads of
-    ``regs_points`` points, 4 at nfft 1024; a gate batch is twice as many
-    frames and a FIR batch twice as many overlap-save blocks."""
-    return REGS_THREADS * regs_points(nfft) // nfft
-
-
-def regs_pass_plan(nfft: int) -> tuple[list[tuple[int, int]], list[tuple[int, int]]]:
-    """(forward, inverse) passes, (first stage, stages) each, of the body's
-    nfft-point transforms: ``rfft_stockham``'s plan for its nfft-point
-    half-size transform, so the forward's last pass and the inverse's
-    first have the same points a group (log2 nfft mod 4 stages, 1 where
-    that is 0), which the body merges into one pass with the per-bin work."""
-    return real_stockham_passes(2 * nfft), real_stockham_passes(2 * nfft, inverse=True)
-
-
-def regs_span(nfft: int, hop: int, taps: int, mf: int, sequential: bool) -> int:
-    """Floats of the span a tile filters (``asp::regs_span``): its mf
-    frames and, in the parallel launch, the nfft/hop - 1 halo frames, in
-    whole overlap-save blocks, plus the FIR history."""
-    halo = 0 if sequential else nfft // hop - 1
-    blk = nfft - (taps - 1)
-    return -(-((mf + halo - 1) * hop + nfft) // blk) * blk + taps - 1
-
-
-def regs_smem(nfft: int, hop: int, taps: int, mf: int, sequential: bool,
-              tail: int = 0) -> int:
-    """Dynamic shared memory of one CTA, in the order
-    ``asp::fir_gate_regs`` carves it: threshold and release state (nfft/2+1
-    each), two OLA carries (nfft-hop each), the span, the batch's masks
-    (release > 0), then the two exchange buffers, or ``tail`` floats if
-    the kernel's fill needs more there."""
-    nb = nfft // 2 + 1
-    head = (2 * nb + 2 * (nfft - hop) + regs_span(nfft, hop, taps, mf, sequential)
-            + (2 * regs_batch(nfft) * nb if sequential else 0))
-    return 4 * (head + max(4 * REGS_THREADS * regs_points(nfft), tail))
-
-
-def regs_geometry(nfft: int, hop: int, taps: int, sequential: bool = False,
-                  tail=None) -> dict:
-    """Frames per tile (mf), span and shared memory of the batched body.
-
-    A tile's frames (its mf and, in the parallel launch, the nfft/hop - 1
-    halo frames) fill whole gate batches: mf = k * 2B - halo, k from the
-    fewest batches that leave the tile an own frame, REGS_MAX_TILE_BATCHES
-    values.  Among those whose shared memory fits SMEM_LIMIT, the parallel
-    launch takes the most CTAs an SM (up to REGS_CTAS), then the fewest
-    batches (gate and FIR) per own frame, then the smaller tile; the
-    sequential launch (one CTA a channel) only the fewest batches.
-    ``tail(span)`` gives the floats the kernel's fill needs in the tail
-    (``resample_fir_gate_fused``: its phase bank and raw window).  At
-    nfft 1024, hop 256, 64 taps: mf = 21 (24 frames, three gate batches,
-    one FIR batch of 8 blocks), 2 CTAs an SM."""
-    check(regs_batch(nfft) >= 1,
-          f"nfft={nfft}: a batch of the whole-file chain is {REGS_THREADS * 16} points, "
-          f"so nfft <= {REGS_THREADS * 16}")
-    halo = 0 if sequential else nfft // hop - 1
-    nfb = 2 * regs_batch(nfft)
-    blk = nfft - (taps - 1)
-    best = None
-    k0 = halo // nfb + 1  # the fewest batches that leave an own frame
-    for k in range(k0, k0 + REGS_MAX_TILE_BATCHES):
-        mf = k * nfb - halo
-        span = regs_span(nfft, hop, taps, mf, sequential)
-        smem = regs_smem(nfft, hop, taps, mf, sequential, tail(span) if tail else 0)
-        if smem > SMEM_LIMIT:
-            break
-        nblk = -(-((mf + halo - 1) * hop + nfft) // blk)
-        ctas = 1 if sequential else min(REGS_CTAS, SM_SMEM // (smem + 1024))
-        key = (-ctas, (k + -(-nblk // nfb)) / mf, mf)
-        if best is None or key < best[0]:
-            best = (key, dict(mf=mf, span=span, smem=smem))
-    check(best is not None,
-          f"nfft={nfft}, hop={hop}, taps={taps} need more shared memory per block "
-          f"than SMEM_LIMIT ({SMEM_LIMIT} bytes) for one batch of frames")
-    return best[1]
-
-
-def regs_info(symbol: str, nfft: int, sequential: bool, smem: int,
-              device: torch.device) -> dict:
-    """The built kernel's instantiation for nfft and the launch, from the
-    CUDA runtime: registers a thread, local memory a thread (spills) and
-    resident CTAs an SM at ``smem`` bytes of shared memory (the occupancy
-    API)."""
-    fn = getattr(_build.load(), symbol)
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    info = (ctypes.c_int * 3)()
-    raise_on_error(fn(nfft, int(sequential), smem, device.index or 0, info), symbol)
-    return dict(registers=info[0], local_bytes=info[1], ctas=info[2])
+    ``gate_kernel.file_tables`` (the window, the forward and inverse
+    per-stage tables, the 1/WOLA norm) with the tap spectrum
+    (``os_kernel.fft_tables``) after the window."""
+    win, twf, twi, inv_tab = file_tables(nfft, hop, window_kind, device)
+    return win, fft_tables(h_bytes, nfft, device)[0], twf, twi, inv_tab
 
 
 def filtered_floor(head: torch.Tensor, h: np.ndarray, nfft: int, hop: int,

@@ -3,6 +3,11 @@ shard of it (``csrc/gate_kernel.cu``) and the streaming gate step
 (``csrc/gate_step_kernel.cu``), their plain PyTorch versions, and the
 helpers the fused gate kernels share.
 
+The whole-file gate, its time shard and the whole-file FIR -> gate
+chains (``chain_kernel``, ``res_chain_kernel``) run one body,
+``csrc/chain_regs_device.cuh``; ``regs_geometry`` sizes its tiles and
+shared memory (``gate_geometry``: the gate alone).
+
 Mirrors the JAX package's ``kernels/gate_kernel.py``: the 1/WOLA-norm
 vectors (whole-file and streaming), the noise-floor prologue, the
 whole-file gate (``noise_gate_fused``), the time shard of the sharded
@@ -41,6 +46,7 @@ from audiosignalprocess_tpu_torch.kernels import _build
 from audiosignalprocess_tpu_torch.kernels._build import (
     SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
 )
+from audiosignalprocess_tpu_torch.kernels.fft_kernel import real_stockham_passes, stockham_table
 from audiosignalprocess_tpu_torch.ops import fft as fft_ops
 from audiosignalprocess_tpu_torch.ops.stft import (
     WOLA_EDGE_REL, frame, num_frames, overlap_add, wola_clamp,
@@ -72,14 +78,136 @@ def noise_floor(frames_windowed: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the whole-file gate (and the tile geometry the whole-file chains share)
+# the batched register body's geometry (csrc/chain_regs_device.cuh)
 # ---------------------------------------------------------------------------
 
-FRAMES_PER_TILE = 16
-"""Output hops per CTA in the parallel launch; each CTA also recomputes
-the nfft/hop-1 frames of halo before its tile, so larger tiles waste
-less and take more shared memory."""
+REGS_THREADS = 256
+"""Threads of a whole-file CTA (``asp::kRegsThreads``): the FIR -> gate
+chains and the gate alone."""
 
+SM_SMEM = 233472
+"""Shared memory of one Hopper SM (228 KB); each resident CTA also takes 1 KB."""
+
+REGS_CTAS = 2
+"""CTAs an SM the parallel launch aims at: ``__launch_bounds__(256, 2)``
+caps a thread at 128 registers, so no more than two fit."""
+
+REGS_MAX_TILE_BATCHES = 16
+"""How many tile sizes ``regs_geometry`` weighs (whole gate batches a tile,
+from the fewest that leave it an own frame)."""
+
+
+def regs_points(nfft: int) -> int:
+    """Points a thread holds in a full pass (``asp::regs_points``)."""
+    return min(16, nfft)
+
+
+def regs_batch(nfft: int) -> int:
+    """Transforms a CTA runs at once (a batch): 256 threads of
+    ``regs_points`` points, 4 at nfft 1024; a gate batch is twice as many
+    frames and a FIR batch twice as many overlap-save blocks."""
+    return REGS_THREADS * regs_points(nfft) // nfft
+
+
+def regs_pass_plan(nfft: int) -> tuple[list[tuple[int, int]], list[tuple[int, int]]]:
+    """(forward, inverse) passes, (first stage, stages) each, of the body's
+    nfft-point transforms: ``rfft_stockham``'s plan for its nfft-point
+    half-size transform, so the forward's last pass and the inverse's
+    first have the same points a group (log2 nfft mod 4 stages, 1 where
+    that is 0), which the body merges into one pass with the per-bin work."""
+    return real_stockham_passes(2 * nfft), real_stockham_passes(2 * nfft, inverse=True)
+
+
+def regs_span(nfft: int, hop: int, taps: int, mf: int, sequential: bool,
+              fir: bool = True) -> int:
+    """Floats of the span a tile's frames read (``asp::regs_span``): its mf
+    frames and, in the parallel launch, the nfft/hop - 1 halo frames; with
+    the FIR (``fir``) in whole overlap-save blocks, plus the FIR history."""
+    halo = 0 if sequential else nfft // hop - 1
+    length = (mf + halo - 1) * hop + nfft
+    if not fir:
+        return length
+    blk = nfft - (taps - 1)
+    return -(-length // blk) * blk + taps - 1
+
+
+def regs_smem(nfft: int, hop: int, taps: int, mf: int, sequential: bool,
+              tail: int = 0, fir: bool = True) -> int:
+    """Dynamic shared memory of one CTA, in the order
+    ``asp::fir_gate_regs`` carves it: threshold and release state (nfft/2+1
+    each), two OLA carries (nfft-hop each), the span, the batch's masks
+    (release > 0), then the two exchange buffers, or ``tail`` floats if
+    the kernel's fill needs more there."""
+    nb = nfft // 2 + 1
+    head = (2 * nb + 2 * (nfft - hop) + regs_span(nfft, hop, taps, mf, sequential, fir)
+            + (2 * regs_batch(nfft) * nb if sequential else 0))
+    return 4 * (head + max(4 * REGS_THREADS * regs_points(nfft), tail))
+
+
+def regs_geometry(nfft: int, hop: int, taps: int, sequential: bool = False,
+                  tail=None, fir: bool = True) -> dict:
+    """Frames per tile (mf), span and shared memory of the batched body;
+    ``fir`` False sizes the gate alone (``noise_gate_fused``,
+    ``gate_shard_fused``: ``taps`` 1, no FIR batches, a span of the tile's
+    frames only).
+
+    A tile's frames (its mf and, in the parallel launch, the nfft/hop - 1
+    halo frames) fill whole gate batches: mf = k * 2B - halo, k from the
+    fewest batches that leave the tile an own frame, REGS_MAX_TILE_BATCHES
+    values.  Among those whose shared memory fits SMEM_LIMIT, the parallel
+    launch takes the most CTAs an SM (up to REGS_CTAS), then the fewest
+    batches (gate and FIR) per own frame; the sequential launch (one CTA a
+    channel) only the fewest batches.  Ties go to the smaller tile with the
+    FIR, to the larger (fewer tiles, each with a fill) without it.
+    ``tail(span)`` gives the floats the kernel's fill needs in the tail
+    (``resample_fir_gate_fused``: its phase bank and raw window).  At
+    nfft 1024, hop 256, 64 taps: mf = 21 (24 frames, three gate batches,
+    one FIR batch of 8 blocks), 2 CTAs an SM; the gate alone: mf = 29 (32
+    frames, four gate batches), 2 CTAs an SM, and mf = 128 in the
+    sequential launch."""
+    check(regs_batch(nfft) >= 1,
+          f"nfft={nfft}: a batch of the whole-file chain is {REGS_THREADS * 16} points, "
+          f"so nfft <= {REGS_THREADS * 16}")
+    halo = 0 if sequential else nfft // hop - 1
+    nfb = 2 * regs_batch(nfft)
+    blk = nfft - (taps - 1)
+    best = None
+    k0 = halo // nfb + 1  # the fewest batches that leave an own frame
+    for k in range(k0, k0 + REGS_MAX_TILE_BATCHES):
+        mf = k * nfb - halo
+        span = regs_span(nfft, hop, taps, mf, sequential, fir)
+        smem = regs_smem(nfft, hop, taps, mf, sequential, tail(span) if tail else 0, fir)
+        if smem > SMEM_LIMIT:
+            break
+        nblk = -(-((mf + halo - 1) * hop + nfft) // blk)
+        fir_batches = -(-nblk // nfb) if fir else 0
+        ctas = 1 if sequential else min(REGS_CTAS, SM_SMEM // (smem + 1024))
+        key = (-ctas, (k + fir_batches) / mf, mf if fir else -mf)
+        if best is None or key < best[0]:
+            best = (key, dict(mf=mf, span=span, smem=smem))
+    check(best is not None,
+          f"nfft={nfft}, hop={hop}, taps={taps} need more shared memory per block "
+          f"than SMEM_LIMIT ({SMEM_LIMIT} bytes) for one batch of frames")
+    return best[1]
+
+
+def regs_info(symbol: str, nfft: int, sequential: bool, smem: int,
+              device: torch.device) -> dict:
+    """The built kernel's instantiation for nfft and the launch, from the
+    CUDA runtime: registers a thread, local memory a thread (spills) and
+    resident CTAs an SM at ``smem`` bytes of shared memory (the occupancy
+    API)."""
+    fn = getattr(_build.load(), symbol)
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 3)()
+    raise_on_error(fn(nfft, int(sequential), smem, device.index or 0, info), symbol)
+    return dict(registers=info[0], local_bytes=info[1], ctas=info[2])
+
+
+# ---------------------------------------------------------------------------
+# the whole-file gate (and the tables the whole-file chains share)
+# ---------------------------------------------------------------------------
 
 def check_gate_guards(n: int, nfft: int, hop: int, noise_frames: int) -> int:
     """Validate a whole-file gate's geometry; returns the frame count F."""
@@ -91,26 +219,6 @@ def check_gate_guards(n: int, nfft: int, hop: int, noise_frames: int) -> int:
     check(nframes >= noise_frames,
           f"signal has {nframes} frames < noise_frames={noise_frames}")
     return nframes
-
-
-def _geometry(nfft: int, hop: int, taps: int) -> dict:
-    """Tile size, the longest FIR span of a tile and the dynamic shared
-    memory of one CTA, in the order ``asp::fir_gate_tiles`` carves it:
-    twiddles (nfft/2 complex), FFT buffer (nfft complex), threshold and
-    release state (nfft/2+1 each), OLA tile (tile + nfft-hop), FIR span.
-    The gate alone is ``taps`` = 1."""
-    d = nfft - hop
-    # at least nfft/hop frames per tile, so the spill (d) is shorter than
-    # the tile and the sequential launch can move it without overlap
-    mf = max(FRAMES_PER_TILE, nfft // hop)
-    tile = mf * hop
-    blk = nfft - (taps - 1)
-    # the longest filtered span a tile needs is tile + 2d (its frames plus
-    # the halo frames), in whole overlap-save blocks, plus the FIR history
-    span = -(-(tile + 2 * d) // blk) * blk + taps - 1
-    nb = nfft // 2 + 1
-    smem = 8 * (nfft // 2) + 8 * nfft + 4 * (2 * nb + tile + d + span)
-    return {"mf": mf, "tile": tile, "span": span, "smem": smem}
 
 
 def _inv_norm_table(wv: np.ndarray, nfft: int, hop: int) -> np.ndarray:
@@ -129,20 +237,25 @@ def _inv_norm_table(wv: np.ndarray, nfft: int, hop: int) -> np.ndarray:
 @functools.lru_cache(maxsize=32)
 def file_tables(nfft: int, hop: int, window_kind: str, device: torch.device) -> tuple:
     """The whole-file kernels' constant tables on ``device``, float32,
-    uploaded once per geometry: the periodic window, the nfft/2 twiddles
-    exp(-2 pi i k / nfft) as (re, im) pairs and the [head | period | tail]
-    1/WOLA-norm table."""
+    uploaded once per geometry: the periodic window, the forward and
+    inverse per-stage tables of the batched body's transforms
+    (``fft_kernel.stockham_table(nfft, -1)``, ``(nfft, +1)``) and the
+    [head | period | tail] 1/WOLA-norm table."""
     wv = window_np(window_kind, nfft, periodic=True)
-    tw = np.exp(-2j * np.pi * np.arange(nfft // 2) / nfft)
     f32 = lambda a: upload(np.ascontiguousarray(a), torch.float32, device)
-    return (f32(wv), f32(tw.astype(np.complex64).view(np.float32)),
+    return (f32(wv), stockham_table(nfft, -1, device), stockham_table(nfft, 1, device),
             f32(_inv_norm_table(wv, nfft, hop)))
+
+
+def gate_geometry(nfft: int, hop: int, sequential: bool) -> dict:
+    """``regs_geometry`` of the gate alone: one tap, no FIR batches."""
+    return regs_geometry(nfft, hop, 1, sequential, fir=False)
 
 
 @functools.cache
 def _lib():
     fn = _build.load().asp_noise_gate
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -167,7 +280,8 @@ def noise_gate_fused(x: torch.Tensor, nfft: int = 1024, hop: int = 256,
     A CPU tensor runs ``noise_gate_ref``.  A CUDA float32 tensor launches
     the kernel: one CTA per (channel, tile) when ``release`` is 0, one CTA
     per channel walking its frames in order when it is not (the release is
-    a scan over all frames).  Any other tensor raises.
+    a scan over all frames); ``gate_geometry`` gives the tile.  Any other
+    tensor raises.
     """
     n = x.shape[-1]
     nframes = check_gate_guards(n, nfft, hop, noise_frames)
@@ -179,19 +293,17 @@ def noise_gate_fused(x: torch.Tensor, nfft: int = 1024, hop: int = 256,
     xf = x.reshape(-1, n).contiguous()
     channels = xf.shape[0]
     check(0 < channels <= 65535, f"{channels} channels: 1..65535 per launch")
-    geo = _geometry(nfft, hop, 1)
-    check(geo["smem"] <= SMEM_LIMIT,
-          f"nfft={nfft}, hop={hop} need {geo['smem']} bytes of shared memory per "
-          f"block, more than {SMEM_LIMIT}")
+    geo = gate_geometry(nfft, hop, release > 0.0)
     dev = xf.device
     out_len = nfft + (nframes - 1) * hop
-    win, tw, inv_tab = file_tables(nfft, hop, window_kind, dev)
+    win, twf, twi, inv_tab = file_tables(nfft, hop, window_kind, dev)
     head = xf[:, : nfft - hop + noise_frames * hop]
     floor = noise_floor(frame(head, nfft, hop) * win).contiguous()
     out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
     rc = _lib()(
-        xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(), tw.data_ptr(),
-        inv_tab.data_ptr(), channels, n, nfft, nfft.bit_length() - 1, hop, nframes,
+        xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(), twf.data_ptr(),
+        twi.data_ptr(), inv_tab.data_ptr(), channels, n, nfft, nfft.bit_length() - 1, hop,
+        nframes,
         geo["mf"], int(release > 0.0), float(10.0 ** (threshold_db / 20.0)),
         float(10.0 ** (-reduction_db / 20.0)), float(release), geo["smem"], dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -201,6 +313,18 @@ def noise_gate_fused(x: torch.Tensor, nfft: int = 1024, hop: int = 256,
 
 
 noise_gate_fused.launches = 0
+
+
+def noise_gate_info(nfft: int = 1024, hop: int = 256, release: float = 0.0,
+                    device=None) -> dict:
+    """``noise_gate_fused``'s kernel at this geometry on a CUDA device (the
+    same as ``gate_shard_fused``'s where release is 0): ``regs_info``
+    (registers, local bytes, CTAs an SM) with the frames per tile and
+    shared memory of its launch."""
+    geo = gate_geometry(nfft, hop, release > 0.0)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return dict(regs_info("asp_noise_gate_info", nfft, release > 0.0, geo["smem"], dev),
+                mf=geo["mf"], smem=geo["smem"])
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +366,7 @@ def gate_shard_ref(x_ext: torch.Tensor, floor_half: torch.Tensor, n_valid: int,
 @functools.cache
 def _shard_lib():
     fn = _build.load().asp_gate_shard
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -276,15 +400,12 @@ def gate_shard_fused(x_ext: torch.Tensor, floor_half: torch.Tensor, n_valid: int
     check(floor_half.dtype == torch.float32 and floor_half.device == dev,
           "the floor must be float32 on the input's device")
     floor = torch.broadcast_to(floor_half.reshape(-1, nb), (channels, nb)).contiguous()
-    geo = _geometry(nfft, hop, 1)
-    check(geo["smem"] <= SMEM_LIMIT,
-          f"nfft={nfft}, hop={hop} need {geo['smem']} bytes of shared memory per "
-          f"block, more than {SMEM_LIMIT}")
-    win, tw, _ = file_tables(nfft, hop, window_kind, dev)
+    geo = gate_geometry(nfft, hop, False)
+    win, twf, twi, _ = file_tables(nfft, hop, window_kind, dev)
     out = torch.empty((channels, n_ext), dtype=torch.float32, device=dev)
     rc = _shard_lib()(
-        xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(), tw.data_ptr(),
-        channels, n_ext, nfft, nfft.bit_length() - 1, hop, n_valid, geo["mf"],
+        xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(), twf.data_ptr(),
+        twi.data_ptr(), channels, n_ext, nfft, nfft.bit_length() - 1, hop, n_valid, geo["mf"],
         float(10.0 ** (threshold_db / 20.0)), float(10.0 ** (-reduction_db / 20.0)),
         geo["smem"], dev.index, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "gate_shard")

@@ -37,8 +37,9 @@ from audiosignalprocess_tpu_torch.kernels._build import (
 )
 from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
     _check_guards, filtered_floor, fir_gate_step_args, fir_gate_step_ref,
-    fir_noise_gate_ref, gate_tables, regs_geometry, regs_info,
+    fir_noise_gate_ref, gate_tables,
 )
+from audiosignalprocess_tpu_torch.kernels.gate_kernel import regs_geometry, regs_info
 from audiosignalprocess_tpu_torch.kernels.os_kernel import check_os_geometry
 from audiosignalprocess_tpu_torch.kernels.resample_kernel import bank_table, res_window
 from audiosignalprocess_tpu_torch.ops.resample import (

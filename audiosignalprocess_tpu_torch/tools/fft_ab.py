@@ -24,20 +24,24 @@ runs, from each checkout's own ``chip_smoke.py`` and package:
   cost cannot hide in; ``[ab ptxas]`` lines give the real kernels'
   registers and spills where the process built them.
 
-With ``--chain`` the timing is the whole-file chain kernels' instead
-(lines ``[ab chain]``): ``fir_noise_gate_fused`` at 64 x 480000 and
-``resample_fir_gate_fused`` at 64 x 441000 -> 480000 (160/147) on
-``bench.py``'s white noise, each call with its wrapper's prologue, 6 reps
-round-robin: the device time of 10 calls queued behind
-``torch.cuda._sleep`` (about 50 ms, so the wrappers' host prologues do not
-pace them) and chip_smoke's ``time_ms``; ``[ab ptxas]`` then
-gives both kernels' registers and spills, and ``[ab chain]`` their
-registers, local memory and CTAs an SM from the CUDA runtime where the
-checkout has the query.  Without ``--quick`` each checkout first runs its
-own kernels on chip_smoke's phase 3 and 10 cases (tone bursts from fixed
-seeds) and prints ``[ab chain] reading`` lines: SNR against the float64
-plain version and the plain gate's flipped decisions, so the parent's
-readings stand beside the change's.
+With ``--chain`` the timing is the whole-file kernels' on the batched
+body instead (lines ``[ab chain]``): ``fir_noise_gate_fused`` at 64 x
+480000, ``resample_fir_gate_fused`` at 64 x 441000 -> 480000 (160/147),
+``noise_gate_fused`` at 64 and 8 x 480000 and ``gate_shard_fused`` on one
+shard (shard 1 of chip_smoke's four of 64 x 479232) on ``bench.py``'s
+white noise, each call with its wrapper's prologue, 6 reps round-robin:
+the device time of 10 calls queued behind ``torch.cuda._sleep`` (about
+50 ms, so the wrappers' host prologues do not pace them) and
+chip_smoke's ``time_ms``; ``[ab ptxas]`` then gives the kernels'
+registers and spills, and ``[ab chain]`` their registers, local memory
+and CTAs an SM from the CUDA runtime where the checkout has the query.
+Without ``--quick`` each checkout first runs its own kernels on
+chip_smoke's phase 3 and 10 cases and on gate cases (tone bursts from
+fixed seeds; the gate alone at nfft 256 to 4096, release 0 to 0.9, and
+shards with all, some and one valid frame) and prints ``[ab chain]
+reading`` lines: SNR against the float64 plain version and the plain
+gate's flipped decisions, so the parent's readings stand beside the
+change's.
 
 ``--quick`` runs only the timing.  The checkouts run in mirrored turns
 (parent, change, change, parent; A, B, C, C, B, A for three), one process
@@ -86,10 +90,15 @@ CHAIN_CASES = [  # (resampling, channels, n, taps, release, nfft, hop): phases 3
     (True, 2, 47040, 64, 0.0, 256, 64), (True, 3, 47040, 64, 0.6, 512, 128),
     (True, 1, 47040, 30, 0.0, 1024, 512), (True, 2, 55125, 64, 0.0, 2048, 256),
 ]
+GATE_CASES = [  # (channels, n, release, nfft, hop): the gate alone
+    (2, 48128, 0.0, 1024, 256), (2, 48128, 0.9, 1024, 256), (2, 48128, 0.0, 2048, 512),
+    (2, 48128, 0.5, 512, 128), (2, 48128, 0.0, 4096, 512), (3, 40077, 0.0, 1024, 256),
+    (2, 48128, 0.0, 256, 64), (2, 48128, 0.6, 256, 32),
+]
 
 log = _build.build()[1].splitlines()
 chain = "--chain" in sys.argv
-kern = "fir_noise_gate_kernel" if chain else "rfft_stockham_kernel"
+kern = "noise_gate_kernel" if chain else "rfft_stockham_kernel"
 for i, line in enumerate(log):  # ptxas's report of the timed kernels, where this call built them
     if "Compiling entry function" in line and kern in line:
         name = line.split("'")[1]
@@ -153,11 +162,16 @@ if chain:
                          device=dev)
     xr = torch.as_tensor(np.random.default_rng(0).standard_normal(cs.RES_HEADLINE)
                          .astype(np.float32), device=dev)
-    for name, info in (("fir_noise_gate_fused", lambda: ck.fir_noise_gate_info(device=dev)),
-                       ("resample_fir_gate_fused",
-                        lambda: rk.resample_fir_gate_info(cs.UP, cs.DOWN, h, device=dev))):
-        if hasattr(ck, "fir_noise_gate_info"):
-            print(f"[ab chain] {name} on {smi}: {info()}")
+    from audiosignalprocess_tpu_torch.kernels import gate_kernel as gk
+    infos = {"fir_noise_gate_fused": lambda: ck.fir_noise_gate_info(device=dev),
+             "resample_fir_gate_fused":
+                 lambda: rk.resample_fir_gate_info(cs.UP, cs.DOWN, h, device=dev)}
+    if hasattr(gk, "noise_gate_info"):  # a checkout with the gate on the batched body
+        infos.update({"noise_gate_fused": lambda: gk.noise_gate_info(device=dev),
+                      "noise_gate_fused release 0.6":
+                          lambda: gk.noise_gate_info(release=0.6, device=dev)})
+    for name, info in infos.items():
+        print(f"[ab chain] {name} on {smi}: {info()}")
     if "--quick" not in sys.argv:  # the readings of chip_smoke's phase 3 and 10 cases
         from audiosignalprocess_tpu_torch.kernels.chain_kernel import fir_noise_gate_ref
         from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import resample_fir_gate_ref
@@ -179,8 +193,35 @@ if chain:
             print(f"[ab chain] reading {name} {c}x{n} nfft={nfft} hop={hop} taps={taps} "
                   f"release={release}: snr_vs_f64_plain={snr_db(ref, y):.2f} dB "
                   f"decision_flips_f32_vs_f64={flips}")
+        for i, (c, n, release, nfft, hop) in enumerate(GATE_CASES):
+            g = torch.as_tensor(cs.tone_burst(np.random.default_rng(2000 + i), c, n), device=dev)
+            kw = dict(nfft=nfft, hop=hop, release=release)
+            y = noise_gate_fused(g.float(), **kw)
+            ref = gk.noise_gate_ref(g, **kw)
+            print(f"[ab chain] reading noise_gate_fused {c}x{n} nfft={nfft} hop={hop} "
+                  f"release={release}: snr_vs_f64_plain={snr_db(ref, y):.2f} dB "
+                  f"decision_flips_f32_vs_f64={cs.decision_flips(g, nfft, hop)}")
+        xs = torch.as_tensor(cs.tone_burst(np.random.default_rng(20), *cs.SHARD_HEADLINE),
+                             device=dev)
+        for t, nv in ((1, None), (3, None), (1, 100), (1, 1)):
+            ext, floor, nv_file = cs.gate_shard_inputs(xs, t, cs.SHARDS)
+            ext32, floor32, _ = cs.gate_shard_inputs(xs.float(), t, cs.SHARDS)
+            nv = nv_file if nv is None else nv
+            y = gate_shard_fused(ext32, floor32, nv, cs.NFFT, cs.HOP)
+            ref = gk.gate_shard_ref(ext, floor, nv, cs.NFFT, cs.HOP)
+            end = (nv - 1) * cs.HOP + cs.NFFT
+            print(f"[ab chain] reading gate_shard_fused shard {t} of {cs.SHARDS} "
+                  f"{tuple(ext.shape)} n_valid={nv}: snr_vs_f64_plain={snr_db(ref, y):.2f} dB "
+                  f"zero_past_last_frame={not bool(y[:, end:].any())}")
+    xs = torch.as_tensor(np.random.default_rng(0).standard_normal(cs.SHARD_HEADLINE)
+                         .astype(np.float32), device=dev)
+    ext, floor, nv = cs.gate_shard_inputs(xs, 1, cs.SHARDS)
+    xg8 = xa[:8].contiguous()
     arms = {"fir_noise_gate_fused": lambda: fir_noise_gate_fused(xa, h),
-            "resample_fir_gate_fused": lambda: resample_fir_gate_fused(xr, cs.UP, cs.DOWN, h)}
+            "resample_fir_gate_fused": lambda: resample_fir_gate_fused(xr, cs.UP, cs.DOWN, h),
+            "noise_gate_fused 64": lambda: noise_gate_fused(xa),
+            "noise_gate_fused 8": lambda: noise_gate_fused(xg8),
+            "gate_shard_fused": lambda: gate_shard_fused(ext, floor, nv, cs.NFFT, cs.HOP)}
     got = {arm: [] for arm in arms}
     for _ in range(6):
         for arm, fn in arms.items():

@@ -74,7 +74,11 @@ the float32 peak, the H100 SXM's published figures in ``utils.metrics``) and,
 where one PyTorch call computes the same function, that call's time
 (``library_ms``), and for the real FFT kernels both again on launches
 queued behind a sleep of the card (``device_ms``, ``library_device_ms``);
-the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+``device_ms`` is also the queued device time of a whole-file call of the
+chain and gate kernels, and for the six stream kernels that of one launch
+at its stream's block shape (phase 9b, which ranks them by launches x
+(device time - bound) a launch); the last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA device it exits
 1 and prints no result.  Imports nothing of JAX.
 """
 
@@ -239,17 +243,19 @@ def flips_text(snr, flips):
         "" if flips else f" (none counted: >= 100 dB {'held' if snr >= 100.0 else 'not held'})")
 
 
-def chain_ptxas(log, res):
+def chain_ptxas(log, kernel):
     """ptxas's registers and spills of each instantiation <R, RS, release>
-    of the whole-file chain kernel (``res``: the resampling one) in the
-    build log (none where this process did not build)."""
+    of a whole-file kernel on the batched body (``kernel``: its function's
+    name, ``fir_noise_gate_kernel``, ``res_fir_noise_gate_kernel`` or
+    ``noise_gate_kernel``) in the build log (none where this process did
+    not build)."""
     import re
 
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             ent = line.split("'")[1]
-            hit = "fir_noise_gate_kernel" in ent and (("res_fir_noise_gate" in ent) == res)
+            hit = f"{len(kernel)}{kernel}I" in ent  # the mangled name's identifier
             m = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", ent)
             name = f"<{m[1]},{m[2]},{m[3]}>" if hit and m else None
         elif name and "spill stores" in line:
@@ -534,7 +540,7 @@ def resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x48, log=
           f"(registers, local bytes a thread, CTAs an SM by the occupancy API): parallel "
           f"launch {resample_fir_gate_info(UP, DOWN, h, device=dev)}, sequential (release > 0) "
           f"{resample_fir_gate_info(UP, DOWN, h, release=0.6, device=dev)}; ptxas <R,RS>: "
-          f"{chain_ptxas(log, True)}")
+          f"{chain_ptxas(log, 'res_fir_noise_gate_kernel')}")
     mac_ms = time_ms(lambda: resample_mac(xn, UP, DOWN, zero_phase=False))
     mac_plain_ms = time_ms(lambda: resample_mac_ref(xn, UP, DOWN, zero_phase=False))
     print(f"[13 times] resample_mac whole file {RES_HEADLINE[0]}x{RES_HEADLINE[1]} -> "
@@ -634,7 +640,25 @@ def conv_ms(x, taps):
         return time_ms(lambda: torch.nn.functional.conv1d(xp, w))
 
 
-def gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_main, h):
+def poisoned_call(fn, numel, dev, copies=4):
+    """fn() after ``copies`` blocks of ``numel`` floats were filled with NaN
+    and freed: the caching allocator hands that memory back to the
+    output's torch.empty, so a position the kernel leaves unwritten shows
+    as NaN (where the previous call's result would otherwise stand in for
+    it).  Returns (fn(), whether the output lies in the NaN-filled memory;
+    the wrapper's own temporaries may have taken some of it first)."""
+    blocks = [torch.full((numel,), float("nan"), device=dev) for _ in range(copies)]
+    spans = sorted((b.data_ptr(), b.data_ptr() + 4 * numel) for b in blocks)
+    del blocks
+    y = fn()
+    lo, hi = y.data_ptr(), y.data_ptr() + y.numel() * y.element_size()
+    for a, b in spans:  # the poisoned blocks may lie end to end
+        if a <= lo < b:
+            lo = b
+    return y, lo >= hi
+
+
+def gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_main, h, log=""):
     """Phases 14-16: the config-3 gate (noise_gate_fused) and the standalone
     FFT kernels (fft_stockham_lanes, rfft_stockham, irfft_stockham).  Adds
     the four kernels to ``record``; raises SystemExit on a failure."""
@@ -643,7 +667,7 @@ def gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_main, h):
     from audiosignalprocess_tpu_torch.kernels import fft_kernel as fk
     from audiosignalprocess_tpu_torch.kernels.chain_kernel import fir_noise_gate_fused
     from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
-        noise_gate_fused, noise_gate_ref,
+        noise_gate_fused, noise_gate_info, noise_gate_ref,
     )
     from audiosignalprocess_tpu_torch.kernels.os_kernel import overlap_save_fused
     from audiosignalprocess_tpu_torch.effects.noise_gate import noise_gate
@@ -723,22 +747,35 @@ def gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_main, h):
           f"(bar {REAL_MIN_DB:.0f} dB against the float64 plain version and torch.fft float64): "
           + ", ".join(f"{k} {v:.2f} dB" for k, v in worst_real.items()))
 
+    # the gate: each output's memory NaN-filled before the call (poisoned_call), so
+    # a position the kernel never writes shows as not finite
     noise = np.random.default_rng(1).standard_normal(HEADLINE)
     for name, x64, kw in (
             ("tone burst 2x48128 release 0", tone_burst(rng, 2, 48128), {}),
             ("tone burst 2x48128 release 0.9", tone_burst(rng, 2, 48128), dict(release=0.9)),
             ("tone burst 2x48128 nfft 2048 hop 512", tone_burst(rng, 2, 48128),
              dict(nfft=2048, hop=512)),
+            ("tone burst 2x48128 nfft 512 hop 128 release 0.5", tone_burst(rng, 2, 48128),
+             dict(nfft=512, hop=128, release=0.5)),
+            ("tone burst 2x48128 nfft 4096 hop 512", tone_burst(rng, 2, 48128),
+             dict(nfft=4096, hop=512)),
             ("tone burst 3x40000+77 ragged", tone_burst(rng, 3, 40077), {}),
             (f"white noise {HEADLINE[0]}x{HEADLINE[1]}", noise, {})):
         x64 = torch.as_tensor(x64, device=dev)
-        before = noise_gate_fused.launches
-        y = noise_gate_fused(x64.float(), **kw)
-        torch.cuda.synchronize()
         g = dict(nfft=kw.get("nfft", NFFT), hop=kw.get("hop", HOP))
-        check_kernel(record, 14, f"noise_gate_fused {name}", y, noise_gate_ref(x64, **kw),
-                     noise_gate_fused, before, 1, SNR_MIN_DB,
-                     f" decision_flips_f32_vs_f64={decision_flips(x64, **g)}")
+        ref = noise_gate_ref(x64, **kw)
+        x32 = x64.float()
+        before = noise_gate_fused.launches
+        y, nan_filled = poisoned_call(lambda: noise_gate_fused(x32, **kw), ref.numel(), dev)
+        torch.cuda.synchronize()
+        check_kernel(record, 14, f"noise_gate_fused {name}", y, ref, noise_gate_fused, before,
+                     1, SNR_MIN_DB, flips_text(snr_db(ref, y), decision_flips(x64, **g))
+                     + f" output_in_nan_filled_block={nan_filled}")
+    print(f"[14 kernel] noise_gate_fused (and gate_shard_fused, the same parallel launch) on "
+          f"{smi}, from the CUDA runtime (registers, local bytes a thread, CTAs an SM by the "
+          f"occupancy API): parallel launch {noise_gate_info(NFFT, HOP, 0.0, dev)}, sequential "
+          f"(release > 0) {noise_gate_info(NFFT, HOP, 0.6, dev)}; ptxas <R,RS,release>: "
+          f"{chain_ptxas(log, 'noise_gate_kernel')}")
 
     # ---- phase 15: the paths through the entry points, each driven with
     # every count at 0 just before and read just after
@@ -877,19 +914,25 @@ def gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_main, h):
                              dtype=torch.float32, device=dev)
         ms = time_ms(lambda: noise_gate_fused(xn))
         plain_ms = time_ms(lambda: noise_gate_ref(xn))
+        # 10 calls queued behind a 10^8-cycle sleep: the wrapper's floor
+        # prologue would pace back-to-back calls
+        device_ms = queued_ms(lambda: noise_gate_fused(xn), reps=10, cycles=10 ** 8)
         frames = 1 + (HEADLINE[1] - NFFT) // HOP
-        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=None)
+        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=None, device_ms=device_ms)
         set_bound(rec, 4 * c * (HEADLINE[1] + NFFT + (frames - 1) * HOP),
                   c * fft_flops(NFFT, frames))
         print(f"[16 times] noise_gate_fused {c}x{HEADLINE[1]} f32 white noise on {smi}: "
-              f"kernel {ms:.4f} ms ({c * HEADLINE[1] / ms * 1e3:.4e} samples/s), plain "
-              f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+              f"kernel {ms:.4f} ms ({c * HEADLINE[1] / ms * 1e3:.4e} samples/s; device time "
+              f"of queued calls {device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
         if c == HEADLINE[0]:
             record["noise_gate_fused"].update(rec)
             true_ms, false_ms = time_ms(lambda: bench_true(xn)), time_ms(lambda: bench_false(xn))
+            true_dev = queued_ms(lambda: bench_true(xn), reps=10, cycles=10 ** 8)
             print(f"[16 times] bench.py modes through the port, {c}x{HEADLINE[1]} f32 white "
                   f"noise on {smi}: True (overlap_save_fused + noise_gate_fused) "
-                  f"{true_ms:.4f} ms, False (ops with Stockham FFTs) {false_ms:.4f} ms")
+                  f"{true_ms:.4f} ms (device time of queued calls {true_dev:.4f} ms), False "
+                  f"(ops with Stockham FFTs) {false_ms:.4f} ms")
     # ---- phase 16b: the real kernels against torch.fft round-robin, each
     # timing bracketed by its own copy probe (phase 25c's protocol) and
     # taken on launches queued behind a sleep of the card (queued_ms): at
@@ -1131,6 +1174,66 @@ def earlier_bounds(record, h, h_env, xn, blocks, res_blocks):
     record["overlap_save_fused"]["library_ms"] = conv_ms(xn, h)
 
 
+def step_device_phase(dev, smi, record, kernels, h, h_env):
+    """Phase 9b: the device time of one launch of each stream kernel at its
+    stream's block shape (64 channels; BLOCK, or RES_BLOCK for the
+    resampler), the carry in place: a one-stage chain stepped through
+    STEP_WARM blocks of white noise, then its next step queued 20 times
+    behind a 10^8-cycle sleep (queued_ms), each launching the kernel once.
+    Writes ``device_ms`` (a launch) to ``record`` and ranks the kernels by
+    launches x (device time - bound) a launch, the bound a launch being the
+    stream's over its launches (a whole-file launch's scaled to a block for
+    overlap_save_fused and fir_mac).  Run after earlier_bounds."""
+    from audiosignalprocess_tpu_torch.pipeline import (
+        Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage, ResFIRGateStage, StretchStage,
+    )
+
+    gate = dict(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES)
+    c = HEADLINE[0]
+    steps = {  # kernel: (stage, block)
+        "fir_gate_step_fused": (FIRGateStage(h=h, **gate), BLOCK),
+        "gate_step_fused": (GateStage(fused=True, **gate), BLOCK),
+        "overlap_save_fused": (FIRStage(h=h, nfft=NFFT, fused=True), BLOCK),
+        "fir_mac": (EnvelopeStage(h_env, fused=True), BLOCK),
+        "res_fir_gate_step_fused": (ResFIRGateStage(UP, DOWN, h=h, **gate), RES_BLOCK),
+        "stretch_step_fused": (StretchStage(4, 3, nfft=NFFT, hop=HOP, fused=True), BLOCK),
+    }
+    by_name = {k.__name__: k for k in kernels}
+    rng = np.random.default_rng(9)
+    rank = []
+    for name, (stage, block) in steps.items():
+        chain = Chain([stage])
+        x = torch.as_tensor(rng.standard_normal((c, (STEP_WARM + 1) * block)),
+                            dtype=torch.float32, device=dev)
+        states = chain.init_state((c,), block, torch.float32, dev)
+        for k in range(STEP_WARM):
+            states, _ = chain.step(states, x[:, k * block:(k + 1) * block])
+        xb = x[:, STEP_WARM * block:]
+        kernel = by_name[name]
+        before = kernel.launches
+        chain.step(states, xb)
+        torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            raise SystemExit(f"phase 9b failed: a {name} step launched it "
+                             f"{kernel.launches - before} times")
+        device_ms = queued_ms(lambda: chain.step(states, xb), cycles=10 ** 8)
+        rec = record[name]
+        whole = name in ("overlap_save_fused", "fir_mac")
+        bound = rec["bound_ms"] * (block / HEADLINE[1] if whole else 1.0 / rec["launches"])
+        rec["device_ms"] = device_ms
+        rank.append((rec["launches"] * (device_ms - bound), name, device_ms, bound,
+                     rec["launches"]))
+        print(f"[9b times] {name} one launch at {c}x{block} f32, the carry after "
+              f"{STEP_WARM} blocks, on {smi}: device time of queued launches {device_ms:.4f} ms, "
+              f"bound a launch {bound:.4f} ms ({rec['bound_by']})")
+    print(f"[9b rank] launches x (device time - bound) a launch, on {smi}: " + "; ".join(
+        f"{name} {n_l} x ({ms:.4f} - {b:.4f}) = {cost:.4f} ms"
+        for cost, name, ms, b, n_l in sorted(rank, reverse=True)))
+
+
+STEP_WARM = 12  # blocks stepped before a step kernel's timed launch
+
+
 SHARD_HEADLINE = (64, 479232)  # 4 time shards of 119808 = 468 hops
 SHARDS = 4
 CHAIN_SHARD_N = 437472  # 4 x 109368 = 4 x 744 x 147 raw samples; 4 x 465 hops resampled
@@ -1174,6 +1277,47 @@ def shard_flips(x64, t, n_sh, threshold_db=6.0):
     return int(((dec[0] != dec[1]) & loud).sum())
 
 
+def gate_partner(k, g, mf, r, nframes):
+    """The frame that frame k shares its complex transform with (re/im)
+    where the parallel gate launch writes output hop g: the launch's tile
+    of mf hops that owns hop g takes its frames from qa = max(0, g // mf *
+    mf - (r - 1)) (the r - 1 halo frames before it) to its last, nframes
+    at most, and pairs them from qa on; None where k is transformed alone
+    (the odd last frame of the tile)."""
+    qa = max(0, g // mf * mf - (r - 1))
+    qb = min((g // mf + 1) * mf, nframes)
+    p = qa + ((k - qa) ^ 1)
+    return p if p < qb else None
+
+
+def unexplained_hops(hops, n, shards, nfft=NFFT, hop=HOP):
+    """The output hops among ``hops`` (where the time-sharded gate of a
+    file of n samples over ``shards`` time shards and the whole-file gate
+    differ beyond rounding) that the launches' geometry does not explain.
+    A hop is explained when a frame covering it has another partner in
+    its shard's launch (frame k in shard k // (l/hop), from its own
+    origin, with that shard's valid frames) than in the whole-file launch,
+    or is transformed alone in either: a flipped bin then follows from
+    different rounding.  Both launches take gate_geometry's tile."""
+    from audiosignalprocess_tpu_torch.kernels.gate_kernel import gate_geometry
+
+    mf, r = gate_geometry(nfft, hop, False)["mf"], nfft // hop
+    lh = n // shards // hop  # hops a shard
+    frames = 1 + (n - nfft) // hop
+    out = []
+    for g in map(int, hops):
+        for k in range(max(0, g - r + 1), min(g, frames - 1) + 1):
+            s = k // lh
+            nv = min(max((n - nfft) // hop + 1 - s * lh, 0), lh)
+            ps = gate_partner(k - s * lh, g - s * lh, mf, r, nv)
+            pw = gate_partner(k, g, mf, r, frames)
+            if ps is None or pw is None or ps + s * lh != pw:
+                break
+        else:
+            out.append(g)
+    return out
+
+
 def sharded_rank(rank, world, seed):
     """Phase 22 on one of ``world`` ranks that share the card over gloo
     (CUDA tensors staged through host memory for every transfer): on the
@@ -1184,7 +1328,7 @@ def sharded_rank(rank, world, seed):
     float64 plain paths.  Returns {case: record}."""
     from audiosignalprocess_tpu_torch import parallel
     from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
-        FRAMES_PER_TILE, gate_shard_fused, noise_gate_fused, noise_gate_ref,
+        gate_shard_fused, noise_gate_fused, noise_gate_ref,
     )
     from audiosignalprocess_tpu_torch.kernels.os_kernel import overlap_save_fused, overlap_save_ref
     from audiosignalprocess_tpu_torch.kernels.resample_kernel import resample_mac
@@ -1246,19 +1390,13 @@ def sharded_rank(rank, world, seed):
                 if name == "gate":
                     # the hops whose output differs from the whole-file
                     # kernel's beyond rounding (a flipped bin): each must be
-                    # one where the two launches transform some frame
-                    # differently, in the shard's first tile (frames paired
-                    # from another origin, the left spill) or at the last
-                    # hop of a tile of either launch or of the shard (its
-                    # last frame transformed alone)
+                    # one where the two launches transform a covering frame
+                    # differently (unexplained_hops)
                     err = (y - refs[name][0]).abs().reshape(c, -1, HOP).amax(dim=(0, 2))
                     g = torch.nonzero(err > 1e-5 * refs[name][0].abs().max()).flatten()
                     g = g.cpu().numpy()
-                    l_hops, last = y.shape[-1] // shape[1] // HOP, FRAMES_PER_TILE - 1
-                    h = g % l_hops
-                    odd = ((h >= FRAMES_PER_TILE) & (h % FRAMES_PER_TILE != last)
-                           & (g % FRAMES_PER_TILE != last) & (h != l_hops - 1))
-                    rec.update(diff_hops=len(g), unexplained_hops=g[odd].tolist())
+                    rec.update(diff_hops=len(g), unexplained_hops=unexplained_hops(
+                        g, y.shape[-1], shape[1]))
             out[f"{name} {shape}"] = rec
     return out
 
@@ -1285,33 +1423,62 @@ def sharded_phases(dev, smi, record, kernels, reset_counts):
 
     # ---- phase 20: the kernel vs its float64 plain version on the card,
     # on the four shards of SHARD_HEADLINE (real right halos, the file's
-    # floor, validity against the file's end)
+    # floor, validity against the file's end: the last shard's frames stop
+    # 3 hops short of l/hop), and on shard 1 with fewer valid frames (1,
+    # 100, none); each output's memory NaN-filled before the call, every
+    # position past the last frame's end 0
     c, n = SHARD_HEADLINE
+
+    def check_shard(name, x64, t, nv=None, flips=None):
+        ext, floor, nv_file = gate_shard_inputs(x64, t, SHARDS)
+        ext32, floor32, _ = gate_shard_inputs(x64.float(), t, SHARDS)
+        nv = nv_file if nv is None else nv
+        before = gate_shard_fused.launches
+        y, nan_filled = poisoned_call(lambda: gate_shard_fused(ext32, floor32, nv, NFFT, HOP),
+                                      ext32.numel(), dev)
+        torch.cuda.synchronize()
+        end = (nv - 1) * HOP + NFFT if nv else 0
+        label = (f"gate_shard_fused {name} shard {t} of {SHARDS} {c}x{ext.shape[-1]} "
+                 f"n_valid={nv}")
+        tail = (f" zero_past_last_frame={not bool(y[:, end:].any())}"
+                f" output_in_nan_filled_block={nan_filled}")
+        if y[:, end:].any() or not bool(torch.isfinite(y).all()):
+            raise SystemExit(f"phase 20 failed: {label}:{tail} finite="
+                             f"{bool(torch.isfinite(y).all())}")
+        if nv == 0:  # nothing to hold against a reference but the zeros
+            line = (f"[20 kernel] {label}: shape {tuple(y.shape)} launches "
+                    f"{gate_shard_fused.launches - before}/1{tail}")
+            print(line)
+            if gate_shard_fused.launches != before + 1 or y.shape != ext.shape:
+                raise SystemExit(f"phase 20 failed: {line}")
+            return
+        check_kernel(record, 20, label, y, gate_shard_ref(ext, floor, nv, NFFT, HOP),
+                     gate_shard_fused, before, 1, SNR_MIN_DB,
+                     ("" if flips is None else f" decision_flips_f32_vs_f64={flips}") + tail)
+
     for name, x in (("tone bursts", tone_burst(np.random.default_rng(20), c, n)),
                     ("white noise seed 1", np.random.default_rng(1).standard_normal((c, n))),
                     ("white noise seed 2", np.random.default_rng(2).standard_normal((c, n)))):
         x64 = torch.as_tensor(x, device=dev)
         for t in range(SHARDS):
-            ext, floor, nv = gate_shard_inputs(x64, t, SHARDS)
-            ext32, floor32, _ = gate_shard_inputs(x64.float(), t, SHARDS)
-            before = gate_shard_fused.launches
-            y = gate_shard_fused(ext32, floor32, nv, NFFT, HOP)
-            torch.cuda.synchronize()
-            check_kernel(record, 20, f"gate_shard_fused {name} shard {t} of {SHARDS} "
-                         f"{c}x{ext.shape[-1]} n_valid={nv}", y,
-                         gate_shard_ref(ext, floor, nv, NFFT, HOP), gate_shard_fused, before, 1,
-                         SNR_MIN_DB, f" decision_flips_f32_vs_f64={shard_flips(x64, t, SHARDS)}")
+            check_shard(name, x64, t, flips=shard_flips(x64, t, SHARDS))
+        if name == "tone bursts":
+            for nv in (1, 100, 0):
+                check_shard(name, x64, 1, nv)
     noise = torch.as_tensor(np.random.default_rng(0).standard_normal(SHARD_HEADLINE),
                             dtype=torch.float32, device=dev)
     ext32, floor32, nv = gate_shard_inputs(noise, 1, SHARDS)
     rec = record["gate_shard_fused"]
     rec.update(ms=time_ms(lambda: gate_shard_fused(ext32, floor32, nv, NFFT, HOP)),
                plain_ms=time_ms(lambda: gate_shard_ref(ext32, floor32, nv, NFFT, HOP)),
+               device_ms=queued_ms(lambda: gate_shard_fused(ext32, floor32, nv, NFFT, HOP),
+                                   cycles=10 ** 8),
                library_ms=None, source="gate_kernel.cu", replaces="gate_kernel.py:338")
     set_bound(rec, 4 * (2 * ext32.numel() + floor32.numel()), c * fft_flops(NFFT, nv))
     print(f"[20 times] gate_shard_fused shard 1 of {SHARDS}, {c}x{ext32.shape[-1]} f32 white "
-          f"noise, {nv} frames, on {smi}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
-          f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+          f"noise, {nv} frames, on {smi}: kernel {rec['ms']:.4f} ms (device time of queued "
+          f"launches {rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
     # ---- phase 21: a one-rank NCCL group on a 1x1 mesh: the fused sharded
     # gate and the config-5 composite as a sharded chain at the full width,
@@ -1374,11 +1541,10 @@ def sharded_phases(dev, smi, record, kernels, reset_counts):
     want = {"gate": gate_shard, "config 4": {"overlap_save_fused": 1},
             "config 5": {"resample_mac": 1, "overlap_save_fused": 1, **gate_shard}}
     # (against the unsharded float32 kernels, against the float64 plain
-    # path).  The shard's tiles start 4 hops off the whole-file launch's,
+    # path).  A shard's tiles start where the whole-file launch's do not,
     # so some frames are transformed in other pairs, and a borderline bin
-    # of one may flip (116.28 dB in a run): the bar is 100 dB, and every
-    # hop that differs beyond rounding must be one of those frames'
-    # (``unexplained_hops`` empty)
+    # of one may flip: the bar is 100 dB, and every hop that differs beyond
+    # rounding must be one of those frames' (``unexplained_hops`` empty)
     bars = {"gate": (LINEAR_MIN_DB, SNR_MIN_DB), "config 4": (LINEAR_MIN_DB, LINEAR_MIN_DB),
             "config 5": (SNR_MIN_DB, SNR_MIN_DB)}
     for case, rec0 in ranks[0].items():
@@ -2012,7 +2178,7 @@ def main() -> int:
           f"local bytes a thread, CTAs an SM by the occupancy API): parallel launch "
           f"{fir_noise_gate_info(NFFT, HOP, TAPS, 0.0, dev)}, sequential (release > 0) "
           f"{fir_noise_gate_info(NFFT, HOP, TAPS, 0.6, dev)}; ptxas <R,RS>: "
-          f"{chain_ptxas(log, False)}")
+          f"{chain_ptxas(log, 'fir_noise_gate_kernel')}")
 
     record = {"fir_noise_gate_fused": dict(
         source="chain_kernel.cu", replaces="chain_kernel.py:151", launches=launches,
@@ -2193,7 +2359,7 @@ def main() -> int:
     marks = [("phases 1-9", time.perf_counter())]
     resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x, log)
     marks.append(("phases 10-13", time.perf_counter()))
-    gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_dev, h)
+    gate_fft_phases(dev, smi, rng, record, kernels, reset_counts, x_dev, h, log)
     marks.append(("phases 14-16", time.perf_counter()))
     vocoder_phases(dev, smi, record, kernels, reset_counts)
     marks.append(("phases 17-19", time.perf_counter()))
@@ -2207,6 +2373,8 @@ def main() -> int:
     res_c.build()
     earlier_bounds(record, h, h_env, xn, path_a.drain_blocks(n, BLOCK),
                    res_c.drain_blocks(RES_HEADLINE[1], RES_BLOCK))
+    step_device_phase(dev, smi, record, kernels, h, h_env)
+    marks.append(("phase 9b", time.perf_counter()))
 
     prev = t_start
     for name, t in marks:

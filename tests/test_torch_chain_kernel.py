@@ -91,7 +91,8 @@ def test_other_devices_raise():
 
 
 def test_headline_geometry_fits_shared_memory():
-    geo = chain_kernel._geometry(1024, 256, 64)
-    assert geo["mf"] == chain_kernel.FRAMES_PER_TILE
-    assert geo["smem"] <= chain_kernel.SMEM_LIMIT // 3  # three CTAs per SM
-    assert chain_kernel._geometry(1024, 16, 384)["mf"] == 64  # tile >= nfft
+    geo = chain_kernel.regs_geometry(1024, 256, 64)
+    assert geo["mf"] == 21
+    assert geo["smem"] <= chain_kernel.SMEM_LIMIT // 2  # two CTAs per SM
+    # the halo of nfft/hop - 1 = 63 frames at hop 16 fills whole batches of 8
+    assert (chain_kernel.regs_geometry(1024, 16, 384)["mf"] + 63) % 8 == 0

@@ -1,6 +1,7 @@
-"""The host side of fir_noise_gate_fused and resample_fir_gate_fused,
-redesigned for Hopper on batched register Stockham transforms
-(``csrc/chain_regs_device.cuh``), on the CPU.
+"""The host side of the kernels on batched register Stockham transforms
+(``csrc/chain_regs_device.cuh``): fir_noise_gate_fused,
+resample_fir_gate_fused and, with the FIR switched off, noise_gate_fused
+and gate_shard_fused, on the CPU.
 
 - A numpy model of the kernels' body in float64: tiles (with the halo of
   the parallel launch, or one walker per channel when release > 0),
@@ -14,15 +15,21 @@ redesigned for Hopper on batched register Stockham transforms
   ``fir_noise_gate_ref`` and ``resample_fir_gate_ref`` to rounding
   (>= 200 dB) with no mask decision that differs, at nfft 256 to 2048,
   hops nfft/2 to nfft/8, 1 to 384 taps, release 0 and 0.6, one tile and
-  many, odd frame counts.
+  many, odd frame counts; without the FIR it agrees with
+  ``noise_gate_ref`` (nfft 256 to 4096) and, as one time shard (a null
+  1/WOLA table, an output of l + d samples, 0 to l/hop valid frames),
+  with ``gate_shard_ref``, every position of a NaN-filled output written
+  once.
 - The slot identity and the mirror pairing hold for every pass plan (nfft
   2 to 4096): the forward's last pass leaves bin brev(j) 2^lg + q in slot
   j of group q, the inverse's first pass reads exactly those bins, and the
   pairs visit every bin of a transform once, each with its mirror.
 - Every exchange access of the plan touches 32 banks under the swizzle.
-- ``regs_geometry`` fills whole batches, fits SMEM_LIMIT (both kernels,
-  config 5's 3201 resampler taps included) and accepts every geometry the
-  radix-2 body accepted.
+- ``regs_geometry`` fills whole batches, fits SMEM_LIMIT (both chain
+  kernels, config 5's 3201 resampler taps included; the gate alone) and
+  accepts every geometry the retired radix-2 body accepted.
+- chip_smoke's rule for the hops where the sharded gate may differ from
+  the whole-file gate follows the two launches' frame pairing.
 """
 
 import functools
@@ -35,16 +42,17 @@ from audiosignalprocess_tpu_torch.kernels import chain_kernel as ck
 from audiosignalprocess_tpu_torch.kernels import fft_kernel as fk
 from audiosignalprocess_tpu_torch.kernels import res_chain_kernel as rk
 from audiosignalprocess_tpu_torch.kernels._build import SMEM_LIMIT
-from audiosignalprocess_tpu_torch.kernels.gate_kernel import _geometry, _inv_norm_table
+from audiosignalprocess_tpu_torch.kernels import gate_kernel as gk
+from audiosignalprocess_tpu_torch.kernels.gate_kernel import _inv_norm_table
 from audiosignalprocess_tpu_torch.ops.fir import design_fir
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.ops.resample import (
     reduce_ratio, resample_filter, resample_poly, taps_per_phase,
 )
-from audiosignalprocess_tpu_torch.ops.stft import stft
+from audiosignalprocess_tpu_torch.ops.stft import frame, stft
 from audiosignalprocess_tpu_torch.ops.windows import window_np
 
-THREADS = ck.REGS_THREADS
+THREADS = gk.REGS_THREADS
 NOISE_FRAMES = 4
 PLAN_SIZES = [1 << k for k in range(1, 13)]  # 2 to 4096
 
@@ -86,11 +94,11 @@ def _layout(n):
     """(R, RS, rs, lg, G, B): points a thread, points a group of the merged
     pass (2^rs), log2 of its groups a transform, threads a transform,
     transforms a batch."""
-    fwd, inv = ck.regs_pass_plan(n)
+    fwd, inv = gk.regs_pass_plan(n)
     rs = fwd[-1][1]
     assert inv[0] == (0, rs)
-    big_r = ck.regs_points(n)
-    return big_r, 1 << rs, rs, n.bit_length() - 1 - rs, n // big_r, ck.regs_batch(n)
+    big_r = gk.regs_points(n)
+    return big_r, 1 << rs, rs, n.bit_length() - 1 - rs, n // big_r, gk.regs_batch(n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -180,7 +188,7 @@ def _round_trip(n, load, middle, store, twf, twi):
     first pass's inputs, slot j' holding bin j' 2^lg + q), the inverse
     passes; pass p writes exchange buffer p mod 2."""
     _, rs_pts, rs, lg, _, nt = _layout(n)
-    fwd, inv = ck.regs_pass_plan(n)
+    fwd, inv = gk.regs_pass_plan(n)
     ex = _Exchange(nt * n)
     src, p = load, 0
     for s0, r in fwd[:-1]:
@@ -217,25 +225,32 @@ def _to_inverse_slots(x, rs):
 # ---------------------------------------------------------------------------
 
 def body_model(u, floor, h, nfft, hop, release=0.0, threshold_db=6.0, reduction_db=60.0,
-               window_kind="hann", tail=None):
+               window_kind="hann", tail=None, n_valid=None):
     """asp::fir_gate_regs in float64 on the FIR input u (C, n): returns the
     output (C, nfft + (F-1) hop) and each frame's mask decisions (C, F,
     nfft/2+1), |A| > floor * gain, checked equal wherever a frame is
-    computed twice (the halo)."""
+    computed twice (the halo).  ``h`` None: the gate alone (kFir false, the
+    span only the tile's frames, gate_geometry's tiles).  ``n_valid``: one
+    time shard (asp::shard_geo): the first n_valid frames of u (C, l + d),
+    the un-normalized output of length l + d (no 1/WOLA table), 0 past the
+    last frame's end.  The output starts NaN, and every position must be
+    written exactly once."""
     n_ch, n = u.shape
-    big_n, hp, taps = nfft, hop, len(h)
+    fir = h is not None
+    big_n, hp, taps = nfft, hop, len(h) if fir else 1
     _, rs_pts, rs, lg, _, nt = _layout(big_n)
     nb, d, r = big_n // 2 + 1, big_n - hp, big_n // hp
-    nframes = 1 + (n - big_n) // hp
-    out_len = big_n + (nframes - 1) * hp
+    nframes = 1 + (n - big_n) // hp if n_valid is None else n_valid
+    out_len = big_n + (nframes - 1) * hp if n_valid is None else n
+    frames_end = big_n + (nframes - 1) * hp if nframes else 0
     seq = release > 0.0
-    geo = ck.regs_geometry(big_n, hp, taps, seq, tail)
+    geo = gk.regs_geometry(big_n, hp, taps, seq, tail, fir)
     mf, blk, nfb = geo["mf"], big_n - (taps - 1), 2 * nt
     tile = mf * hp
     ntiles = -(-out_len // tile)
     twf = fk.stockham_stage_table_np(big_n, -1.0)
     twi = fk.stockham_stage_table_np(big_n, 1.0)
-    hf = np.fft.fft(np.concatenate([h, np.zeros(big_n - taps)]))
+    hf = np.fft.fft(np.concatenate([h, np.zeros(big_n - taps)])) if fir else None
     win = window_np(window_kind, big_n, periodic=True)
     inv_tab = _inv_norm_table(win, big_n, hp)
     gain, att = 10.0 ** (threshold_db / 20.0), 10.0 ** (-reduction_db / 20.0)
@@ -243,12 +258,14 @@ def body_model(u, floor, h, nfft, hop, release=0.0, threshold_db=6.0, reduction_
     ka = np.minimum(pairs[:, 5], big_n - pairs[:, 5])
 
     def inv_norm(gp):
+        if n_valid is not None:  # a null table
+            return np.ones(len(gp))
         return np.where(gp < d, inv_tab[np.minimum(gp, max(d - 1, 0))],
                         np.where(gp >= out_len - d, inv_tab[np.clip(d + hp + gp - (out_len - d), 0,
                                                                     len(inv_tab) - 1)],
                                  inv_tab[d + gp % hp]))
 
-    out = np.zeros((n_ch, out_len))
+    out = np.full((n_ch, out_len), np.nan)
     written = np.zeros((n_ch, out_len), np.int64)
     dec = np.full((n_ch, nframes, nb), -1, np.int64)
     for c in range(n_ch):
@@ -262,17 +279,22 @@ def body_model(u, floor, h, nfft, hop, release=0.0, threshold_db=6.0, reduction_
             lo, hi = (0, out_len) if seq else (ts, min(ts + tile, out_len))
             if not seq:
                 carry = np.zeros(d)
-            assert qb > qa
+            zero = np.arange(max(ts, frames_end), min(ts + tile, out_len))
+            out[c, zero] = 0.0
+            written[c, zero] += 1
+            if qb <= qa:
+                assert n_valid is not None, "only a shard has a tile without frames"
+                continue
             y0 = qa * hp
             length = (qb - 1) * hp + big_n - y0
-            nblk = -(-length // blk)
+            nblk = -(-length // blk) if fir else 0
             s = y0 - (taps - 1)
-            span = np.zeros(nblk * blk + taps - 1)
+            span = np.zeros(nblk * blk + taps - 1 if fir else length)
             src = np.arange(s, s + len(span))
             ok = (src >= 0) & (src < n)
             span[ok] = u[c, src[ok]]
             assert len(span) <= geo["span"]
-            # ---- FIR batches, in place
+            # ---- FIR batches, in place (none for the gate alone)
             for k0 in range(0, nblk, nfb):
                 def load(idx, k0=k0):
                     t, i = idx // big_n, idx % big_n
@@ -370,6 +392,7 @@ def body_model(u, floor, h, nfft, hop, release=0.0, threshold_db=6.0, reduction_
                 written[c, gp[emit]] += 1
                 carry = v[fin:]
     assert (written == 1).all(), "an output position was written twice or never"
+    assert not np.isnan(out).any()
     assert (dec >= 0).all()
     return out, dec
 
@@ -386,10 +409,10 @@ def _tone_burst(rng, c, n, fs=48000):
     return x
 
 
-def _frames_for(nfft, hop, taps, release, tiles):
+def _frames_for(nfft, hop, taps, release, tiles, fir=True):
     """An odd frame count giving one tile (the fewest frames the guards
     allow), or three or more."""
-    mf = ck.regs_geometry(nfft, hop, taps, release > 0.0)["mf"]
+    mf = gk.regs_geometry(nfft, hop, taps, release > 0.0, fir=fir)["mf"]
     if tiles == 1:
         nfr = max(2 * (nfft // hop) - 2, NOISE_FRAMES) | 1
         assert nfft + (nfr - 1) * hop <= mf * hop
@@ -480,7 +503,7 @@ def test_model_is_the_plain_resampling_chain(up, down, taps, release):
     up_r, down_r, h_res = reduce_ratio(up, down, None)
     nk = taps_per_phase(len(h_res), up_r)
     tail = lambda span: up_r * nk + rk.res_window(span, up_r, down_r, nk)  # noqa: E731
-    mf = ck.regs_geometry(nfft, hop, taps, release > 0.0, tail)["mf"]
+    mf = gk.regs_geometry(nfft, hop, taps, release > 0.0, tail)["mf"]
     n_res = nfft + 2 * mf * hop + 333
     n = -(-n_res * down // up)
     x = _tone_burst(rng, 2, n, fs=44100)
@@ -500,6 +523,130 @@ def test_model_is_the_plain_resampling_chain(up, down, taps, release):
 
 
 # ---------------------------------------------------------------------------
+# the gate alone (noise_gate_fused) and one time shard of it (gate_shard_fused)
+# ---------------------------------------------------------------------------
+
+def _gate_floor(x, nfft, hop):
+    """noise_gate_fused's prologue: the floor of the first NOISE_FRAMES frames."""
+    w = torch.as_tensor(window_np("hann", nfft, periodic=True))
+    head = torch.as_tensor(x)[:, : nfft - hop + NOISE_FRAMES * hop]
+    return gk.noise_floor(frame(head, nfft, hop) * w).numpy()
+
+
+def _run_gate(nfft, hop, release, tiles, seed):
+    rng = np.random.default_rng(seed)
+    nfr = _frames_for(nfft, hop, 1, release, tiles, fir=False)
+    nfr = max(nfr, NOISE_FRAMES, -(-2 * (nfft - hop) // hop))
+    n = nfft + (nfr - 1) * hop + hop // 2  # a partial hop past the last frame
+    x = _tone_burst(rng, 2, n)
+    floor = _gate_floor(x, nfft, hop)
+    got, dec = body_model(x, floor, None, nfft, hop, release)
+    ref = gk.noise_gate_ref(torch.as_tensor(x), nfft, hop, noise_frames=NOISE_FRAMES,
+                            release=release).numpy()
+    return got, ref, dec, _plain_decisions(x, floor, nfft, hop)
+
+
+def _one_gate_tile(nfft, hop, release):
+    """Whether gate_geometry's tile holds the shortest file the guards allow."""
+    nfr = max(2 * (nfft // hop) - 2, NOISE_FRAMES) | 1
+    return nfft + (nfr - 1) * hop <= gk.gate_geometry(nfft, hop, release > 0.0)["mf"] * hop
+
+
+GATE_CASES = [(nfft, nfft // div, release, tiles)
+              for nfft in (256, 512, 1024, 2048, 4096) for div in (2, 4, 8)
+              for release in (0.0, 0.6) for tiles in (1, 3)
+              if tiles > 1 or _one_gate_tile(nfft, nfft // div, release)]
+
+
+@pytest.mark.parametrize("nfft,hop,release,tiles", GATE_CASES)
+def test_gate_model_is_the_plain_gate(nfft, hop, release, tiles):
+    """The body without its FIR (kFir false: the span holds the tile's raw
+    frames) on gate_geometry's tiles, on a tone burst of one tile or three
+    and more (an odd frame count), against noise_gate_ref in float64:
+    >= 200 dB, the same mask decision at every frame and bin, each output
+    position written once."""
+    got, ref, dec, want = _run_gate(nfft, hop, release, tiles, 11 + nfft + hop + tiles)
+    assert got.shape == ref.shape
+    assert np.array_equal(dec, want)
+    assert _snr(ref, got) >= 200.0
+
+
+def _run_shard(nfft, hop, l_hops, n_valid, seed):
+    rng = np.random.default_rng(seed)
+    x_ext = _tone_burst(rng, 2, l_hops * hop + nfft - hop)
+    floor = _gate_floor(x_ext, nfft, hop)
+    got, dec = body_model(x_ext, floor, None, nfft, hop, n_valid=n_valid)
+    ref = gk.gate_shard_ref(torch.as_tensor(x_ext), torch.as_tensor(floor), n_valid, nfft,
+                            hop).numpy()
+    want = _plain_decisions(x_ext[:, : (n_valid - 1) * hop + nfft], floor, nfft, hop)[
+        :, :n_valid] if n_valid else dec
+    return got, ref, dec, want
+
+
+def _shard_cases():
+    """(nfft, hop, l/hop, n_valid): shards of one tile and of several (an odd
+    count of hops), with no frame, one, an odd count below l/hop, and all."""
+    cases = []
+    for nfft in (256, 512, 1024, 2048, 4096):
+        for div in (2, 4, 8):
+            hop = nfft // div
+            mf = gk.gate_geometry(nfft, hop, False)["mf"]
+            for l_hops in (div + 1, 2 * mf + 5):
+                for n_valid in sorted({0, 1, (l_hops // 2) | 1, l_hops}):
+                    cases.append((nfft, hop, l_hops, n_valid))
+    return cases
+
+
+@pytest.mark.parametrize("nfft,hop,l_hops,n_valid", _shard_cases())
+def test_shard_model_is_the_plain_shard(nfft, hop, l_hops, n_valid):
+    """One time shard (asp::shard_geo): the body on the shard's l samples and
+    its right neighbour's first d, the first n_valid frames only, a null
+    1/WOLA table (the un-normalized overlap-add) and an output of l + d
+    samples, 0 from the last frame's end on, against gate_shard_ref in
+    float64: >= 200 dB, the same decisions, every position of the
+    NaN-filled output written once (the spill and the zero tail too)."""
+    got, ref, dec, want = _run_shard(nfft, hop, l_hops, n_valid, 5 + nfft + l_hops + n_valid)
+    d = nfft - hop
+    assert got.shape == ref.shape == (2, l_hops * hop + d)
+    assert np.array_equal(dec, want)
+    end = (n_valid - 1) * hop + nfft if n_valid else 0
+    assert not got[:, end:].any()
+    assert _snr(ref, got) >= 200.0
+
+
+def test_gate_headline_geometry():
+    """The gate alone at nfft 1024, hop 256: a span of the tile's frames
+    only (no FIR blocks or history), so the parallel tile grows to 29 hops
+    (32 frames, four batches of 8) at 2 CTAs an SM (a third does not fit:
+    the two exchange buffers alone take 64 KB); the sequential walker's
+    tile is the largest of the weighed ones (128 hops, 16 batches)."""
+    geo = gk.gate_geometry(1024, 256, False)
+    assert geo == gk.regs_geometry(1024, 256, 1, False, fir=False)
+    assert geo["mf"] == 29 and (geo["mf"] + 3) % 8 == 0
+    assert geo["span"] == (29 + 3 - 1) * 256 + 1024 == gk.regs_span(1024, 256, 1, 29, False,
+                                                                     fir=False)
+    assert geo["smem"] == gk.regs_smem(1024, 256, 1, 29, False, fir=False) == 111624
+    assert 2 * (geo["smem"] + 1024) <= gk.SM_SMEM < 3 * (geo["smem"] + 1024)
+    seq = gk.gate_geometry(1024, 256, True)
+    assert seq["mf"] == 128 and seq["smem"] <= SMEM_LIMIT
+    # gate_geometry sizes its span from the frames alone; the chain's, with
+    # one tap, still rounds it to whole overlap-save blocks
+    assert gk.regs_span(1024, 256, 1, 21, False) == 7 * 1024 > gk.regs_span(
+        1024, 256, 1, 21, False, fir=False)
+
+
+def test_gate_model_at_the_headline_geometry():
+    """The model at gate_geometry's headline tile (29 hops, within
+    SMEM_LIMIT at 2 CTAs an SM), whole file and a middle shard of the
+    sharded gate's width (468 hops)."""
+    assert gk.gate_geometry(1024, 256, False)["smem"] <= SMEM_LIMIT
+    got, ref, dec, want = _run_gate(1024, 256, 0.0, 3, 29)
+    assert np.array_equal(dec, want) and _snr(ref, got) >= 200.0
+    got, ref, dec, want = _run_shard(1024, 256, 468, 468, 30)
+    assert np.array_equal(dec, want) and _snr(ref, got) >= 200.0
+
+
+# ---------------------------------------------------------------------------
 # the slot identity and the mirror pairs, every plan
 # ---------------------------------------------------------------------------
 
@@ -513,7 +660,7 @@ def test_slot_identity_and_mirror_pairs(n):
     big_r, rs_pts, rs, lg, g_threads, nt = _layout(n)
     rng = np.random.default_rng(n)
     data = rng.standard_normal((nt, n)) + 1j * rng.standard_normal((nt, n))
-    fwd, _ = ck.regs_pass_plan(n)
+    fwd, _ = gk.regs_pass_plan(n)
     twf = fk.stockham_stage_table_np(n, -1.0)
     flat = data.reshape(-1)
     src, ex = (lambda idx: flat[idx]), _Exchange(nt * n)
@@ -558,7 +705,7 @@ def test_plan_is_the_real_kernels_plan(n):
     from 32 points on, so a pair of groups holds at most 16 points; an odd
     number of passes a round trip (the stage is not the buffer the last
     pass reads)."""
-    fwd, inv = ck.regs_pass_plan(n)
+    fwd, inv = gk.regs_pass_plan(n)
     big_l = n.bit_length() - 1
     for plan in (fwd, inv):
         assert [s for s0, r in plan for s in range(s0, s0 + r)] == list(range(big_l))
@@ -586,7 +733,7 @@ def _exchange_accesses(n, gate, mirrors_only=False, no_mirrors=False):
     pass the same over units (transform w >> lu, unit w mod 2^lu: groups u
     and its mirror, unit 0 groups 0 and 2^(lg-1))."""
     big_r, rs_pts, rs, lg, g_threads, nt = _layout(n)
-    fwd, inv = ck.regs_pass_plan(n)
+    fwd, inv = gk.regs_pass_plan(n)
     big_l = n.bit_length() - 1
     tid = np.arange(THREADS).reshape(-1, 32)
     if g_threads >= 32:  # first index of the team's items, lane, team size
@@ -675,12 +822,12 @@ def test_headline_geometry():
     """At nfft 1024, hop 256, 64 taps the parallel tile is 21 hops (24
     frames: three gate batches of 8, one FIR batch of 8 blocks) in 106788
     bytes, two CTAs an SM; the sequential walker takes 56 (7 batches)."""
-    geo = ck.regs_geometry(1024, 256, 64)
+    geo = gk.regs_geometry(1024, 256, 64)
     assert geo["mf"] == 21 and (geo["mf"] + 3) % 8 == 0
-    assert geo["smem"] == ck.regs_smem(1024, 256, 64, 21, False) == 106788
-    assert 2 * (geo["smem"] + 1024) <= ck.SM_SMEM
-    assert ck.regs_geometry(1024, 256, 64, True)["mf"] % 8 == 0
-    assert ck.regs_batch(1024) == 4 and ck.regs_batch(4096) == 1 and ck.regs_batch(8) == 256
+    assert geo["smem"] == gk.regs_smem(1024, 256, 64, 21, False) == 106788
+    assert 2 * (geo["smem"] + 1024) <= gk.SM_SMEM
+    assert gk.regs_geometry(1024, 256, 64, True)["mf"] % 8 == 0
+    assert gk.regs_batch(1024) == 4 and gk.regs_batch(4096) == 1 and gk.regs_batch(8) == 256
 
 
 @pytest.mark.parametrize("release", (0.0, 0.6))
@@ -695,7 +842,7 @@ def test_config5_geometry_fits(release):
     assert len(h_res) == 3201
     nk = taps_per_phase(len(h_res), up)
     geo = rk.res_geometry(up, down, nk, 1024, 256, 64, release > 0.0)
-    base = ck.regs_geometry(1024, 256, 64, release > 0.0)
+    base = gk.regs_geometry(1024, 256, 64, release > 0.0)
     assert geo["smem"] <= SMEM_LIMIT and geo["mf"] == base["mf"]
     if release == 0.0:  # the bank and raw window fit in the exchange buffers
         assert geo == base
@@ -703,7 +850,17 @@ def test_config5_geometry_fits(release):
 
 
 def _old_accepts(nfft, hop, taps):
-    return _geometry(nfft, hop, taps)["smem"] <= SMEM_LIMIT
+    """Whether the retired radix-2 tile body's geometry fitted SMEM_LIMIT
+    (its formula, frozen here): twiddles (nfft/2 complex), FFT buffer (nfft
+    complex), threshold and release state (nfft/2+1 each), OLA tile (tile +
+    nfft-hop), FIR span (tile + 2 (nfft-hop) in whole overlap-save blocks,
+    plus the history); tiles of max(16, nfft/hop) hops."""
+    d = nfft - hop
+    tile = max(16, nfft // hop) * hop
+    blk = nfft - (taps - 1)
+    span = -(-(tile + 2 * d) // blk) * blk + taps - 1
+    nb = nfft // 2 + 1
+    return 8 * (nfft // 2) + 8 * nfft + 4 * (2 * nb + tile + d + span) <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("nfft", [1 << k for k in range(1, 14)])
@@ -717,14 +874,34 @@ def test_every_old_geometry_is_accepted(nfft):
             for seq in (False, True):
                 if not _old_accepts(nfft, hop, taps):
                     continue
-                geo = ck.regs_geometry(nfft, hop, taps, seq)
+                geo = gk.regs_geometry(nfft, hop, taps, seq)
                 halo = 0 if seq else nfft // hop - 1
                 assert geo["smem"] <= SMEM_LIMIT and geo["mf"] >= 1
-                assert (geo["mf"] + halo) % (2 * ck.regs_batch(nfft)) == 0
-                assert geo["span"] == ck.regs_span(nfft, hop, taps, geo["mf"], seq)
+                assert (geo["mf"] + halo) % (2 * gk.regs_batch(nfft)) == 0
+                assert geo["span"] == gk.regs_span(nfft, hop, taps, geo["mf"], seq)
     if nfft == 8192:  # beyond a batch (and the radix-2 body's SMEM_LIMIT)
         with pytest.raises(ValueError, match="nfft <= 4096"):
-            ck.regs_geometry(8192, 2048, 64)
+            gk.regs_geometry(8192, 2048, 64)
+
+
+@pytest.mark.parametrize("nfft", [1 << k for k in range(1, 14)])
+def test_every_old_gate_geometry_still_launches(nfft):
+    """Every (nfft, hop, release) whose noise_gate_fused or gate_shard_fused
+    the radix-2 body launched (its gate-alone geometry, one tap, within
+    SMEM_LIMIT: nfft 2 to 4096, and at 4096 only hop <= 512) has a
+    gate_geometry, the one both wrappers launch with, within SMEM_LIMIT
+    whose tile frames fill whole batches; nfft 8192 was never launched."""
+    hops = [nfft >> k for k in range(0, 13) if nfft >> k >= 1]
+    old = [hop for hop in hops if _old_accepts(nfft, hop, 1)]
+    if nfft >= 4096:
+        assert old == [h for h in hops if nfft == 4096 and h <= 512]
+    for hop in old:
+        for seq in (False, True):
+            geo = gk.gate_geometry(nfft, hop, seq)
+            halo = 0 if seq else nfft // hop - 1
+            assert geo["smem"] <= SMEM_LIMIT and geo["mf"] >= 1
+            assert (geo["mf"] + halo) % (2 * gk.regs_batch(nfft)) == 0
+            assert geo["span"] == gk.regs_span(nfft, hop, 1, geo["mf"], seq, fir=False)
 
 
 def test_gate_tables_hold_the_stockham_tables():
@@ -741,9 +918,10 @@ def test_gate_tables_hold_the_stockham_tables():
 
 
 def test_chip_smoke_reads_both_kernels_ptxas():
-    """chip_smoke's phases 5 and 13 report each instantiation <R, RS,
-    release> of the two chain kernels from nvcc's ptxas log, each kernel's
-    own (the resampling kernel's name holds the other's)."""
+    """chip_smoke's phases 5, 13 and 14 report each instantiation <R, RS,
+    release> of the three kernels on the batched body from nvcc's ptxas
+    log, each kernel's own (the resampling kernel's name holds the
+    others', the 48 kHz one's the gate's)."""
     import chip_smoke
 
     entry = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{n}{name}"
@@ -752,8 +930,39 @@ def test_chip_smoke_reads_both_kernels_ptxas():
              "ptxas info    : Used {regs} registers, used 1 barriers\n")
     log = (entry.format(n=21, name="fir_noise_gate_kernel", rs=4, rel=0, sp=8, regs=128)
            + entry.format(n=25, name="res_fir_noise_gate_kernel", rs=2, rel=1, sp=0, regs=120)
-           + "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117noise_gate_kernelEv'"
+           + entry.format(n=17, name="noise_gate_kernel", rs=2, rel=0, sp=0, regs=96)
+           + "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117gate_step_kernelEv'"
              " for 'sm_90a'\nptxas info    : Used 30 registers\n")
-    assert chip_smoke.chain_ptxas(log, False) == "<16,4,0> 128 registers 8 bytes spill stores"
-    assert chip_smoke.chain_ptxas(log, True) == "<16,2,1> 120 registers 0 bytes spill stores"
-    assert chip_smoke.chain_ptxas("", True) == "not built in this process"
+    assert (chip_smoke.chain_ptxas(log, "fir_noise_gate_kernel")
+            == "<16,4,0> 128 registers 8 bytes spill stores")
+    assert (chip_smoke.chain_ptxas(log, "res_fir_noise_gate_kernel")
+            == "<16,2,1> 120 registers 0 bytes spill stores")
+    assert (chip_smoke.chain_ptxas(log, "noise_gate_kernel")
+            == "<16,2,0> 96 registers 0 bytes spill stores")
+    assert chip_smoke.chain_ptxas("", "noise_gate_kernel") == "not built in this process"
+
+
+def test_chip_smoke_unexplained_hops_follow_the_pairing():
+    """chip_smoke's rule for the sharded gate against the whole file, on
+    the geometry both launches take (gate_geometry: 29-hop tiles, 3 halo
+    frames).  With one shard the launches are the same, so a hop is
+    explained only where a covering frame is transformed alone (the odd
+    last frame of a tile); shard 0 of four pairs its frames as the whole
+    file does below its last tile; the first hop of shard 1 (frame 468
+    with 469 from the shard's own origin, with 467 in the whole file's
+    tile from frame 461) is explained."""
+    import chip_smoke
+
+    n, lh, frames = 479232, 468, 1869
+    hops = list(range(n // 256))
+    one = chip_smoke.unexplained_hops(hops, n, 1)
+    for g in set(hops) - set(one):
+        assert any(chip_smoke.gate_partner(k, g, 29, 4, frames) is None
+                   for k in range(max(0, g - 3), min(g, frames - 1) + 1))
+    assert 28 not in one and 27 in one  # tile 0: frames 0 to 28, frame 28 alone
+    assert len(one) > 0.8 * len(hops)
+    assert chip_smoke.gate_partner(468 - lh, 0, 29, 4, 468) == 1
+    assert chip_smoke.gate_partner(468, 468, 29, 4, frames) == 467
+    four = chip_smoke.unexplained_hops(hops, n, 4)
+    assert set(one) & set(range(16 * 29)) <= set(four)
+    assert lh not in four and lh in one
