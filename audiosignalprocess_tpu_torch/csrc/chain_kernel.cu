@@ -51,7 +51,9 @@
 // the inverse's first pass in registers: 4 exchanges a batch of 8 frames,
 // each transform's two warps meeting at their own barrier between passes
 // and the CTA twice a batch, where the radix-2 body took 27 CTA barriers a
-// frame pair.
+// frame pair.  At nfft 8192 a batch is one transform of 512 threads with
+// one exchange buffer and the span in device memory
+// (chain_regs_device.cuh); past 8192 the wrapper raises (SMEM_LIMIT).
 
 #include <cuda_runtime.h>
 
@@ -59,15 +61,16 @@
 
 namespace {
 
-template <int R, int RS, bool kRelease>
-__global__ void __launch_bounds__(asp::kRegsThreads, 2)
+template <int R, int RS, bool kRelease, int T>
+__global__ void __launch_bounds__(T, 2 * asp::kRegsThreads / T)
 fir_noise_gate_kernel(const float* __restrict__ x, int n, float* __restrict__ out,
                       const float* __restrict__ noise_floor,
                       const float* __restrict__ win,
                       const float2* __restrict__ hf,
                       const float2* __restrict__ twf,
                       const float2* __restrict__ twi,
-                      const float* __restrict__ inv_tab, asp::ChainGeo g) {
+                      const float* __restrict__ inv_tab, asp::ChainGeo g,
+                      float* span_rows) {
   extern __shared__ float4 smem[];
   const int c = blockIdx.y;
   const float* xc = x + static_cast<size_t>(c) * n;
@@ -78,17 +81,17 @@ fir_noise_gate_kernel(const float* __restrict__ x, int n, float* __restrict__ ou
     }
     __syncthreads();
   };
-  asp::fir_gate_regs<R, RS, kRelease, true>(g, reinterpret_cast<float*>(smem), c,
+  asp::fir_gate_regs<R, RS, kRelease, true, T>(g, reinterpret_cast<float*>(smem), c,
                             out + static_cast<size_t>(c) * g.out_len, noise_floor, win, hf,
-                            twf, twi, inv_tab, fill);
+                            twf, twi, inv_tab, span_rows, fill);
 }
 
 using Kernel = void (*)(const float*, int, float*, const float*, const float*, const float2*,
-                        const float2*, const float2*, const float*, asp::ChainGeo);
+                        const float2*, const float2*, const float*, asp::ChainGeo, float*);
 
-template <int R, int RS, bool kRelease>
+template <int R, int RS, bool kRelease, int T>
 struct FirNoiseGate {
-  static Kernel fn() { return fir_noise_gate_kernel<R, RS, kRelease>; }
+  static Kernel fn() { return fir_noise_gate_kernel<R, RS, kRelease, T>; }
 };
 
 }  // namespace
@@ -97,10 +100,11 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t).  Returns cudaGetLastError() after
 // the launch: 0 on success.  Nothing is synchronized or allocated here.
+// span_rows: at nfft 8192 the CTAs' spans (fir_gate_regs), else null.
 int asp_fir_noise_gate(const float* x, float* out, const float* noise_floor,
                        const float* win, const float* hf, const float* twf, const float* twi,
-                       const float* inv_tab, int channels, int n, int nfft,
-                       int log2n, int hop, int taps, int nframes, int mf,
+                       const float* inv_tab, float* span_rows, int channels, int n,
+                       int nfft, int log2n, int hop, int taps, int nframes, int mf,
                        int sequential, float thresh_gain,
                        float att, float release, int smem_bytes, int device,
                        void* stream) {
@@ -112,9 +116,10 @@ int asp_fir_noise_gate(const float* x, float* out, const float* noise_floor,
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(sequential ? 1 : g.ntiles, channels);
-  kernel<<<grid, asp::kRegsThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, asp::regs_threads(g.nfft), smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       x, n, out, noise_floor, win, reinterpret_cast<const float2*>(hf),
-      reinterpret_cast<const float2*>(twf), reinterpret_cast<const float2*>(twi), inv_tab, g);
+      reinterpret_cast<const float2*>(twf), reinterpret_cast<const float2*>(twi), inv_tab, g,
+      span_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -122,7 +127,7 @@ int asp_fir_noise_gate(const float* x, float* out, const float* noise_floor,
 // local memory bytes a thread (spills), resident CTAs an SM at smem_bytes}.
 int asp_fir_noise_gate_info(int nfft, int sequential, int smem_bytes, int device, int* info) {
   const Kernel kernel = asp::regs_kernel_for<FirNoiseGate>(nfft, sequential);
-  return asp::regs_kernel_info(kernel, smem_bytes, device, info);
+  return asp::regs_kernel_info(kernel, asp::regs_threads(nfft), smem_bytes, device, info);
 }
 
 const char* asp_error_string(int code) {

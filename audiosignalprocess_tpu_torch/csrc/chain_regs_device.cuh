@@ -88,6 +88,18 @@
 // as scratch before the FIR starts (res_chain_kernel.cu: its phase bank and
 // raw window).  kernels/gate_kernel.py (regs_geometry) sizes it in the
 // same order.
+//
+// nfft 8192: one transform is 512 threads of 16 points (T = 512, B = 1,
+// one CTA an SM), and two exchange buffers (128 KB) would leave no room
+// for the span, so the CTA has one (kOne): every pass that reads and
+// writes it loads all its groups into registers (R / RP a thread), meets
+// the CTA, then stores; the gate's merged pass does the same with its
+// units, and with release > 0 scans its two frames' masks in registers
+// (the batch is one transform, so a bin's two frames are one thread's),
+// with no masks buffer.  The span lives in device memory (span_rows, a
+// row per CTA, mostly in L2): in shared memory beside the exchange buffer it
+// held 1 to 3 hops, so each tile recomputed 3 halo frames and 2 FIR
+// blocks a hop; in device memory the tiles are as long as at nfft 1024.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -165,6 +177,12 @@ __device__ __forceinline__ float inv_norm_at(const ChainGeo& g, const float* tab
 
 constexpr int kRegsThreads = 256;
 
+// Threads of a CTA of the body at nfft: 256, or 512 for one transform of
+// 8192 points (the one-buffer layout).
+__host__ __device__ __forceinline__ constexpr int regs_threads(int nfft) {
+  return nfft > 16 * kRegsThreads ? 2 * kRegsThreads : kRegsThreads;
+}
+
 // Points a thread holds in a full pass: 16, or the whole transform below 16.
 __host__ __device__ __forceinline__ constexpr int regs_points(int nfft) {
   return nfft < 16 ? nfft : 16;
@@ -179,11 +197,15 @@ __host__ __device__ __forceinline__ int regs_span(const ChainGeo& g, bool fir) {
   return fir ? (len + g.blk - 1) / g.blk * g.blk + g.taps - 1 : len;
 }
 
-// Floats of shared memory before the tail (the exchange buffers).
+// Floats of shared memory before the tail (the exchange buffers); T
+// threads, the span and the masks buffer only with two exchange buffers
+// (T = 256; at T = 512 the span is in device memory, span_rows).
+template <int T = kRegsThreads>
 __host__ __device__ __forceinline__ int regs_head_floats(const ChainGeo& g, bool fir) {
   const int nb = g.nfft / 2 + 1;
-  const int nfb = 2 * kRegsThreads * regs_points(g.nfft) / g.nfft;
-  return 2 * nb + 2 * g.d + regs_span(g, fir) + (g.sequential ? nfb * nb : 0);
+  const int nfb = 2 * T * regs_points(g.nfft) / g.nfft;
+  return 2 * nb + 2 * g.d + (T == kRegsThreads ? regs_span(g, fir) : 0)
+         + (g.sequential && T == kRegsThreads ? nfb * nb : 0);
 }
 
 // The threads that share the passes of transforms first .. first + count
@@ -200,12 +222,13 @@ struct Team {
   }
 };
 
-// Transform t's N/R threads from 32 on (whole warps), else the CTA on all
-// nt transforms.
+// Transform t's N/R threads from 32 on (whole warps), else the CTA (T
+// threads) on all nt transforms.
+template <int T = kRegsThreads>
 __device__ __forceinline__ Team regs_team(int log2n, int nt, int points) {
   const int g = (1 << log2n) / points;
   const int tid = threadIdx.x;
-  if (g < 32) return Team{0, nt, tid, kRegsThreads, 0};
+  if (g < 32) return Team{0, nt, tid, T, 0};
   const int t = tid / g;
   return Team{t, 1, tid - t * g, g, 1 + t};
 }
@@ -213,8 +236,10 @@ __device__ __forceinline__ Team regs_team(int log2n, int nt, int points) {
 // One pass of RP points a group from stage s0 over the team's transforms:
 // group v (transform v >> lg, group v mod 2^lg of it) to lane v mod size.
 // Indices are batch-local (t N + index); through pease_swizzle where
-// swz_in / swz_out.
-template <int RP, class Load, class Store>
+// swz_in / swz_out.  kHold (one exchange buffer, read and written by the
+// pass): a lane's R / RP groups are all loaded before the team meets and
+// any is stored.
+template <int RP, bool kHold = false, int R = 16, class Load, class Store>
 __device__ __forceinline__ void regs_pass(int log2n, int s0, const Team& tm, Load load,
                                           bool swz_in, Store store, bool swz_out,
                                           const float2* tw) {
@@ -223,10 +248,24 @@ __device__ __forceinline__ void regs_pass(int log2n, int s0, const Team& tm, Loa
   int rsw[rp], wsw[rp];
   stockham_read_offsets<RP>(rsw, log2n, s0, swz_in);
   stockham_write_offsets<RP>(wsw, log2n, swz_out);
-  for (int v = (tm.first << lg) + tm.lane; v < (tm.first + tm.count) << lg; v += tm.size) {
-    float2 x[RP];
-    const int wo = stockham_group<RP>(x, v, log2n, s0, load, swz_in, rsw, tw);
-    stockham_put<RP>(x, wo, swz_out, wsw, store);
+  if constexpr (kHold) {
+    constexpr int G = R / RP;
+    float2 x[G][RP];
+    int wo[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      wo[i] = stockham_group<RP>(x[i], (tm.first << lg) + tm.lane + i * tm.size, log2n, s0,
+                                 load, swz_in, rsw, tw);
+    }
+    tm.sync();
+#pragma unroll
+    for (int i = 0; i < G; ++i) stockham_put<RP>(x[i], wo[i], swz_out, wsw, store);
+  } else {
+    for (int v = (tm.first << lg) + tm.lane; v < (tm.first + tm.count) << lg; v += tm.size) {
+      float2 x[RP];
+      const int wo = stockham_group<RP>(x, v, log2n, s0, load, swz_in, rsw, tw);
+      stockham_put<RP>(x, wo, swz_out, wsw, store);
+    }
   }
 }
 
@@ -248,7 +287,9 @@ __device__ __forceinline__ void inverse_first(const float2 (&x)[RS], int log2n, 
 // The FIR's merged pass: the forward's last pass from s0, the product with
 // hf, the inverse's first pass.  kHold: every thread loads its group before
 // any thread stores (a one-pass transform reads and writes the span).
-template <int RS, bool kHold, class Load, class Store>
+// kOne (one exchange buffer): a lane's R / RS groups are all loaded before
+// the team meets and any is stored.
+template <int RS, bool kHold, bool kOne = false, int R = 16, class Load, class Store>
 __device__ __forceinline__ void fir_middle(int log2n, int s0, const Team& tm, Load load,
                                            bool swz_in, Store store, bool swz_out,
                                            const float2* twf, const float2* twi,
@@ -258,6 +299,26 @@ __device__ __forceinline__ void fir_middle(int log2n, int s0, const Team& tm, Lo
   int rsw[rs], wsw[rs];
   stockham_read_offsets<RS>(rsw, log2n, s0, swz_in);
   stockham_write_offsets<RS>(wsw, log2n, swz_out);
+  if constexpr (kOne) {
+    constexpr int G = R / RS;
+    float2 x[G][RS];
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int v = (tm.first << lg) + tm.lane + i * tm.size, q = v & ((1 << lg) - 1);
+      stockham_group<RS>(x[i], v, log2n, s0, load, swz_in, rsw, twf);
+#pragma unroll
+      for (int j = 0; j < RS; ++j) {
+        x[i][j] = cmul(x[i][j], __ldg(hf + ((brev_bits(j, rs) << lg) | q)));
+      }
+    }
+    tm.sync();
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int v = (tm.first << lg) + tm.lane + i * tm.size;
+      inverse_first<RS>(x[i], log2n, v >> lg, v & ((1 << lg) - 1), store, swz_out, wsw, twi);
+    }
+    return;
+  }
   for (int v = (tm.first << lg) + tm.lane; v < (tm.first + tm.count) << lg; v += tm.size) {
     const int t = v >> lg, q = v & ((1 << lg) - 1);
     float2 x[RS];
@@ -300,8 +361,11 @@ __device__ __forceinline__ void for_bin_pairs(float2 (&z)[RS], float2 (&y)[RS], 
 // units (1 where lg = 0), each two mirror groups; lane i of the team takes
 // its units i + size k, kUnits of them: one at a time, or with kRelease
 // (the masks scanned along the frames) all at once, their points held in
-// registers across the scan's barriers.
-template <int R, int RS, bool kRelease, class Load, class Store>
+// registers across the scan's barriers.  kOne (one exchange buffer, one
+// transform a batch, T threads): all at once, the team meeting between the
+// loads and the stores, the release scan of the two frames in registers.
+template <int R, int RS, bool kRelease, bool kOne = false, int T = kRegsThreads, class Load,
+          class Store>
 __device__ __forceinline__ void gate_middle(const ChainGeo& g, int s0, const Team& tm, Load load,
                                             bool swz_in, Store store, bool swz_out,
                                             const float2* twf, const float2* twi,
@@ -344,7 +408,27 @@ __device__ __forceinline__ void gate_middle(const ChainGeo& g, int s0, const Tea
     ma = sqrtf(ar * ar + ai * ai) > th ? 1.0f : att;
     mb = sqrtf(br * br + bi * bi) > th ? 1.0f : att;
   };
-  if constexpr (!kRelease) {
+  if constexpr (kOne) {
+    float2 z[kUnits][RS], y[kUnits][RS];
+#pragma unroll
+    for (int i = 0; i < kUnits; ++i) load_unit(i, z[i], y[i]);
+    tm.sync();
+#pragma unroll
+    for (int i = 0; i < kUnits; ++i) {
+      for_bin_pairs<RS>(z[i], y[i], unit(i), lg, [&](float2& zk, float2& zn, int k) {
+        const int kk = min(k, n - k);
+        float ma, mb;
+        raw(zk, zn, thr[kk], ma, mb);
+        if constexpr (kRelease) {  // frames 0 and 1 of the batch, in order
+          ma = fmaxf(ma, g.release * rel[kk]);
+          if (nf > 1) mb = fmaxf(mb, g.release * ma);
+          rel[kk] = nf > 1 ? mb : ma;
+        }
+        gate(zk, zn, ma, nf > 1 ? mb : 0.0f);
+      });
+      store_unit(i, z[i], y[i]);
+    }
+  } else if constexpr (!kRelease) {
 #pragma unroll 1
     for (int i = 0; i < kUnits; ++i) {
       float2 z[RS], y[RS];
@@ -374,7 +458,7 @@ __device__ __forceinline__ void gate_middle(const ChainGeo& g, int s0, const Tea
       });
     }
     __syncthreads();
-    for (int k = threadIdx.x; k < nb; k += kRegsThreads) {
+    for (int k = threadIdx.x; k < nb; k += T) {
       float s = rel[k];
       for (int f = 0; f < nf; ++f) {
         s = fmaxf(masks[f * nb + k], g.release * s);
@@ -402,9 +486,12 @@ __device__ __forceinline__ void gate_middle(const ChainGeo& g, int s0, const Tea
 // exchange buffers ex0, ex1 (planes of `cap` floats), pass p writing
 // ex[p mod 2], the team meeting between passes (the CTA after the first
 // where kFullFirst).  The plan has an odd number of passes, so a stage
-// written to ex0 by `last` is not the buffer the last pass reads.  Returns
-// after a __syncthreads().
-template <int R, int RS, bool kFullFirst, class First, class Mid, class Last>
+// written to ex0 by `last` is not the buffer the last pass reads.  kOne:
+// one buffer, ex0, read and written by every pass after the first, each
+// holding its groups across a meeting of the team (the middle's own).
+// Returns after a __syncthreads().
+template <int R, int RS, bool kFullFirst, bool kOne = false, class First, class Mid,
+          class Last>
 __device__ __forceinline__ void regs_round_trip(int log2n, const Team& tm, float* ex, int cap,
                                                 First first, Mid mid, Last last,
                                                 const float2* twf, const float2* twi) {
@@ -414,11 +501,12 @@ __device__ __forceinline__ void regs_round_trip(int log2n, const Team& tm, float
     return;
   } else {
     constexpr int rs = pass_bits(RS);
+    constexpr int kBuf = kOne ? 0 : 1;
     const auto in = [ex, cap](int p) {
-      return PlanarIn{ex + (p & 1) * 2 * cap, ex + (p & 1) * 2 * cap + cap};
+      return PlanarIn{ex + (p & kBuf) * 2 * cap, ex + (p & kBuf) * 2 * cap + cap};
     };
     const auto out = [ex, cap](int p) {
-      return PlanarOut{ex + (p & 1) * 2 * cap, ex + (p & 1) * 2 * cap + cap};
+      return PlanarOut{ex + (p & kBuf) * 2 * cap, ex + (p & kBuf) * 2 * cap + cap};
     };
     const bool mid3 = (log2n - rs) % 4 == 3;
     int s0, p = 0;
@@ -436,7 +524,7 @@ __device__ __forceinline__ void regs_round_trip(int log2n, const Team& tm, float
     }
     for (; s0 < log2n - rs; s0 += 4) {
       ++p;
-      regs_pass<16>(log2n, s0, tm, in(p - 1), true, out(p), true, twf);
+      regs_pass<16, kOne, R>(log2n, s0, tm, in(p - 1), true, out(p), true, twf);
       tm.sync();
     }
     ++p;
@@ -445,16 +533,16 @@ __device__ __forceinline__ void regs_round_trip(int log2n, const Team& tm, float
     s0 = rs;
     if (mid3) {
       ++p;
-      regs_pass<8>(log2n, s0, tm, in(p - 1), true, out(p), true, twi);
+      regs_pass<8, kOne, R>(log2n, s0, tm, in(p - 1), true, out(p), true, twi);
       tm.sync();
       s0 += 3;
     }
     for (; s0 + 4 < log2n; s0 += 4) {
       ++p;
-      regs_pass<16>(log2n, s0, tm, in(p - 1), true, out(p), true, twi);
+      regs_pass<16, kOne, R>(log2n, s0, tm, in(p - 1), true, out(p), true, twi);
       tm.sync();
     }
-    regs_pass<16>(log2n, s0, tm, in(p), true, last, false, twi);
+    regs_pass<16, kOne, R>(log2n, s0, tm, in(p), true, last, false, twi);
     __syncthreads();
   }
 }
@@ -467,37 +555,46 @@ __device__ __forceinline__ void regs_round_trip(int log2n, const Team& tm, float
 // or past the end of u), may use `scratch` (the exchange buffers) and
 // returns after a __syncthreads().  twf / twi: stockham_table(N, -1) and
 // (N, +1); hf: the N-point spectrum of the zero-padded taps; inv_tab: the
-// 1/WOLA table (inv_norm_at), or null for the un-normalized overlap-add.
-template <int R, int RS, bool kRelease, bool kFir, class Fill>
+// 1/WOLA table (inv_norm_at), or null for the un-normalized overlap-add;
+// span_rows: with one exchange buffer (T = 512) the CTAs' spans in device
+// memory, a row of regs_span floats per CTA (blockIdx.y * gridDim.x +
+// blockIdx.x), unused below.
+template <int R, int RS, bool kRelease, bool kFir, int T = kRegsThreads, class Fill>
 __device__ void fir_gate_regs(const ChainGeo& g, float* smem, int c, float* __restrict__ oc,
                               const float* __restrict__ noise_floor,
                               const float* __restrict__ win,
                               const float2* __restrict__ hf,
                               const float2* __restrict__ twf,
                               const float2* __restrict__ twi,
-                              const float* __restrict__ inv_tab, const Fill& fill) {
+                              const float* __restrict__ inv_tab, float* span_rows,
+                              const Fill& fill) {
+  constexpr bool kOne = T > kRegsThreads;  // one exchange buffer
   const int N = g.nfft, L = g.log2n, H = g.hop, nb = N / 2 + 1;
-  const int cap = kRegsThreads * R;  // complex points of a batch
+  const int cap = T * R;  // complex points of a batch
   const int B = cap >> L, nfb = 2 * B;
   const int tid = threadIdx.x;
   const int lh = __ffs(H) - 1;  // log2 hop
-  const Team tm = regs_team(L, B, R);
+  const Team tm = regs_team<T>(L, B, R);
   // the end of the last frame: positions past it (a shard's) are 0
   const int frames_end = g.nframes > 0 ? N + (g.nframes - 1) * H : 0;
   float* thr = smem;
   float* rel = thr + nb;
   float* carry = rel + nb;  // two buffers of d
-  float* span = carry + 2 * g.d;
-  float* masks = span + regs_span(g, kFir);
-  float* ex = smem + regs_head_floats(g, kFir);
+  // the span: shared memory, or with one exchange buffer this CTA's row of
+  // span_rows in device memory (L2), which leaves room for long tiles
+  float* span = kOne ? span_rows + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x)
+                                       * regs_span(g, kFir)
+                     : carry + 2 * g.d;
+  float* masks = kOne ? nullptr : span + regs_span(g, kFir);
+  float* ex = smem + regs_head_floats<T>(g, kFir);
   float* stage_re = ex;
   float* stage_im = ex + cap;
 
-  for (int k = tid; k < nb; k += kRegsThreads) {
+  for (int k = tid; k < nb; k += T) {
     thr[k] = noise_floor[static_cast<size_t>(c) * nb + k] * g.thresh_gain;
     rel[k] = 0.0f;
   }
-  for (int i = tid; i < g.d; i += kRegsThreads) carry[i] = 0.0f;
+  for (int i = tid; i < g.d; i += T) carry[i] = 0.0f;
   int cur = 0;  // the carry buffer the next batch reads
   __syncthreads();
 
@@ -511,10 +608,9 @@ __device__ void fir_gate_regs(const ChainGeo& g, float* smem, int c, float* __re
     const int lo = g.sequential ? 0 : ts;
     const int hi = g.sequential ? g.out_len : min(ts + g.tile, g.out_len);
     if (!g.sequential) {
-      for (int i = tid; i < g.d; i += kRegsThreads) carry[cur * g.d + i] = 0.0f;
+      for (int i = tid; i < g.d; i += T) carry[cur * g.d + i] = 0.0f;
     }
-    for (int gp = max(ts, frames_end) + tid; gp < min(ts + g.tile, g.out_len);
-         gp += kRegsThreads) {
+    for (int gp = max(ts, frames_end) + tid; gp < min(ts + g.tile, g.out_len); gp += T) {
       oc[gp] = 0.0f;
     }
     if (qb <= qa) continue;
@@ -541,9 +637,9 @@ __device__ void fir_gate_regs(const ChainGeo& g, float* smem, int c, float* __re
           if (kb + 1 < nblk) span[(kb + 1) * g.blk + o] = v.y * g.inv_n;
         };
         const auto mid = [&](int s0, auto ld, bool si, auto st, bool so) {
-          fir_middle<RS, R == RS>(L, s0, tm, ld, si, st, so, twf, twi, hf);
+          fir_middle<RS, R == RS, kOne, R>(L, s0, tm, ld, si, st, so, twf, twi, hf);
         };
-        regs_round_trip<R, RS, true>(L, tm, ex, cap, load, mid, store, twf, twi);
+        regs_round_trip<R, RS, true, kOne>(L, tm, ex, cap, load, mid, store, twf, twi);
       }
     }
     // ---- gate: a batch of frames q0 .. q0 + nf - 1, frames q0 + 2t and
@@ -563,17 +659,18 @@ __device__ void fir_gate_regs(const ChainGeo& g, float* smem, int c, float* __re
         stage_im[i] = v.y * w;
       };
       const auto mid = [&](int s0, auto ld, bool si, auto st, bool so) {
-        gate_middle<R, RS, kRelease>(g, s0, tm, ld, si, st, so, twf, twi, thr, masks, rel, nf);
+        gate_middle<R, RS, kRelease, kOne, T>(g, s0, tm, ld, si, st, so, twf, twi, thr, masks,
+                                              rel, nf);
       };
-      regs_round_trip<R, RS, false>(L, tm, ex, cap, load, mid, store, twf, twi);
+      regs_round_trip<R, RS, false, kOne>(L, tm, ex, cap, load, mid, store, twf, twi);
       // ---- overlap-add: position p of the batch (from q0's start) is
-      // thread p mod 256's; frame f of the batch is stage (f odd ? im : re)
+      // thread p mod T's; frame f of the batch is stage (f odd ? im : re)
       // of transform f/2
       const float* cin = carry + cur * g.d;
       float* cout = carry + (cur ^ 1) * g.d;
       const int fin = nf * H;
       const bool end = q0 + nf == g.nframes;
-      for (int p = tid; p < fin + g.d; p += kRegsThreads) {
+      for (int p = tid; p < fin + g.d; p += T) {
         // frames f of the batch with f H <= p < f H + N (hop and nfft are
         // powers of two: shifts, no division)
         float v = p < g.d ? cin[p] : 0.0f;
@@ -595,33 +692,36 @@ __device__ void fir_gate_regs(const ChainGeo& g, float* smem, int c, float* __re
   }
 }
 
-// The launch's kernel for nfft, from a kernel template K<R, RS, kRelease>
-// (a class whose static fn() returns the __global__ function): one pass
+// The launch's kernel for nfft, from a kernel template K<R, RS, kRelease,
+// T> (a class whose static fn() returns the __global__ function): one pass
 // each way below 32 points, else passes of 16 points a group and the
 // merged pass of 2^(log2 nfft mod 4) points (2 where that is 0), as
-// regs_pass_plan (kernels/gate_kernel.py) plans them; the sequential
-// (release > 0) launch's own.
-template <template <int, int, bool> class K, bool kRelease>
+// regs_pass_plan (kernels/gate_kernel.py) plans them, on regs_threads(nfft)
+// threads; the sequential (release > 0) launch's own.
+template <template <int, int, bool, int> class K, bool kRelease>
 auto regs_kernel_for(int nfft) {
+  constexpr int T = kRegsThreads;
   const int rs = __builtin_ctz(static_cast<unsigned>(nfft)) % 4;
-  return nfft == 2 ? K<2, 2, kRelease>::fn()
-         : nfft == 4 ? K<4, 4, kRelease>::fn()
-         : nfft == 8 ? K<8, 8, kRelease>::fn()
-         : nfft == 16 ? K<16, 16, kRelease>::fn()
-         : rs == 2 ? K<16, 4, kRelease>::fn()
-         : rs == 3 ? K<16, 8, kRelease>::fn()
-                   : K<16, 2, kRelease>::fn();
+  return nfft == 2 ? K<2, 2, kRelease, T>::fn()
+         : nfft == 4 ? K<4, 4, kRelease, T>::fn()
+         : nfft == 8 ? K<8, 8, kRelease, T>::fn()
+         : nfft == 16 ? K<16, 16, kRelease, T>::fn()
+         : nfft == 32 * T ? K<16, 2, kRelease, 2 * T>::fn()
+         : rs == 2 ? K<16, 4, kRelease, T>::fn()
+         : rs == 3 ? K<16, 8, kRelease, T>::fn()
+                   : K<16, 2, kRelease, T>::fn();
 }
 
-template <template <int, int, bool> class K>
+template <template <int, int, bool, int> class K>
 auto regs_kernel_for(int nfft, int sequential) {
   return sequential ? regs_kernel_for<K, true>(nfft) : regs_kernel_for<K, false>(nfft);
 }
 
-// A built kernel at smem_bytes of dynamic shared memory: info = {registers
-// a thread, local memory bytes a thread (spills), resident CTAs an SM}.
+// A built kernel of `threads` threads at smem_bytes of dynamic shared
+// memory: info = {registers a thread, local memory bytes a thread (spills),
+// resident CTAs an SM}.
 template <class Kernel>
-int regs_kernel_info(Kernel kernel, int smem_bytes, int device, int* info) {
+int regs_kernel_info(Kernel kernel, int threads, int smem_bytes, int device, int* info) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -632,7 +732,7 @@ int regs_kernel_info(Kernel kernel, int smem_bytes, int device, int* info) {
   info[0] = attr.numRegs;
   info[1] = static_cast<int>(attr.localSizeBytes);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &info[2], kernel, kRegsThreads, smem_bytes));
+      &info[2], kernel, threads, smem_bytes));
 }
 
 }  // namespace asp

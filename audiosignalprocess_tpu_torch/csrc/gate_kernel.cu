@@ -29,7 +29,10 @@
 // gate batches that keeps 2 CTAs an SM: 29 hops at nfft 1024, hop 256
 // (32 frames, four batches of 8), where the radix-2 body it replaces ran
 // 16-hop tiles of one 1024-point transform at a time in shared memory,
-// ten stages with a CTA barrier each.
+// ten stages with a CTA barrier each.  At nfft 8192 a batch is one
+// transform of 512 threads and the CTA has one exchange buffer (one CTA
+// an SM) and its span in device memory; past 8192 the wrapper raises
+// (SMEM_LIMIT).
 //
 // One time shard of the gate (asp_gate_shard) replaces the TPU package's
 // kernels/gate_kernel.py:gate_shard_fused.  The input is the shard's l
@@ -59,12 +62,12 @@
 
 namespace {
 
-template <int R, int RS, bool kRelease>
-__global__ void __launch_bounds__(asp::kRegsThreads, 2)
+template <int R, int RS, bool kRelease, int T>
+__global__ void __launch_bounds__(T, 2 * asp::kRegsThreads / T)
 noise_gate_kernel(const float* __restrict__ x, int n, float* __restrict__ out,
                   const float* __restrict__ noise_floor, const float* __restrict__ win,
                   const float2* __restrict__ twf, const float2* __restrict__ twi,
-                  const float* __restrict__ inv_tab, asp::ChainGeo g) {
+                  const float* __restrict__ inv_tab, asp::ChainGeo g, float* span_rows) {
   extern __shared__ float4 smem[];
   const int c = blockIdx.y;
   const float* xc = x + static_cast<size_t>(c) * n;
@@ -75,32 +78,32 @@ noise_gate_kernel(const float* __restrict__ x, int n, float* __restrict__ out,
     }
     __syncthreads();
   };
-  asp::fir_gate_regs<R, RS, kRelease, false>(g, reinterpret_cast<float*>(smem), c,
+  asp::fir_gate_regs<R, RS, kRelease, false, T>(g, reinterpret_cast<float*>(smem), c,
                                              out + static_cast<size_t>(c) * g.out_len,
                                              noise_floor, win, nullptr, twf, twi, inv_tab,
-                                             fill);
+                                             span_rows, fill);
 }
 
 using Kernel = void (*)(const float*, int, float*, const float*, const float*, const float2*,
-                        const float2*, const float*, asp::ChainGeo);
+                        const float2*, const float*, asp::ChainGeo, float*);
 
-template <int R, int RS, bool kRelease>
+template <int R, int RS, bool kRelease, int T>
 struct NoiseGate {
-  static Kernel fn() { return noise_gate_kernel<R, RS, kRelease>; }
+  static Kernel fn() { return noise_gate_kernel<R, RS, kRelease, T>; }
 };
 
 int launch(const asp::ChainGeo& g, int channels, const float* x, int n, float* out,
            const float* noise_floor, const float* win, const float* twf, const float* twi,
-           const float* inv_tab, int smem_bytes, int device, void* stream) {
+           const float* inv_tab, float* span_rows, int smem_bytes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Kernel kernel = asp::regs_kernel_for<NoiseGate>(g.nfft, g.sequential);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.sequential ? 1 : g.ntiles, channels);
-  kernel<<<grid, asp::kRegsThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, asp::regs_threads(g.nfft), smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       x, n, out, noise_floor, win, reinterpret_cast<const float2*>(twf),
-      reinterpret_cast<const float2*>(twi), inv_tab, g);
+      reinterpret_cast<const float2*>(twi), inv_tab, g, span_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -110,35 +113,36 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t).  Returns cudaGetLastError() after
 // the launch: 0 on success.  Nothing is synchronized or allocated here.
+// span_rows: at nfft 8192 the CTAs' spans (fir_gate_regs), else null.
 int asp_noise_gate(const float* x, float* out, const float* noise_floor,
                    const float* win, const float* twf, const float* twi, const float* inv_tab,
-                   int channels, int n, int nfft, int log2n, int hop, int nframes,
-                   int mf, int sequential, float thresh_gain, float att, float release,
-                   int smem_bytes, int device, void* stream) {
+                   float* span_rows, int channels, int n, int nfft, int log2n, int hop,
+                   int nframes, int mf, int sequential, float thresh_gain, float att,
+                   float release, int smem_bytes, int device, void* stream) {
   const asp::ChainGeo g = asp::chain_geo(nfft, log2n, hop, 1, nframes, mf, sequential,
                                          thresh_gain, att, release);
-  return launch(g, channels, x, n, out, noise_floor, win, twf, twi, inv_tab, smem_bytes,
-                device, stream);
+  return launch(g, channels, x, n, out, noise_floor, win, twf, twi, inv_tab, span_rows,
+                smem_bytes, device, stream);
 }
 
 // One time shard: x (channels, n) rows of the shard plus its right halo,
 // out (channels, n) the un-normalized overlap-add of the first nvalid
 // frames (zeros past them).  Same launch as the parallel whole-file gate.
 int asp_gate_shard(const float* x, float* out, const float* noise_floor, const float* win,
-                   const float* twf, const float* twi, int channels, int n, int nfft,
-                   int log2n, int hop, int nvalid, int mf, float thresh_gain, float att,
-                   int smem_bytes, int device, void* stream) {
+                   const float* twf, const float* twi, float* span_rows, int channels, int n,
+                   int nfft, int log2n, int hop, int nvalid, int mf, float thresh_gain,
+                   float att, int smem_bytes, int device, void* stream) {
   const asp::ChainGeo g = asp::shard_geo(
       asp::chain_geo(nfft, log2n, hop, 1, nvalid, mf, 0, thresh_gain, att, 0.0f), n);
-  return launch(g, channels, x, n, out, noise_floor, win, twf, twi, nullptr, smem_bytes,
-                device, stream);
+  return launch(g, channels, x, n, out, noise_floor, win, twf, twi, nullptr, span_rows,
+                smem_bytes, device, stream);
 }
 
 // The instantiation for nfft and the launch: info = {registers a thread,
 // local memory bytes a thread (spills), resident CTAs an SM at smem_bytes}.
 int asp_noise_gate_info(int nfft, int sequential, int smem_bytes, int device, int* info) {
   const Kernel kernel = asp::regs_kernel_for<NoiseGate>(nfft, sequential);
-  return asp::regs_kernel_info(kernel, smem_bytes, device, info);
+  return asp::regs_kernel_info(kernel, asp::regs_threads(nfft), smem_bytes, device, info);
 }
 
 }  // extern "C"

@@ -18,8 +18,8 @@
 // (about 7.2 k at 160/147, the polyphase history included, zeros before
 // the file) and the phase bank in the tail of its shared memory (the
 // exchange buffers, free until the FIR's first pass) and resamples them
-// there (res_span: asp::res_range's arithmetic with the phases stepped,
-// not divided).  The resampled signal never leaves the CTA.  The
+// there (asp::res_span, resample_device.cuh: asp::res_range's arithmetic
+// with the phases stepped, not divided).  The resampled signal never leaves the CTA.  The
 // TPU kernel instead feeds its matrix unit dense per-row "supercycle"
 // phase matrices, because Mosaic cannot reshape 160 lanes into 128; here
 // each resampled sample is its nk multiply-adds (21 at 160/147).
@@ -36,55 +36,8 @@
 
 namespace {
 
-// floor(a / b) for b > 0
-__device__ __forceinline__ long long floor_div(long long a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-// The resampled outputs [j0, j0 + count) into span[0, count), zero outside
-// [0, n_res): asp::res_range's values (the same staged raw window, taps and
-// fmaf order), but each thread steps its outputs' phase and newest raw
-// index by 256 outputs at a time instead of dividing (64-bit) per output.
-// Returns after a __syncthreads().
-__device__ __forceinline__ void res_span(const asp::ResGeo& g, const float* bank_s,
-                                         float* win_s, const asp::RawSrc& src, int j0,
-                                         int count, int n_res, float* span) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int jf = max(j0, 0), jl = min(j0 + count, n_res);
-  int r0 = 0;
-  if (jl > jf) {
-    r0 = static_cast<int>(static_cast<long long>(jf) * g.down / g.up) - (g.nk - 1);
-    const int rn = static_cast<int>(static_cast<long long>(jl - 1) * g.down / g.up) - r0 + 1;
-    for (int i = tid; i < rn; i += nt) win_s[i] = src(r0 + i);
-  }
-  __syncthreads();
-  // output j = j0 + i reads raw m - k (m = floor(j down / up)) with phase
-  // p = j down - m up; thread tid starts at i = tid and steps by nt
-  const long long pos = static_cast<long long>(j0 + tid) * g.down;
-  long long m = floor_div(pos, g.up);
-  int p = static_cast<int>(pos - m * g.up);
-  const int step_m = nt * g.down / g.up, step_p = nt * g.down - step_m * g.up;
-  for (int i = tid; i < count; i += nt) {
-    const int j = j0 + i;
-    float acc = 0.0f;
-    if (j >= jf && j < jl) {
-      const float* w = win_s + (static_cast<int>(m) - (g.nk - 1) - r0);
-      const float* b = bank_s + p * g.nk;
-      for (int t = 0; t < g.nk; ++t) acc = fmaf(b[t], w[t], acc);
-    }
-    span[i] = acc;
-    m += step_m;
-    p += step_p;
-    if (p >= g.up) {
-      p -= g.up;
-      ++m;
-    }
-  }
-  __syncthreads();
-}
-
-template <int R, int RS, bool kRelease>
-__global__ void __launch_bounds__(asp::kRegsThreads, 2)
+template <int R, int RS, bool kRelease, int T>
+__global__ void __launch_bounds__(T, 2 * asp::kRegsThreads / T)
 res_fir_noise_gate_kernel(const float* __restrict__ x, int n, int n_res,
                           float* __restrict__ out,
                           const float* __restrict__ noise_floor,
@@ -94,7 +47,7 @@ res_fir_noise_gate_kernel(const float* __restrict__ x, int n, int n_res,
                           const float2* __restrict__ twi,
                           const float* __restrict__ inv_tab,
                           const float* __restrict__ bank, asp::ResGeo rg,
-                          asp::ChainGeo g) {
+                          asp::ChainGeo g, float* span_rows) {
   extern __shared__ float4 smem4[];
   const int c = blockIdx.y;
   const asp::RawSrc src{nullptr, 0, x + static_cast<size_t>(c) * n, n};
@@ -102,20 +55,20 @@ res_fir_noise_gate_kernel(const float* __restrict__ x, int n, int n_res,
     float* bank_s = scratch;             // up * nk
     float* raw_s = bank_s + rg.up * rg.nk;  // raw window of the span
     asp::res_load_bank(bank_s, bank, rg);  // read after res_span's first barrier
-    res_span(rg, bank_s, raw_s, src, s, len, n_res, span);
+    asp::res_span(rg, bank_s, raw_s, src, s, len, n_res, span);
   };
-  asp::fir_gate_regs<R, RS, kRelease, true>(g, reinterpret_cast<float*>(smem4), c,
+  asp::fir_gate_regs<R, RS, kRelease, true, T>(g, reinterpret_cast<float*>(smem4), c,
                             out + static_cast<size_t>(c) * g.out_len, noise_floor, win, hf,
-                            twf, twi, inv_tab, fill);
+                            twf, twi, inv_tab, span_rows, fill);
 }
 
 using Kernel = void (*)(const float*, int, int, float*, const float*, const float*,
                         const float2*, const float2*, const float2*, const float*,
-                        const float*, asp::ResGeo, asp::ChainGeo);
+                        const float*, asp::ResGeo, asp::ChainGeo, float*);
 
-template <int R, int RS, bool kRelease>
+template <int R, int RS, bool kRelease, int T>
 struct ResFirNoiseGate {
-  static Kernel fn() { return res_fir_noise_gate_kernel<R, RS, kRelease>; }
+  static Kernel fn() { return res_fir_noise_gate_kernel<R, RS, kRelease, T>; }
 };
 
 }  // namespace
@@ -124,12 +77,14 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t).  Returns cudaGetLastError() after
 // the launch: 0 on success.  Nothing is synchronized or allocated here.
-// n: raw samples per channel; n_res = ceil(n*up/down).
+// n: raw samples per channel; n_res = ceil(n*up/down); span_rows: at nfft
+// 8192 the CTAs' spans (fir_gate_regs), else null.
 int asp_res_fir_noise_gate(const float* x, float* out, const float* noise_floor,
                            const float* win, const float* hf, const float* twf,
                            const float* twi, const float* inv_tab, const float* bank,
-                           int channels, int n, int n_res, int up, int down, int nk, int nfft,
-                           int log2n, int hop, int taps, int nframes, int mf,
+                           float* span_rows, int channels, int n, int n_res, int up,
+                           int down, int nk, int nfft, int log2n, int hop, int taps,
+                           int nframes, int mf,
                            int sequential, float thresh_gain, float att,
                            float release, int smem_bytes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -141,17 +96,17 @@ int asp_res_fir_noise_gate(const float* x, float* out, const float* noise_floor,
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(sequential ? 1 : g.ntiles, channels);
-  kernel<<<grid, asp::kRegsThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, asp::regs_threads(g.nfft), smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       x, n, n_res, out, noise_floor, win, reinterpret_cast<const float2*>(hf),
       reinterpret_cast<const float2*>(twf), reinterpret_cast<const float2*>(twi), inv_tab,
-      bank, rg, g);
+      bank, rg, g, span_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 // As asp_fir_noise_gate_info, for this kernel's instantiation for nfft.
 int asp_res_fir_noise_gate_info(int nfft, int sequential, int smem_bytes, int device, int* info) {
   const Kernel kernel = asp::regs_kernel_for<ResFirNoiseGate>(nfft, sequential);
-  return asp::regs_kernel_info(kernel, smem_bytes, device, info);
+  return asp::regs_kernel_info(kernel, asp::regs_threads(nfft), smem_bytes, device, info);
 }
 
 }  // extern "C"

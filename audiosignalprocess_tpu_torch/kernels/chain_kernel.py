@@ -14,7 +14,10 @@ kernels and their plain PyTorch versions.
   streaming block of the same chain, with an optional envelope tail
   (|y| -> FIR ``env_h`` -> * ``env_scale``) folded into the same launch.
   Its carry is the plain composition's: ``[FIR history (..., T-1), gate
-  carry (kernels/gate_kernel), envelope history (..., Te-1)]``.
+  carry (kernels/gate_kernel), envelope history (..., Te-1)]``.  Its body
+  (``csrc/fir_gate_step_regs.cuh``, shared with
+  ``res_fir_gate_step_fused``) runs batches of register Stockham
+  transforms; ``step_regs_geometry`` sizes its shared memory.
 
 Routing: a CPU tensor runs the plain version (``fir_noise_gate_ref``,
 ``fir_gate_step_ref``); a CUDA float32 tensor launches the kernel;
@@ -37,18 +40,16 @@ from audiosignalprocess_tpu_torch.kernels._build import (
 )
 from audiosignalprocess_tpu_torch.kernels.fir_kernel import reversed_taps
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (  # noqa: F401
-    _inv_norm_table, check_gate_guards, file_tables, gate_step_args, gate_step_ref,
-    noise_floor, regs_geometry, regs_info, step_smem_bytes,
+    _inv_norm_table, check_gate_guards, data_ptr, file_tables, gate_step_args, gate_step_ref,
+    noise_floor, regs_batch, regs_geometry, regs_info, regs_one_buffer, regs_points,
+    regs_span_rows, regs_threads,
 )
+from audiosignalprocess_tpu_torch.kernels.resample_kernel import res_window
 from audiosignalprocess_tpu_torch.kernels.os_kernel import check_os_geometry, fft_tables
 from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.ops.stft import frame
 from audiosignalprocess_tpu_torch.utils.validate import check
-
-ENV_TILE = 1024
-"""Envelope outputs per MAC tile of the step kernel (``kEnvTile``)."""
-
 
 def _check_guards(h: np.ndarray, n: int, nfft: int, hop: int,
                   noise_frames: int) -> int:
@@ -81,7 +82,7 @@ def filtered_floor(head: torch.Tensor, h: np.ndarray, nfft: int, hop: int,
 @functools.cache
 def _lib():
     fn = _build.load().asp_fir_noise_gate
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -134,10 +135,10 @@ def fir_noise_gate_fused(x: torch.Tensor, h, nfft: int = 1024,
     head = xf[:, : min(n, nfft - hop + noise_frames * hop + nfft)]
     floor = filtered_floor(head, h, nfft, hop, noise_frames, win)
     out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
-
+    spans = regs_span_rows(nfft, hop, geo, channels, out_len, release > 0.0, dev)
     rc = _lib()(
         xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(),
-        hf.data_ptr(), twf.data_ptr(), twi.data_ptr(), inv_tab.data_ptr(),
+        hf.data_ptr(), twf.data_ptr(), twi.data_ptr(), inv_tab.data_ptr(), data_ptr(spans),
         channels, n, nfft, nfft.bit_length() - 1, hop, len(h), nframes,
         geo["mf"], int(release > 0.0),
         float(10.0 ** (threshold_db / 20.0)),
@@ -168,14 +169,115 @@ def fir_noise_gate_info(nfft: int = 1024, hop: int = 256, taps: int = 64,
 # ---------------------------------------------------------------------------
 
 class FirEnvArgs(ctypes.Structure):
-    """The FIR front and envelope tail of the step kernel's arguments:
-    ``struct FirEnvArgs`` of ``csrc/fir_gate_step_device.cuh``."""
+    """The FIR front, envelope tail and shared-memory layout of the step
+    kernel's arguments: ``struct FirEnvArgs`` of
+    ``csrc/fir_gate_step_regs.cuh``."""
 
     _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "hist", "hist_out", "hf", "filtered", "env_hist", "env_hist_out",
-        "env_taps_rev", "gate_out")]
+        "hist", "hist_out", "hf", "twf", "twi", "env_hist", "env_hist_out",
+        "env_taps_rev", "rect")]
         + [("taps", ctypes.c_int), ("env_taps", ctypes.c_int),
-           ("env_scale", ctypes.c_float)])
+           ("env_scale", ctypes.c_float)]
+        + [(name, ctypes.c_int) for name in (
+            "fs", "pop_smem", "o_masks", "o_carry", "o_span", "o_pop", "o_rect", "o_ex",
+            "o_part")])
+
+
+def step_cluster(nfft: int) -> int:
+    """CTAs per channel of a step launch at nfft (``asp::step_ctas``): a
+    cluster of two, each taking half of a block's batches, or one CTA of
+    512 threads at nfft 8192, whose one exchange buffer leaves no room for
+    the peer's floor part."""
+    return 1 if regs_one_buffer(nfft) else 2
+
+
+def step_split(m: int, nfft: int, cluster: int) -> int:
+    """The new frames of a block's first CTA (``split`` of
+    ``asp::fir_gate_step_regs``): all of them, or with a cluster of two the
+    larger half in whole batches."""
+    nfb = 2 * regs_batch(nfft)
+    return m if cluster == 1 else min(m, -(-m // (2 * nfb)) * nfb)
+
+
+def step_span(nfft: int, hop: int, taps: int, m: int, fs: int,
+              ranges=None) -> tuple[int, int]:
+    """(span, FIR part) in floats of the largest analysis segment of a step
+    block of m new frames, fs a segment from the start of each CTA's frames
+    [lo, hi) of ``ranges`` (all m where None) (``asp::fir_gate_step_regs``):
+    the segment's frames read [in_tail | filtered block] from ext position
+    j0 hop on, the part before ext position nfft-hop copied from in_tail,
+    the rest the FIR's input in whole overlap-save blocks plus the FIR
+    history."""
+    d, hl = nfft - hop, taps - 1
+    blk = nfft - hl
+    span = part = 0
+    for lo, hi in ranges or [(0, m)]:  # each CTA's frames
+        for j0 in range(lo, hi, fs):
+            tl = max(0, d - j0 * hop)
+            seg = (min(hi, j0 + fs) - j0 - 1) * hop + nfft
+            fir_len = -(-(seg - tl) // blk) * blk + hl
+            span, part = max(span, tl + fir_len), max(part, fir_len)
+    return span, part
+
+
+@functools.lru_cache(maxsize=256)
+def step_regs_geometry(nfft: int, hop: int, taps: int, env_taps: int, b: int,
+                       noise_frames: int, res: tuple | None = None,
+                       cluster: int = 1) -> dict:
+    """Frames a segment, where the popped spectra and the envelope's input
+    live, and the shared-memory offsets (floats) and bytes of the step body
+    (``asp::fir_gate_step_regs``) for a block of b samples: floor sum and
+    release state (nfft/2+1 each), the masks buffer (2B (nfft/2+1), none at
+    nfft 8192), two OLA carries (nfft-hop each), the span (``step_span``),
+    the pop buffer (the m - noise_frames frames the block pops itself, 2
+    (nfft/2+1) floats each), the rectified row (env_taps - 1 + b), then the
+    exchange buffers (``regs_smem``'s), or the resampler's phase bank and
+    raw window if larger (``res`` = (up, down, nk), reduced).
+
+    The whole block in one segment with both buffers in shared memory
+    where that fits SMEM_LIMIT (the headline: 16 frames, 5 or 6 FIR blocks,
+    one CTA an SM); else the pop buffer, then the rectified row, then both
+    go to device memory (the kernel's scratch rows), each with the largest
+    segment that fits (powers of two of 2B frames).  With a cluster of two
+    CTAs (``cluster`` 2) each CTA's segments cover its own frames
+    (``step_split``) and the second CTA's floor part (nfft/2+1) follows
+    the tail.  A ValueError names SMEM_LIMIT where nothing fits (nfft >
+    8192)."""
+    nb, d = nfft // 2 + 1, nfft - hop
+    m = b // hop
+    ns = max(m - noise_frames, 0)
+    one = regs_one_buffer(nfft)
+    nfb = 2 * regs_batch(nfft)
+    exchange = (1 if one else 2) * 2 * regs_threads(nfft) * regs_points(nfft)
+    ehl = env_taps - 1 if env_taps else 0
+    o_masks = 2 * nb
+    o_carry = o_masks + (0 if one else nfb * nb)
+    o_span = o_carry + 2 * d
+    split = step_split(m, nfft, cluster)
+    ranges = [(0, split), (split, m)]
+    fs_all = -(-split // nfb) * nfb
+    sizes = [fs_all] + [nfb << k for k in range(fs_all.bit_length()) if nfb << k < fs_all][::-1]
+    for pop_smem, rect_smem in ((1, 1), (1, 0), (0, 1), (0, 0)):
+        if not env_taps and not rect_smem:
+            continue
+        for fs in sizes:
+            span, part = step_span(nfft, hop, taps, m, fs, ranges=ranges)
+            o_pop = o_span + span
+            o_rect = o_pop + (2 * ns * nb if pop_smem else 0)
+            o_ex = o_rect + (ehl + b if env_taps and rect_smem else 0)
+            tail = exchange
+            if res is not None:
+                up, down, nk = res
+                tail = max(tail, up * nk + res_window(part, up, down, nk))
+            o_part = o_ex + tail
+            smem = 4 * (o_part + (nb if cluster > 1 else 0))
+            if smem <= SMEM_LIMIT:
+                return dict(fs=fs, pop_smem=pop_smem, rect_smem=bool(env_taps and rect_smem),
+                            o_masks=o_masks, o_carry=o_carry, o_span=o_span, o_pop=o_pop,
+                            o_rect=o_rect, o_ex=o_ex, o_part=o_part, cluster=cluster,
+                            smem=smem)
+    raise ValueError(f"nfft={nfft}, hop={hop}, taps={taps}: the step body needs more shared "
+                     f"memory per block than SMEM_LIMIT ({SMEM_LIMIT} bytes) for one batch")
 
 
 def history_tail(hist: torch.Tensor, x: torch.Tensor, taps: int) -> torch.Tensor:
@@ -214,43 +316,48 @@ def fir_gate_step_ref(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
 
 
 def fir_gate_step_args(x2d: torch.Tensor, x_ld: int, state: list, h: np.ndarray, *,
-                       env_h, env_scale: float, **kw):
+                       env_h, env_scale: float, res: tuple | None = None, **kw):
     """Check a FIR -> gate (-> envelope) step's geometry, allocate its
     output and new carry and fill the kernel's argument structs
-    (``asp::fir_gate_step_channel``) for the rows ``x2d``.  Returns
-    (args, fargs, new_state, out, smem, keep): ``keep`` holds the tensors
-    the structs point to until the launch is queued."""
+    (``asp::fir_gate_step_regs``) for the rows ``x2d`` (for the resampling
+    kernel, whose input is its own, rows of the resampled block's shape;
+    ``res`` = (up, down, nk) sizes its tail).  Returns (args, fargs,
+    new_state, out, smem, keep): ``keep`` holds the tensors the structs
+    point to until the launch is queued."""
     t = len(h)
+    nfft = kw["nfft"]
     dev = x2d.device
     channels, b = x2d.shape
-    new_f = lambda *shape: torch.empty((channels,) + shape, dtype=torch.float32,
-                                       device=dev)
     hist = state[0].contiguous()
-    out, filtered = new_f(b), new_f(b)
-    args, gate_state, keep = gate_step_args(x2d, x_ld, state[1], out, **kw)
-    hist_out = torch.empty_like(hist)
+    out = torch.empty((channels, b), dtype=torch.float32, device=dev)
     env = env_h is not None
     te = 0
-    ehist = ehist_out = gate_out = taps_rev = None
+    ehist = ehist_out = taps_rev = rect = None
     if env:
         he = np.ascontiguousarray(env_h, dtype=np.float64)
         te = len(he)
         check(te >= 1, "the envelope FIR needs at least one tap")
         ehist = state[2].contiguous()
-        ehist_out, gate_out = torch.empty_like(ehist), new_f(b)
+        ehist_out = torch.empty_like(ehist)
         taps_rev = reversed_taps(he.tobytes(), dev)
+    geo = step_regs_geometry(nfft, kw["hop"], t, te, b, kw["noise_frames"], res,
+                             step_cluster(nfft))
+    args, gate_state, keep = gate_step_args(x2d, x_ld, state[1], out,
+                                            scratch=not geo["pop_smem"], **kw)
+    hist_out = torch.empty_like(hist)
+    if env and not geo["rect_smem"]:
+        rect = torch.empty((channels, te - 1 + b), dtype=torch.float32, device=dev)
     for name, carry in (("FIR history", hist), ("envelope history", ehist)):
         check(carry is None or (carry.dtype == torch.float32 and carry.device == dev),
               f"the {name} must be float32 on the input's device")
-    ptr = lambda v: None if v is None else v.data_ptr()
-    fargs = FirEnvArgs(ptr(hist), ptr(hist_out),
-                       ptr(fft_tables(h.tobytes(), kw["nfft"], dev)[0]),
-                       ptr(filtered), ptr(ehist), ptr(ehist_out), ptr(taps_rev),
-                       ptr(gate_out), t, te, float(env_scale))
-    smem = (step_smem_bytes(kw["nfft"], kw["hop"])
-            + (4 * (2 * te - 1 + ENV_TILE) if env else 0))
+    _, twf, twi, _ = file_tables(nfft, kw["hop"], kw["window_kind"], dev)
+    fargs = FirEnvArgs(*map(data_ptr, (hist, hist_out, fft_tables(h.tobytes(), nfft, dev)[0],
+                                        twf, twi, ehist, ehist_out, taps_rev, rect)),
+                       t, te, float(env_scale), geo["fs"], geo["pop_smem"],
+                       *(geo[k] for k in ("o_masks", "o_carry", "o_span", "o_pop", "o_rect",
+                                          "o_ex", "o_part")))
     new = [hist_out, gate_state] + ([ehist_out] if env else [])
-    return args, fargs, new, out, smem, (keep, hist, filtered, ehist, gate_out)
+    return args, fargs, new, out, geo["smem"], (keep, hist, ehist, rect)
 
 
 def fir_gate_step_fused(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
@@ -264,7 +371,9 @@ def fir_gate_step_fused(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
 
     A CPU tensor runs ``fir_gate_step_ref``.  A CUDA float32 tensor
     launches the kernel: one CTA per channel filters the block, gates it
-    and, with ``env_h``, runs the envelope tail.  Any other tensor raises.
+    and, with ``env_h``, runs the envelope tail, on batches of register
+    Stockham transforms (``step_regs_geometry`` sizes its shared memory).
+    Any other tensor raises.
     """
     h = np.ascontiguousarray(h, dtype=np.float64)
     check_os_geometry(nfft, len(h))
@@ -280,9 +389,6 @@ def fir_gate_step_fused(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
     x2d, x_ld = rows_view(x)
     args, fargs, new, out, smem, _keep = fir_gate_step_args(
         x2d, x_ld, state, h, env_h=env_h, env_scale=env_scale, **kw)
-    check(smem <= SMEM_LIMIT,
-          f"nfft={nfft}, hop={hop} and the envelope taps need {smem} bytes of "
-          f"shared memory per block, more than {SMEM_LIMIT}")
     rc = kernel_fn("asp_fir_gate_step", 2)(
         ctypes.byref(args), ctypes.byref(fargs), smem, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -292,3 +398,17 @@ def fir_gate_step_fused(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
 
 
 fir_gate_step_fused.launches = 0
+
+
+def fir_gate_step_info(nfft: int = 1024, hop: int = 256, taps: int = 64, env_taps: int = 0,
+                       block: int = 4096, noise_frames: int = 8, release: float = 0.0,
+                       device=None) -> dict:
+    """``fir_gate_step_fused``'s kernel at this geometry on a CUDA device:
+    ``regs_info`` (registers, local bytes, CTAs an SM) with the frames a
+    segment and shared memory of its launch."""
+    cluster = step_cluster(nfft)
+    geo = step_regs_geometry(nfft, hop, taps, env_taps, block, noise_frames, None, cluster)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return dict(regs_info("asp_fir_gate_step_info", nfft, release > 0.0, geo["smem"], dev),
+                cluster=cluster, fs=geo["fs"], smem=geo["smem"])
+

@@ -6,7 +6,9 @@ helpers the fused gate kernels share.
 The whole-file gate, its time shard and the whole-file FIR -> gate
 chains (``chain_kernel``, ``res_chain_kernel``) run one body,
 ``csrc/chain_regs_device.cuh``; ``regs_geometry`` sizes its tiles and
-shared memory (``gate_geometry``: the gate alone).
+shared memory (``gate_geometry``: the gate alone), up to nfft 8192
+(``regs_threads``: one transform of 512 threads a batch there, with one
+exchange buffer), past which it raises a ValueError naming SMEM_LIMIT.
 
 Mirrors the JAX package's ``kernels/gate_kernel.py``: the 1/WOLA-norm
 vectors (whole-file and streaming), the noise-floor prologue, the
@@ -83,7 +85,11 @@ def noise_floor(frames_windowed: torch.Tensor) -> torch.Tensor:
 
 REGS_THREADS = 256
 """Threads of a whole-file CTA (``asp::kRegsThreads``): the FIR -> gate
-chains and the gate alone."""
+chains and the gate alone, up to nfft 4096 (``regs_threads``)."""
+
+REGS_MAX_NFFT = 2 * REGS_THREADS * 16
+"""The largest nfft of the batched body: one transform of 512 threads of 16
+points, with one exchange buffer (8192)."""
 
 SM_SMEM = 233472
 """Shared memory of one Hopper SM (228 KB); each resident CTA also takes 1 KB."""
@@ -102,11 +108,31 @@ def regs_points(nfft: int) -> int:
     return min(16, nfft)
 
 
+def regs_threads(nfft: int) -> int:
+    """Threads of a CTA of the body (``asp::regs_threads``): 256, or 512 at
+    nfft 8192, whose one transform is 512 threads of 16 points and whose CTA
+    has one exchange buffer (two would leave no room for the span).  Past
+    8192 one transform would need more shared memory than SMEM_LIMIT."""
+    check(nfft <= REGS_MAX_NFFT,
+          f"nfft={nfft}: one transform of the whole-file body is {nfft // 16} threads of 16 "
+          f"points and its exchange buffer {8 * nfft} bytes, with the threshold, carries "
+          f"and span more shared memory per block than SMEM_LIMIT ({SMEM_LIMIT} bytes); "
+          f"nfft <= {REGS_MAX_NFFT}")
+    return 2 * REGS_THREADS if nfft > 16 * REGS_THREADS else REGS_THREADS
+
+
+def regs_one_buffer(nfft: int) -> bool:
+    """Whether the body's CTA has one exchange buffer (nfft 8192: every pass
+    that reads and writes it holds its points across a barrier)."""
+    return regs_threads(nfft) > REGS_THREADS
+
+
 def regs_batch(nfft: int) -> int:
-    """Transforms a CTA runs at once (a batch): 256 threads of
-    ``regs_points`` points, 4 at nfft 1024; a gate batch is twice as many
-    frames and a FIR batch twice as many overlap-save blocks."""
-    return REGS_THREADS * regs_points(nfft) // nfft
+    """Transforms a CTA runs at once (a batch): ``regs_threads`` threads of
+    ``regs_points`` points, 4 at nfft 1024, 1 at 4096 and 8192; a gate batch
+    is twice as many frames and a FIR batch twice as many overlap-save
+    blocks."""
+    return regs_threads(nfft) * regs_points(nfft) // nfft
 
 
 def regs_pass_plan(nfft: int) -> tuple[list[tuple[int, int]], list[tuple[int, int]]]:
@@ -135,13 +161,19 @@ def regs_smem(nfft: int, hop: int, taps: int, mf: int, sequential: bool,
               tail: int = 0, fir: bool = True) -> int:
     """Dynamic shared memory of one CTA, in the order
     ``asp::fir_gate_regs`` carves it: threshold and release state (nfft/2+1
-    each), two OLA carries (nfft-hop each), the span, the batch's masks
-    (release > 0), then the two exchange buffers, or ``tail`` floats if
-    the kernel's fill needs more there."""
+    each), two OLA carries (nfft-hop each), the span and the batch's masks
+    (release > 0) with two exchange buffers only (at nfft 8192 the span is
+    in device memory, ``regs_span_rows``), then the exchange buffers (two,
+    or one at nfft 8192), or ``tail`` floats if the kernel's fill needs
+    more there."""
     nb = nfft // 2 + 1
-    head = (2 * nb + 2 * (nfft - hop) + regs_span(nfft, hop, taps, mf, sequential, fir)
-            + (2 * regs_batch(nfft) * nb if sequential else 0))
-    return 4 * (head + max(4 * REGS_THREADS * regs_points(nfft), tail))
+    one = regs_one_buffer(nfft)
+    head = 2 * nb + 2 * (nfft - hop)
+    if not one:
+        head += (regs_span(nfft, hop, taps, mf, sequential, fir)
+                 + (2 * regs_batch(nfft) * nb if sequential else 0))
+    exchange = (1 if one else 2) * 2 * regs_threads(nfft) * regs_points(nfft)
+    return 4 * (head + max(exchange, tail))
 
 
 def regs_geometry(nfft: int, hop: int, taps: int, sequential: bool = False,
@@ -164,10 +196,10 @@ def regs_geometry(nfft: int, hop: int, taps: int, sequential: bool = False,
     nfft 1024, hop 256, 64 taps: mf = 21 (24 frames, three gate batches,
     one FIR batch of 8 blocks), 2 CTAs an SM; the gate alone: mf = 29 (32
     frames, four gate batches), 2 CTAs an SM, and mf = 128 in the
-    sequential launch."""
-    check(regs_batch(nfft) >= 1,
-          f"nfft={nfft}: a batch of the whole-file chain is {REGS_THREADS * 16} points, "
-          f"so nfft <= {REGS_THREADS * 16}")
+    sequential launch.  At nfft 8192 (one transform a batch, 512 threads,
+    one exchange buffer, the span in device memory) one CTA an SM and
+    mf = 31 (hop 2048: 34 frames, 17 gate batches), 32 for the sequential
+    launch; past it a ValueError names SMEM_LIMIT."""
     halo = 0 if sequential else nfft // hop - 1
     nfb = 2 * regs_batch(nfft)
     blk = nfft - (taps - 1)
@@ -189,6 +221,24 @@ def regs_geometry(nfft: int, hop: int, taps: int, sequential: bool = False,
           f"nfft={nfft}, hop={hop}, taps={taps} need more shared memory per block "
           f"than SMEM_LIMIT ({SMEM_LIMIT} bytes) for one batch of frames")
     return best[1]
+
+
+def regs_span_rows(nfft: int, hop: int, geo: dict, channels: int, out_len: int,
+                   sequential: bool, device: torch.device):
+    """The CTAs' spans of a launch of the batched body in device memory
+    (``span_rows`` of ``asp::fir_gate_regs``): at nfft 8192 a row of
+    ``geo["span"]`` floats for each CTA, (channel, tile) or one CTA a
+    channel in the sequential launch; else None (a null pointer: the span
+    is in shared memory)."""
+    if not regs_one_buffer(nfft):
+        return None
+    ctas = channels * (1 if sequential else -(-out_len // (geo["mf"] * hop)))
+    return torch.empty((ctas, geo["span"]), dtype=torch.float32, device=device)
+
+
+def data_ptr(t: torch.Tensor | None):
+    """A tensor's device address for ctypes, None (NULL) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def regs_info(symbol: str, nfft: int, sequential: bool, smem: int,
@@ -255,7 +305,7 @@ def gate_geometry(nfft: int, hop: int, sequential: bool) -> dict:
 @functools.cache
 def _lib():
     fn = _build.load().asp_noise_gate
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -300,10 +350,11 @@ def noise_gate_fused(x: torch.Tensor, nfft: int = 1024, hop: int = 256,
     head = xf[:, : nfft - hop + noise_frames * hop]
     floor = noise_floor(frame(head, nfft, hop) * win).contiguous()
     out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
+    spans = regs_span_rows(nfft, hop, geo, channels, out_len, release > 0.0, dev)
     rc = _lib()(
         xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(), twf.data_ptr(),
-        twi.data_ptr(), inv_tab.data_ptr(), channels, n, nfft, nfft.bit_length() - 1, hop,
-        nframes,
+        twi.data_ptr(), inv_tab.data_ptr(), data_ptr(spans), channels, n, nfft,
+        nfft.bit_length() - 1, hop, nframes,
         geo["mf"], int(release > 0.0), float(10.0 ** (threshold_db / 20.0)),
         float(10.0 ** (-reduction_db / 20.0)), float(release), geo["smem"], dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -366,7 +417,7 @@ def gate_shard_ref(x_ext: torch.Tensor, floor_half: torch.Tensor, n_valid: int,
 @functools.cache
 def _shard_lib():
     fn = _build.load().asp_gate_shard
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -403,9 +454,11 @@ def gate_shard_fused(x_ext: torch.Tensor, floor_half: torch.Tensor, n_valid: int
     geo = gate_geometry(nfft, hop, False)
     win, twf, twi, _ = file_tables(nfft, hop, window_kind, dev)
     out = torch.empty((channels, n_ext), dtype=torch.float32, device=dev)
+    spans = regs_span_rows(nfft, hop, geo, channels, n_ext, False, dev)
     rc = _shard_lib()(
         xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(), twf.data_ptr(),
-        twi.data_ptr(), channels, n_ext, nfft, nfft.bit_length() - 1, hop, n_valid, geo["mf"],
+        twi.data_ptr(), data_ptr(spans), channels, n_ext, nfft, nfft.bit_length() - 1, hop,
+        n_valid, geo["mf"],
         float(10.0 ** (threshold_db / 20.0)), float(10.0 ** (-reduction_db / 20.0)),
         geo["smem"], dev.index, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "gate_shard")
@@ -640,10 +693,14 @@ def ola_ring(nfft: int, hop: int) -> int:
 
 def gate_step_args(x2d: torch.Tensor, x_ld: int, state: dict, out: torch.Tensor,
                    *, nfft, hop, threshold_db, reduction_db, noise_frames,
-                   release, window_kind, input_latency, latency, eof_in):
+                   release, window_kind, input_latency, latency, eof_in,
+                   scratch: bool = True):
     """Check a step's geometry, allocate the new gate carry and fill the
-    kernel's argument struct.  Returns (args, new_state, keep): ``keep``
-    holds the tensors the struct points to until the launch is queued."""
+    kernel's argument struct (``scratch`` False: no scratch rows for the
+    spectra the block pops itself, which the FIR -> gate step body keeps
+    in shared memory where they fit).  Returns (args, new_state, keep):
+    ``keep`` holds the tensors the struct points to until the launch is
+    queued."""
     dev = x2d.device
     channels, b = x2d.shape
     check(0 < channels <= 65535, f"{channels} channels: 1..65535 per launch")
@@ -664,15 +721,16 @@ def gate_step_args(x2d: torch.Tensor, x_ld: int, state: dict, out: torch.Tensor,
     check(all(v.dtype == torch.float32 and v.device == dev for v in cur.values()),
           "the gate carry must be float32 on the input's device")
     new = {k: torch.empty_like(v) for k, v in cur.items()}
-    scratch = torch.empty((2, channels, max(m - nf, 0), nb), dtype=torch.float32,
-                          device=dev)
+    rows = torch.empty((2, channels, max(m - nf, 0), nb) if scratch else (2, 0),
+                       dtype=torch.float32, device=dev)
     ptr = lambda d_, k: d_[k].data_ptr() if k in d_ else None
     args = GateStepArgs(
         x2d.data_ptr(), out.data_ptr(), *(ptr(cur, k) for k in (
             "in_tail", "fifo_r", "fifo_i", "floor_sum", "ola_tail", "rel")),
         *(ptr(new, k) for k in (
             "in_tail", "fifo_r", "fifo_i", "floor_sum", "ola_tail", "rel")),
-        scratch[0].data_ptr(), scratch[1].data_ptr(), tabs["win"].data_ptr(),
+        *((rows[0].data_ptr(), rows[1].data_ptr()) if scratch else (None, None)),
+        tabs["win"].data_ptr(),
         tabs["tw"].data_ptr(), tabs["inv_head"].data_ptr(),
         tabs["inv_tail"].data_ptr(),
         channels, x_ld, b, nfft, nfft.bit_length() - 1, hop, nf, pos, floor_n,
@@ -681,7 +739,7 @@ def gate_step_args(x2d: torch.Tensor, x_ld: int, state: dict, out: torch.Tensor,
         float(10.0 ** (threshold_db / 20.0)), float(10.0 ** (-reduction_db / 20.0)),
         float(release), tabs["inv_const"])
     new_state = dict(new, floor_n=floor_n + sum(take), pos=pos + b)
-    return args, new_state, (cur, scratch)
+    return args, new_state, (cur, rows)
 
 
 def gate_step_fused(x: torch.Tensor, state: dict, *, nfft: int, hop: int,

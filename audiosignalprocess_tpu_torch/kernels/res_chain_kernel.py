@@ -33,23 +33,21 @@ import torch
 
 from audiosignalprocess_tpu_torch.kernels import _build
 from audiosignalprocess_tpu_torch.kernels._build import (
-    SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
+    check_cuda_f32, kernel_fn, raise_on_error, rows_view,
 )
 from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
     _check_guards, filtered_floor, fir_gate_step_args, fir_gate_step_ref,
-    fir_noise_gate_ref, gate_tables,
+    fir_noise_gate_ref, gate_tables, step_cluster, step_regs_geometry,
 )
-from audiosignalprocess_tpu_torch.kernels.gate_kernel import regs_geometry, regs_info
+from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
+    data_ptr, regs_geometry, regs_info, regs_span_rows,
+)
 from audiosignalprocess_tpu_torch.kernels.os_kernel import check_os_geometry
 from audiosignalprocess_tpu_torch.kernels.resample_kernel import bank_table, res_window
 from audiosignalprocess_tpu_torch.ops.resample import (
     reduce_ratio, resample_poly, stream_geometry, taps_per_phase,
 )
 from audiosignalprocess_tpu_torch.utils.validate import check
-
-RES_TILE = 2048
-"""Resampled outputs per pass of the step kernel (``kResTile``)."""
-
 
 def _ratio(up: int, down: int, h_res) -> tuple[int, int, np.ndarray]:
     up, down, h_res = reduce_ratio(up, down, h_res)
@@ -73,7 +71,7 @@ def resample_fir_gate_ref(x: torch.Tensor, up: int, down: int, h_fir, h_res=None
 @functools.cache
 def _lib():
     fn = _build.load().asp_res_fir_noise_gate
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
                    + [ctypes.c_float] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -120,10 +118,11 @@ def resample_fir_gate_fused(x: torch.Tensor, up: int, down: int, h_fir, h_res=No
                          h=h_res, zero_phase=False)
     floor = filtered_floor(head, h, nfft, hop, noise_frames, win)
     out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
+    spans = regs_span_rows(nfft, hop, geo, channels, out_len, release > 0.0, dev)
     rc = _lib()(
         xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(),
         hf.data_ptr(), twf.data_ptr(), twi.data_ptr(), inv_tab.data_ptr(),
-        bank_table(h_res.tobytes(), up, dev).data_ptr(),
+        bank_table(h_res.tobytes(), up, dev).data_ptr(), data_ptr(spans),
         channels, n, n_res, up, down, nk, nfft, nfft.bit_length() - 1, hop, len(h),
         nframes, geo["mf"], int(release > 0.0),
         float(10.0 ** (threshold_db / 20.0)),
@@ -182,7 +181,7 @@ class ResStepArgs(ctypes.Structure):
     ResStepArgs`` of ``csrc/res_fir_gate_step_kernel.cu``."""
 
     _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "x", "res_hist", "res_hist_out", "resampled", "bank")]
+        "x", "res_hist", "res_hist_out", "bank")]
         + [(name, ctypes.c_int) for name in ("x_ld", "b_in", "hn", "up", "down", "nk")])
 
 
@@ -216,9 +215,11 @@ def res_fir_gate_step_fused(x: torch.Tensor, state: list, up: int, down: int, h_
     ``eof_in`` are in resampled samples, the gate's domain.
 
     A CPU tensor runs ``res_fir_gate_step_ref``.  A CUDA float32 tensor
-    launches the kernel: one CTA per channel resamples the block, filters
-    it, gates it and, with ``env_h``, runs the envelope tail.  Any other
-    tensor raises.
+    launches the kernel: one CTA per channel resamples the block straight
+    into the FIR's span in shared memory, filters it, gates it and, with
+    ``env_h``, runs the envelope tail, on ``fir_gate_step_fused``'s body
+    (``chain_kernel.step_regs_geometry`` sizes it).  Any other tensor
+    raises.
     """
     up, down, h_res = _ratio(up, down, h_res)
     h = np.ascontiguousarray(h_fir, dtype=np.float64)
@@ -239,17 +240,14 @@ def res_fir_gate_step_fused(x: torch.Tensor, state: list, up: int, down: int, h_
     check(res_hist.dtype == torch.float32 and res_hist.device == dev,
           "the resampler history must be float32 on the input's device")
     hn, b_out = stream_geometry(b_in, up, down, len(h_res), res_hist, False)
-    resampled = torch.empty((channels, b_out), dtype=torch.float32, device=dev)
-    args, fargs, fg, out, smem, _keep = fir_gate_step_args(
-        resampled, b_out, state[1], h, env_h=env_h, env_scale=env_scale, **kw)
     nk = taps_per_phase(len(h_res), up)
-    smem += 4 * (up * nk + res_window(RES_TILE, up, down, nk))
-    check(smem <= SMEM_LIMIT,
-          f"nfft={nfft}, hop={hop}, the envelope taps and {up}/{down} need {smem} "
-          f"bytes of shared memory per block, more than {SMEM_LIMIT}")
+    # the resampled block never leaves the CTA: its shape stands in for the
+    # FIR -> gate body's input rows (GateStepArgs.x, unread by this kernel)
+    shape = torch.empty((1, 1), dtype=torch.float32, device=dev).expand(channels, b_out)
+    args, fargs, fg, out, smem, _keep = fir_gate_step_args(
+        shape, b_out, state[1], h, env_h=env_h, env_scale=env_scale, res=(up, down, nk), **kw)
     hist_out = torch.empty_like(res_hist)
     rargs = ResStepArgs(x2d.data_ptr(), res_hist.data_ptr(), hist_out.data_ptr(),
-                        resampled.data_ptr(),
                         bank_table(h_res.tobytes(), up, dev).data_ptr(),
                         x_ld, b_in, hn, up, down, nk)
     rc = kernel_fn("asp_res_fir_gate_step", 3)(
@@ -262,3 +260,21 @@ def res_fir_gate_step_fused(x: torch.Tensor, state: list, up: int, down: int, h_
 
 
 res_fir_gate_step_fused.launches = 0
+
+
+def res_fir_gate_step_info(up: int = 160, down: int = 147, h_res=None, nfft: int = 1024,
+                           hop: int = 256, taps: int = 64, env_taps: int = 0,
+                           block: int = 4704, noise_frames: int = 8, release: float = 0.0,
+                           device=None) -> dict:
+    """``res_fir_gate_step_fused``'s kernel at this geometry (``block`` raw
+    samples) on a CUDA device: ``regs_info`` (registers, local bytes, CTAs
+    an SM) with the frames a segment and shared memory of its launch."""
+    up, down, h_res = _ratio(up, down, h_res)
+    nk = taps_per_phase(len(h_res), up)
+    cluster = step_cluster(nfft)
+    geo = step_regs_geometry(nfft, hop, taps, env_taps, block * up // down, noise_frames,
+                             (up, down, nk), cluster)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return dict(regs_info("asp_res_fir_gate_step_info", nfft, release > 0.0, geo["smem"], dev),
+                cluster=cluster, fs=geo["fs"], smem=geo["smem"])
+

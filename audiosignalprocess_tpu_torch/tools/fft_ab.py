@@ -2,7 +2,7 @@
 whole-file chain kernels) between checkouts, on one card.
 
     python -m audiosignalprocess_tpu_torch.tools.fft_ab PARENT CHANGE [MORE ...]
-        [--out DIR] [--quick] [--sizes N ...] [--chain]
+        [--out DIR] [--quick] [--sizes N ...] [--chain] [--sass]
 
 runs, from each checkout's own ``chip_smoke.py`` and package:
 
@@ -32,9 +32,16 @@ shard (shard 1 of chip_smoke's four of 64 x 479232) on ``bench.py``'s
 white noise, each call with its wrapper's prologue, 6 reps round-robin:
 the device time of 10 calls queued behind ``torch.cuda._sleep`` (about
 50 ms, so the wrappers' host prologues do not pace them) and
-chip_smoke's ``time_ms``; ``[ab ptxas]`` then gives the kernels'
-registers and spills, and ``[ab chain]`` their registers, local memory
-and CTAs an SM from the CUDA runtime where the checkout has the query.
+chip_smoke's ``time_ms``; and the two FIR -> gate step kernels at
+chip_smoke's phase 9b shape (64 channels, one block of 4096 or 4704 raw
+samples, the carry after 12 blocks of white noise; ``fir_gate_step_fused``
+also with the 129-tap envelope), 20 launches queued behind the sleep;
+in a checkout whose whole-file body runs at nfft 8192 the four
+whole-file kernels also at 8192/2048 (64 x 480000; ``noise_gate_fused``
+also with release 0.6, the sequential launch);
+``[ab ptxas]`` then gives the kernels' registers and spills, and ``[ab
+chain]`` their registers, local memory and CTAs an SM from the CUDA
+runtime where the checkout has the query.
 Without ``--quick`` each checkout first runs its own kernels on
 chip_smoke's phase 3 and 10 cases and on gate cases (tone bursts from
 fixed seeds; the gate alone at nfft 256 to 4096, release 0 to 0.9, and
@@ -42,6 +49,13 @@ shards with all, some and one valid frame) and prints ``[ab chain]
 reading`` lines: SNR against the float64 plain version and the plain
 gate's flipped decisions, so the parent's readings stand beside the
 change's.
+
+``--sass`` then compares the built libraries' SASS (``cuobjdump -sass``)
+of the first checkout with each other one, kernel by kernel (demangled
+names without parameters, a thread-count template argument of 256
+dropped, instructions without addresses or encodings): ``[ab sass]``
+lines count the identical kernels and list the others with their
+instruction counts and how many instructions differ.
 
 ``--quick`` runs only the timing.  The checkouts run in mirrored turns
 (parent, change, change, parent; A, B, C, C, B, A for three), one process
@@ -98,9 +112,9 @@ GATE_CASES = [  # (channels, n, release, nfft, hop): the gate alone
 
 log = _build.build()[1].splitlines()
 chain = "--chain" in sys.argv
-kern = "noise_gate_kernel" if chain else "rfft_stockham_kernel"
+kern = ("noise_gate_kernel", "fir_gate_step_kernel") if chain else ("rfft_stockham_kernel",)
 for i, line in enumerate(log):  # ptxas's report of the timed kernels, where this call built them
-    if "Compiling entry function" in line and kern in line:
+    if "Compiling entry function" in line and any(k in line for k in kern):
         name = line.split("'")[1]
         used = next((x.split(":", 1)[-1].strip() for x in log[i + 1:i + 6] if "Used" in x), "")
         spill = next((x.split(":", 1)[-1].strip() for x in log[i + 1:i + 6] if "spill" in x), "")
@@ -222,11 +236,59 @@ if chain:
             "noise_gate_fused 64": lambda: noise_gate_fused(xa),
             "noise_gate_fused 8": lambda: noise_gate_fused(xg8),
             "gate_shard_fused": lambda: gate_shard_fused(ext, floor, nv, cs.NFFT, cs.HOP)}
-    got = {arm: [] for arm in arms}
+    if hasattr(gk, "REGS_MAX_NFFT"):  # a checkout whose whole-file body runs at nfft 8192
+        from audiosignalprocess_tpu_torch.ops.stft import frame
+        big = dict(nfft=8192, hop=2048)
+        big_ext = xs[:, : 58 * 2048 + 6144].contiguous()  # a shard of 58 hops and its halo
+        big_floor = gk.noise_floor(frame(big_ext[:, : 6144 + cs.NOISE_FRAMES * 2048], 8192, 2048)
+                                   * gk.file_tables(8192, 2048, "hann", dev)[0]).contiguous()
+        arms.update({
+            "fir_noise_gate_fused 8192": lambda: fir_noise_gate_fused(xa, h, **big),
+            "resample_fir_gate_fused 8192":
+                lambda: resample_fir_gate_fused(xr, cs.UP, cs.DOWN, h, **big),
+            "noise_gate_fused 8192": lambda: noise_gate_fused(xa, **big),
+            "noise_gate_fused 8192 release 0.6": lambda: noise_gate_fused(xa, release=0.6, **big),
+            "gate_shard_fused 8192":
+                lambda: gate_shard_fused(big_ext, big_floor, 58, 8192, 2048)})
+        for name, info in (("noise_gate_fused", lambda: gk.noise_gate_info(8192, 2048, 0.0, dev)),
+                           ("fir_noise_gate_fused",
+                            lambda: ck.fir_noise_gate_info(8192, 2048, cs.TAPS, 0.0, dev)),
+                           ("resample_fir_gate_fused", lambda: rk.resample_fir_gate_info(
+                               cs.UP, cs.DOWN, h, nfft=8192, hop=2048, device=dev))):
+            print(f"[ab chain] {name} nfft 8192 on {smi}: {info()}")
+    # the step kernels at chip_smoke's phase 9b shape: 64 channels, one
+    # block (BLOCK, or RES_BLOCK raw for the resampler) with the carry after
+    # STEP_WARM blocks of white noise, 20 launches queued behind the sleep
+    from audiosignalprocess_tpu_torch.pipeline import Chain, FIRGateStage, ResFIRGateStage
+    gate = dict(nfft=cs.NFFT, hop=cs.HOP, noise_frames=cs.NOISE_FRAMES)
+    steps = {"fir_gate_step_fused": (FIRGateStage(h=h, **gate), cs.BLOCK),
+             "fir_gate_step_fused + envelope": (
+                 FIRGateStage(h=h, env_h=design_fir(cs.ENV_TAPS, 0.01), **gate), cs.BLOCK),
+             "res_fir_gate_step_fused": (ResFIRGateStage(cs.UP, cs.DOWN, h=h, **gate),
+                                         cs.RES_BLOCK)}
+    step_arms = {}
+    for name, (stage, block) in steps.items():
+        sc = Chain([stage])
+        xb = torch.as_tensor(np.random.default_rng(9).standard_normal(
+            (64, (cs.STEP_WARM + 1) * block)), dtype=torch.float32, device=dev)
+        st = sc.init_state((64,), block, torch.float32, dev)
+        for k in range(cs.STEP_WARM):
+            st, _ = sc.step(st, xb[:, k * block:(k + 1) * block])
+        step_arms[name] = (lambda sc=sc, st=st, xl=xb[:, cs.STEP_WARM * block:]:
+                           sc.step(st, xl))
+    for name, info in (("fir_gate_step_fused", "fir_gate_step_info"),
+                       ("res_fir_gate_step_fused", "res_fir_gate_step_info")):
+        mod = ck if name.startswith("fir") else rk
+        if hasattr(mod, info):  # a checkout with the step on the batched body
+            print(f"[ab chain] {name} on {smi}: {getattr(mod, info)(device=dev)}")
+    got = {arm: [] for arm in [*arms, *step_arms]}
     for _ in range(6):
         for arm, fn in arms.items():
             got[arm].append((queued_ms(fn, reps=10, cycles=10 ** 8),  # the prologue's host time
                              cs.time_ms(fn, reps=10, warmup=2)))
+        for arm, fn in step_arms.items():
+            got[arm].append((queued_ms(fn, reps=20, cycles=10 ** 8),
+                             cs.time_ms(fn, reps=20, warmup=2)))
     print(f"[ab chain] {smi}, 6 reps round-robin, medians: " + "; ".join(
         f"{arm} queued device {np.median([r[0] for r in v]):.4f} ms (reps "
         f"{', '.join(f'{r[0]:.4f}' for r in v)}), time_ms {np.median([r[1] for r in v]):.4f} ms"
@@ -262,6 +324,55 @@ for n in sizes:
         for arm, v in got.items()))
 """
 
+def sass_kernels(lib: Path, tools: Path) -> dict:
+    """Each kernel's SASS in a built library: {key: instructions}, the key
+    its demangled name without parameters and with a thread-count template
+    argument of 256 dropped, the instructions without addresses or
+    encodings."""
+    import re
+
+    text = subprocess.run([str(tools / "cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = []
+        elif name and (m := re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)):
+            funcs[name].append(m[1])
+    names = list(funcs)
+    plain = subprocess.run([str(tools / "cu++filt")], input="".join(n + "\n" for n in names),
+                           capture_output=True, text=True, check=True).stdout.splitlines()
+    key = lambda d: re.sub(r", (\(int\))?256>$", ">",
+                           re.sub(r"^void |\([^()]*\)$", "", d.strip()))
+    return {key(d): funcs[n] for n, d in zip(names, plain)}
+
+
+def sass_compare(roots: list[str]) -> None:
+    """[ab sass]: the first checkout's kernels against each other one's."""
+    from audiosignalprocess_tpu_torch.kernels._build import _nvcc
+
+    tools = Path(_nvcc()).parent
+    libs = [max((Path(r) / "audiosignalprocess_tpu_torch" / "_build").glob("libasp_kernels_*.so"),
+                key=lambda f: f.stat().st_mtime) for r in roots]
+    base = sass_kernels(libs[0], tools)
+    for root, lib in zip(roots[1:], libs[1:]):
+        other = sass_kernels(lib, tools)
+        same = sorted(k for k in base.keys() & other.keys() if base[k] == other[k])
+        diff = sorted(k for k in base.keys() & other.keys() if base[k] != other[k])
+        print(f"[ab sass] {roots[0]} against {root}: {len(same)} kernels identical, "
+              f"{len(diff)} differ, {len(base.keys() - other.keys())} only in the first, "
+              f"{len(other.keys() - base.keys())} only in the second")
+        for k in same:
+            print(f"[ab sass] identical: {k} ({len(base[k])} instructions)")
+        for k in diff:
+            a, b = base[k], other[k]
+            n = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+            i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            print(f"[ab sass] differs: {k}: {len(a)} against {len(b)} instructions, "
+                  f"{n} differ in place, the first at {i}: {a[i:i + 3]} against {b[i:i + 3]}")
+
+
 SHOWN = ("[16 times] fft_stockham_lanes", "[16 times] rfft_stockham",
          "[16 times] irfft_stockham", "[16 times] bench.py", "[16 times] copy probe",
          "[25 times]", "[14 kernel] FFT worst", "[14 real] worst",
@@ -279,6 +390,8 @@ def main(argv=None) -> int:
                    help="row lengths of the [ab real] timing (4096 rows each)")
     p.add_argument("--chain", action="store_true",
                    help="time the whole-file chain kernels ([ab chain]) instead")
+    p.add_argument("--sass", action="store_true",
+                   help="then compare the built libraries' SASS ([ab sass])")
     args = p.parse_args(argv)
     if len(args.roots) < 2:
         p.error("two or more checkouts")
@@ -300,6 +413,8 @@ def main(argv=None) -> int:
         if proc.returncode != 0:
             print(f"[{i} {label}] exit {proc.returncode}; see {log}:\n{proc.stderr[-3000:]}")
             return 1
+    if args.sass:
+        sass_compare(args.roots)
     return 0
 
 

@@ -65,6 +65,14 @@ audio, counting the kernel launches of each run:
   the JAX A/B's protocol (arms round-robin, each bracketed by a copy
   probe).
 
+- the whole-file kernels on the batched body at nfft 8192, hop 2048 (one
+  transform of 512 threads a batch, one exchange buffer, the span in
+  device memory: phase 26):
+  ``noise_gate_fused``, ``fir_noise_gate_fused``,
+  ``resample_fir_gate_fused`` and ``gate_shard_fused`` against their
+  plain versions, each raising a ValueError naming SMEM_LIMIT at nfft
+  16384, and their device time at 64 x 480000.
+
 It times each kernel against its plain version, each path per stream, and
 the FFTs against torch.fft and a copy-bandwidth probe.  Every phase prints
 its lines and raises on failure.  The second-to-last line is the kernels'
@@ -77,7 +85,8 @@ queued behind a sleep of the card (``device_ms``, ``library_device_ms``);
 ``device_ms`` is also the queued device time of a whole-file call of the
 chain and gate kernels, and for the six stream kernels that of one launch
 at its stream's block shape (phase 9b, which ranks them by launches x
-(device time - bound) a launch); the last line is ``{"ok": true,
+(device time - bound) a launch, and gives the two FIR -> gate step
+kernels' registers, local bytes and CTAs an SM); the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it exits
 1 and prints no result.  Imports nothing of JAX.
 """
@@ -244,11 +253,14 @@ def flips_text(snr, flips):
 
 
 def chain_ptxas(log, kernel):
-    """ptxas's registers and spills of each instantiation <R, RS, release>
-    of a whole-file kernel on the batched body (``kernel``: its function's
-    name, ``fir_noise_gate_kernel``, ``res_fir_noise_gate_kernel`` or
-    ``noise_gate_kernel``) in the build log (none where this process did
-    not build)."""
+    """ptxas's registers and spills of each instantiation of a kernel on the
+    batched bodies (``kernel``: its function's name) in the build log (none
+    where this process did not build): <R, RS, release> of the whole-file
+    kernels (``fir_noise_gate_kernel``, ``res_fir_noise_gate_kernel``,
+    ``noise_gate_kernel``; <R, RS, release, 512> for the 512-thread one of
+    nfft 8192), <R, RS, threads> of the step kernels
+    (``fir_gate_step_kernel``, ``res_fir_gate_step_kernel``: a cluster of
+    two CTAs a channel at 256 threads, one CTA at 512)."""
     import re
 
     out, name = [], None
@@ -256,8 +268,13 @@ def chain_ptxas(log, kernel):
         if "Compiling entry function" in line:
             ent = line.split("'")[1]
             hit = f"{len(kernel)}{kernel}I" in ent  # the mangled name's identifier
-            m = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", ent)
-            name = f"<{m[1]},{m[2]},{m[3]}>" if hit and m else None
+            m = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E(?:Li(\d+)E)?", ent)
+            step = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", ent)
+            if hit and m:
+                threads = f",{m[4]}" if m[4] and m[4] != "256" else ""
+                name = f"<{m[1]},{m[2]},{m[3]}{threads}>"
+            else:
+                name = f"<{step[1]},{step[2]},{step[3]}>" if hit and step else None
         elif name and "spill stores" in line:
             spill = line.split(",")[1].strip()
         elif name and "Used" in line:
@@ -1174,7 +1191,7 @@ def earlier_bounds(record, h, h_env, xn, blocks, res_blocks):
     record["overlap_save_fused"]["library_ms"] = conv_ms(xn, h)
 
 
-def step_device_phase(dev, smi, record, kernels, h, h_env):
+def step_device_phase(dev, smi, record, kernels, h, h_env, log=""):
     """Phase 9b: the device time of one launch of each stream kernel at its
     stream's block shape (64 channels; BLOCK, or RES_BLOCK for the
     resampler), the carry in place: a one-stage chain stepped through
@@ -1229,9 +1246,184 @@ def step_device_phase(dev, smi, record, kernels, h, h_env):
     print(f"[9b rank] launches x (device time - bound) a launch, on {smi}: " + "; ".join(
         f"{name} {n_l} x ({ms:.4f} - {b:.4f}) = {cost:.4f} ms"
         for cost, name, ms, b, n_l in sorted(rank, reverse=True)))
+    from audiosignalprocess_tpu_torch.kernels.chain_kernel import fir_gate_step_info
+    from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import res_fir_gate_step_info
+
+    def big_step_info(info, block, **kw):  # at nfft 8192
+        return info(nfft=BIG_NFFT, hop=BIG_HOP, block=block, device=dev, **kw)
+
+    big_res = 5 * BIG_HOP * DOWN // UP  # raw samples: 5 resampled hops
+
+    print(f"[9b kernel] the step kernels on the batched register body on {smi}, from the CUDA "
+          f"runtime (registers, local bytes a thread, CTAs an SM by the occupancy API; fs: new "
+          f"frames a segment): fir_gate_step_fused {c}x{BLOCK} "
+          f"{fir_gate_step_info(block=BLOCK, device=dev)}, with the envelope "
+          f"{fir_gate_step_info(env_taps=len(h_env), block=BLOCK, device=dev)}, release 0.6 "
+          f"{fir_gate_step_info(block=BLOCK, release=0.6, device=dev)}; "
+          f"res_fir_gate_step_fused {c}x{RES_BLOCK} "
+          f"{res_fir_gate_step_info(block=RES_BLOCK, device=dev)}, with the envelope "
+          f"{res_fir_gate_step_info(env_taps=len(h_env), block=RES_BLOCK, device=dev)}; at "
+          f"nfft {BIG_NFFT} (512 threads, one CTA a channel): fir_gate_step_fused "
+          f"{c}x{4 * BIG_HOP} {big_step_info(fir_gate_step_info, 4 * BIG_HOP)}, with the "
+          f"envelope {big_step_info(fir_gate_step_info, 4 * BIG_HOP, env_taps=len(h_env))}, "
+          f"release 0.6 {big_step_info(fir_gate_step_info, 4 * BIG_HOP, release=0.6)}; "
+          f"res_fir_gate_step_fused {c}x{big_res} "
+          f"{big_step_info(res_fir_gate_step_info, big_res)}, with the envelope "
+          f"{big_step_info(res_fir_gate_step_info, big_res, env_taps=len(h_env))}; "
+          f"ptxas <R,RS,threads>: fir_gate_step_kernel "
+          f"{chain_ptxas(log, 'fir_gate_step_kernel')}"
+          f"; res_fir_gate_step_kernel {chain_ptxas(log, 'res_fir_gate_step_kernel')}")
 
 
 STEP_WARM = 12  # blocks stepped before a step kernel's timed launch
+
+BIG_NFFT, BIG_HOP = 8192, 2048  # the whole-file kernels' largest transform: 512 threads, one buffer
+BIG_N = 69632  # the input of the nfft 8192 fault (ROADMAP Queue 3)
+
+
+def big_nfft_input(dev, n=BIG_N):
+    """(1, n) float64: 0.01 x default_rng(0) noise plus a unit 440 Hz sine
+    over the middle third."""
+    x = 0.01 * np.random.default_rng(0).standard_normal((1, n))
+    t = np.arange(n) / FS
+    x[0, n // 3: 2 * n // 3] += np.sin(2 * np.pi * 440.0 * t[n // 3: 2 * n // 3])
+    return torch.as_tensor(x, device=dev)
+
+
+def big_nfft_phase(dev, smi, kernels, log=""):
+    """Phase 26: the four whole-file kernels at nfft 8192, hop 2048 (one
+    transform of 512 threads a batch, one exchange buffer): each against
+    its float64 plain version (>= 60 dB, flips counted, one launch, no
+    other kernel) at release 0 and 0.6 on the fault's input, each raising
+    a ValueError naming SMEM_LIMIT at nfft 16384 with no launch, and their
+    device time at 64 x 480000 (the shard's on 59 hops and its spill; 10
+    calls queued behind a sleep) beside the bound, with registers, local
+    bytes and CTAs an SM."""
+    from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
+        fir_noise_gate_fused, fir_noise_gate_info, fir_noise_gate_ref,
+    )
+    from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
+        gate_shard_fused, gate_shard_ref, noise_floor, noise_gate_fused, noise_gate_info,
+        noise_gate_ref,
+    )
+    from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import (
+        resample_fir_gate_fused, resample_fir_gate_info, resample_fir_gate_ref,
+    )
+    from audiosignalprocess_tpu_torch.ops.fir import design_fir
+    from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
+    from audiosignalprocess_tpu_torch.ops.resample import resample_filter, resample_poly
+    from audiosignalprocess_tpu_torch.ops.stft import frame
+    from audiosignalprocess_tpu_torch.ops.windows import window
+    from audiosignalprocess_tpu_torch.utils.metrics import snr_db
+
+    nfft, hop, d = BIG_NFFT, BIG_HOP, BIG_NFFT - BIG_HOP
+    h = design_fir(TAPS, 0.3)
+    x = big_nfft_input(dev)
+    xr = x[:, : BIG_N * DOWN // UP]
+    ext = x[:, : 30 * hop + d]
+    w = window("hann", nfft, periodic=True, dtype=torch.float64, device=dev)
+    floor = noise_floor(frame(ext[:, : d + NOISE_FRAMES * hop], nfft, hop) * w)
+    u = resample_poly(xr, UP, DOWN, zero_phase=False)
+    flips = {"noise_gate_fused": decision_flips(x, nfft, hop),
+             "fir_noise_gate_fused": decision_flips(overlap_save(x, h, nfft, impl="torch"),
+                                                    nfft, hop),
+             "resample_fir_gate_fused": decision_flips(overlap_save(u, h, nfft, impl="torch"),
+                                                       nfft, hop),
+             "gate_shard_fused": decision_flips(ext, nfft, hop)}
+    for release in (0.0, 0.6):
+        kw = dict(nfft=nfft, hop=hop, release=release)
+        n_valid = 27 if release else 30  # the shard has no release: fewer valid frames
+        runs = {"noise_gate_fused": (lambda: noise_gate_fused(x.float(), **kw),
+                                     lambda: noise_gate_ref(x, **kw)),
+                "fir_noise_gate_fused": (lambda: fir_noise_gate_fused(x.float(), h, **kw),
+                                         lambda: fir_noise_gate_ref(x, h, **kw)),
+                "resample_fir_gate_fused": (
+                    lambda: resample_fir_gate_fused(xr.float(), UP, DOWN, h, **kw),
+                    lambda: resample_fir_gate_ref(xr, UP, DOWN, h, **kw)),
+                "gate_shard_fused": (
+                    lambda: gate_shard_fused(ext.float(), floor.float(), n_valid, nfft, hop),
+                    lambda: gate_shard_ref(ext, floor, n_valid, nfft, hop))}
+        for name, (fn, plain) in runs.items():
+            before = {k.__name__: k.launches for k in kernels}
+            y = fn()
+            torch.cuda.synchronize()
+            launched = {k.__name__: k.launches - before[k.__name__] for k in kernels
+                        if k.launches != before[k.__name__]}
+            ref = plain()
+            snr = snr_db(ref, y)
+            line = (f"[26 kernel] {name} nfft={nfft} hop={hop} "
+                    + (f"n_valid={n_valid}" if name == "gate_shard_fused" else
+                       f"release={release}")
+                    + f" on {tuple(x.shape)}: shape {tuple(y.shape)} launches={launched} "
+                    f"snr_vs_f64_plain={snr:.2f} dB" + flips_text(snr, flips[name]))
+            print(line)
+            if not (tuple(y.shape) == tuple(ref.shape) and bool(torch.isfinite(y).all())
+                    and snr >= SNR_MIN_DB and launched == {name: 1}):
+                raise SystemExit(f"phase 26 failed: {line}")
+    # nfft 16384: one transform needs more shared memory than a block has
+    x16 = big_nfft_input(dev, 4 * 16384).float()
+    kw16 = dict(nfft=16384, hop=4096)
+    for name, fn in (("noise_gate_fused", lambda: noise_gate_fused(x16, **kw16)),
+                     ("fir_noise_gate_fused", lambda: fir_noise_gate_fused(x16, h, **kw16)),
+                     ("resample_fir_gate_fused",
+                      lambda: resample_fir_gate_fused(x16, UP, DOWN, h, **kw16)),
+                     ("gate_shard_fused", lambda: gate_shard_fused(
+                         x16[:, : 8 * 4096 + 12288], torch.ones(1, 8193, device=dev), 5,
+                         **kw16))):
+        before = sum(k.launches for k in kernels)
+        try:
+            fn()
+        except ValueError as err:
+            ok = "SMEM_LIMIT" in str(err) and sum(k.launches for k in kernels) == before
+            print(f"[26 kernel] {name} nfft=16384 hop=4096 raises: {str(err)[:150]}")
+            if not ok:
+                raise SystemExit(f"phase 26 failed: {name} at nfft 16384: {err}")
+        else:
+            raise SystemExit(f"phase 26 failed: {name} ran at nfft 16384")
+    # times at the headline width
+    xn = torch.as_tensor(np.random.default_rng(0).standard_normal(HEADLINE).astype(np.float32),
+                         device=dev)
+    xrn = torch.as_tensor(np.random.default_rng(0).standard_normal(RES_HEADLINE)
+                          .astype(np.float32), device=dev)
+    c, n = HEADLINE
+    frames = 1 + (n - nfft) // hop
+    res_frames = 1 + (RES_OUT - nfft) // hop
+    nk = -(-len(resample_filter(UP, DOWN)) // UP)
+    l_big = 59 * hop  # one shard of the sharded gate's width at this hop
+    ext_n = xn[:, : l_big + d]
+    floor_n = noise_floor(frame(ext_n[:, : d + NOISE_FRAMES * hop], nfft, hop)
+                          * w.float()).contiguous()
+    timed = {  # name: (call, bytes, operations)
+        "noise_gate_fused": (lambda: noise_gate_fused(xn, nfft, hop), 8 * c * n,
+                             c * fft_flops(nfft, frames)),
+        "gate_shard_fused": (lambda: gate_shard_fused(ext_n, floor_n, l_big // hop, nfft, hop),
+                             8 * c * (l_big + d), c * fft_flops(nfft, l_big // hop)),
+        "fir_noise_gate_fused": (lambda: fir_noise_gate_fused(xn, h, nfft, hop), 8 * c * n,
+                                 chain_flops(c, n, frames, nfft)),
+        "resample_fir_gate_fused": (
+            lambda: resample_fir_gate_fused(xrn, UP, DOWN, h, nfft=nfft, hop=hop),
+            4 * c * (RES_HEADLINE[1] + RES_OUT),
+            2.0 * nk * c * RES_OUT + chain_flops(c, RES_OUT, res_frames, nfft))}
+    peak_bytes_s, peak_flop_s = chip_peaks()
+    for name, (fn, nbytes, flops) in timed.items():
+        dev_ms = queued_ms(fn, reps=10, cycles=10 ** 8)
+        t_b, t_o = nbytes / peak_bytes_s * 1e3, flops / peak_flop_s * 1e3
+        shape = f"{c}x{l_big + d} (one shard)" if name == "gate_shard_fused" else f"{c}x{n}"
+        print(f"[26 times] {name} nfft={nfft} hop={hop} on {shape} f32 white noise on {smi}: "
+              f"device time of queued calls {dev_ms:.4f} ms, bound {max(t_b, t_o):.4f} ms "
+              f"({'bytes' if t_b >= t_o else 'operations'})")
+    print(f"[26 kernel] at nfft {nfft} (512 threads, one exchange buffer, the span in device "
+          f"memory) on {smi}, from the "
+          f"CUDA runtime (registers, local bytes a thread, CTAs an SM): noise_gate_fused "
+          f"{noise_gate_info(nfft, hop, 0.0, dev)}, release 0.6 "
+          f"{noise_gate_info(nfft, hop, 0.6, dev)}; fir_noise_gate_fused "
+          f"{fir_noise_gate_info(nfft, hop, TAPS, 0.0, dev)}; resample_fir_gate_fused "
+          f"{resample_fir_gate_info(UP, DOWN, h, nfft=nfft, hop=hop, device=dev)}; ptxas "
+          f"<R,RS,release,512>: " + "; ".join(
+              f"{k} " + "; ".join(p for p in chain_ptxas(log, k).split("; ") if ",512>" in p)
+              for k in ("noise_gate_kernel", "fir_noise_gate_kernel",
+                        "res_fir_noise_gate_kernel")))
+
 
 
 SHARD_HEADLINE = (64, 479232)  # 4 time shards of 119808 = 468 hops
@@ -2373,7 +2565,9 @@ def main() -> int:
     res_c.build()
     earlier_bounds(record, h, h_env, xn, path_a.drain_blocks(n, BLOCK),
                    res_c.drain_blocks(RES_HEADLINE[1], RES_BLOCK))
-    step_device_phase(dev, smi, record, kernels, h, h_env)
+    big_nfft_phase(dev, smi, kernels, log)
+    marks.append(("phase 26", time.perf_counter()))
+    step_device_phase(dev, smi, record, kernels, h, h_env, log)
     marks.append(("phase 9b", time.perf_counter()))
 
     prev = t_start

@@ -30,6 +30,23 @@ and gate_shard_fused, on the CPU.
   accepts every geometry the retired radix-2 body accepted.
 - chip_smoke's rule for the hops where the sharded gate may differ from
   the whole-file gate follows the two launches' frame pairing.
+- nfft 8192: one transform of 512 threads a batch and one exchange buffer
+  (``regs_one_buffer``) fit SMEM_LIMIT for the gate, its shard, the chain
+  and the resampler's tail, release 0 and 0.6, and the model agrees with
+  the plain versions there; past 8192 every geometry raises naming
+  SMEM_LIMIT.
+- A float64 numpy model of the streaming step body
+  (``csrc/fir_gate_step_regs.cuh``: segments of new frames, the FIR
+  batches in place, analysis batches to the FIFO or the pop buffer, the
+  floor in frame order, synthesis batches from the popped spectra with the
+  release scan, the overlap-add pass, the envelope over the rectified row)
+  on the same pass-level transforms, stepped block by block in place of
+  the plain step: it agrees with ``fir_gate_step_ref`` and
+  ``res_fir_gate_step_ref`` (>= 200 dB, every carry equal to rounding) and
+  with the JAX package's float64 plain step stream, on partial last
+  batches, m below and above the noise frames, m odd, drained streams and
+  release carried across batches and blocks; ``step_regs_geometry`` fits
+  every shape the card tests and chip_smoke launch.
 """
 
 import functools
@@ -283,7 +300,9 @@ def body_model(u, floor, h, nfft, hop, release=0.0, threshold_db=6.0, reduction_
             out[c, zero] = 0.0
             written[c, zero] += 1
             if qb <= qa:
-                assert n_valid is not None, "only a shard has a tile without frames"
+                # a shard's tiles past its frames; the sequential walker's
+                # last tile where it is shorter than a frame's spill (nfft 8192)
+                assert n_valid is not None or seq, "a parallel tile without frames"
                 continue
             y0 = qa * hp
             length = (qb - 1) * hp + big_n - y0
@@ -879,9 +898,11 @@ def test_every_old_geometry_is_accepted(nfft):
                 assert geo["smem"] <= SMEM_LIMIT and geo["mf"] >= 1
                 assert (geo["mf"] + halo) % (2 * gk.regs_batch(nfft)) == 0
                 assert geo["span"] == gk.regs_span(nfft, hop, taps, geo["mf"], seq)
-    if nfft == 8192:  # beyond a batch (and the radix-2 body's SMEM_LIMIT)
-        with pytest.raises(ValueError, match="nfft <= 4096"):
-            gk.regs_geometry(8192, 2048, 64)
+    if nfft == 8192:  # one transform of 512 threads and one exchange buffer
+        geo = gk.regs_geometry(8192, 2048, 64)
+        assert geo["smem"] <= SMEM_LIMIT and gk.regs_batch(8192) == 1
+        with pytest.raises(ValueError, match="SMEM_LIMIT"):
+            gk.regs_geometry(16384, 4096, 64)
 
 
 @pytest.mark.parametrize("nfft", [1 << k for k in range(1, 14)])
@@ -942,6 +963,37 @@ def test_chip_smoke_reads_both_kernels_ptxas():
     assert chip_smoke.chain_ptxas("", "noise_gate_kernel") == "not built in this process"
 
 
+def test_chip_smoke_reads_the_thread_count_instantiations():
+    """chip_smoke's ptxas reader on the instantiations templated on their
+    thread count: the whole-file kernels' <R, RS, release, T> read as before
+    at 256 threads and with their T at 512 (nfft 8192); the step kernels'
+    <R, RS, T> (the release is read at run time, the CTAs a channel follow
+    from T), each by name (the resampling one's name holds the other's)."""
+    import chip_smoke
+
+    whole = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121fir_noise_gate_kernel"
+             "ILi16ELi2ELb{rel}ELi{t}EEEvPKf' for 'sm_90a'\n"
+             "    0 bytes stack frame, {sp} bytes spill stores, {sp} bytes spill loads\n"
+             "ptxas info    : Used {regs} registers, used 16 barriers\n")
+    step = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{n}{name}"
+            "ILi16ELi{rs}ELi{t}EEEvN3asp12GateStepArgsE' for 'sm_90a'\n"
+            "    0 bytes stack frame, {sp} bytes spill stores, {sp} bytes spill loads\n"
+            "ptxas info    : Used {regs} registers, used 16 barriers\n")
+    log = (whole.format(rel=0, t=256, sp=0, regs=128) + whole.format(rel=1, t=512, sp=480,
+                                                                     regs=128)
+           + step.format(n=20, name="fir_gate_step_kernel", rs=4, t=256, sp=0, regs=248)
+           + step.format(n=20, name="fir_gate_step_kernel", rs=2, t=512, sp=572, regs=128)
+           + step.format(n=24, name="res_fir_gate_step_kernel", rs=4, t=256, sp=0, regs=219))
+    assert (chip_smoke.chain_ptxas(log, "fir_noise_gate_kernel")
+            == "<16,2,0> 128 registers 0 bytes spill stores; "
+               "<16,2,1,512> 128 registers 480 bytes spill stores")
+    assert (chip_smoke.chain_ptxas(log, "fir_gate_step_kernel")
+            == "<16,4,256> 248 registers 0 bytes spill stores; "
+               "<16,2,512> 128 registers 572 bytes spill stores")
+    assert (chip_smoke.chain_ptxas(log, "res_fir_gate_step_kernel")
+            == "<16,4,256> 219 registers 0 bytes spill stores")
+
+
 def test_chip_smoke_unexplained_hops_follow_the_pairing():
     """chip_smoke's rule for the sharded gate against the whole file, on
     the geometry both launches take (gate_geometry: 29-hop tiles, 3 halo
@@ -966,3 +1018,525 @@ def test_chip_smoke_unexplained_hops_follow_the_pairing():
     four = chip_smoke.unexplained_hops(hops, n, 4)
     assert set(one) & set(range(16 * 29)) <= set(four)
     assert lh not in four and lh in one
+
+
+# ---------------------------------------------------------------------------
+# nfft 8192: one transform a batch, one exchange buffer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("release", (0.0, 0.6))
+def test_regs_geometry_at_nfft_8192(release):
+    """At nfft 8192, hop 2048 a batch is one transform of 512 threads of 16
+    points with one exchange buffer (64 KB), no masks buffer (the release
+    scan of a batch's two frames runs in registers) and the span in device
+    memory, and the gate, its shard, the chain (64 taps) and the
+    resampler's tail (config 5's bank and raw window) fit SMEM_LIMIT; the
+    parallel and sequential launches both, one CTA an SM, the gate and the
+    chain with tiles as long as at nfft 1024."""
+    seq = release > 0.0
+    assert gk.regs_threads(8192) == 512 and gk.regs_one_buffer(8192)
+    assert gk.regs_batch(8192) == 1 and not gk.regs_one_buffer(4096)
+    up, down = 160, 147
+    nk = taps_per_phase(len(resample_filter(up, down)), up)
+    geos = [gk.gate_geometry(8192, 2048, seq), gk.regs_geometry(8192, 2048, 64, seq),
+            rk.res_geometry(up, down, nk, 8192, 2048, 64, seq)]
+    if not seq:
+        geos.append(gk.gate_geometry(8192, 2048, False))  # the shard's launch
+    for geo in geos:
+        assert geo["smem"] <= SMEM_LIMIT < 2 * (geo["smem"] + 1024)
+        assert geo["mf"] >= 1 and (geo["mf"] + (0 if seq else 3)) % 2 == 0
+    # the chain without release: 147464 bytes (thresholds 32776, carries
+    # 49152, one buffer 65536), 31 hops a tile; its span of 81353 floats a
+    # CTA in device memory, a row per (channel, tile)
+    assert gk.regs_geometry(8192, 2048, 64)["smem"] == 147464
+    assert gk.regs_smem(8192, 2048, 64, 1, False) == 4 * (2 * 4097 + 2 * 6144 + 16384)
+    assert gk.gate_geometry(8192, 2048, False)["mf"] == 31
+    assert gk.regs_geometry(8192, 2048, 64)["mf"] == 31
+    assert gk.regs_span_rows(4096, 1024, geos[0], 3, 10 ** 5, seq, "cpu") is None
+    rows = gk.regs_span_rows(8192, 2048, geos[1], 3, 8192 + 99 * 2048, seq, "cpu")
+    ntiles = 1 if seq else -(-(8192 + 99 * 2048) // (geos[1]["mf"] * 2048))
+    assert rows.shape == (3 * ntiles, geos[1]["span"])
+
+
+@pytest.mark.parametrize("nfft", (16384, 32768))
+def test_regs_geometry_raises_past_8192(nfft):
+    """Past nfft 8192 one transform needs more shared memory per block than
+    SMEM_LIMIT: every whole-file geometry and the step body's raise a
+    ValueError naming it."""
+    up, down = 160, 147
+    nk = taps_per_phase(len(resample_filter(up, down)), up)
+    for fn in (lambda: gk.gate_geometry(nfft, nfft // 4, False),
+               lambda: gk.gate_geometry(nfft, nfft // 4, True),
+               lambda: gk.regs_geometry(nfft, nfft // 4, 64),
+               lambda: rk.res_geometry(up, down, nk, nfft, nfft // 4, 64),
+               lambda: ck.step_regs_geometry(nfft, nfft // 4, 64, 0, 2 * nfft, 8)):
+        with pytest.raises(ValueError, match="SMEM_LIMIT"):
+            fn()
+
+
+@pytest.mark.parametrize("release", (0.0, 0.6))
+def test_model_at_nfft_8192(release):
+    """The body's model at nfft 8192, hop 2048 (one transform a batch, two
+    frames): the gate alone and the chain (64 taps) against the plain
+    versions in float64, >= 200 dB, every decision equal."""
+    rng = np.random.default_rng(81)
+    n = 8192 + 13 * 2048 + 77
+    x = _tone_burst(rng, 1, n)
+    floor = _gate_floor(x, 8192, 2048)
+    got, dec = body_model(x, floor, None, 8192, 2048, release)
+    ref = gk.noise_gate_ref(torch.as_tensor(x), 8192, 2048, noise_frames=NOISE_FRAMES,
+                            release=release).numpy()
+    assert np.array_equal(dec, _plain_decisions(x, floor, 8192, 2048))
+    assert _snr(ref, got) >= 200.0
+    h = design_fir(64, 0.3)
+    xt = torch.as_tensor(x)
+    win_t = torch.as_tensor(window_np("hann", 8192, periodic=True))
+    floor = ck.filtered_floor(xt[:, : 8192 - 2048 + NOISE_FRAMES * 2048 + 8192], h, 8192, 2048,
+                              NOISE_FRAMES, win_t).numpy()
+    got, dec = body_model(x, floor, h, 8192, 2048, release)
+    ref = ck.fir_noise_gate_ref(xt, h, 8192, 2048, noise_frames=NOISE_FRAMES,
+                                release=release).numpy()
+    y = overlap_save(xt, h, 8192, impl="torch").numpy()
+    assert np.array_equal(dec, _plain_decisions(y, floor, 8192, 2048))
+    assert _snr(ref, got) >= 200.0
+
+
+# ---------------------------------------------------------------------------
+# the streaming step body (csrc/fir_gate_step_regs.cuh)
+# ---------------------------------------------------------------------------
+
+def _forward(n, load, twf):
+    """regs_forward: the forward passes of a batch; the merged last pass's
+    registers (nt, 2^lg, RS) after its stages (slot j of group q: bin
+    brev(j) 2^lg + q)."""
+    _, _, _, _, _, nt = _layout(n)
+    fwd, _ = gk.regs_pass_plan(n)
+    ex = _Exchange(nt * n)
+    src = load
+    for p, (s0, r) in enumerate(fwd[:-1]):
+        idx, l = _read_idx(n, nt, s0, r)
+        pts = src(idx)
+        _stages(pts, s0, r, twf, l)
+        ex.store(p)(_write_idx(n, nt, r), pts)
+        src = ex.load(p)
+    s0, r = fwd[-1]
+    idx, l = _read_idx(n, nt, s0, r)
+    x = src(idx)
+    _stages(x, s0, r, twf, l)
+    return x
+
+
+def _inverse(n, y, store, twi):
+    """regs_inverse: the inverse's first pass on y (nt, 2^lg, RS; slot j'
+    holding bin j' 2^lg + q), the inverse passes, the last through store."""
+    _, _, rs, lg, _, nt = _layout(n)
+    _, inv = gk.regs_pass_plan(n)
+    ex = _Exchange(nt * n)
+    y = y.copy()
+    _stages(y, 0, rs, twi, np.zeros((nt, 1 << lg), np.int64))
+    (store if len(inv) == 1 else ex.store(0))(_write_idx(n, nt, rs), y)
+    src = ex.load(0)
+    for k, (s0, r) in enumerate(inv[1:]):
+        idx, l = _read_idx(n, nt, s0, r)
+        pts = src(idx)
+        _stages(pts, s0, r, twi, l)
+        last = k == len(inv) - 2
+        (store if last else ex.store(k + 1))(_write_idx(n, nt, r), pts)
+        src = ex.load(k + 1)
+
+
+def _frame_intervals(pos, floor_n, m, d, hop, nf, input_latency, eof_in):
+    """The kernel's valid [jv0, jv1) and floor [jv0, jt1) new frames, from
+    the scalars."""
+    start0 = pos - d
+    jv0 = max(0, -((start0 - input_latency) // hop))
+    jv1 = m if eof_in is None else min(m, (eof_in - (d + hop) - start0) // hop + 1)
+    jv1 = max(jv1, jv0)
+    return jv0, jv1, min(jv1, jv0 + max(0, nf - floor_n))
+
+
+def step_model(x, state, h, *, nfft, hop, threshold_db, reduction_db, noise_frames, release,
+               window_kind, input_latency, latency, env_h=None, env_scale=np.pi / 2.0,
+               eof_in=None, fs=None, cluster=1):
+    """asp::fir_gate_step_regs in float64: one block x (C, b) with the plain
+    step's carry [FIR history, gate dict, envelope history], the signature
+    of fir_gate_step_ref.  Segments of ``fs`` new frames
+    (step_regs_geometry's unless given), the FIR batches in place on the
+    segment's span, analysis batches of 2B frames (the spectra to the FIFO
+    or the pop buffer, |X| to the floor in frame order), synthesis batches
+    from the popped spectra (the release scan per bin along the batch),
+    the overlap-add pass (each position once, the carry), the envelope
+    over the rectified row.  ``cluster`` 2: two CTAs, each with its own
+    frames (``step_split``) and segments; the first CTA's takes add to the
+    floor, the second's to a part of its own, added after.  Every output
+    position and carry is written once (NaN-filled)."""
+    xn = x.numpy()
+    n_ch, b = xn.shape
+    big_n, hp, nf = nfft, hop, noise_frames
+    _, rs_pts, rs, lg, _, nt = _layout(big_n)
+    nb, d, r, m = big_n // 2 + 1, big_n - hp, big_n // hp, b // hp
+    taps = len(h)
+    hl, blk, nfb = taps - 1, big_n - (taps - 1), 2 * nt
+    te = 0 if env_h is None else len(env_h)
+    ehl = max(te - 1, 0)
+    if fs is None:
+        fs = ck.step_regs_geometry(big_n, hp, taps, te, b, nf, None, cluster)["fs"]
+    assert fs % nfb == 0
+    split = ck.step_split(m, big_n, cluster)
+    segments = [(j0, min(hi, j0 + fs)) for lo, hi in ((0, split), (split, m))
+                for j0 in range(lo, hi, fs)]
+    twf = fk.stockham_stage_table_np(big_n, -1.0)
+    twi = fk.stockham_stage_table_np(big_n, 1.0)
+    hf = np.fft.fft(np.concatenate([h, np.zeros(big_n - taps)]))
+    win, head, const, tail = gk._step_tables_np(big_n, hp, window_kind)
+    gain, att = 10.0 ** (threshold_db / 20.0), 10.0 ** (-reduction_db / 20.0)
+    pairs = _bin_pairs(big_n)
+    hi = 2 * pairs[:, 5] > big_n
+    kk = np.where(hi, big_n - pairs[:, 5], pairs[:, 5])
+    g = state[1]
+    pos, floor_n = g["pos"], g["floor_n"]
+    jv0, jv1, jt1 = _frame_intervals(pos, floor_n, m, d, hp, nf, input_latency, eof_in)
+    valid, take, eof_out = gk.gate_step_masks(pos, floor_n, m, d, hp, nf, input_latency, eof_in)
+    assert [jv0 <= j < jv1 for j in range(m)] == valid
+    assert [jv0 <= j < jt1 for j in range(m)] == take
+    p0 = pos - latency - input_latency
+
+    def inv_norm(p):
+        v = np.where(p < 0, 1.0, np.where(p < d, 1.0 / head[np.clip(p, 0, max(d - 1, 0))],
+                                          1.0 / const))
+        if eof_out is not None:
+            ti = np.clip(p - (eof_out - d), 0, max(d - 1, 0))
+            v = np.where(p >= eof_out, 1.0, np.where(p >= eof_out - d, 1.0 / tail[ti], v))
+        return v
+
+    np_ = lambda t: t.numpy().reshape(n_ch, -1).copy() if t.numel() else np.zeros((n_ch, 0))
+    hist, ehist = np_(state[0]), (np_(state[2]) if te else None)
+    fifo_r, fifo_i = g["fifo_r"].numpy(), g["fifo_i"].numpy()
+    new_fr, new_fi = np.full_like(fifo_r, np.nan), np.full_like(fifo_i, np.nan)
+    out = np.full((n_ch, b), np.nan)
+    written = np.zeros((n_ch, b), np.int64)
+    new = dict(in_tail=np.full((n_ch, d), np.nan), ola_tail=np.full((n_ch, d), np.nan),
+               floor_sum=np.full((n_ch, 1, nb), np.nan), hist=np.full((n_ch, hl), np.nan))
+    if release > 0.0:
+        new["rel"] = np.full((n_ch, 1, nb), np.nan)
+    for c in range(n_ch):
+        u = np.concatenate([hist[c], xn[c], np.zeros(big_n + blk)])  # u[s] at s + hl
+        fsum = g["floor_sum"].numpy()[c, 0].copy()
+        rel = g["rel"].numpy()[c, 0].copy() if release > 0.0 else np.zeros(nb)
+        carry = g["ola_tail"].numpy()[c].copy()
+        new_fr[c, : max(nf - m, 0)] = fifo_r[c, m:]
+        new_fi[c, : max(nf - m, 0)] = fifo_i[c, m:]
+        pop = np.full((max(m - nf, 0), nb), np.nan + 0j)
+        rect = np.concatenate([ehist[c], np.full(b, np.nan)]) if te else None
+        fpart = np.zeros(nb)  # the second CTA's takes
+        # ---- FIR and analysis, segment by segment
+        for j0, j1 in segments:
+            e0 = j0 * hp
+            tl = max(0, d - e0)
+            seg = (j1 - j0 - 1) * hp + big_n
+            y0 = max(0, e0 - d)
+            nblk = -(-(seg - tl) // blk)
+            fsp = u[y0: y0 + nblk * blk + hl].copy()  # u[y0 - hl + i]
+            if j1 == m:
+                new["hist"][c] = fsp[b - y0: b - y0 + hl]
+            for k0 in range(0, nblk, nfb):
+                def load(idx, k0=k0):
+                    t, i = idx // big_n, idx % big_n
+                    kb = k0 + 2 * t
+                    re = np.where(kb < nblk, fsp[np.minimum(kb * blk + i, len(fsp) - 1)], 0.0)
+                    im = np.where(kb + 1 < nblk,
+                                  fsp[np.minimum((kb + 1) * blk + i, len(fsp) - 1)], 0.0)
+                    return re + 1j * im
+
+                def middle(x_):
+                    q = np.arange(1 << lg)[None, :, None]
+                    bins = (_brev_np(np.arange(rs_pts), rs) << lg) + q
+                    return _to_inverse_slots(x_ * hf[bins], rs)
+
+                writes = []
+                _round_trip(big_n, load, middle, lambda idx, v: writes.append((idx, v)), twf,
+                            twi)
+                for idx, v in writes:
+                    t, i = idx // big_n, idx % big_n
+                    o = i - hl
+                    for part, kbb in ((v.real, k0 + 2 * t), (v.imag, k0 + 2 * t + 1)):
+                        sel = (o >= 0) & (kbb < nblk)
+                        fsp[(kbb * blk + o)[sel]] = part[sel] / big_n
+            span = np.concatenate([g["in_tail"].numpy()[c, e0: e0 + tl], fsp])
+            if j1 == m:
+                new["in_tail"][c] = span[b - e0: b - e0 + d]
+            for q0 in range(j0, j1, nfb):
+                nfr = min(nfb, j1 - q0)
+
+                def load(idx, q0=q0, nfr=nfr):
+                    t, i = idx // big_n, idx % big_n
+                    fa = 2 * t
+                    base = (q0 - j0 + fa) * hp + i
+                    ok_a = (fa < nfr) & (q0 + fa >= jv0) & (q0 + fa < jv1)
+                    ok_b = (fa + 1 < nfr) & (q0 + fa + 1 >= jv0) & (q0 + fa + 1 < jv1)
+                    re = np.where(ok_a, span[np.minimum(base, len(span) - 1)] * win[i], 0.0)
+                    im = np.where(ok_b, span[np.minimum(base + hp, len(span) - 1)] * win[i], 0.0)
+                    return re + 1j * im
+
+                z = _forward(big_n, load, twf)
+                zk = z[:, pairs[:, 1], pairs[:, 2]]
+                zn = z[:, pairs[:, 3], pairs[:, 4]]
+                p_, q_ = np.where(hi, zn, zk), np.where(hi, zk, zn)
+                a_ = 0.5 * (p_ + np.conj(q_))
+                b_ = -0.5j * (p_ - np.conj(q_))
+                mags = np.full((nfb, nb), np.nan)
+                for t in range(nt):
+                    for fa, spec in ((2 * t, a_[t]), (2 * t + 1, b_[t])):
+                        if fa >= nfr:
+                            continue
+                        fq = q0 + fa
+                        mags[fa, kk] = np.abs(spec)
+                        v = nf + fq
+                        if v >= m:
+                            new_fr[c, v - m, kk], new_fi[c, v - m, kk] = spec.real, spec.imag
+                        else:
+                            pop[fq, kk] = spec
+                for fa in range(nfr):  # the floor, frame by frame in order
+                    if jv0 <= q0 + fa < jt1:
+                        if q0 + fa < split:
+                            fsum = fsum + mags[fa]
+                        else:
+                            fpart = fpart + mags[fa]
+        if jt1 > jv0 and split < m:
+            fsum = fsum + fpart
+        # ---- synthesis
+        thr = fsum / nf * gain
+
+        def popped(q):
+            return fifo_r[c, q] + 1j * fifo_i[c, q] if q < nf else pop[q - nf]
+
+        for q0 in range(0, m, nfb):
+            nfr = min(nfb, m - q0)
+            masks = np.zeros((nfb, nb))
+            for fa in range(nfr):
+                masks[fa] = np.where(np.abs(popped(q0 + fa)) > thr, 1.0, att)
+                if release > 0.0:
+                    rel = np.maximum(masks[fa], release * rel)
+                    masks[fa] = rel
+            xz = np.full((nt, 1 << lg, rs_pts), np.nan + 0j)
+            for t in range(nt):
+                pa = popped(q0 + 2 * t)[kk] if 2 * t < nfr else np.zeros(len(kk))
+                pb = popped(q0 + 2 * t + 1)[kk] if 2 * t + 1 < nfr else np.zeros(len(kk))
+                edge = (kk == 0) | (2 * kk == big_n)
+                ya = np.where(edge, pa.real, pa) * masks[2 * t, kk]
+                yb = np.where(edge, pb.real, pb) * masks[2 * t + 1, kk]
+                ya, yb = np.where(hi, np.conj(ya), ya), np.where(hi, np.conj(yb), yb)
+                xz[t, pairs[:, 1], pairs[:, 2]] = ya + 1j * yb
+                xz[t, pairs[:, 3], pairs[:, 4]] = np.conj(ya) + 1j * np.conj(yb)
+            assert not np.isnan(xz).any(), "a slot of the synthesis pass was never set"
+            stage = np.full(nt * big_n, np.nan + 0j)
+
+            def store(idx, v):
+                stage[idx] = v * (win[idx % big_n] / big_n)
+
+            _inverse(big_n, _to_inverse_slots(xz, rs), store, twi)
+            fin = nfr * hp
+            v = np.concatenate([carry, np.zeros(fin)])
+            for fq in range(nfr):
+                fr = stage[(fq >> 1) * big_n: (fq >> 1) * big_n + big_n]
+                v[fq * hp: fq * hp + big_n] += fr.imag if fq & 1 else fr.real
+            gp = q0 * hp + np.arange(fin)
+            e = v[:fin] * inv_norm(p0 + gp)
+            if te:
+                rect[ehl + gp] = np.abs(e)
+            else:
+                out[c, gp] = e
+            written[c, gp] += 1
+            carry = v[fin:]
+        new["ola_tail"][c] = carry
+        new["floor_sum"][c, 0] = fsum
+        if release > 0.0:
+            new["rel"][c, 0] = rel
+        if te:
+            hr = np.asarray(env_h, np.float64)[::-1]
+            out[c] = env_scale * np.array([hr @ rect[o: o + te] for o in range(b)])
+            ehist[c] = rect[b: b + ehl]
+    assert (written == 1).all() and not np.isnan(out).any()
+    for v in list(new.values()) + [new_fr, new_fi]:
+        assert not np.isnan(v).any(), "a carry position was never written"
+    shape = lambda a, ref: torch.as_tensor(a).reshape(ref.shape)
+    gate = dict(in_tail=shape(new["in_tail"], g["in_tail"]),
+                fifo_r=shape(new_fr, g["fifo_r"]), fifo_i=shape(new_fi, g["fifo_i"]),
+                floor_sum=shape(new["floor_sum"], g["floor_sum"]),
+                floor_n=floor_n + sum(take), ola_tail=shape(new["ola_tail"], g["ola_tail"]),
+                pos=pos + b)
+    if release > 0.0:
+        gate["rel"] = shape(new["rel"], g["rel"])
+    st = [shape(new["hist"], state[0]), gate]
+    if te:
+        st.append(shape(ehist, state[2]))
+    return st, torch.as_tensor(out).reshape(x.shape)
+
+
+def _assert_carries_equal(got, ref):
+    for a, b_ in zip(_flat_carry(got), _flat_carry(ref)):
+        if isinstance(b_, torch.Tensor):
+            assert a.shape == b_.shape
+            np.testing.assert_allclose(a.numpy(), b_.numpy(), rtol=1e-9, atol=1e-11)
+        else:
+            assert a == b_
+
+
+def _flat_carry(tree):
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree) for v in _flat_carry(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [v for t in tree for v in _flat_carry(t)]
+    return [tree]
+
+
+STEP_CASES = [  # (nfft, hop, block, taps, env taps, release, drain, noise frames, fs)
+    (1024, 256, 4096, 64, 0, 0.0, False, 8, None),       # the headline: 16 frames, 2 batches
+    (1024, 256, 4096, 64, 129, 0.6, True, 8, None),      # the envelope, a drained stream
+    (1024, 256, 5 * 256, 64, 0, 0.6, False, 8, None),    # m odd, below nf: a partial batch
+    (1024, 256, 13 * 256, 30, 17, 0.6, True, 4, None),   # m odd, above nf and 2B
+    (1024, 256, 20 * 256, 64, 0, 0.6, False, 4, 8),      # segments of 8 frames, release across
+    (512, 128, 3 * 128, 1, 1, 0.0, False, 4, None),      # m < 2B, one tap each
+    (256, 64, 37 * 64, 64, 0, 0.6, True, 8, None),       # a warp spans transforms
+    (2048, 512, 7 * 512, 500, 0, 0.0, False, 4, None),   # a long FIR, three blocks a batch
+    (4096, 1024, 5 * 1024, 64, 0, 0.6, False, 4, 2),     # one transform, in_tail over segments
+]
+
+
+def _step_stream(monkeypatch, chain, x, block, drain, fs, name="fir_gate_step_ref",
+                 cluster=1):
+    """chain.stream in float64 with the model in place of the plain step;
+    each block also checked against the plain step on the same carry."""
+    from audiosignalprocess_tpu_torch import pipeline
+
+    plain = getattr(pipeline, name)
+
+    def model_step(*args, **kw):
+        if name == "res_fir_gate_step_ref":
+            xb, st, up, down, h_fir, h_res = args
+            u = resample_poly(xb, up, down, h=h_res, zero_phase=False, history=st[0])
+            hn = st[0].shape[-1]
+            res_hist = torch.cat([st[0], xb], dim=-1)[..., -hn:] if hn else st[0]
+            fg, y = step_model(u, st[1], h_fir, fs=fs, cluster=cluster, **kw)
+        else:
+            xb, st, h_fir = args
+            new, y = step_model(xb, st, h_fir, fs=fs, cluster=cluster, **kw)
+        want_st, want_y = plain(*args, **kw)
+        if float(want_y.abs().max()) > 0.0:
+            assert _snr(want_y.numpy(), y.numpy()) >= 200.0
+        else:  # a block inside the latency: silence
+            assert float(y.abs().max()) < 1e-12
+        if name == "res_fir_gate_step_ref":
+            new = [res_hist, fg]
+        _assert_carries_equal(new, want_st)
+        return new, y
+
+    monkeypatch.setattr(pipeline, name, model_step)
+    y = chain.stream(x, block, drain=drain).numpy()
+    monkeypatch.setattr(pipeline, name, plain)
+    return y
+
+
+@pytest.mark.parametrize("cluster", (1, 2))
+@pytest.mark.parametrize("nfft,hop,block,taps,env_taps,release,drain,nf,fs", STEP_CASES)
+def test_step_model_is_the_plain_step(monkeypatch, nfft, hop, block, taps, env_taps, release,
+                                      drain, nf, fs, cluster):
+    """The step body's model, one CTA (the schedule of nfft 8192, here at
+    the smaller sizes) or a cluster of two per channel, stepped through a
+    stream of FIRGateStage in place of fir_gate_step_ref: each block's
+    output >= 200 dB and every carry equal (to rounding) against the plain
+    step on the same carry, and the stream against the plain stream; every
+    output and carry position written once (NaN-filled)."""
+    from audiosignalprocess_tpu_torch.pipeline import Chain, FIRGateStage
+
+    rng = np.random.default_rng(nfft + block + taps)
+    n = max(6 * block, 10 * nfft) // block * block + (777 if drain else 0)
+    x = torch.as_tensor(_tone_burst(rng, 2, n))
+    h = design_fir(taps, 0.3) if taps > 1 else np.array([0.8])
+    env_h = None if not env_taps else (design_fir(env_taps, 0.01) if env_taps > 1
+                                       else np.array([0.5]))
+    chain = Chain([FIRGateStage(h=h, nfft=nfft, hop=hop, noise_frames=nf, release=release,
+                                env_h=env_h)])
+    chain.build()
+    got = _step_stream(monkeypatch, chain, x, block, drain, fs, cluster=cluster)
+    ref = chain.stream(x, block, drain=drain).numpy()
+    assert _snr(ref, got) >= 200.0
+
+
+@pytest.mark.parametrize("cluster", (1, 2))
+@pytest.mark.parametrize("block,release,drain,env_taps", [(4704, 0.0, False, 0),
+                                                         (3 * 1176, 0.6, True, 129)])
+def test_step_model_is_the_plain_resampling_step(monkeypatch, block, release, drain, env_taps,
+                                                 cluster):
+    """The resampling kernel's step: the model on the causal polyphase
+    resample of [res_hist | x] (what its fill resamples into the span) in
+    place of res_fir_gate_step_ref, 20 and 15 resampled hops a block:
+    >= 200 dB and every carry equal, block by block and as a stream."""
+    from audiosignalprocess_tpu_torch.pipeline import Chain, ResFIRGateStage
+
+    rng = np.random.default_rng(block)
+    n = 8 * block + (555 if drain else 0)
+    x = torch.as_tensor(_tone_burst(rng, 2, n, fs=44100))
+    chain = Chain([ResFIRGateStage(h=design_fir(64, 0.3), noise_frames=4, release=release,
+                                   env_h=design_fir(env_taps, 0.01) if env_taps else None)])
+    chain.build()
+    got = _step_stream(monkeypatch, chain, x, block, drain, None, "res_fir_gate_step_ref",
+                       cluster)
+    ref = chain.stream(x, block, drain=drain).numpy()
+    assert _snr(ref, got) >= 200.0
+
+
+@pytest.mark.parametrize("release,block", [(0.0, 2048), (0.6, 5 * 256)])
+def test_step_model_is_the_jax_plain_step(monkeypatch, release, block):
+    """The model's float64 stream against the JAX package's FIRGateStage
+    float64 stream (its plain step) on the same input: allclose at the
+    port's float64 tolerance."""
+    from audiosignalprocess_tpu import pipeline as J
+    import jax.numpy as jnp
+
+    from audiosignalprocess_tpu_torch.pipeline import Chain, FIRGateStage
+
+    rng = np.random.default_rng(block)
+    x = _tone_burst(rng, 2, 8 * block)
+    h = design_fir(64, 0.3)
+    kw = dict(h=h, nfft=1024, hop=256, noise_frames=4, release=release)
+    jc, pc = J.Chain([J.FIRGateStage(**kw)]), Chain([FIRGateStage(**kw)])
+    assert jc.build() == pc.build()
+    got = _step_stream(monkeypatch, pc, torch.as_tensor(x), block, False, None)
+    want = np.asarray(jc.stream(jnp.asarray(x), block))
+    np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-10)
+
+
+def test_step_geometry_fits_every_launch():
+    """step_regs_geometry within SMEM_LIMIT, segments of whole batches, for
+    every shape the card tests and chip_smoke give the two step kernels; at
+    the headline (64 taps, 16 or 20 new frames, the envelope of 129 taps or
+    none) the whole block is one segment with the popped spectra and the
+    envelope's input in shared memory (one CTA an SM)."""
+    up, down = 160, 147
+    nk = taps_per_phase(len(resample_filter(up, down)), up)
+    fir_shapes = [(1024, 256, 4096, t, e) for t in (1, 64, 500) for e in (0, 1, 129, 300)] + [
+        (256, 64, 320, 64, 129), (512, 128, 33 * 128, 64, 0), (1024, 256, 768, 64, 0),
+        (1024, 256, 21 * 256, 64, 129), (1024, 256, 257 * 256, 64, 3000),
+        (2048, 512, 7 * 512, 500, 300), (4096, 1024, 5 * 1024, 64, 129),
+        (4096, 512, 9 * 512, 64, 0), (8192, 2048, 3 * 2048, 64, 129),
+        (8192, 2048, 5 * 2048, 64, 0), (8192, 1024, 9 * 1024, 1, 0), (1024, 256, 2048, 64, 129)]
+    res_shapes = [(1024, 256, b, e) for b in (1280, 2560, 3840, 5120) for e in (0, 129)] + [
+        (256, 64, 320, 129), (2048, 512, 2560, 129), (4096, 1024, 5120, 129),
+        (8192, 2048, 10240, 129), (8192, 2048, 10240, 0)]
+    shapes = [(nf, hp, b, t, e, None) for nf, hp, b, t, e in fir_shapes] + [
+        (nf, hp, b, 64, e, (up, down, nk)) for nf, hp, b, e in res_shapes]
+    for nfft, hop, b, taps, te, res in shapes:
+        for nf in (4, 8):
+            cluster = ck.step_cluster(nfft)
+            geo = ck.step_regs_geometry(nfft, hop, taps, te, b, nf, res, cluster)
+            assert geo["smem"] <= SMEM_LIMIT and geo["cluster"] == cluster
+            assert geo["fs"] % (2 * gk.regs_batch(nfft)) == 0
+    assert ck.step_cluster(8192) == 1 and ck.step_cluster(4096) == 2
+    for b, res in ((4096, None), (5120, (up, down, nk))):
+        for te in (0, 129):
+            geo = ck.step_regs_geometry(1024, 256, 64, te, b, 8, res, ck.step_cluster(1024))
+            split = ck.step_split(b // 256, 1024, ck.step_cluster(1024))
+            assert geo["fs"] >= split and geo["pop_smem"] and (geo["rect_smem"] or not te)
+            assert gk.SM_SMEM < 2 * (geo["smem"] + 1024)
+    assert [ck.step_split(m, 1024, 2) for m in (3, 8, 9, 16, 20, 24)] == [3, 8, 8, 8, 16, 16]

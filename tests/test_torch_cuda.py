@@ -192,26 +192,78 @@ def test_gate_step_vs_plain(card, release, drain, block):
     assert snr_db(ref, y) >= 60.0
 
 
-@pytest.mark.parametrize("release,env_taps,drain,taps", [
-    (0.0, 0, False, 64), (0.6, 129, True, 64), (0.0, 129, False, 64),
-    (0.6, 0, True, 64), (0.0, 300, True, 500), (0.0, 1, False, 1),
+def _tensors(tree):
+    """The tensors of a nested carry (lists and dicts)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def _nan_steps(chain):
+    """Make each chain.step call into NaN-filled memory: just before it,
+    blocks of the sizes of the previous step's output and new carries are
+    NaN-filled and freed, so the caching allocator hands them to the
+    kernel's output and new carries (torch.empty), and a position the
+    kernel leaves unwritten shows as not finite.  Returns the list the
+    steps append their check to (every output and carry tensor finite)."""
+    step, sizes, ok = chain.step, [1 << 16], []
+
+    def poisoned(states, x):
+        blocks = [torch.full((n,), float("nan"), device=x.device) for n in sizes
+                  for _ in range(2)]
+        del blocks
+        st, y = step(states, x)
+        torch.cuda.synchronize()
+        ts = [y] + _tensors(st)
+        sizes[:] = sorted({t.numel() for t in ts if t.numel()})
+        ok.append(all(bool(torch.isfinite(t).all()) for t in ts))
+        return st, y
+
+    chain.step = poisoned
+    return ok
+
+
+@pytest.mark.parametrize("nfft,hop,block,release,env_taps,drain,taps", [
+    (1024, 256, 4096, 0.0, 0, False, 64), (1024, 256, 4096, 0.6, 129, True, 64),
+    (1024, 256, 4096, 0.0, 129, False, 64), (1024, 256, 4096, 0.6, 0, True, 64),
+    (1024, 256, 4096, 0.0, 300, True, 500), (1024, 256, 4096, 0.0, 1, False, 1),
+    (256, 64, 5 * 64, 0.6, 129, False, 64), (512, 128, 33 * 128, 0.0, 0, True, 64),
+    (1024, 256, 3 * 256, 0.6, 0, False, 64), (1024, 256, 21 * 256, 0.0, 129, True, 64),
+    (1024, 256, 257 * 256, 0.6, 3000, False, 64), (2048, 512, 7 * 512, 0.6, 300, False, 500),
+    (4096, 1024, 5 * 1024, 0.0, 129, True, 64), (4096, 512, 9 * 512, 0.6, 0, False, 64),
+    (8192, 2048, 3 * 2048, 0.6, 129, False, 64), (8192, 2048, 5 * 2048, 0.0, 0, True, 64),
+    (8192, 1024, 9 * 1024, 0.6, 0, False, 1),
 ])
-def test_fir_gate_step_vs_plain(card, release, env_taps, drain, taps):
+def test_fir_gate_step_vs_plain(card, nfft, hop, block, release, env_taps, drain, taps):
     """FIRGateStage float32 (one fir_gate_step_fused launch per block,
-    envelope folded in) against its float64 plain composition."""
+    envelope folded in) against its float64 plain composition: nfft 256 to
+    8192, blocks of m frames odd, below a batch (2B) and the noise frames,
+    above both, and one past the shared memory (segments, the popped
+    spectra and the envelope's input in device memory); every output and
+    carry of every step written (NaN-filled before each call)."""
     rng = np.random.default_rng(54)
-    n = 10 * 4096 + (1234 if drain else 0)
+    n = max(10 * 4096, 6 * block, 12 * nfft) // block * block + (1234 if drain else 0)
     x = torch.as_tensor(_tone_burst(rng, 3, n), device=card)
     h = design_fir(taps, 0.3) if taps > 1 else np.array([0.8])
     env_h = None
     if env_taps:
         env_h = design_fir(env_taps, 0.01) if env_taps > 1 else np.array([0.5])
-    chain = Chain([FIRGateStage(h=h, noise_frames=4, release=release, env_h=env_h)])
+    chain = Chain([FIRGateStage(h=h, nfft=nfft, hop=hop, noise_frames=4, release=release,
+                                env_h=env_h)])
     chain.build()
-    blocks = chain.drain_blocks(n, 4096) if drain else n // 4096
+    blocks = chain.drain_blocks(n, block) if drain else n // block
     before = fir_gate_step_fused.launches
-    y, ref = _streams(chain, chain, x, 4096, drain)
+    ok = _nan_steps(chain)
+    y = chain.stream(x.float(), block, drain=drain)
+    torch.cuda.synchronize()
+    del chain.step
+    ref = chain.stream(x, block, drain=drain)
     assert fir_gate_step_fused.launches == before + blocks
+    assert len(ok) == blocks and all(ok)
     assert y.shape == ref.shape and bool(torch.isfinite(y).all())
     assert snr_db(ref, y) >= 60.0
 
@@ -370,23 +422,35 @@ def test_resample_fir_gate_vs_plain(card, c, up, down, taps, n, release, nfft, h
     assert snr_db(ref, out) >= 60.0
 
 
-@pytest.mark.parametrize("release,env,drain,block", [
-    (0.0, False, False, 4704), (0.6, True, True, 4704), (0.0, True, False, 1176),
-    (0.6, False, True, 2352),
+@pytest.mark.parametrize("nfft,hop,release,env,drain,block", [
+    (1024, 256, 0.0, False, False, 4704), (1024, 256, 0.6, True, True, 4704),
+    (1024, 256, 0.0, True, False, 1176), (1024, 256, 0.6, False, True, 2352),
+    (256, 64, 0.6, True, False, 294), (1024, 256, 0.0, False, True, 3 * 1176),
+    (2048, 512, 0.6, True, False, 2352), (4096, 1024, 0.0, True, True, 4704),
+    (8192, 2048, 0.6, True, False, 9408), (8192, 2048, 0.0, False, True, 9408),
 ])
-def test_res_fir_gate_step_vs_plain(card, release, env, drain, block):
+def test_res_fir_gate_step_vs_plain(card, nfft, hop, release, env, drain, block):
     """ResFIRGateStage float32 (one res_fir_gate_step_fused launch per
-    block, envelope folded in) against its float64 plain composition."""
+    block, envelope folded in) against its float64 plain composition, at
+    nfft 256 to 8192 and blocks of 5 to 20 resampled hops (odd, below a
+    batch, above the noise frames); every output and carry of every step
+    written (NaN-filled before each call)."""
     rng = np.random.default_rng(59)
-    n = 8 * 4704 + (777 if drain else 0)
+    n = max(8 * 4704, 6 * block) // block * block + (777 if drain else 0)
     x = torch.as_tensor(_tone_burst(rng, 3, n, fs=44100), device=card)
-    chain = Chain([ResFIRGateStage(h=design_fir(64, 0.3), noise_frames=4, release=release,
+    chain = Chain([ResFIRGateStage(h=design_fir(64, 0.3), nfft=nfft, hop=hop, noise_frames=4,
+                                   release=release,
                                    env_h=design_fir(129, 0.01) if env else None)])
     chain.build()
     blocks = chain.drain_blocks(n, block) if drain else n // block
     before = res_fir_gate_step_fused.launches
-    y, ref = _streams(chain, chain, x, block, drain)
+    ok = _nan_steps(chain)
+    y = chain.stream(x.float(), block, drain=drain)
+    torch.cuda.synchronize()
+    del chain.step
+    ref = chain.stream(x, block, drain=drain)
     assert res_fir_gate_step_fused.launches == before + blocks
+    assert len(ok) == blocks and all(ok)
     assert y.shape == ref.shape and bool(torch.isfinite(y).all())
     assert snr_db(ref, y) >= 60.0
 
@@ -1040,21 +1104,96 @@ def test_gate_kernels_write_every_position(card, shard, nfft, hop, arg):
     if shard:
         want = gate_shard_fused(x, floor, arg, nfft, hop)
         out = torch.full_like(x, float("nan"))
+        spans = gk.regs_span_rows(nfft, hop, geo, 2, out.shape[-1], False, card)
         rc = gk._shard_lib()(x.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(),
-                             twf.data_ptr(), twi.data_ptr(), 2, x.shape[-1], nfft,
-                             nfft.bit_length() - 1, hop, arg, geo["mf"], gain, att,
-                             geo["smem"], card.index or 0, stream)
+                             twf.data_ptr(), twi.data_ptr(), gk.data_ptr(spans), 2,
+                             x.shape[-1], nfft, nfft.bit_length() - 1, hop, arg, geo["mf"],
+                             gain, att, geo["smem"], card.index or 0, stream)
     else:
         want = noise_gate_fused(x, nfft, hop, release=arg)
         out = torch.full_like(want, float("nan"))
         nframes = 1 + (x.shape[-1] - nfft) // hop
+        spans = gk.regs_span_rows(nfft, hop, geo, 2, out.shape[-1], arg > 0.0, card)
         rc = gk._lib()(x.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(),
-                       twf.data_ptr(), twi.data_ptr(), inv_tab.data_ptr(), 2, x.shape[-1],
-                       nfft, nfft.bit_length() - 1, hop, nframes, geo["mf"], int(arg > 0.0),
-                       gain, att, ctypes.c_float(arg), geo["smem"], card.index or 0, stream)
+                       twf.data_ptr(), twi.data_ptr(), inv_tab.data_ptr(), gk.data_ptr(spans),
+                       2, x.shape[-1], nfft, nfft.bit_length() - 1, hop, nframes, geo["mf"],
+                       int(arg > 0.0), gain, att, ctypes.c_float(arg), geo["smem"],
+                       card.index or 0, stream)
     torch.cuda.synchronize()
     assert rc == 0
     assert bool(torch.isfinite(out).all()) and torch.equal(out, want)
+
+
+def _queue3_input(card, n=69632):
+    """The input of the nfft 8192 fault: (1, n) float64, 0.01 x
+    default_rng(0) noise plus a unit 440 Hz sine over the middle third."""
+    x = 0.01 * np.random.default_rng(0).standard_normal((1, n))
+    t = np.arange(n) / 48000
+    x[0, n // 3 : 2 * n // 3] += np.sin(2 * np.pi * 440.0 * t[n // 3 : 2 * n // 3])
+    return torch.as_tensor(x, device=card)
+
+
+@pytest.mark.parametrize("release", (0.0, 0.6))
+@pytest.mark.parametrize("name", ("noise_gate_fused", "fir_noise_gate_fused",
+                                  "resample_fir_gate_fused", "gate_shard_fused"))
+def test_whole_file_kernels_at_nfft_8192(card, name, release):
+    """The four whole-file kernels at nfft 8192, hop 2048 (one transform of
+    512 threads a batch, one exchange buffer), release 0 and 0.6 (the shard
+    has none: its n_valid short of l/hop instead): one launch, no other
+    kernel, the exact length, finite, >= 60 dB against the float64 plain
+    version, with design_fir(64, 0.3) for the chains."""
+    x = _queue3_input(card)
+    h = design_fir(64, 0.3)
+    kw = dict(nfft=8192, hop=2048, release=release)
+    if name == "noise_gate_fused":
+        y, k = _launches(lambda: noise_gate_fused(x.float(), **kw))
+        ref = noise_gate_ref(x, **kw)
+    elif name == "fir_noise_gate_fused":
+        y, k = _launches(lambda: fir_noise_gate_fused(x.float(), h, **kw))
+        ref = fir_noise_gate_ref(x, h, **kw)
+    elif name == "resample_fir_gate_fused":
+        xr = x[:, : 69632 * 147 // 160]
+        y, k = _launches(lambda: resample_fir_gate_fused(xr.float(), 160, 147, h, **kw))
+        ref = resample_fir_gate_ref(xr, 160, 147, h, **kw)
+    else:
+        d = 8192 - 2048
+        ext = x[:, : 30 * 2048 + d]
+        w = window("hann", 8192, periodic=True, dtype=torch.float64, device=card)
+        floor = noise_floor(frame(ext[:, : d + 8 * 2048], 8192, 2048) * w)
+        n_valid = 27 if release else 30
+        y, k = _launches(lambda: gate_shard_fused(ext.float(), floor.float(), n_valid, 8192,
+                                                  2048))
+        ref = gate_shard_ref(ext, floor, n_valid, 8192, 2048)
+    assert k == {name: 1}
+    assert y.shape == ref.shape and bool(torch.isfinite(y).all())
+    assert snr_db(ref, y) >= 60.0
+
+
+@pytest.mark.parametrize("name", ("noise_gate_fused", "fir_noise_gate_fused",
+                                  "resample_fir_gate_fused", "gate_shard_fused",
+                                  "fir_gate_step_fused", "res_fir_gate_step_fused"))
+def test_kernels_raise_at_nfft_16384(card, name):
+    """Past nfft 8192 one transform of the batched bodies needs more shared
+    memory per block than SMEM_LIMIT: each wrapper raises a ValueError that
+    names it, and launches nothing."""
+    x = _queue3_input(card, 4 * 16384).float()
+    h = design_fir(64, 0.3)
+    kw = dict(nfft=16384, hop=4096)
+    calls = {
+        "noise_gate_fused": lambda: noise_gate_fused(x, **kw),
+        "fir_noise_gate_fused": lambda: fir_noise_gate_fused(x, h, **kw),
+        "resample_fir_gate_fused": lambda: resample_fir_gate_fused(x, 160, 147, h, **kw),
+        "gate_shard_fused": lambda: gate_shard_fused(
+            x[:, : 8 * 4096 + 12288], torch.ones(1, 8193, device=card), 5, **kw),
+        "fir_gate_step_fused": lambda: Chain([FIRGateStage(h=h, noise_frames=4, **kw)]).stream(
+            x[:, : 2 * 16384], 16384),
+        "res_fir_gate_step_fused": lambda: Chain([ResFIRGateStage(
+            h=h, noise_frames=4, **kw)]).stream(x[:, : 2 * 18816], 18816),
+    }
+    before = {k.__name__: k.launches for k in _all_counters()}
+    with pytest.raises(ValueError, match="SMEM_LIMIT"):
+        calls[name]()
+    assert {k.__name__: k.launches for k in _all_counters()} == before
 
 
 def test_sharded_chain_nccl_world_1(card, tmp_path):
