@@ -1,10 +1,12 @@
 // The streaming FIR -> noise-gate (-> envelope) step on batched register
 // Stockham transforms, for Hopper (sm_90a): the device body that
-// fir_gate_step_kernel.cu and res_fir_gate_step_kernel.cu share.  The two
-// differ only in where the FIR's input comes from (the raw block, or the
-// block resampled in the CTA), which each kernel passes in as a `fill`
-// functor, as the whole-file kernels do (chain_regs_device.cuh).  kFir
-// false leaves the FIR out (the fill then stores the gate's input).
+// fir_gate_step_kernel.cu, res_fir_gate_step_kernel.cu and
+// gate_step_kernel.cu share.  The first two differ only in where the FIR's
+// input comes from (the raw block, or the block resampled in the CTA),
+// which each kernel passes in as a `fill` functor, as the whole-file
+// kernels do (chain_regs_device.cuh); the gate step runs it with kFir
+// false, which leaves the FIR out (the fill then stores the gate's input,
+// and the span is [in_tail | x] of the segment's frames).
 //
 // Per channel and block it computes the JAX package's plain composition
 // FIRStage(h, nfft).step -> GateStage.step [-> FIRStage(env_h, pre="abs",
@@ -80,9 +82,67 @@
 #include <cuda_runtime.h>
 
 #include "chain_regs_device.cuh"
-#include "gate_step_device.cuh"
 
 namespace asp {
+
+// Field for field the ctypes structure GateStepArgs of
+// kernels/gate_kernel.py.  Carry arrays are per channel contiguous:
+// in_tail (d), fifo (nf, nb), floor_sum (nb), ola_tail (d), rel (nb);
+// scratch (max(m - nf, 0), nb); d = N - hop, nb = N/2 + 1.
+struct GateStepArgs {
+  const float* x;
+  float* out;
+  const float* in_tail;
+  const float* fifo_r;
+  const float* fifo_i;
+  const float* floor_sum;
+  const float* ola_tail;
+  const float* rel;
+  float* in_tail_out;
+  float* fifo_r_out;
+  float* fifo_i_out;
+  float* floor_sum_out;
+  float* ola_tail_out;
+  float* rel_out;
+  float* scratch_r;
+  float* scratch_i;
+  const float* win;       // N, periodic window
+  const float2* tw;       // unused (it keeps the offsets of the fields after it)
+  const float* inv_head;  // d, 1 / head ramp of the WOLA norm
+  const float* inv_tail;  // d, 1 / finite-file ramp-out
+  int channels;
+  int x_ld;           // row stride of x
+  int b;              // block, a multiple of hop
+  int nfft;           // N, a power of two
+  int log2n;
+  int hop;
+  int nf;             // noise frames, the FIFO depth
+  int pos;            // stream position of the block's first sample
+  int floor_n;        // valid frames seen so far (floor takes)
+  int input_latency;  // zeros before the real stream
+  int latency;        // this stage's latency
+  int eof_in;         // drained stream: one past the last real input; -1 off
+  int eof_out;        // drained stream: whole-file synthesis length; -1 off
+  int ring;           // unused (as tw)
+  int has_release;
+  float thresh_gain;
+  float att;
+  float release;
+  float inv_const;    // 1 / interior WOLA norm
+};
+
+// 1 / the streaming WOLA norm at output position p (wola_norm_at of
+// kernels/gate_kernel.py); Args: any argument struct with inv_head,
+// inv_const, eof_out and inv_tail (the gate and stretch steps share it)
+template <class Args>
+__device__ __forceinline__ float gate_inv_norm(const Args& a, int p, int d) {
+  float v = p < 0 ? 1.0f : (p < d ? a.inv_head[p] : a.inv_const);
+  if (a.eof_out >= 0) {
+    if (p >= a.eof_out) v = 1.0f;
+    else if (p >= a.eof_out - d) v = a.inv_tail[p - (a.eof_out - d)];
+  }
+  return v;
+}
 
 // Field for field the ctypes structure FirEnvArgs of
 // kernels/chain_kernel.py.  Per channel contiguous: hist (T-1), env_hist

@@ -17,7 +17,7 @@ kernels and their plain PyTorch versions.
   carry (kernels/gate_kernel), envelope history (..., Te-1)]``.  Its body
   (``csrc/fir_gate_step_regs.cuh``, shared with
   ``res_fir_gate_step_fused``) runs batches of register Stockham
-  transforms; ``step_regs_geometry`` sizes its shared memory.
+  transforms; ``gate_kernel.step_regs_geometry`` sizes its shared memory.
 
 Routing: a CPU tensor runs the plain version (``fir_noise_gate_ref``,
 ``fir_gate_step_ref``); a CUDA float32 tensor launches the kernel;
@@ -35,16 +35,16 @@ import torch
 
 from audiosignalprocess_tpu_torch.effects.noise_gate import noise_gate
 from audiosignalprocess_tpu_torch.kernels import _build
-from audiosignalprocess_tpu_torch.kernels._build import (
+from audiosignalprocess_tpu_torch.kernels._build import (  # noqa: F401
     SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
 )
 from audiosignalprocess_tpu_torch.kernels.fir_kernel import reversed_taps
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (  # noqa: F401
-    _inv_norm_table, check_gate_guards, data_ptr, file_tables, gate_step_args, gate_step_ref,
-    noise_floor, regs_batch, regs_geometry, regs_info, regs_one_buffer, regs_points,
-    regs_span_rows, regs_threads,
+    STEP_OFFSETS, FirEnvArgs, _inv_norm_table, check_gate_guards, data_ptr, file_tables,
+    gate_step_args, gate_step_ref, noise_floor, regs_batch, regs_geometry, regs_info,
+    regs_one_buffer, regs_points, regs_span_rows, regs_threads, step_cluster, step_regs_geometry,
+    step_span, step_split,
 )
-from audiosignalprocess_tpu_torch.kernels.resample_kernel import res_window
 from audiosignalprocess_tpu_torch.kernels.os_kernel import check_os_geometry, fft_tables
 from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
@@ -168,118 +168,6 @@ def fir_noise_gate_info(nfft: int = 1024, hop: int = 256, taps: int = 64,
 # the streaming FIR -> gate (-> envelope) step
 # ---------------------------------------------------------------------------
 
-class FirEnvArgs(ctypes.Structure):
-    """The FIR front, envelope tail and shared-memory layout of the step
-    kernel's arguments: ``struct FirEnvArgs`` of
-    ``csrc/fir_gate_step_regs.cuh``."""
-
-    _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "hist", "hist_out", "hf", "twf", "twi", "env_hist", "env_hist_out",
-        "env_taps_rev", "rect")]
-        + [("taps", ctypes.c_int), ("env_taps", ctypes.c_int),
-           ("env_scale", ctypes.c_float)]
-        + [(name, ctypes.c_int) for name in (
-            "fs", "pop_smem", "o_masks", "o_carry", "o_span", "o_pop", "o_rect", "o_ex",
-            "o_part")])
-
-
-def step_cluster(nfft: int) -> int:
-    """CTAs per channel of a step launch at nfft (``asp::step_ctas``): a
-    cluster of two, each taking half of a block's batches, or one CTA of
-    512 threads at nfft 8192, whose one exchange buffer leaves no room for
-    the peer's floor part."""
-    return 1 if regs_one_buffer(nfft) else 2
-
-
-def step_split(m: int, nfft: int, cluster: int) -> int:
-    """The new frames of a block's first CTA (``split`` of
-    ``asp::fir_gate_step_regs``): all of them, or with a cluster of two the
-    larger half in whole batches."""
-    nfb = 2 * regs_batch(nfft)
-    return m if cluster == 1 else min(m, -(-m // (2 * nfb)) * nfb)
-
-
-def step_span(nfft: int, hop: int, taps: int, m: int, fs: int,
-              ranges=None) -> tuple[int, int]:
-    """(span, FIR part) in floats of the largest analysis segment of a step
-    block of m new frames, fs a segment from the start of each CTA's frames
-    [lo, hi) of ``ranges`` (all m where None) (``asp::fir_gate_step_regs``):
-    the segment's frames read [in_tail | filtered block] from ext position
-    j0 hop on, the part before ext position nfft-hop copied from in_tail,
-    the rest the FIR's input in whole overlap-save blocks plus the FIR
-    history."""
-    d, hl = nfft - hop, taps - 1
-    blk = nfft - hl
-    span = part = 0
-    for lo, hi in ranges or [(0, m)]:  # each CTA's frames
-        for j0 in range(lo, hi, fs):
-            tl = max(0, d - j0 * hop)
-            seg = (min(hi, j0 + fs) - j0 - 1) * hop + nfft
-            fir_len = -(-(seg - tl) // blk) * blk + hl
-            span, part = max(span, tl + fir_len), max(part, fir_len)
-    return span, part
-
-
-@functools.lru_cache(maxsize=256)
-def step_regs_geometry(nfft: int, hop: int, taps: int, env_taps: int, b: int,
-                       noise_frames: int, res: tuple | None = None,
-                       cluster: int = 1) -> dict:
-    """Frames a segment, where the popped spectra and the envelope's input
-    live, and the shared-memory offsets (floats) and bytes of the step body
-    (``asp::fir_gate_step_regs``) for a block of b samples: floor sum and
-    release state (nfft/2+1 each), the masks buffer (2B (nfft/2+1), none at
-    nfft 8192), two OLA carries (nfft-hop each), the span (``step_span``),
-    the pop buffer (the m - noise_frames frames the block pops itself, 2
-    (nfft/2+1) floats each), the rectified row (env_taps - 1 + b), then the
-    exchange buffers (``regs_smem``'s), or the resampler's phase bank and
-    raw window if larger (``res`` = (up, down, nk), reduced).
-
-    The whole block in one segment with both buffers in shared memory
-    where that fits SMEM_LIMIT (the headline: 16 frames, 5 or 6 FIR blocks,
-    one CTA an SM); else the pop buffer, then the rectified row, then both
-    go to device memory (the kernel's scratch rows), each with the largest
-    segment that fits (powers of two of 2B frames).  With a cluster of two
-    CTAs (``cluster`` 2) each CTA's segments cover its own frames
-    (``step_split``) and the second CTA's floor part (nfft/2+1) follows
-    the tail.  A ValueError names SMEM_LIMIT where nothing fits (nfft >
-    8192)."""
-    nb, d = nfft // 2 + 1, nfft - hop
-    m = b // hop
-    ns = max(m - noise_frames, 0)
-    one = regs_one_buffer(nfft)
-    nfb = 2 * regs_batch(nfft)
-    exchange = (1 if one else 2) * 2 * regs_threads(nfft) * regs_points(nfft)
-    ehl = env_taps - 1 if env_taps else 0
-    o_masks = 2 * nb
-    o_carry = o_masks + (0 if one else nfb * nb)
-    o_span = o_carry + 2 * d
-    split = step_split(m, nfft, cluster)
-    ranges = [(0, split), (split, m)]
-    fs_all = -(-split // nfb) * nfb
-    sizes = [fs_all] + [nfb << k for k in range(fs_all.bit_length()) if nfb << k < fs_all][::-1]
-    for pop_smem, rect_smem in ((1, 1), (1, 0), (0, 1), (0, 0)):
-        if not env_taps and not rect_smem:
-            continue
-        for fs in sizes:
-            span, part = step_span(nfft, hop, taps, m, fs, ranges=ranges)
-            o_pop = o_span + span
-            o_rect = o_pop + (2 * ns * nb if pop_smem else 0)
-            o_ex = o_rect + (ehl + b if env_taps and rect_smem else 0)
-            tail = exchange
-            if res is not None:
-                up, down, nk = res
-                tail = max(tail, up * nk + res_window(part, up, down, nk))
-            o_part = o_ex + tail
-            smem = 4 * (o_part + (nb if cluster > 1 else 0))
-            if smem <= SMEM_LIMIT:
-                return dict(fs=fs, pop_smem=pop_smem, rect_smem=bool(env_taps and rect_smem),
-                            o_masks=o_masks, o_carry=o_carry, o_span=o_span, o_pop=o_pop,
-                            o_rect=o_rect, o_ex=o_ex, o_part=o_part, cluster=cluster,
-                            smem=smem)
-    raise ValueError(f"nfft={nfft}, hop={hop}, taps={taps}: the step body needs more shared "
-                     f"memory per block than SMEM_LIMIT ({SMEM_LIMIT} bytes) for one batch")
-
-
 def history_tail(hist: torch.Tensor, x: torch.Tensor, taps: int) -> torch.Tensor:
     """The last taps-1 samples of [hist | x]: a FIR's carry after a block."""
     if taps == 1:
@@ -354,8 +242,7 @@ def fir_gate_step_args(x2d: torch.Tensor, x_ld: int, state: list, h: np.ndarray,
     fargs = FirEnvArgs(*map(data_ptr, (hist, hist_out, fft_tables(h.tobytes(), nfft, dev)[0],
                                         twf, twi, ehist, ehist_out, taps_rev, rect)),
                        t, te, float(env_scale), geo["fs"], geo["pop_smem"],
-                       *(geo[k] for k in ("o_masks", "o_carry", "o_span", "o_pop", "o_rect",
-                                          "o_ex", "o_part")))
+                       *(geo[k] for k in STEP_OFFSETS))
     new = [hist_out, gate_state] + ([ehist_out] if env else [])
     return args, fargs, new, out, geo["smem"], (keep, hist, ehist, rect)
 

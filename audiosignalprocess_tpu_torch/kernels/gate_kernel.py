@@ -3,6 +3,11 @@ shard of it (``csrc/gate_kernel.cu``) and the streaming gate step
 (``csrc/gate_step_kernel.cu``), their plain PyTorch versions, and the
 helpers the fused gate kernels share.
 
+The streaming step kernels (the gate alone here; the FIR -> gate steps in
+``chain_kernel`` and ``res_chain_kernel``) run one body,
+``csrc/fir_gate_step_regs.cuh``, the gate alone with its FIR switched off;
+``step_regs_geometry`` sizes its segments and shared memory.
+
 The whole-file gate, its time shard and the whole-file FIR -> gate
 chains (``chain_kernel``, ``res_chain_kernel``) run one body,
 ``csrc/chain_regs_device.cuh``; ``regs_geometry`` sizes its tiles and
@@ -49,6 +54,7 @@ from audiosignalprocess_tpu_torch.kernels._build import (
     SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
 )
 from audiosignalprocess_tpu_torch.kernels.fft_kernel import real_stockham_passes, stockham_table
+from audiosignalprocess_tpu_torch.kernels.resample_kernel import res_window
 from audiosignalprocess_tpu_torch.ops import fft as fft_ops
 from audiosignalprocess_tpu_torch.ops.stft import (
     WOLA_EDGE_REL, frame, num_frames, overlap_add, wola_clamp,
@@ -56,9 +62,6 @@ from audiosignalprocess_tpu_torch.ops.stft import (
 from audiosignalprocess_tpu_torch.ops.windows import window, window_np
 from audiosignalprocess_tpu_torch.utils.device import upload
 from audiosignalprocess_tpu_torch.utils.validate import check
-
-THREADS = 512
-"""Threads of one step CTA; each CTA walks one channel's frames in order."""
 
 def inv_norm_rows(wv_np: np.ndarray, nfft: int, hop: int, nframes: int,
                   total_len: int) -> np.ndarray:
@@ -241,17 +244,18 @@ def data_ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def regs_info(symbol: str, nfft: int, sequential: bool, smem: int,
+def regs_info(symbol: str, nfft: int, sequential: bool | None, smem: int,
               device: torch.device) -> dict:
     """The built kernel's instantiation for nfft and the launch, from the
     CUDA runtime: registers a thread, local memory a thread (spills) and
     resident CTAs an SM at ``smem`` bytes of shared memory (the occupancy
-    API)."""
+    API).  ``sequential`` None: the symbol takes no release argument."""
     fn = getattr(_build.load(), symbol)
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    args = (nfft,) + (() if sequential is None else (int(sequential),))
+    fn.argtypes = [ctypes.c_int] * (len(args) + 2) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     info = (ctypes.c_int * 3)()
-    raise_on_error(fn(nfft, int(sequential), smem, device.index or 0, info), symbol)
+    raise_on_error(fn(*args, smem, device.index or 0, info), symbol)
     return dict(registers=info[0], local_bytes=info[1], ctas=info[2])
 
 
@@ -603,14 +607,15 @@ def _step_tables_np(nfft: int, hop: int, window_kind: str):
 def step_device_tables(nfft: int, hop: int, window_kind: str,
                        device: torch.device) -> dict:
     """The step kernels' constant tables on ``device``, uploaded once per
-    geometry (pinned, non-blocking): window, twiddles, 1/norm head and
-    tail ramps; ``inv_const`` stays a host float."""
+    geometry (pinned, non-blocking): the window, the forward and inverse
+    per-stage tables of the body's transforms (``stockham_table(nfft, -1)``,
+    ``(nfft, +1)``), the 1/norm head and tail ramps; ``inv_const`` stays a
+    host float."""
     wv, head, const, tail = _step_tables_np(nfft, hop, window_kind)
-    tw = np.exp(-2j * np.pi * np.arange(nfft // 2) / nfft)
     f32 = lambda a: upload(np.ascontiguousarray(a), torch.float32, device)
-    return dict(win=f32(wv), tw=f32(tw.astype(np.complex64).view(np.float32)),
-                inv_head=f32(1.0 / head), inv_tail=f32(1.0 / tail),
-                inv_const=1.0 / const)
+    return dict(win=f32(wv), twf=stockham_table(nfft, -1, device),
+                twi=stockham_table(nfft, 1, device), inv_head=f32(1.0 / head),
+                inv_tail=f32(1.0 / tail), inv_const=1.0 / const)
 
 
 def gate_step_ref(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
@@ -661,8 +666,9 @@ def gate_step_ref(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
 
 
 class GateStepArgs(ctypes.Structure):
-    """The gate step's kernel arguments: ``struct GateStepArgs`` of
-    ``csrc/gate_step_device.cuh``, field for field."""
+    """The step kernels' gate arguments: ``struct GateStepArgs`` of
+    ``csrc/fir_gate_step_regs.cuh``, field for field (``tw`` and ``ring``
+    unused: null and 0)."""
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
@@ -678,17 +684,124 @@ class GateStepArgs(ctypes.Structure):
             "thresh_gain", "att", "release", "inv_const")])
 
 
-def step_smem_bytes(nfft: int, hop: int) -> int:
-    """Dynamic shared memory of a gate-step CTA, in the order the kernel
-    carves it: twiddles (nfft/2 complex), FFT buffer (nfft complex),
-    floor sum and release state (nfft/2+1 each), OLA ring."""
-    return 8 * (nfft // 2) + 8 * nfft + 4 * (2 * (nfft // 2 + 1) + ola_ring(nfft, hop))
+class FirEnvArgs(ctypes.Structure):
+    """The FIR front, envelope tail and shared-memory layout of the step
+    body's arguments: ``struct FirEnvArgs`` of
+    ``csrc/fir_gate_step_regs.cuh`` (the gate step fills only the tables
+    and the layout)."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "hist", "hist_out", "hf", "twf", "twi", "env_hist", "env_hist_out",
+        "env_taps_rev", "rect")]
+        + [("taps", ctypes.c_int), ("env_taps", ctypes.c_int),
+           ("env_scale", ctypes.c_float)]
+        + [(name, ctypes.c_int) for name in (
+            "fs", "pop_smem", "o_masks", "o_carry", "o_span", "o_pop", "o_rect", "o_ex",
+            "o_part")])
 
 
-def ola_ring(nfft: int, hop: int) -> int:
-    """Length of the OLA ring: the least power of two >= nfft + hop, the
-    span one frame pair writes."""
-    return 1 << (nfft + hop - 1).bit_length()
+STEP_OFFSETS = ("o_masks", "o_carry", "o_span", "o_pop", "o_rect", "o_ex", "o_part")
+"""The shared-memory offsets of ``step_regs_geometry``, in FirEnvArgs' order."""
+
+
+def step_cluster(nfft: int) -> int:
+    """CTAs per channel of a step launch at nfft (``asp::step_ctas``): a
+    cluster of two, each taking half of a block's batches, or one CTA of
+    512 threads at nfft 8192, whose one exchange buffer leaves no room for
+    the peer's floor part."""
+    return 1 if regs_one_buffer(nfft) else 2
+
+
+def step_split(m: int, nfft: int, cluster: int) -> int:
+    """The frames of a block's first CTA (``split`` of
+    ``asp::fir_gate_step_regs``, ``asp::cta_split``): all of them, or with a
+    cluster of two the larger half in whole batches."""
+    nfb = 2 * regs_batch(nfft)
+    return m if cluster == 1 else min(m, -(-m // (2 * nfb)) * nfb)
+
+
+def step_span(nfft: int, hop: int, taps: int, m: int, fs: int,
+              ranges=None) -> tuple[int, int]:
+    """(span, fill part) in floats of the largest analysis segment of a
+    step block of m new frames, fs a segment from the start of each CTA's
+    frames [lo, hi) of ``ranges`` (all m where None)
+    (``asp::fir_gate_step_regs``): the segment's frames read [in_tail |
+    gate input] from ext position j0 hop on, the part before ext position
+    nfft-hop copied from in_tail, the rest the fill's: the FIR's input in
+    whole overlap-save blocks plus the FIR history, or with ``taps`` 0 (no
+    FIR, the gate step) the block's own samples."""
+    d = nfft - hop
+    span = part = 0
+    for lo, hi in ranges or [(0, m)]:  # each CTA's frames
+        for j0 in range(lo, hi, fs):
+            tl = max(0, d - j0 * hop)
+            fill = (min(hi, j0 + fs) - j0 - 1) * hop + nfft - tl
+            if taps:
+                blk = nfft - (taps - 1)
+                fill = -(-fill // blk) * blk + taps - 1
+            span, part = max(span, tl + fill), max(part, fill)
+    return span, part
+
+
+@functools.lru_cache(maxsize=256)
+def step_regs_geometry(nfft: int, hop: int, taps: int, env_taps: int, b: int,
+                       noise_frames: int, res: tuple | None = None,
+                       cluster: int = 1) -> dict:
+    """Frames a segment, where the popped spectra and the envelope's input
+    live, and the shared-memory offsets (floats) and bytes of the step body
+    (``asp::fir_gate_step_regs``) for a block of b samples: floor sum and
+    release state (nfft/2+1 each), the masks buffer (2B (nfft/2+1), none at
+    nfft 8192), two OLA carries (nfft-hop each), the span (``step_span``;
+    ``taps`` 0: the gate step, no FIR), the pop buffer (the m - noise_frames
+    frames the block pops itself, 2 (nfft/2+1) floats each), the rectified
+    row (env_taps - 1 + b), then the exchange buffers (``regs_smem``'s), or
+    the resampler's phase bank and raw window if larger (``res`` = (up,
+    down, nk), reduced).
+
+    The whole block in one segment with both buffers in shared memory
+    where that fits SMEM_LIMIT (the headline: 16 frames, 5 or 6 FIR blocks,
+    one CTA an SM); else the pop buffer, then the rectified row, then both
+    go to device memory (the kernel's scratch rows), each with the largest
+    segment that fits (powers of two of 2B frames).  With a cluster of two
+    CTAs (``cluster`` 2) each CTA's segments cover its own frames
+    (``step_split``) and the second CTA's floor part (nfft/2+1) follows
+    the tail.  A ValueError names SMEM_LIMIT where nothing fits (nfft >
+    8192)."""
+    nb, d = nfft // 2 + 1, nfft - hop
+    m = b // hop
+    ns = max(m - noise_frames, 0)
+    one = regs_one_buffer(nfft)
+    nfb = 2 * regs_batch(nfft)
+    exchange = (1 if one else 2) * 2 * regs_threads(nfft) * regs_points(nfft)
+    ehl = env_taps - 1 if env_taps else 0
+    o_masks = 2 * nb
+    o_carry = o_masks + (0 if one else nfb * nb)
+    o_span = o_carry + 2 * d
+    split = step_split(m, nfft, cluster)
+    ranges = [(0, split), (split, m)]
+    fs_all = -(-split // nfb) * nfb
+    sizes = [fs_all] + [nfb << k for k in range(fs_all.bit_length()) if nfb << k < fs_all][::-1]
+    for pop_smem, rect_smem in ((1, 1), (1, 0), (0, 1), (0, 0)):
+        if not env_taps and not rect_smem:
+            continue
+        for fs in sizes:
+            span, part = step_span(nfft, hop, taps, m, fs, ranges=ranges)
+            o_pop = o_span + span
+            o_rect = o_pop + (2 * ns * nb if pop_smem else 0)
+            o_ex = o_rect + (ehl + b if env_taps and rect_smem else 0)
+            tail = exchange
+            if res is not None:
+                up, down, nk = res
+                tail = max(tail, up * nk + res_window(part, up, down, nk))
+            o_part = o_ex + tail
+            smem = 4 * (o_part + (nb if cluster > 1 else 0))
+            if smem <= SMEM_LIMIT:
+                return dict(fs=fs, pop_smem=pop_smem, rect_smem=bool(env_taps and rect_smem),
+                            o_masks=o_masks, o_carry=o_carry, o_span=o_span, o_pop=o_pop,
+                            o_rect=o_rect, o_ex=o_ex, o_part=o_part, cluster=cluster,
+                            smem=smem)
+    raise ValueError(f"nfft={nfft}, hop={hop}, taps={taps}: the step body needs more shared "
+                     f"memory per block than SMEM_LIMIT ({SMEM_LIMIT} bytes) for one batch")
 
 
 def gate_step_args(x2d: torch.Tensor, x_ld: int, state: dict, out: torch.Tensor,
@@ -730,12 +843,11 @@ def gate_step_args(x2d: torch.Tensor, x_ld: int, state: dict, out: torch.Tensor,
         *(ptr(new, k) for k in (
             "in_tail", "fifo_r", "fifo_i", "floor_sum", "ola_tail", "rel")),
         *((rows[0].data_ptr(), rows[1].data_ptr()) if scratch else (None, None)),
-        tabs["win"].data_ptr(),
-        tabs["tw"].data_ptr(), tabs["inv_head"].data_ptr(),
+        tabs["win"].data_ptr(), None, tabs["inv_head"].data_ptr(),
         tabs["inv_tail"].data_ptr(),
         channels, x_ld, b, nfft, nfft.bit_length() - 1, hop, nf, pos, floor_n,
         input_latency, latency, -1 if eof_in is None else eof_in,
-        -1 if eof_out is None else eof_out, ola_ring(nfft, hop), int(release > 0.0),
+        -1 if eof_out is None else eof_out, 0, int(release > 0.0),
         float(10.0 ** (threshold_db / 20.0)), float(10.0 ** (-reduction_db / 20.0)),
         float(release), tabs["inv_const"])
     new_state = dict(new, floor_n=floor_n + sum(take), pos=pos + b)
@@ -750,9 +862,13 @@ def gate_step_fused(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
     """Streaming gate step, fused: (state, x) -> (new_state, y).
 
     A CPU tensor runs ``gate_step_ref``.  A CUDA float32 tensor launches
-    the kernel: one CTA per channel walks the block's frames (analysis,
-    noise floor, FIFO, mask and release, synthesis, OLA, emission) with
-    the positions passed as scalars.  Any other tensor raises.
+    the kernel: the FIR -> gate step's body without its FIR, a cluster of
+    two CTAs per channel (one at nfft 8192) on batches of register
+    Stockham transforms (analysis, noise floor, FIFO, mask and release,
+    synthesis, OLA, emission), the positions passed as scalars;
+    ``step_regs_geometry`` (``taps`` 0) sizes its segments and shared
+    memory, and past nfft 8192 raises a ValueError naming SMEM_LIMIT.  Any
+    other tensor raises.
     """
     kw = dict(nfft=nfft, hop=hop, threshold_db=threshold_db,
               reduction_db=reduction_db, noise_frames=noise_frames,
@@ -761,18 +877,35 @@ def gate_step_fused(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
     if x.device.type == "cpu":
         return gate_step_ref(x, state, **kw)
     check_cuda_f32(x, "gate_step_fused", "GateStage routes float64 to its plain step")
+    dev = x.device
     x2d, x_ld = rows_view(x)
-    out = torch.empty(x2d.shape, dtype=torch.float32, device=x.device)
-    args, new_state, _keep = gate_step_args(x2d, x_ld, state, out, **kw)
-    smem = step_smem_bytes(nfft, hop)
-    check(smem <= SMEM_LIMIT, f"nfft={nfft}, hop={hop} need {smem} bytes of "
-          f"shared memory per block, more than {SMEM_LIMIT}")
-    rc = kernel_fn("asp_gate_step", 1)(
-        ctypes.byref(args), smem, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    geo = step_regs_geometry(nfft, hop, 0, 0, x2d.shape[1], noise_frames, None,
+                             step_cluster(nfft))
+    out = torch.empty(x2d.shape, dtype=torch.float32, device=dev)
+    args, new_state, _keep = gate_step_args(x2d, x_ld, state, out,
+                                            scratch=not geo["pop_smem"], **kw)
+    tabs = step_device_tables(nfft, hop, window_kind, dev)
+    fargs = FirEnvArgs(None, None, None, tabs["twf"].data_ptr(), tabs["twi"].data_ptr(),
+                       None, None, None, None, 0, 0, 0.0, geo["fs"], geo["pop_smem"],
+                       *(geo[k] for k in STEP_OFFSETS))
+    rc = kernel_fn("asp_gate_step", 2)(
+        ctypes.byref(args), ctypes.byref(fargs), geo["smem"], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "gate step")
     gate_step_fused.launches += 1
     return new_state, out.reshape(x.shape)
 
 
 gate_step_fused.launches = 0
+
+
+def gate_step_info(nfft: int = 1024, hop: int = 256, block: int = 4096,
+                   noise_frames: int = 8, release: float = 0.0, device=None) -> dict:
+    """``gate_step_fused``'s kernel at this geometry on a CUDA device:
+    ``regs_info`` (registers, local bytes, CTAs an SM) with the CTAs a
+    channel, the frames a segment and shared memory of its launch."""
+    cluster = step_cluster(nfft)
+    geo = step_regs_geometry(nfft, hop, 0, 0, block, noise_frames, None, cluster)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return dict(regs_info("asp_gate_step_info", nfft, release > 0.0, geo["smem"], dev),
+                cluster=cluster, fs=geo["fs"], smem=geo["smem"])

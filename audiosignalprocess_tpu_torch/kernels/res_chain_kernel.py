@@ -37,10 +37,10 @@ from audiosignalprocess_tpu_torch.kernels._build import (
 )
 from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
     _check_guards, filtered_floor, fir_gate_step_args, fir_gate_step_ref,
-    fir_noise_gate_ref, gate_tables, step_cluster, step_regs_geometry,
+    fir_noise_gate_ref, gate_tables,
 )
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
-    data_ptr, regs_geometry, regs_info, regs_span_rows,
+    data_ptr, regs_geometry, regs_info, regs_span_rows, step_cluster, step_regs_geometry,
 )
 from audiosignalprocess_tpu_torch.kernels.os_kernel import check_os_geometry
 from audiosignalprocess_tpu_torch.kernels.resample_kernel import bank_table, res_window
@@ -218,7 +218,7 @@ def res_fir_gate_step_fused(x: torch.Tensor, state: list, up: int, down: int, h_
     launches the kernel: one CTA per channel resamples the block straight
     into the FIR's span in shared memory, filters it, gates it and, with
     ``env_h``, runs the envelope tail, on ``fir_gate_step_fused``'s body
-    (``chain_kernel.step_regs_geometry`` sizes it).  Any other tensor
+    (``gate_kernel.step_regs_geometry`` sizes it).  Any other tensor
     raises.
     """
     up, down, h_res = _ratio(up, down, h_res)

@@ -1,6 +1,7 @@
 """The streaming phase-vocoder step (``pipeline.StretchStage``): the
-hand-written kernel (``csrc/stretch_step_kernel.cu``), its plain PyTorch
-version and the geometry both share.
+hand-written kernel (``csrc/stretch_step_kernel.cu``, its body
+``csrc/stretch_step_regs.cuh`` on batched register Stockham transforms),
+its plain PyTorch version and the geometry both share.
 
 Mirrors the JAX package's ``kernels/stretch_kernel.py`` and the plain
 ``StretchStage.step``.  One step takes a block of m = b/hop analysis
@@ -41,7 +42,8 @@ from audiosignalprocess_tpu_torch.kernels._build import (
     SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
 )
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
-    _step_tables_np, ola_ring, step_device_tables, wola_norm_at, wola_ola_emit,
+    _step_tables_np, regs_batch, regs_info, regs_one_buffer, regs_points, regs_threads,
+    step_cluster, step_device_tables, wola_norm_at, wola_ola_emit,
 )
 from audiosignalprocess_tpu_torch.ops import fft as fft_ops
 from audiosignalprocess_tpu_torch.ops.stft import frame
@@ -161,17 +163,17 @@ def stretch_step_ref(x: torch.Tensor, state: dict, *, nfft: int, hop: int, p: in
 
 class StretchStepArgs(ctypes.Structure):
     """The stretch step's kernel arguments: ``struct StretchStepArgs`` of
-    ``csrc/stretch_step_kernel.cu``, field for field."""
+    ``csrc/stretch_step_regs.cuh``, field for field."""
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "x", "out", "in_tail", "fifo_r", "fifo_i", "z0r", "z0i", "accr", "acci",
             "ola_tail", "in_tail_out", "fifo_r_out", "fifo_i_out", "z0r_out", "z0i_out",
-            "accr_out", "acci_out", "ola_tail_out", "slots", "fracs", "win", "tw",
+            "accr_out", "acci_out", "ola_tail_out", "slots", "fracs", "win", "twf", "twi",
             "inv_head", "inv_tail")]
         + [(name, ctypes.c_int) for name in (
             "channels", "x_ld", "nfft", "log2n", "hop", "m", "mo", "depth", "hit", "i0",
-            "lo", "hi", "eof_out", "ring")]
+            "lo", "hi", "eof_out", "o_carry", "o_syn", "o_ex")]
         + [("inv_const", ctypes.c_float)])
 
 
@@ -187,11 +189,27 @@ def slot_tables(m: int, p: int, q: int, n_skip: int, off: int, device: torch.dev
     return upload(slots, torch.int32, device), upload(fracs, torch.float32, device)
 
 
-def step_smem_bytes(nfft: int, hop: int) -> int:
-    """Dynamic shared memory of a stretch-step CTA, in the order the
-    kernel carves it: twiddles (nfft/2 complex), FFT buffer (nfft
-    complex), z0 and acc (2 x 2 x (nfft/2+1)), OLA ring."""
-    return 8 * (nfft // 2) + 8 * nfft + 4 * (4 * (nfft // 2 + 1) + ola_ring(nfft, hop))
+@functools.lru_cache(maxsize=64)
+def stretch_regs_geometry(nfft: int, hop: int) -> dict:
+    """Shared-memory offsets (floats) and bytes of the stretch step's body
+    (``asp::stretch_step_regs``), in the order it carves them: z0 and acc
+    (re and im, nfft/2+1 each), two OLA carries (nfft-hop each), the
+    synthesis bins of a batch (2 planes of 2B (nfft/2+1); none at nfft
+    8192, where the merged pass's thread of a bin runs the batch's two
+    frames in registers), then the exchange buffers (two of 2 T R floats,
+    one at 8192).  The analysis reads its frames from the block in device
+    memory, so nothing depends on the block.  ``cluster``: CTAs a channel
+    (``step_cluster``).  Past nfft 8192 a ValueError names SMEM_LIMIT."""
+    nb, d = nfft // 2 + 1, nfft - hop
+    one = regs_one_buffer(nfft)
+    o_carry = 4 * nb
+    o_syn = o_carry + 2 * d
+    o_ex = o_syn + (0 if one else 2 * 2 * regs_batch(nfft) * nb)
+    exchange = (1 if one else 2) * 2 * regs_threads(nfft) * regs_points(nfft)
+    smem = 4 * (o_ex + exchange)
+    check(smem <= SMEM_LIMIT, f"nfft={nfft}, hop={hop}: the stretch step needs {smem} bytes "
+          f"of shared memory per block, more than SMEM_LIMIT ({SMEM_LIMIT} bytes)")
+    return dict(o_carry=o_carry, o_syn=o_syn, o_ex=o_ex, cluster=step_cluster(nfft), smem=smem)
 
 
 def stretch_step_fused(x: torch.Tensor, state: dict, *, nfft: int, hop: int, p: int,
@@ -200,12 +218,14 @@ def stretch_step_fused(x: torch.Tensor, state: dict, *, nfft: int, hop: int, p: 
     """Streaming stretch step, fused: (state, x) -> (new_state, y).
 
     A CPU tensor runs ``stretch_step_ref``.  A CUDA float32 tensor
-    launches the kernel: one CTA per channel runs the block's analysis
-    (two frames per complex transform, FIFO push, z0 capture), then its
-    synthesis frame pairs in order (rotor recursion per bin, inverse
-    transform, OLA, emission), with the positions passed as scalars and
-    the slot/frac tables uploaded once per geometry.  Any other tensor
-    raises.
+    launches the kernel: a cluster of two CTAs per channel (one at nfft
+    8192) runs the block's analysis (batches of register Stockham
+    transforms, two frames a transform, the FIFO push, z0 capture), then
+    its synthesis batches (the rotor recursion per bin in frame order, the
+    inverse transforms, OLA, emission), with the positions passed as
+    scalars and the slot/frac tables uploaded once per geometry
+    (``stretch_regs_geometry`` sizes its shared memory; past nfft 8192 a
+    ValueError names SMEM_LIMIT).  Any other tensor raises.
     """
     kw = dict(nfft=nfft, hop=hop, p=p, q=q, n_skip=n_skip, off=off,
               window_kind=window_kind, eof_frames_out=eof_frames_out)
@@ -215,9 +235,7 @@ def stretch_step_fused(x: torch.Tensor, state: dict, *, nfft: int, hop: int, p: 
     m, mo = stretch_block_frames(x.shape[-1], hop, p, q)
     check(nfft >= 4 and nfft & (nfft - 1) == 0, f"nfft={nfft} must be a power of two >= 4")
     check(nfft % hop == 0, f"hop={hop} must divide nfft={nfft}")
-    smem = step_smem_bytes(nfft, hop)
-    check(smem <= SMEM_LIMIT, f"nfft={nfft}, hop={hop} need {smem} bytes of shared "
-          f"memory per block, more than {SMEM_LIMIT}")
+    geo = stretch_regs_geometry(nfft, hop)
     dev = x.device
     x2d, x_ld = rows_view(x)
     channels = x2d.shape[0]
@@ -240,15 +258,25 @@ def stretch_step_fused(x: torch.Tensor, state: dict, *, nfft: int, hop: int, p: 
     args = StretchStepArgs(
         x2d.data_ptr(), out.data_ptr(), *(cur[k].data_ptr() for k in _CARRY),
         *(new[k].data_ptr() for k in _CARRY), slots.data_ptr(), fracs.data_ptr(),
-        tabs["win"].data_ptr(), tabs["tw"].data_ptr(), tabs["inv_head"].data_ptr(),
-        tabs["inv_tail"].data_ptr(),
+        *(tabs[k].data_ptr() for k in ("win", "twf", "twi", "inv_head", "inv_tail")),
         channels, x_ld, nfft, nfft.bit_length() - 1, hop, m, mo, depth, hit, i0, lo, hi,
-        -1 if eof_out is None else eof_out, ola_ring(nfft, hop), tabs["inv_const"])
+        -1 if eof_out is None else eof_out, geo["o_carry"], geo["o_syn"], geo["o_ex"],
+        tabs["inv_const"])
     rc = kernel_fn("asp_stretch_step", 1)(
-        ctypes.byref(args), smem, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        ctypes.byref(args), geo["smem"], dev.index, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "stretch step")
     stretch_step_fused.launches += 1
     return dict(new, blk=blk + 1), out.reshape(x.shape[:-1] + (mo * hop,))
 
 
 stretch_step_fused.launches = 0
+
+
+def stretch_step_info(nfft: int = 1024, hop: int = 256, device=None) -> dict:
+    """``stretch_step_fused``'s kernel at this geometry on a CUDA device:
+    ``regs_info`` (registers, local bytes, CTAs an SM) with the CTAs a
+    channel and shared memory of its launch."""
+    geo = stretch_regs_geometry(nfft, hop)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return dict(regs_info("asp_stretch_step_info", nfft, None, geo["smem"], dev),
+                cluster=geo["cluster"], smem=geo["smem"])

@@ -35,7 +35,10 @@ the device time of 10 calls queued behind ``torch.cuda._sleep`` (about
 chip_smoke's ``time_ms``; and the two FIR -> gate step kernels at
 chip_smoke's phase 9b shape (64 channels, one block of 4096 or 4704 raw
 samples, the carry after 12 blocks of white noise; ``fir_gate_step_fused``
-also with the 129-tap envelope), 20 launches queued behind the sleep;
+also with the 129-tap envelope; ``gate_step_fused`` and
+``stretch_step_fused`` at 4/3 at the same block, the stretch also at
+147/160, a block of 147 hops, and both at nfft 8192, hop 2048, 16 hops a
+block), 20 launches queued behind the sleep;
 in a checkout whose whole-file body runs at nfft 8192 the four
 whole-file kernels also at 8192/2048 (64 x 480000; ``noise_gate_fused``
 also with release 0.6, the sequential launch);
@@ -112,7 +115,8 @@ GATE_CASES = [  # (channels, n, release, nfft, hop): the gate alone
 
 log = _build.build()[1].splitlines()
 chain = "--chain" in sys.argv
-kern = ("noise_gate_kernel", "fir_gate_step_kernel") if chain else ("rfft_stockham_kernel",)
+kern = (("noise_gate_kernel", "gate_step_kernel", "stretch_step_kernel") if chain
+        else ("rfft_stockham_kernel",))
 for i, line in enumerate(log):  # ptxas's report of the timed kernels, where this call built them
     if "Compiling entry function" in line and any(k in line for k in kern):
         name = line.split("'")[1]
@@ -259,13 +263,23 @@ if chain:
     # the step kernels at chip_smoke's phase 9b shape: 64 channels, one
     # block (BLOCK, or RES_BLOCK raw for the resampler) with the carry after
     # STEP_WARM blocks of white noise, 20 launches queued behind the sleep
-    from audiosignalprocess_tpu_torch.pipeline import Chain, FIRGateStage, ResFIRGateStage
+    from audiosignalprocess_tpu_torch.pipeline import (
+        Chain, FIRGateStage, GateStage, ResFIRGateStage, StretchStage)
     gate = dict(nfft=cs.NFFT, hop=cs.HOP, noise_frames=cs.NOISE_FRAMES)
+    big = dict(nfft=8192, hop=2048)
     steps = {"fir_gate_step_fused": (FIRGateStage(h=h, **gate), cs.BLOCK),
              "fir_gate_step_fused + envelope": (
                  FIRGateStage(h=h, env_h=design_fir(cs.ENV_TAPS, 0.01), **gate), cs.BLOCK),
              "res_fir_gate_step_fused": (ResFIRGateStage(cs.UP, cs.DOWN, h=h, **gate),
-                                         cs.RES_BLOCK)}
+                                         cs.RES_BLOCK),
+             "gate_step_fused": (GateStage(fused=True, **gate), cs.BLOCK),
+             "stretch_step_fused 4/3": (StretchStage(4, 3, nfft=cs.NFFT, hop=cs.HOP, fused=True),
+                                        cs.BLOCK),
+             "stretch_step_fused 147/160": (
+                 StretchStage(147, 160, nfft=cs.NFFT, hop=cs.HOP, fused=True), 147 * cs.HOP),
+             "gate_step_fused 8192": (GateStage(fused=True, noise_frames=cs.NOISE_FRAMES, **big),
+                                      16 * 2048),
+             "stretch_step_fused 4/3 8192": (StretchStage(4, 3, fused=True, **big), 16 * 2048)}
     step_arms = {}
     for name, (stage, block) in steps.items():
         sc = Chain([stage])
@@ -276,11 +290,18 @@ if chain:
             st, _ = sc.step(st, xb[:, k * block:(k + 1) * block])
         step_arms[name] = (lambda sc=sc, st=st, xl=xb[:, cs.STEP_WARM * block:]:
                            sc.step(st, xl))
-    for name, info in (("fir_gate_step_fused", "fir_gate_step_info"),
-                       ("res_fir_gate_step_fused", "res_fir_gate_step_info")):
-        mod = ck if name.startswith("fir") else rk
+    from audiosignalprocess_tpu_torch.kernels import stretch_kernel as sk
+    for name, mod, info in (("fir_gate_step_fused", ck, "fir_gate_step_info"),
+                            ("res_fir_gate_step_fused", rk, "res_fir_gate_step_info"),
+                            ("gate_step_fused", gk, "gate_step_info"),
+                            ("stretch_step_fused", sk, "stretch_step_info")):
         if hasattr(mod, info):  # a checkout with the step on the batched body
             print(f"[ab chain] {name} on {smi}: {getattr(mod, info)(device=dev)}")
+    for name, mod, info in (("gate_step_fused", gk, "gate_step_info"),
+                            ("stretch_step_fused", sk, "stretch_step_info")):
+        if hasattr(mod, info):
+            print(f"[ab chain] {name} nfft 8192 on {smi}: "
+                  f"{getattr(mod, info)(nfft=8192, hop=2048, device=dev)}")
     got = {arm: [] for arm in [*arms, *step_arms]}
     for _ in range(6):
         for arm, fn in arms.items():

@@ -1247,7 +1247,9 @@ def step_device_phase(dev, smi, record, kernels, h, h_env, log=""):
         f"{name} {n_l} x ({ms:.4f} - {b:.4f}) = {cost:.4f} ms"
         for cost, name, ms, b, n_l in sorted(rank, reverse=True)))
     from audiosignalprocess_tpu_torch.kernels.chain_kernel import fir_gate_step_info
+    from audiosignalprocess_tpu_torch.kernels.gate_kernel import gate_step_info
     from audiosignalprocess_tpu_torch.kernels.res_chain_kernel import res_fir_gate_step_info
+    from audiosignalprocess_tpu_torch.kernels.stretch_kernel import stretch_step_info
 
     def big_step_info(info, block, **kw):  # at nfft 8192
         return info(nfft=BIG_NFFT, hop=BIG_HOP, block=block, device=dev, **kw)
@@ -1270,9 +1272,16 @@ def step_device_phase(dev, smi, record, kernels, h, h_env, log=""):
           f"res_fir_gate_step_fused {c}x{big_res} "
           f"{big_step_info(res_fir_gate_step_info, big_res)}, with the envelope "
           f"{big_step_info(res_fir_gate_step_info, big_res, env_taps=len(h_env))}; "
+          f"gate_step_fused {c}x{BLOCK} {gate_step_info(block=BLOCK, device=dev)}, release 0.6 "
+          f"{gate_step_info(block=BLOCK, release=0.6, device=dev)}, at nfft {BIG_NFFT} "
+          f"{c}x{4 * BIG_HOP} {big_step_info(gate_step_info, 4 * BIG_HOP)}; "
+          f"stretch_step_fused {stretch_step_info(device=dev)}, at nfft {BIG_NFFT} "
+          f"{stretch_step_info(BIG_NFFT, BIG_HOP, device=dev)}; "
           f"ptxas <R,RS,threads>: fir_gate_step_kernel "
           f"{chain_ptxas(log, 'fir_gate_step_kernel')}"
-          f"; res_fir_gate_step_kernel {chain_ptxas(log, 'res_fir_gate_step_kernel')}")
+          f"; res_fir_gate_step_kernel {chain_ptxas(log, 'res_fir_gate_step_kernel')}"
+          f"; gate_step_kernel {chain_ptxas(log, 'gate_step_kernel')}"
+          f"; stretch_step_kernel {chain_ptxas(log, 'stretch_step_kernel')}")
 
 
 STEP_WARM = 12  # blocks stepped before a step kernel's timed launch

@@ -267,7 +267,7 @@ def body_model(u, floor, h, nfft, hop, release=0.0, threshold_db=6.0, reduction_
     ntiles = -(-out_len // tile)
     twf = fk.stockham_stage_table_np(big_n, -1.0)
     twi = fk.stockham_stage_table_np(big_n, 1.0)
-    hf = np.fft.fft(np.concatenate([h, np.zeros(big_n - taps)])) if fir else None
+    hf = np.fft.fft(np.concatenate([h, np.zeros(big_n - taps)])) if fir else None if fir else None
     win = window_np(window_kind, big_n, periodic=True)
     inv_tab = _inv_norm_table(win, big_n, hp)
     gain, att = 10.0 ** (threshold_db / 20.0), 10.0 ** (-reduction_db / 20.0)
@@ -968,7 +968,8 @@ def test_chip_smoke_reads_the_thread_count_instantiations():
     thread count: the whole-file kernels' <R, RS, release, T> read as before
     at 256 threads and with their T at 512 (nfft 8192); the step kernels'
     <R, RS, T> (the release is read at run time, the CTAs a channel follow
-    from T), each by name (the resampling one's name holds the other's)."""
+    from T), each by name (the resampling one's name holds the other's, the
+    FIR one's the gate step's)."""
     import chip_smoke
 
     whole = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121fir_noise_gate_kernel"
@@ -983,7 +984,10 @@ def test_chip_smoke_reads_the_thread_count_instantiations():
                                                                      regs=128)
            + step.format(n=20, name="fir_gate_step_kernel", rs=4, t=256, sp=0, regs=248)
            + step.format(n=20, name="fir_gate_step_kernel", rs=2, t=512, sp=572, regs=128)
-           + step.format(n=24, name="res_fir_gate_step_kernel", rs=4, t=256, sp=0, regs=219))
+           + step.format(n=24, name="res_fir_gate_step_kernel", rs=4, t=256, sp=0, regs=219)
+           + step.format(n=16, name="gate_step_kernel", rs=4, t=256, sp=0, regs=200)
+           + step.format(n=16, name="gate_step_kernel", rs=2, t=512, sp=16, regs=128)
+           + step.format(n=19, name="stretch_step_kernel", rs=4, t=256, sp=0, regs=190))
     assert (chip_smoke.chain_ptxas(log, "fir_noise_gate_kernel")
             == "<16,2,0> 128 registers 0 bytes spill stores; "
                "<16,2,1,512> 128 registers 480 bytes spill stores")
@@ -992,6 +996,11 @@ def test_chip_smoke_reads_the_thread_count_instantiations():
                "<16,2,512> 128 registers 572 bytes spill stores")
     assert (chip_smoke.chain_ptxas(log, "res_fir_gate_step_kernel")
             == "<16,4,256> 219 registers 0 bytes spill stores")
+    assert (chip_smoke.chain_ptxas(log, "gate_step_kernel")
+            == "<16,4,256> 200 registers 0 bytes spill stores; "
+               "<16,2,512> 128 registers 16 bytes spill stores")
+    assert (chip_smoke.chain_ptxas(log, "stretch_step_kernel")
+            == "<16,4,256> 190 registers 0 bytes spill stores")
 
 
 def test_chip_smoke_unexplained_hops_follow_the_pairing():
@@ -1160,23 +1169,27 @@ def step_model(x, state, h, *, nfft, hop, threshold_db, reduction_db, noise_fram
                eof_in=None, fs=None, cluster=1):
     """asp::fir_gate_step_regs in float64: one block x (C, b) with the plain
     step's carry [FIR history, gate dict, envelope history], the signature
-    of fir_gate_step_ref.  Segments of ``fs`` new frames
-    (step_regs_geometry's unless given), the FIR batches in place on the
-    segment's span, analysis batches of 2B frames (the spectra to the FIFO
-    or the pop buffer, |X| to the floor in frame order), synthesis batches
-    from the popped spectra (the release scan per bin along the batch),
-    the overlap-add pass (each position once, the carry), the envelope
-    over the rectified row.  ``cluster`` 2: two CTAs, each with its own
-    frames (``step_split``) and segments; the first CTA's takes add to the
-    floor, the second's to a part of its own, added after.  Every output
-    position and carry is written once (NaN-filled)."""
+    of fir_gate_step_ref; with ``h`` None the kFir false schedule of the
+    gate step (the gate dict alone, gate_step_ref's signature: no FIR
+    batches, the span [in_tail | x] of the segment's frames).  Segments of
+    ``fs`` new frames (step_regs_geometry's unless given), the FIR batches
+    in place on the segment's span, analysis batches of 2B frames (the
+    spectra to the FIFO or the pop buffer, |X| to the floor in frame
+    order), synthesis batches from the popped spectra (the release scan
+    per bin along the batch), the overlap-add pass (each position once,
+    the carry), the envelope over the rectified row.  ``cluster`` 2: two
+    CTAs, each with its own frames (``step_split``) and segments; the
+    first CTA's takes add to the floor, the second's to a part of its own,
+    added after.  Every output position and carry is written once
+    (NaN-filled)."""
     xn = x.numpy()
     n_ch, b = xn.shape
     big_n, hp, nf = nfft, hop, noise_frames
     _, rs_pts, rs, lg, _, nt = _layout(big_n)
     nb, d, r, m = big_n // 2 + 1, big_n - hp, big_n // hp, b // hp
-    taps = len(h)
-    hl, blk, nfb = taps - 1, big_n - (taps - 1), 2 * nt
+    fir = h is not None
+    taps = len(h) if fir else 0
+    hl, blk, nfb = max(taps - 1, 0), big_n - max(taps - 1, 0), 2 * nt
     te = 0 if env_h is None else len(env_h)
     ehl = max(te - 1, 0)
     if fs is None:
@@ -1187,13 +1200,13 @@ def step_model(x, state, h, *, nfft, hop, threshold_db, reduction_db, noise_fram
                 for j0 in range(lo, hi, fs)]
     twf = fk.stockham_stage_table_np(big_n, -1.0)
     twi = fk.stockham_stage_table_np(big_n, 1.0)
-    hf = np.fft.fft(np.concatenate([h, np.zeros(big_n - taps)]))
+    hf = np.fft.fft(np.concatenate([h, np.zeros(big_n - taps)])) if fir else None
     win, head, const, tail = gk._step_tables_np(big_n, hp, window_kind)
     gain, att = 10.0 ** (threshold_db / 20.0), 10.0 ** (-reduction_db / 20.0)
     pairs = _bin_pairs(big_n)
     hi = 2 * pairs[:, 5] > big_n
     kk = np.where(hi, big_n - pairs[:, 5], pairs[:, 5])
-    g = state[1]
+    g = state[1] if fir else state
     pos, floor_n = g["pos"], g["floor_n"]
     jv0, jv1, jt1 = _frame_intervals(pos, floor_n, m, d, hp, nf, input_latency, eof_in)
     valid, take, eof_out = gk.gate_step_masks(pos, floor_n, m, d, hp, nf, input_latency, eof_in)
@@ -1210,7 +1223,8 @@ def step_model(x, state, h, *, nfft, hop, threshold_db, reduction_db, noise_fram
         return v
 
     np_ = lambda t: t.numpy().reshape(n_ch, -1).copy() if t.numel() else np.zeros((n_ch, 0))
-    hist, ehist = np_(state[0]), (np_(state[2]) if te else None)
+    hist = np_(state[0]) if fir else np.zeros((n_ch, 0))
+    ehist = np_(state[2]) if te else None
     fifo_r, fifo_i = g["fifo_r"].numpy(), g["fifo_i"].numpy()
     new_fr, new_fi = np.full_like(fifo_r, np.nan), np.full_like(fifo_i, np.nan)
     out = np.full((n_ch, b), np.nan)
@@ -1235,9 +1249,13 @@ def step_model(x, state, h, *, nfft, hop, threshold_db, reduction_db, noise_fram
             tl = max(0, d - e0)
             seg = (j1 - j0 - 1) * hp + big_n
             y0 = max(0, e0 - d)
-            nblk = -(-(seg - tl) // blk)
-            fsp = u[y0: y0 + nblk * blk + hl].copy()  # u[y0 - hl + i]
-            if j1 == m:
+            nblk = -(-(seg - tl) // blk) if fir else 0
+            if fir:
+                fsp = u[y0: y0 + nblk * blk + hl].copy()  # u[y0 - hl + i]
+            else:  # the fill: x[e0 + tl - d + i] for i < seg - tl
+                fsp = xn[c, e0 + tl - d: e0 - d + seg].copy()
+                assert len(fsp) == seg - tl
+            if j1 == m and fir:
                 new["hist"][c] = fsp[b - y0: b - y0 + hl]
             for k0 in range(0, nblk, nfb):
                 def load(idx, k0=k0):
@@ -1367,6 +1385,8 @@ def step_model(x, state, h, *, nfft, hop, threshold_db, reduction_db, noise_fram
                 pos=pos + b)
     if release > 0.0:
         gate["rel"] = shape(new["rel"], g["rel"])
+    if not fir:
+        return gate, torch.as_tensor(out).reshape(x.shape)
     st = [shape(new["hist"], state[0]), gate]
     if te:
         st.append(shape(ehist, state[2]))
@@ -1418,6 +1438,9 @@ def _step_stream(monkeypatch, chain, x, block, drain, fs, name="fir_gate_step_re
             hn = st[0].shape[-1]
             res_hist = torch.cat([st[0], xb], dim=-1)[..., -hn:] if hn else st[0]
             fg, y = step_model(u, st[1], h_fir, fs=fs, cluster=cluster, **kw)
+        elif name == "gate_step_ref":
+            xb, st = args
+            new, y = step_model(xb, st, None, fs=fs, cluster=cluster, **kw)
         else:
             xb, st, h_fir = args
             new, y = step_model(xb, st, h_fir, fs=fs, cluster=cluster, **kw)
@@ -1507,6 +1530,61 @@ def test_step_model_is_the_jax_plain_step(monkeypatch, release, block):
     np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-10)
 
 
+GATE_STEP_CASES = [  # (nfft, hop, block, release, drain, noise frames, fs)
+    (1024, 256, 4096, 0.0, False, 8, None),    # the headline: 16 frames, a batch a CTA
+    (1024, 256, 5 * 256, 0.6, True, 8, None),   # m odd, below nf: a partial batch
+    (1024, 256, 9 * 256, 0.6, False, 4, None),  # the second CTA with one frame
+    (1024, 256, 20 * 256, 0.6, False, 4, 8),    # segments of 8 frames, release across
+    (256, 64, 37 * 64, 0.0, True, 8, None),     # a warp spans transforms
+    (16, 4, 3 * 4, 0.6, False, 4, None),        # one pass each way, m < 2B
+    (4096, 1024, 5 * 1024, 0.6, True, 4, 2),    # one transform, in_tail over segments
+]
+
+
+@pytest.mark.parametrize("cluster", (1, 2))
+@pytest.mark.parametrize("nfft,hop,block,release,drain,nf,fs", GATE_STEP_CASES)
+def test_step_model_is_the_plain_gate_step(monkeypatch, nfft, hop, block, release, drain, nf,
+                                           fs, cluster):
+    """The gate step's schedule (the step body with kFir false: no FIR
+    batches, the span [in_tail | x] of a segment's frames), one CTA or a
+    cluster of two per channel, stepped through a GateStage stream in place
+    of gate_step_ref: each block >= 200 dB and every carry equal (to
+    rounding) against the plain step on the same carry, the stream against
+    the plain stream; every output and carry position written once."""
+    from audiosignalprocess_tpu_torch.pipeline import Chain, GateStage
+
+    rng = np.random.default_rng(nfft + block + 1)
+    n = max(6 * block, 10 * nfft) // block * block + (777 if drain else 0)
+    x = torch.as_tensor(_tone_burst(rng, 2, n))
+    chain = Chain([GateStage(nfft=nfft, hop=hop, noise_frames=nf, release=release)])
+    chain.build()
+    got = _step_stream(monkeypatch, chain, x, block, drain, fs, "gate_step_ref", cluster)
+    ref = chain.stream(x, block, drain=drain).numpy()
+    assert _snr(ref, got) >= 200.0
+
+
+@pytest.mark.parametrize("cluster", (1, 2))
+@pytest.mark.parametrize("release,block,drain", [(0.0, 2048, False), (0.6, 9 * 256, True)])
+def test_gate_step_model_is_the_jax_plain_step(monkeypatch, release, block, drain, cluster):
+    """The gate step's model, float64 stream, against the JAX package's
+    GateStage float64 stream (its plain step) on the same input: allclose
+    at the port's float64 tolerance."""
+    from audiosignalprocess_tpu import pipeline as J
+    import jax.numpy as jnp
+
+    from audiosignalprocess_tpu_torch.pipeline import Chain, GateStage
+
+    rng = np.random.default_rng(block + 3)
+    x = _tone_burst(rng, 2, 8 * block + (555 if drain else 0))
+    kw = dict(nfft=1024, hop=256, noise_frames=4, release=release)
+    jc, pc = J.Chain([J.GateStage(**kw)]), Chain([GateStage(**kw)])
+    assert jc.build() == pc.build()
+    got = _step_stream(monkeypatch, pc, torch.as_tensor(x), block, drain, None, "gate_step_ref",
+                       cluster)
+    want = np.asarray(jc.stream(jnp.asarray(x), block, drain=drain))
+    np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-10)
+
+
 def test_step_geometry_fits_every_launch():
     """step_regs_geometry within SMEM_LIMIT, segments of whole batches, for
     every shape the card tests and chip_smoke give the two step kernels; at
@@ -1540,3 +1618,33 @@ def test_step_geometry_fits_every_launch():
             assert geo["fs"] >= split and geo["pop_smem"] and (geo["rect_smem"] or not te)
             assert gk.SM_SMEM < 2 * (geo["smem"] + 1024)
     assert [ck.step_split(m, 1024, 2) for m in (3, 8, 9, 16, 20, 24)] == [3, 8, 8, 8, 16, 16]
+    # the gate step (taps 0: no FIR): the card tests' grid and the headline
+    gate_shapes = [(4, 1, 3), (4, 1, 600), (8, 2, 5), (16, 4, 1031), (32, 8, 129), (64, 16, 9),
+                   (256, 64, 33), (512, 128, 17), (1024, 256, 16), (1024, 256, 257),
+                   (2048, 512, 7), (4096, 1024, 2), (4096, 512, 5), (8192, 2048, 3),
+                   (8192, 2048, 16), (8192, 1024, 9)]
+    for nfft, hop, m in gate_shapes:
+        for nf in (4, 8):
+            cluster = ck.step_cluster(nfft)
+            geo = ck.step_regs_geometry(nfft, hop, 0, 0, m * hop, nf, None, cluster)
+            assert geo["smem"] <= SMEM_LIMIT and not geo["rect_smem"]
+            assert geo["fs"] % (2 * gk.regs_batch(nfft)) == 0
+    geo = ck.step_regs_geometry(1024, 256, 0, 0, 4096, 8, None, 2)
+    assert geo["fs"] >= ck.step_split(16, 1024, 2) and geo["pop_smem"]
+    assert geo["smem"] == 138348 and gk.SM_SMEM < 2 * (geo["smem"] + 1024)
+
+
+@pytest.mark.parametrize("nfft,hop,m,fs", [(1024, 256, 16, 8), (1024, 256, 20, 8),
+                                           (256, 64, 37, 32), (4096, 1024, 5, 2)])
+def test_step_span_without_fir(nfft, hop, m, fs):
+    """step_span with taps 0 (the gate step's fill): a segment's span is its
+    frames' extent [in_tail part | x part], (frames - 1) hop + nfft, the
+    fill part the x samples after the in_tail part; with a FIR the fill
+    rounds up to whole overlap-save blocks and adds the history."""
+    d = nfft - hop
+    span, part = ck.step_span(nfft, hop, 0, m, fs)
+    segs = [(j0, min(m, j0 + fs)) for j0 in range(0, m, fs)]
+    assert span == max((j1 - j0 - 1) * hop + nfft for j0, j1 in segs)
+    assert part == max((j1 - j0 - 1) * hop + nfft - max(0, d - j0 * hop) for j0, j1 in segs)
+    fir_span, fir_part = ck.step_span(nfft, hop, 64, m, fs)
+    assert fir_part >= part + 63 and fir_span >= span

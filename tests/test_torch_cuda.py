@@ -31,8 +31,8 @@ from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
 )
 from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac, fir_mac_ref
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
-    gate_shard_fused, gate_shard_ref, gate_step_fused, noise_floor, noise_gate_fused,
-    noise_gate_ref,
+    gate_shard_fused, gate_shard_ref, gate_step_fused, gate_step_ref, noise_floor,
+    noise_gate_fused, noise_gate_ref,
 )
 from audiosignalprocess_tpu_torch.kernels.os_kernel import (
     overlap_save_fused, overlap_save_ref,
@@ -190,6 +190,77 @@ def test_gate_step_vs_plain(card, release, drain, block):
     assert gate_step_fused.launches == before + blocks
     assert y.shape == ref.shape and bool(torch.isfinite(y).all())
     assert snr_db(ref, y) >= 60.0
+
+
+GATE_STEP_GRID = [  # (nfft, hop, block frames m, release, drain): 2B = 4096 R / nfft frames a batch
+    (4, 1, 3, 0.0, False), (4, 1, 600, 0.6, True), (8, 2, 5, 0.6, True),
+    (16, 4, 1031, 0.0, False), (32, 8, 129, 0.6, False), (64, 16, 9, 0.0, True),
+    (256, 64, 33, 0.6, True), (256, 64, 64, 0.0, False), (512, 128, 3, 0.0, False),
+    (512, 128, 17, 0.6, True), (1024, 256, 3, 0.6, False), (1024, 256, 5, 0.0, True),
+    (1024, 256, 9, 0.6, False), (1024, 256, 16, 0.0, False), (1024, 256, 17, 0.6, True),
+    (1024, 256, 24, 0.0, False), (1024, 256, 257, 0.6, False), (2048, 512, 7, 0.6, True),
+    (4096, 1024, 1, 0.0, False), (4096, 1024, 2, 0.6, True), (4096, 512, 5, 0.0, False),
+    (8192, 2048, 1, 0.6, False), (8192, 2048, 3, 0.0, True), (8192, 1024, 9, 0.6, False),
+]
+
+
+@pytest.mark.parametrize("nfft,hop,m,release,drain", GATE_STEP_GRID)
+def test_gate_step_kernel_every_nfft(card, nfft, hop, m, release, drain):
+    """GateStage(fused=True) float32, one gate_step_fused launch per block,
+    against its float64 plain step stream: nfft 4 to 8192, blocks of m
+    frames below the noise frames (4) and above, not a multiple of a batch
+    (2B), at the edges of the cluster's split (the second CTA with no
+    frame, one frame, a whole batch) and past the shared memory (segments,
+    the popped spectra in device memory); every output and carry of every
+    step written (NaN-filled before each call); >= 60 dB with the plain
+    gate's float32 flips counted."""
+    rng = np.random.default_rng(57)
+    block = m * hop
+    n = max(6 * block, 16 * nfft) // block * block + (777 if drain else 0)
+    x = torch.as_tensor(_tone_burst(rng, 3, n), device=card)
+    kw = dict(nfft=nfft, hop=hop, noise_frames=4, release=release)
+    chain = Chain([GateStage(fused=True, **kw)])
+    chain.build()
+    blocks = chain.drain_blocks(n, block) if drain else n // block
+    before = gate_step_fused.launches
+    ok = _nan_steps(chain)
+    y = chain.stream(x.float(), block, drain=drain)
+    torch.cuda.synchronize()
+    del chain.step
+    ref = Chain([GateStage(**kw)]).stream(x, block, drain=drain)
+    assert gate_step_fused.launches == before + blocks
+    assert len(ok) == blocks and all(ok)
+    assert y.shape == ref.shape and bool(torch.isfinite(y).all())
+    snr = snr_db(ref, y)
+    if snr < 60.0:
+        import chip_smoke
+
+        pytest.fail(f"{snr:.2f} dB against float64, "
+                    f"{chip_smoke.decision_flips(x, nfft, hop, 4)} bins the plain gate flips")
+
+
+def test_gate_step_carry_switches_between_kernel_and_plain(card):
+    """One carry layout: blocks alternate between gate_step_fused and the
+    plain float32 step; the stream equals the kernel-only stream."""
+    rng = np.random.default_rng(58)
+    block = 9 * 256
+    x = torch.as_tensor(_tone_burst(rng, 2, 8 * block), device=card, dtype=torch.float32)
+    stage = GateStage(fused=True, noise_frames=4, release=0.6)
+    chain = Chain([stage])
+    ref = chain.stream(x, block)
+    st = chain.init_state((2,), block, torch.float32, card)
+    ys = []
+    before = gate_step_fused.launches
+    for k in range(8):
+        xb = x[:, k * block : (k + 1) * block]
+        if k % 2:
+            st, y = chain.step(st, xb)
+        else:
+            s0, y = gate_step_ref(xb, st[0], **stage._step_kw())
+            st = [s0]
+        ys.append(y)
+    assert gate_step_fused.launches == before + 4
+    assert snr_db(ref, torch.cat(ys, dim=-1)) >= 60.0
 
 
 def _tensors(tree):
@@ -957,6 +1028,40 @@ def test_stretch_step_vs_plain(card, p, q, nfft, hop, drain):
     assert snr_db(ref32, y) >= 65.0
 
 
+STRETCH_GRID = [(4, 1), (16, 4), (256, 64), (1024, 256), (4096, 1024), (8192, 2048)]
+
+
+@pytest.mark.parametrize("nfft,hop", STRETCH_GRID)
+@pytest.mark.parametrize("p,q", ((4, 3), (3, 4), (1, 2), (147, 160)))
+def test_stretch_step_kernel_every_nfft(card, p, q, nfft, hop):
+    """StretchStage(fused=True) float32 over nfft 4 to 8192 (a cluster of
+    two CTAs a channel up to 4096, one CTA of 512 threads at 8192), the
+    four rates, drained: one stretch_step_fused launch per block, every
+    output and carry of every step written (NaN-filled before each call),
+    >= 60 dB against the float64 and >= 65 dB against the float32 plain
+    step streams."""
+    rng = np.random.default_rng(76)
+    block = p * max(1, 16 // p + 1) * hop
+    n = (3 if p > 16 else 5) * block + 321
+    x = torch.as_tensor(rng.standard_normal((2, n)), device=card)
+    kern = Chain([StretchStage(p, q, nfft=nfft, hop=hop, fused=True)])
+    plain = Chain([StretchStage(p, q, nfft=nfft, hop=hop)])
+    kern.build()
+    blocks = kern.drain_blocks(n, block)
+    before = stretch_step_fused.launches
+    ok = _nan_steps(kern)
+    y = kern.stream(x.float(), block, drain=True)
+    torch.cuda.synchronize()
+    del kern.step
+    assert stretch_step_fused.launches == before + blocks
+    assert len(ok) == blocks and all(ok)
+    ref64 = plain.stream(x, block, drain=True)
+    ref32 = plain.stream(x.float(), block, drain=True)
+    assert y.shape == ref64.shape and bool(torch.isfinite(y).all())
+    assert snr_db(ref64, y) >= 60.0
+    assert snr_db(ref32, y) >= 65.0
+
+
 def test_stretch_from_rate_irrational_vs_plain(card):
     rng = np.random.default_rng(72)
     st = StretchStage.from_rate(2.0 ** (1.0 / 3.0), 64, nfft=256, hop=64, fused=True)
@@ -1171,7 +1276,8 @@ def test_whole_file_kernels_at_nfft_8192(card, name, release):
 
 @pytest.mark.parametrize("name", ("noise_gate_fused", "fir_noise_gate_fused",
                                   "resample_fir_gate_fused", "gate_shard_fused",
-                                  "fir_gate_step_fused", "res_fir_gate_step_fused"))
+                                  "fir_gate_step_fused", "res_fir_gate_step_fused",
+                                  "gate_step_fused", "stretch_step_fused"))
 def test_kernels_raise_at_nfft_16384(card, name):
     """Past nfft 8192 one transform of the batched bodies needs more shared
     memory per block than SMEM_LIMIT: each wrapper raises a ValueError that
@@ -1189,6 +1295,10 @@ def test_kernels_raise_at_nfft_16384(card, name):
             x[:, : 2 * 16384], 16384),
         "res_fir_gate_step_fused": lambda: Chain([ResFIRGateStage(
             h=h, noise_frames=4, **kw)]).stream(x[:, : 2 * 18816], 18816),
+        "gate_step_fused": lambda: Chain([GateStage(fused=True, noise_frames=4, **kw)]).stream(
+            x[:, : 2 * 16384], 16384),
+        "stretch_step_fused": lambda: Chain([StretchStage(4, 3, fused=True, **kw)]).stream(
+            x[:, : 2 * 16384], 16384),
     }
     before = {k.__name__: k.launches for k in _all_counters()}
     with pytest.raises(ValueError, match="SMEM_LIMIT"):
