@@ -1,10 +1,11 @@
 // The whole-file FIR -> spectral noise gate body on batched register
 // Stockham transforms, for Hopper (sm_90a): what chain_kernel.cu,
-// res_chain_kernel.cu and gate_kernel.cu share.  The first two differ only
-// in where the FIR's input comes from (the raw samples, or the resampled
-// stream), which each kernel passes in as a `fill` functor; gate_kernel.cu
-// runs the gate alone (kFir false: no FIR section, the fill stores the
-// gate's input and the span holds only the tile's frames).
+// res_chain_kernel.cu and gate_kernel.cu share, and the overlap-save FIR
+// of os_kernel.cu on the same round trip (os_regs, at the end).  The first
+// two differ only in where the FIR's input comes from (the raw samples, or
+// the resampled stream), which each kernel passes in as a `fill` functor;
+// gate_kernel.cu runs the gate alone (kFir false: no FIR section, the fill
+// stores the gate's input and the span holds only the tile's frames).
 //
 // Per channel the body computes oracle.noise_gate(oracle.fir_direct(u, h),
 // nfft, hop, ...) of its input u: causal FIR with zero history by FFT
@@ -104,7 +105,6 @@
 
 #include <cuda_runtime.h>
 
-#include "fft_device.cuh"
 #include "fft_regs.cuh"
 
 namespace asp {
@@ -222,6 +222,15 @@ struct Team {
   }
 };
 
+// The CTA as the team of a batch of one transform (the overlap-save
+// kernel's): it meets at __syncthreads alone.  A named barrier with a
+// run-time id makes ptxas count all 16 of a CTA's, and the occupancy API
+// then gives 64-thread CTAs of 128 registers 4 an SM instead of 8.
+struct CtaTeam {
+  int first, count, lane, size, id;
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
 // Transform t's N/R threads from 32 on (whole warps), else the CTA (T
 // threads) on all nt transforms.
 template <int T = kRegsThreads>
@@ -239,8 +248,8 @@ __device__ __forceinline__ Team regs_team(int log2n, int nt, int points) {
 // swz_in / swz_out.  kHold (one exchange buffer, read and written by the
 // pass): a lane's R / RP groups are all loaded before the team meets and
 // any is stored.
-template <int RP, bool kHold = false, int R = 16, class Load, class Store>
-__device__ __forceinline__ void regs_pass(int log2n, int s0, const Team& tm, Load load,
+template <int RP, bool kHold = false, int R = 16, class Load, class Store, class Tm>
+__device__ __forceinline__ void regs_pass(int log2n, int s0, const Tm& tm, Load load,
                                           bool swz_in, Store store, bool swz_out,
                                           const float2* tw) {
   constexpr int rp = pass_bits(RP);
@@ -289,8 +298,8 @@ __device__ __forceinline__ void inverse_first(const float2 (&x)[RS], int log2n, 
 // any thread stores (a one-pass transform reads and writes the span).
 // kOne (one exchange buffer): a lane's R / RS groups are all loaded before
 // the team meets and any is stored.
-template <int RS, bool kHold, bool kOne = false, int R = 16, class Load, class Store>
-__device__ __forceinline__ void fir_middle(int log2n, int s0, const Team& tm, Load load,
+template <int RS, bool kHold, bool kOne = false, int R = 16, class Load, class Store, class Tm>
+__device__ __forceinline__ void fir_middle(int log2n, int s0, const Tm& tm, Load load,
                                            bool swz_in, Store store, bool swz_out,
                                            const float2* twf, const float2* twi,
                                            const float2* __restrict__ hf) {
@@ -491,8 +500,8 @@ __device__ __forceinline__ void gate_middle(const ChainGeo& g, int s0, const Tea
 // holding its groups across a meeting of the team (the middle's own).
 // Returns after a __syncthreads().
 template <int R, int RS, bool kFullFirst, bool kOne = false, class First, class Mid,
-          class Last>
-__device__ __forceinline__ void regs_round_trip(int log2n, const Team& tm, float* ex, int cap,
+          class Last, class Tm>
+__device__ __forceinline__ void regs_round_trip(int log2n, const Tm& tm, float* ex, int cap,
                                                 First first, Mid mid, Last last,
                                                 const float2* twf, const float2* twi) {
   if constexpr (R == RS) {  // one pass each way: nfft <= 16
@@ -689,6 +698,76 @@ __device__ void fir_gate_regs(const ChainGeo& g, float* smem, int c, float* __re
       cur ^= 1;
       __syncthreads();
     }
+  }
+}
+
+// The overlap-save FIR of os_kernel.cu, on the same round trip: row c of y
+// (n samples) is the causal FIR of row c of x (n samples, stride x_ld)
+// with the taps - 1 samples of row c of hist before it (zeros where hist
+// is null).  A unit is one transform, blocks 2p and 2p + 1 of a channel
+// (blk = N - (taps - 1) outputs each, from raw samples [k blk, k blk + N)
+// of [hist | x]) as re/im; units are numbered across channels (u = c npair
+// + p), and a CTA takes the B = T R / N units of one batch from blockIdx.x
+// B on.
+struct OsGeo {
+  int n, x_ld, taps, blk, nblk, npair, units;
+};
+
+// The CTA's batch: the first pass reads the raw samples straight from
+// device memory (neighbouring groups, neighbouring addresses; zero past
+// the end of x, a null hist as zeros), the merged pass multiplies by hf,
+// the inverse's last pass drops each block's first taps - 1 points and
+// stores the rest, scaled by 1/N, straight to y.  kOne: one exchange
+// buffer (nfft 8192 and 16384, one transform a batch).  kSolo: a batch of
+// one transform (N = T R), its team the CTA (CtaTeam).  smem: the
+// exchange buffers (planes of T R floats), then B int4 (the units' channel,
+// first raw sample, second block, valid).
+template <int R, int RS, int T, bool kOne, bool kSolo>
+__device__ void os_regs(const OsGeo& g, int log2n, float* smem, const float* __restrict__ x,
+                        const float* __restrict__ hist, float* __restrict__ y,
+                        const float2* __restrict__ hf, const float2* __restrict__ twf,
+                        const float2* __restrict__ twi) {
+  const int L = log2n, N = 1 << L, B = (T * R) >> L, hl = g.taps - 1;
+  float* ex = smem;
+  int4* unit = reinterpret_cast<int4*>(smem + (kOne ? 2 : 4) * T * R);
+  for (int t = threadIdx.x; t < B; t += T) {
+    const int u = blockIdx.x * B + t;
+    const int c = u / g.npair, k = 2 * (u - c * g.npair);
+    unit[t] = make_int4(c, k * g.blk, k + 1 < g.nblk, u < g.units);
+  }
+  __syncthreads();
+  const float inv_n = 1.0f / static_cast<float>(N);
+  // raw sample j of channel c: [hist (hl) | x (n)], zero past the end
+  const auto raw = [=, &g](int c, int j) {
+    if (j < hl) return hist != nullptr ? hist[static_cast<size_t>(c) * hl + j] : 0.0f;
+    j -= hl;
+    return j < g.n ? x[static_cast<size_t>(c) * g.x_ld + j] : 0.0f;
+  };
+  const auto load = [=, &g](int i) {
+    const int4 e = unit[i >> L];
+    const int j = e.y + (i & (N - 1));
+    if (!e.w) return make_float2(0.0f, 0.0f);
+    return make_float2(raw(e.x, j), e.z ? raw(e.x, j + g.blk) : 0.0f);
+  };
+  const auto store = [=, &g](int i, float2 v) {
+    const int4 e = unit[i >> L];
+    const int k = (i & (N - 1)) - hl;  // output k of the unit's first block
+    if (!e.w || k < 0) return;
+    const int o = e.y + k;
+    float* yc = y + static_cast<size_t>(e.x) * g.n;
+    if (o < g.n) yc[o] = v.x * inv_n;
+    if (e.z && o + g.blk < g.n) yc[o + g.blk] = v.y * inv_n;
+  };
+  const auto trip = [&](const auto& tm) {
+    const auto mid = [&](int s0, auto ld, bool si, auto st, bool so) {
+      fir_middle<RS, false, kOne, R>(L, s0, tm, ld, si, st, so, twf, twi, hf);
+    };
+    regs_round_trip<R, RS, false, kOne>(L, tm, ex, T * R, load, mid, store, twf, twi);
+  };
+  if constexpr (kSolo) {
+    trip(CtaTeam{0, 1, static_cast<int>(threadIdx.x), T, 0});
+  } else {
+    trip(regs_team<T>(L, B, R));
   }
 }
 

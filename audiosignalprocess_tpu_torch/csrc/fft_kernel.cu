@@ -156,7 +156,6 @@
 
 #include <cuda_runtime.h>
 
-#include "fft_device.cuh"
 #include "fft_regs.cuh"
 
 namespace asp {

@@ -88,6 +88,11 @@
 
 namespace asp {
 
+// The complex product a b (tap-spectrum and twiddle products).
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
 // k < 2^bits (bits <= 4) bit-reversed: a constant for a constant k
 __device__ __forceinline__ constexpr int brev_bits(int k, int bits) {
   return (((k & 1) << 3) | ((k & 2) << 1) | ((k & 4) >> 1) | ((k & 8) >> 3)) >> (4 - bits);

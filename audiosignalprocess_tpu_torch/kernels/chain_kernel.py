@@ -45,7 +45,7 @@ from audiosignalprocess_tpu_torch.kernels.gate_kernel import (  # noqa: F401
     regs_one_buffer, regs_points, regs_span_rows, regs_threads, step_cluster, step_regs_geometry,
     step_span, step_split,
 )
-from audiosignalprocess_tpu_torch.kernels.os_kernel import check_os_geometry, fft_tables
+from audiosignalprocess_tpu_torch.kernels.os_kernel import check_os_geometry, tap_spectrum
 from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.ops.stft import frame
@@ -64,9 +64,9 @@ def gate_tables(h_bytes: bytes, nfft: int, hop: int, window_kind: str,
     """The whole-file FIR -> gate kernels' constant tables on ``device``:
     ``gate_kernel.file_tables`` (the window, the forward and inverse
     per-stage tables, the 1/WOLA norm) with the tap spectrum
-    (``os_kernel.fft_tables``) after the window."""
+    (``os_kernel.tap_spectrum``) after the window."""
     win, twf, twi, inv_tab = file_tables(nfft, hop, window_kind, device)
-    return win, fft_tables(h_bytes, nfft, device)[0], twf, twi, inv_tab
+    return win, tap_spectrum(h_bytes, nfft, device), twf, twi, inv_tab
 
 
 def filtered_floor(head: torch.Tensor, h: np.ndarray, nfft: int, hop: int,
@@ -239,7 +239,7 @@ def fir_gate_step_args(x2d: torch.Tensor, x_ld: int, state: list, h: np.ndarray,
         check(carry is None or (carry.dtype == torch.float32 and carry.device == dev),
               f"the {name} must be float32 on the input's device")
     _, twf, twi, _ = file_tables(nfft, kw["hop"], kw["window_kind"], dev)
-    fargs = FirEnvArgs(*map(data_ptr, (hist, hist_out, fft_tables(h.tobytes(), nfft, dev)[0],
+    fargs = FirEnvArgs(*map(data_ptr, (hist, hist_out, tap_spectrum(h.tobytes(), nfft, dev),
                                         twf, twi, ehist, ehist_out, taps_rev, rect)),
                        t, te, float(env_scale), geo["fs"], geo["pop_smem"],
                        *(geo[k] for k in STEP_OFFSETS))

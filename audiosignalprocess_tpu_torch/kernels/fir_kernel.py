@@ -22,17 +22,39 @@ from audiosignalprocess_tpu_torch.kernels import _build
 from audiosignalprocess_tpu_torch.kernels._build import (
     SMEM_LIMIT, check_cuda_f32, raise_on_error, rows_view,
 )
+from audiosignalprocess_tpu_torch.kernels.gate_kernel import regs_info
 from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.utils.device import upload
 from audiosignalprocess_tpu_torch.utils.validate import check
 
-TILE = 1024
-"""Outputs per CTA (``kTile`` of ``csrc/fir_kernel.cu``)."""
+OUTPUTS = 8
+"""Consecutive outputs a thread computes (``kP`` of ``csrc/fir_kernel.cu``)."""
+
+CHUNK = 16
+"""Taps a chunk of the unrolled MAC (``kC``)."""
+
+FIR_THREADS = 128
+"""Threads a CTA: tiles of 1024 outputs, the retired kernel's, so every tap
+count it took fits SMEM_LIMIT."""
 
 
 def smem_bytes(taps: int) -> int:
-    """Shared memory of one CTA: the reversed taps and the window."""
-    return 4 * (taps + TILE + taps - 1)
+    """Shared memory of one CTA: the reversed taps in whole chunks and the
+    window a chunk may read (the tile of FIR_THREADS x OUTPUTS outputs and
+    the taps in whole chunks)."""
+    tp = -(-taps // CHUNK) * CHUNK
+    return 4 * (2 * tp + FIR_THREADS * OUTPUTS)
+
+
+def fir_geometry(taps: int) -> dict:
+    """The launch for ``taps``: threads a CTA, outputs a CTA (the tile) and
+    shared memory; a ValueError names SMEM_LIMIT past 28544 taps, where
+    the retired kernel raised too."""
+    check(taps >= 1, "fir_mac needs at least one tap")
+    smem = smem_bytes(taps)
+    check(smem <= SMEM_LIMIT, f"{taps} taps need {smem} bytes of shared memory per block, "
+          f"more than SMEM_LIMIT ({SMEM_LIMIT})")
+    return dict(threads=FIR_THREADS, smem=smem, tile=FIR_THREADS * OUTPUTS)
 
 
 @functools.lru_cache(maxsize=32)
@@ -52,7 +74,7 @@ def fir_mac_ref(x: torch.Tensor, h, history: torch.Tensor | None = None) -> torc
 def _lib():
     fn = _build.load().asp_fir_mac
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                    ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -61,8 +83,9 @@ def fir_mac(x: torch.Tensor, h, history: torch.Tensor | None = None) -> torch.Te
     """Causal direct-form FIR on the last axis via the MAC kernel.
 
     A CPU tensor runs ``fir_mac_ref``.  A CUDA float32 tensor launches the
-    kernel: one CTA per (1024 outputs, channel), taps and window in
-    shared memory.  Any other tensor raises.
+    kernel: one CTA per (tile of 1024 outputs, channel) (``fir_geometry``),
+    taps and window in shared memory, 8 consecutive outputs a thread in
+    registers.  Any other tensor raises.
     """
     h = np.ascontiguousarray(h, dtype=np.float64)
     t = len(h)
@@ -79,14 +102,12 @@ def fir_mac(x: torch.Tensor, h, history: torch.Tensor | None = None) -> torch.Te
         hist = history.reshape(channels, t - 1).contiguous()
         check(hist.dtype == torch.float32 and hist.device == x.device,
               "history must be float32 on the input's device")
-    smem = smem_bytes(t)
-    check(smem <= SMEM_LIMIT, f"{t} taps need {smem} bytes of shared memory "
-          f"per block, more than {SMEM_LIMIT}")
+    geo = fir_geometry(t)
     dev = x.device
     y = torch.empty((channels, n), dtype=torch.float32, device=dev)
     rc = _lib()(x2d.data_ptr(), x_ld, None if hist is None else hist.data_ptr(),
                 y.data_ptr(), reversed_taps(h.tobytes(), dev).data_ptr(),
-                channels, n, t, smem, dev.index,
+                channels, n, t, geo["threads"], geo["smem"], dev.index,
                 torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "fir_mac")
     fir_mac.launches += 1
@@ -94,3 +115,13 @@ def fir_mac(x: torch.Tensor, h, history: torch.Tensor | None = None) -> torch.Te
 
 
 fir_mac.launches = 0
+
+
+def fir_mac_info(taps: int = 129, device: torch.device | None = None) -> dict:
+    """The built kernel at ``taps``' launch, from the CUDA runtime:
+    registers a thread, local memory bytes a thread (spills) and resident
+    CTAs an SM, with the launch's threads and shared memory."""
+    geo = fir_geometry(taps)
+    dev = torch.device("cuda") if device is None else device
+    return dict(regs_info("asp_fir_mac_info", geo["threads"], None, geo["smem"], dev),
+                threads=geo["threads"], smem=geo["smem"])

@@ -2,7 +2,7 @@
 whole-file chain kernels) between checkouts, on one card.
 
     python -m audiosignalprocess_tpu_torch.tools.fft_ab PARENT CHANGE [MORE ...]
-        [--out DIR] [--quick] [--sizes N ...] [--chain] [--sass]
+        [--out DIR] [--quick] [--sizes N ...] [--chain] [--only NAMES] [--sass]
 
 runs, from each checkout's own ``chip_smoke.py`` and package:
 
@@ -38,7 +38,13 @@ samples, the carry after 12 blocks of white noise; ``fir_gate_step_fused``
 also with the 129-tap envelope; ``gate_step_fused`` and
 ``stretch_step_fused`` at 4/3 at the same block, the stretch also at
 147/160, a block of 147 hops, and both at nfft 8192, hop 2048, 16 hops a
-block), 20 launches queued behind the sleep;
+block), 20 launches queued behind the sleep; ``overlap_save_fused`` and
+``fir_mac`` the same way at that shape (their stages' steps: the
+kernel and its stage's glue), each kernel alone on one contiguous block
+with its carry, both on the whole file (64 x 480000) and
+``overlap_save_fused`` on config 4's shard (16 x 384000, 4096 taps, nfft
+16384: ``run_config_4``'s 4-rank mesh, 4 s); ``--only`` keeps the arms
+whose names hold one of its comma-separated substrings;
 in a checkout whose whole-file body runs at nfft 8192 the four
 whole-file kernels also at 8192/2048 (64 x 480000; ``noise_gate_fused``
 also with release 0.6, the sequential launch);
@@ -235,11 +241,37 @@ if chain:
                          .astype(np.float32), device=dev)
     ext, floor, nv = cs.gate_shard_inputs(xs, 1, cs.SHARDS)
     xg8 = xa[:8].contiguous()
+    h_env = design_fir(cs.ENV_TAPS, 0.01)
+    h4 = design_fir(cs.C4_TAPS, 0.1, window_kind="blackman")
+    x4 = torch.as_tensor(np.random.default_rng(0).standard_normal((16, 384000)).astype(np.float32),
+                         device=dev)  # run_config_4's shard on its 4-rank mesh (4 x 1), 4 s
+    hist4 = torch.as_tensor(np.random.default_rng(1).standard_normal((16, cs.C4_TAPS - 1))
+                            .astype(np.float32), device=dev)
+    # one stream block (chip_smoke's BLOCK) and the stages' carries, for the
+    # two kernels alone without their stages' glue (abs, scale, the carry's cat)
+    xblk = xa[:, : cs.BLOCK].contiguous()
+    hist_os = xa[:, cs.BLOCK : cs.BLOCK + cs.TAPS - 1].contiguous()
+    hist_env = xa[:, cs.BLOCK : cs.BLOCK + cs.ENV_TAPS - 1].abs().contiguous()
+    from audiosignalprocess_tpu_torch.kernels import fir_kernel as fmk
+    from audiosignalprocess_tpu_torch.kernels import os_kernel as osk
+    for name, mod, info, kw in (("overlap_save_fused", osk, "overlap_save_info", {}),
+                                ("overlap_save_fused nfft 16384", osk, "overlap_save_info",
+                                 dict(nfft=cs.C4_NFFT)),
+                                ("fir_mac", fmk, "fir_mac_info", dict(taps=cs.ENV_TAPS))):
+        if hasattr(mod, info):  # a checkout with the redesigned kernel
+            print(f"[ab chain] {name} on {smi}: {getattr(mod, info)(device=dev, **kw)}")
     arms = {"fir_noise_gate_fused": lambda: fir_noise_gate_fused(xa, h),
             "resample_fir_gate_fused": lambda: resample_fir_gate_fused(xr, cs.UP, cs.DOWN, h),
             "noise_gate_fused 64": lambda: noise_gate_fused(xa),
             "noise_gate_fused 8": lambda: noise_gate_fused(xg8),
-            "gate_shard_fused": lambda: gate_shard_fused(ext, floor, nv, cs.NFFT, cs.HOP)}
+            "gate_shard_fused": lambda: gate_shard_fused(ext, floor, nv, cs.NFFT, cs.HOP),
+            "overlap_save_fused whole file": lambda: overlap_save_fused(xa, h, cs.NFFT),
+            "fir_mac whole file": lambda: fir_mac(xa, h_env),
+            "overlap_save_fused config 4 shard":
+                lambda: overlap_save_fused(x4, h4, cs.C4_NFFT, hist4),
+            "overlap_save_fused kernel alone 64x4096":
+                lambda: overlap_save_fused(xblk, h, cs.NFFT, hist_os),
+            "fir_mac kernel alone 64x4096": lambda: fir_mac(xblk, h_env, hist_env)}
     if hasattr(gk, "REGS_MAX_NFFT"):  # a checkout whose whole-file body runs at nfft 8192
         from audiosignalprocess_tpu_torch.ops.stft import frame
         big = dict(nfft=8192, hop=2048)
@@ -267,7 +299,10 @@ if chain:
         Chain, FIRGateStage, GateStage, ResFIRGateStage, StretchStage)
     gate = dict(nfft=cs.NFFT, hop=cs.HOP, noise_frames=cs.NOISE_FRAMES)
     big = dict(nfft=8192, hop=2048)
-    steps = {"fir_gate_step_fused": (FIRGateStage(h=h, **gate), cs.BLOCK),
+    from audiosignalprocess_tpu_torch.pipeline import EnvelopeStage, FIRStage
+    steps = {"overlap_save_fused": (FIRStage(h=h, nfft=cs.NFFT, fused=True), cs.BLOCK),
+             "fir_mac": (EnvelopeStage(h_env, fused=True), cs.BLOCK),
+             "fir_gate_step_fused": (FIRGateStage(h=h, **gate), cs.BLOCK),
              "fir_gate_step_fused + envelope": (
                  FIRGateStage(h=h, env_h=design_fir(cs.ENV_TAPS, 0.01), **gate), cs.BLOCK),
              "res_fir_gate_step_fused": (ResFIRGateStage(cs.UP, cs.DOWN, h=h, **gate),
@@ -302,6 +337,11 @@ if chain:
         if hasattr(mod, info):
             print(f"[ab chain] {name} nfft 8192 on {smi}: "
                   f"{getattr(mod, info)(nfft=8192, hop=2048, device=dev)}")
+    only = [a for a in sys.argv if a.startswith("--only=")]
+    if only:  # the arms named (substrings) alone
+        keep = only[0][len("--only="):].split(",")
+        arms = {a: f for a, f in arms.items() if any(k in a for k in keep)}
+        step_arms = {a: f for a, f in step_arms.items() if any(k in a for k in keep)}
     got = {arm: [] for arm in [*arms, *step_arms]}
     for _ in range(6):
         for arm, fn in arms.items():
@@ -413,6 +453,9 @@ def main(argv=None) -> int:
                    help="time the whole-file chain kernels ([ab chain]) instead")
     p.add_argument("--sass", action="store_true",
                    help="then compare the built libraries' SASS ([ab sass])")
+    p.add_argument("--only", default=None,
+                   help="with --chain: time only the arms whose names hold one of these "
+                        "comma-separated substrings")
     args = p.parse_args(argv)
     if len(args.roots) < 2:
         p.error("two or more checkouts")
@@ -423,7 +466,8 @@ def main(argv=None) -> int:
     labels = ["parent", "change"] if len(args.roots) == 2 else [Path(r).name for r in args.roots]
     labels = labels + labels[::-1]
     child = ([sys.executable, "-c", CHILD] + (["--quick"] if args.quick else [])
-             + (["--chain"] if args.chain else []) + [str(n) for n in args.sizes])
+             + (["--chain"] if args.chain else []) + ([f"--only={args.only}"] if args.only else [])
+             + [str(n) for n in args.sizes])
     for i, (label, root) in enumerate(zip(labels, roots)):
         proc = subprocess.run(child, cwd=root, env=env, capture_output=True, text=True)
         log = out / f"fft_ab_{i}_{label}.log"

@@ -85,8 +85,9 @@ queued behind a sleep of the card (``device_ms``, ``library_device_ms``);
 ``device_ms`` is also the queued device time of a whole-file call of the
 chain and gate kernels, and for the six stream kernels that of one launch
 at its stream's block shape (phase 9b, which ranks them by launches x
-(device time - bound) a launch, and gives the two FIR -> gate step
-kernels' registers, local bytes and CTAs an SM); the last line is ``{"ok": true,
+(device time - bound) a launch, and gives the step kernels', the
+overlap-save kernel's and the MAC's registers, local bytes and CTAs an
+SM); the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it exits
 1 and prints no result.  Imports nothing of JAX.
 """
@@ -1282,6 +1283,16 @@ def step_device_phase(dev, smi, record, kernels, h, h_env, log=""):
           f"; res_fir_gate_step_kernel {chain_ptxas(log, 'res_fir_gate_step_kernel')}"
           f"; gate_step_kernel {chain_ptxas(log, 'gate_step_kernel')}"
           f"; stretch_step_kernel {chain_ptxas(log, 'stretch_step_kernel')}")
+    from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac_info
+    from audiosignalprocess_tpu_torch.kernels.os_kernel import overlap_save_info
+
+    print(f"[9b kernel] overlap_save_fused (batched register passes) and fir_mac (register "
+          f"tiles) on {smi}, from the CUDA runtime (registers, local bytes a thread, CTAs an SM "
+          f"by the occupancy API, threads, shared memory): overlap_save_fused nfft {NFFT} "
+          f"{overlap_save_info(NFFT, dev)}, at config 4's nfft {C4_NFFT} "
+          f"{overlap_save_info(C4_NFFT, dev)}; fir_mac {len(h_env)} taps "
+          f"{fir_mac_info(len(h_env), dev)}, config 2's 256 taps {fir_mac_info(256, dev)}; "
+          f"ptxas <R,RS,threads>: overlap_save_kernel {chain_ptxas(log, 'overlap_save_kernel')}")
 
 
 STEP_WARM = 12  # blocks stepped before a step kernel's timed launch

@@ -165,6 +165,127 @@ def test_overlap_save_vs_plain(card, taps, nfft, n):
     assert snr_db(ref, out) >= 100.0
 
 
+def _poisoned_launch(kernel, call, numel, dev):
+    """call() after a warm-up call (the wrapper's tables are uploaded and
+    cached) and two blocks of ``numel`` floats NaN-filled and freed, so the
+    caching allocator hands that memory to the output's torch.empty and a
+    position the kernel leaves unwritten shows as NaN.  Asserts one launch
+    and that the output lies in the NaN-filled memory; returns it."""
+    call()
+    blocks = [torch.full((numel,), float("nan"), device=dev) for _ in range(2)]
+    spans = [(b.data_ptr(), b.data_ptr() + 4 * numel) for b in blocks]
+    del blocks
+    before = kernel.launches
+    y = call()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert any(a <= y.data_ptr() and y.data_ptr() + 4 * y.numel() <= b for a, b in spans)
+    return y
+
+
+def _os_fuzz_cases(k):
+    """tests/kernels/test_fuzz_params.py's overlap-save cases (its seed and
+    draws: nfft 256 to 4096, taps up to nfft - 1, n below one nfft in
+    every third case, 1 to 4 channels)."""
+    rng = np.random.default_rng(2026)
+    out = []
+    for i in range(k):
+        nfft = int(2 ** rng.integers(8, 13))
+        hi = nfft // 2 if i % 2 == 0 else nfft
+        taps = int(rng.integers(1, max(3, hi)))
+        n = int(rng.integers(1 if i % 3 else nfft, 6 * nfft))
+        b = int(rng.integers(1, 5))
+        out.append((taps, nfft, n, b))
+    return out
+
+
+OS_TWIN_CASES = _os_fuzz_cases(16) + [
+    (1023, 1024, 1000, 3), (1024, 1024, 5000, 2), (64, 1024, 700, 5), (1, 2, 9, 3),
+    (2, 2, 1, 2), (3, 4, 37, 70), (5, 8, 300, 9), (16, 16, 100, 3), (5, 32, 333, 40),
+    (64, 64, 500, 7), (100, 128, 999, 5), (300, 512, 1234, 9),
+    (4096, 8192, 30000, 3), (8192, 8192, 2000, 2), (4096, 16384, 50000, 2),
+    (16384, 16384, 1500, 2), (3, 16384, 10000, 1)]
+
+
+@pytest.mark.parametrize("taps,nfft,n,b", OS_TWIN_CASES)
+@pytest.mark.parametrize("hist", (False, True))
+def test_overlap_save_fuzz_twin(card, taps, nfft, n, b, hist):
+    """The card twin of test_fuzz_params.py::test_overlap_save_fuzz, with
+    the taps up to nfft (one output a block), n below one block and across
+    channels inside a batch, every power of two from nfft 2 to 16384, with
+    and without a history: >= 100 dB against the float64 plain version,
+    every output written (NaN-filled before the call), one launch."""
+    rng = np.random.default_rng(taps * 1000 + n)
+    x = torch.as_tensor(rng.standard_normal((b, n)), device=card)
+    h = rng.standard_normal(taps)
+    history = (torch.as_tensor(rng.standard_normal((b, taps - 1)), device=card)
+               if hist else None)
+    h32 = None if history is None else history.float()
+    out = _poisoned_launch(overlap_save_fused,
+                           lambda: overlap_save_fused(x.float(), h, nfft, h32), b * n, card)
+    ref = overlap_save_ref(x, h, nfft, history)
+    assert out.shape == ref.shape == (b, n) and bool(torch.isfinite(out).all())
+    assert snr_db(ref, out) >= 100.0
+
+
+def test_overlap_save_config4_geometry(card):
+    """Config 4's geometry: 4096 taps at nfft 16384 on a shard of 64 x
+    96000 with its halo as the history, >= 100 dB against float64, every
+    output written, one launch."""
+    rng = np.random.default_rng(54)
+    h = design_fir(4096, 0.1, window_kind="blackman")
+    x = torch.as_tensor(rng.standard_normal((64, 96000)), device=card)
+    history = torch.as_tensor(rng.standard_normal((64, 4095)), device=card)
+    xf, hf = x.float(), history.float()
+    out = _poisoned_launch(overlap_save_fused, lambda: overlap_save_fused(xf, h, 16384, hf),
+                           x.numel(), card)
+    ref = overlap_save_ref(x, h, 16384, history)
+    assert bool(torch.isfinite(out).all()) and snr_db(ref, out) >= 100.0
+
+
+@pytest.mark.parametrize("taps", (1, 2, 128, 129, 257, 897, 898))
+@pytest.mark.parametrize("hist", (False, True))
+@pytest.mark.parametrize("n", (4096, 4099, 700))
+def test_fir_mac_fuzz_twin(card, taps, hist, n):
+    """The card twin of test_fuzz_params.py's envelope tap counts for
+    fir_mac (1, 2, 128, 129, 257, 897, 898), with and without a history, at
+    a stream's block, a ragged length (unaligned rows) and one shorter
+    than the taps: >= 100 dB against the float64 plain version, every
+    output written (NaN-filled before the call), one launch."""
+    rng = np.random.default_rng(taps + 7)
+    x = torch.as_tensor(rng.standard_normal((3, n)), device=card)
+    h = design_fir(taps, 0.05) if taps >= 8 else rng.standard_normal(taps)
+    history = (torch.as_tensor(rng.standard_normal((3, taps - 1)), device=card)
+               if hist else None)
+    h32 = None if history is None else history.float()
+    out = _poisoned_launch(fir_mac, lambda: fir_mac(x.float(), h, h32), 3 * n, card)
+    ref = fir_mac_ref(x, h, history)
+    assert out.shape == ref.shape == (3, n) and bool(torch.isfinite(out).all())
+    assert snr_db(ref, out) >= 100.0
+
+
+@pytest.mark.parametrize("taps", (28032, 28543, 28544))
+def test_fir_mac_at_the_shared_memory_limit(card, taps):
+    """Tap counts at the shared-memory edge (28544, the retired kernel's
+    limit): bit for bit the taps' fmaf chains in order (a float32 model
+    with exact fmaf), every output written, one launch; one tap more
+    raises naming SMEM_LIMIT before any launch."""
+    from test_torch_os_fir_regs import fmaf_reference
+
+    rng = np.random.default_rng(taps)
+    x = torch.as_tensor(rng.standard_normal((2, 600)), dtype=torch.float32, device=card)
+    h = design_fir(taps, 0.1)
+    history = torch.as_tensor(rng.standard_normal((2, taps - 1)), dtype=torch.float32,
+                              device=card)
+    out = _poisoned_launch(fir_mac, lambda: fir_mac(x, h, history), x.numel(), card)
+    ref = fmaf_reference(x.cpu().numpy(), h, history.cpu().numpy())
+    assert np.array_equal(out.cpu().numpy(), ref)
+    before = fir_mac.launches
+    with pytest.raises(ValueError, match="SMEM_LIMIT"):
+        fir_mac(x, design_fir(28545, 0.1))
+    assert fir_mac.launches == before
+
+
 def _streams(chain_kernel, chain_plain, x, block, drain):
     """The f32 kernel stream and the f64 plain stream of the same input."""
     y = chain_kernel.stream(x.float(), block, drain=drain)
