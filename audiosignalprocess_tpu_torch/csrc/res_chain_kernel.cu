@@ -18,8 +18,8 @@
 // (about 7.2 k at 160/147, the polyphase history included, zeros before
 // the file) and the phase bank in the tail of its shared memory (the
 // exchange buffers, free until the FIR's first pass) and resamples them
-// there (asp::res_span, resample_device.cuh: asp::res_range's arithmetic
-// with the phases stepped, not divided).  The resampled signal never leaves the CTA.  The
+// there (asp::res_span, resample_device.cuh: the polyphase MAC with the
+// phases stepped, not divided).  The resampled signal never leaves the CTA.  The
 // TPU kernel instead feeds its matrix unit dense per-row "supercycle"
 // phase matrices, because Mosaic cannot reshape 160 lanes into 128; here
 // each resampled sample is its nk multiply-adds (21 at 160/147).

@@ -43,7 +43,13 @@ block), 20 launches queued behind the sleep; ``overlap_save_fused`` and
 kernel and its stage's glue), each kernel alone on one contiguous block
 with its carry, both on the whole file (64 x 480000) and
 ``overlap_save_fused`` on config 4's shard (16 x 384000, 4096 taps, nfft
-16384: ``run_config_4``'s 4-rank mesh, 4 s); ``--only`` keeps the arms
+16384: ``run_config_4``'s 4-rank mesh, 4 s); ``resample_mac`` on the whole
+file (64 x 441000 -> 480000, causal; also 1/2 and 147/160 of 64 x 480000,
+where a CTA walks strips of many tiles, and 1/2 of a stream's block, 64 x
+4096), alone on path D's block (64 x 4704
+with its 147 samples of history) and as path D's step (``ResampleStage``
+at that block, the carry after 12 blocks), beside its library yardstick
+(chip_smoke's ``resample_conv1d``, where the checkout has it); ``--only`` keeps the arms
 whose names hold one of its comma-separated substrings;
 in a checkout whose whole-file body runs at nfft 8192 the four
 whole-file kernels also at 8192/2048 (64 x 480000; ``noise_gate_fused``
@@ -121,7 +127,8 @@ GATE_CASES = [  # (channels, n, release, nfft, hop): the gate alone
 
 log = _build.build()[1].splitlines()
 chain = "--chain" in sys.argv
-kern = (("noise_gate_kernel", "gate_step_kernel", "stretch_step_kernel") if chain
+kern = (("noise_gate_kernel", "gate_step_kernel", "stretch_step_kernel", "resample_mac_kernel")
+        if chain
         else ("rfft_stockham_kernel",))
 for i, line in enumerate(log):  # ptxas's report of the timed kernels, where this call built them
     if "Compiling entry function" in line and any(k in line for k in kern):
@@ -252,12 +259,26 @@ if chain:
     xblk = xa[:, : cs.BLOCK].contiguous()
     hist_os = xa[:, cs.BLOCK : cs.BLOCK + cs.TAPS - 1].contiguous()
     hist_env = xa[:, cs.BLOCK : cs.BLOCK + cs.ENV_TAPS - 1].abs().contiguous()
+    from audiosignalprocess_tpu_torch.ops.resample import history_len, resample_filter
+    # path D's block of raw samples and the resampler's history, for resample_mac alone
+    xrblk = xr[:, : cs.RES_BLOCK].contiguous()
+    hist_r = xr[:, cs.RES_BLOCK : cs.RES_BLOCK + history_len(
+        len(resample_filter(cs.UP, cs.DOWN)), cs.UP, cs.DOWN)].contiguous()
     from audiosignalprocess_tpu_torch.kernels import fir_kernel as fmk
     from audiosignalprocess_tpu_torch.kernels import os_kernel as osk
+    from audiosignalprocess_tpu_torch.kernels import resample_kernel as rsk
     for name, mod, info, kw in (("overlap_save_fused", osk, "overlap_save_info", {}),
                                 ("overlap_save_fused nfft 16384", osk, "overlap_save_info",
                                  dict(nfft=cs.C4_NFFT)),
-                                ("fir_mac", fmk, "fir_mac_info", dict(taps=cs.ENV_TAPS))):
+                                ("fir_mac", fmk, "fir_mac_info", dict(taps=cs.ENV_TAPS)),
+                                ("resample_mac whole file", rsk, "resample_mac_info", {}),
+                                ("resample_mac 64x4704", rsk, "resample_mac_info",
+                                 dict(nout=cs.RES_BLOCK * cs.UP // cs.DOWN)),
+                                ("resample_mac whole file 1/2", rsk, "resample_mac_info",
+                                 dict(up=1, down=2, nout=cs.HEADLINE[1] // 2)),
+                                ("resample_mac whole file 147/160", rsk, "resample_mac_info",
+                                 dict(up=cs.DOWN, down=cs.UP,
+                                      nout=cs.HEADLINE[1] * cs.DOWN // cs.UP))):
         if hasattr(mod, info):  # a checkout with the redesigned kernel
             print(f"[ab chain] {name} on {smi}: {getattr(mod, info)(device=dev, **kw)}")
     arms = {"fir_noise_gate_fused": lambda: fir_noise_gate_fused(xa, h),
@@ -271,7 +292,17 @@ if chain:
                 lambda: overlap_save_fused(x4, h4, cs.C4_NFFT, hist4),
             "overlap_save_fused kernel alone 64x4096":
                 lambda: overlap_save_fused(xblk, h, cs.NFFT, hist_os),
-            "fir_mac kernel alone 64x4096": lambda: fir_mac(xblk, h_env, hist_env)}
+            "fir_mac kernel alone 64x4096": lambda: fir_mac(xblk, h_env, hist_env),
+            "resample_mac whole file": lambda: resample_mac(xr, cs.UP, cs.DOWN, zero_phase=False),
+            "resample_mac kernel alone 64x4704":
+                lambda: resample_mac(xrblk, cs.UP, cs.DOWN, zero_phase=False, history=hist_r),
+            "resample_mac whole file 1/2": lambda: resample_mac(xa, 1, 2, zero_phase=False),
+            "resample_mac 1/2 block 64x4096": lambda: resample_mac(xblk, 1, 2, zero_phase=False),
+            "resample_mac whole file 147/160":
+                lambda: resample_mac(xa, cs.DOWN, cs.UP, zero_phase=False)}
+    if hasattr(cs, "resample_conv1d"):  # the library yardstick (the same call in every checkout)
+        arms["resample_mac conv1d yardstick"] = cs.resample_conv1d(
+            xr, cs.UP, cs.DOWN, resample_filter(cs.UP, cs.DOWN), zero_phase=False)
     if hasattr(gk, "REGS_MAX_NFFT"):  # a checkout whose whole-file body runs at nfft 8192
         from audiosignalprocess_tpu_torch.ops.stft import frame
         big = dict(nfft=8192, hop=2048)
@@ -296,7 +327,7 @@ if chain:
     # block (BLOCK, or RES_BLOCK raw for the resampler) with the carry after
     # STEP_WARM blocks of white noise, 20 launches queued behind the sleep
     from audiosignalprocess_tpu_torch.pipeline import (
-        Chain, FIRGateStage, GateStage, ResFIRGateStage, StretchStage)
+        Chain, FIRGateStage, GateStage, ResampleStage, ResFIRGateStage, StretchStage)
     gate = dict(nfft=cs.NFFT, hop=cs.HOP, noise_frames=cs.NOISE_FRAMES)
     big = dict(nfft=8192, hop=2048)
     from audiosignalprocess_tpu_torch.pipeline import EnvelopeStage, FIRStage
@@ -312,6 +343,7 @@ if chain:
                                         cs.BLOCK),
              "stretch_step_fused 147/160": (
                  StretchStage(147, 160, nfft=cs.NFFT, hop=cs.HOP, fused=True), 147 * cs.HOP),
+             "resample_mac path D step": (ResampleStage(cs.UP, cs.DOWN, fused=True), cs.RES_BLOCK),
              "gate_step_fused 8192": (GateStage(fused=True, noise_frames=cs.NOISE_FRAMES, **big),
                                       16 * 2048),
              "stretch_step_fused 4/3 8192": (StretchStage(4, 3, fused=True, **big), 16 * 2048)}

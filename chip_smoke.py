@@ -261,7 +261,8 @@ def chain_ptxas(log, kernel):
     ``noise_gate_kernel``; <R, RS, release, 512> for the 512-thread one of
     nfft 8192), <R, RS, threads> of the step kernels
     (``fir_gate_step_kernel``, ``res_fir_gate_step_kernel``: a cluster of
-    two CTAs a channel at 256 threads, one CTA at 512)."""
+    two CTAs a channel at 256 threads, one CTA at 512), <outputs,
+    super-cycles a thread> of ``resample_mac_kernel``."""
     import re
 
     out, name = [], None
@@ -274,8 +275,11 @@ def chain_ptxas(log, kernel):
             if hit and m:
                 threads = f",{m[4]}" if m[4] and m[4] != "256" else ""
                 name = f"<{m[1]},{m[2]},{m[3]}{threads}>"
+            elif hit and step:
+                name = f"<{step[1]},{step[2]},{step[3]}>"
             else:
-                name = f"<{step[1]},{step[2]},{step[3]}>" if hit and step else None
+                two = re.search(r"ILi(\d+)ELi(\d+)EE", ent)
+                name = f"<{two[1]},{two[2]}>" if hit and two else None
         elif name and "spill stores" in line:
             spill = line.split(",")[1].strip()
         elif name and "Used" in line:
@@ -561,10 +565,31 @@ def resampler_phases(dev, smi, rng, record, kernels, reset_counts, wav_x48, log=
           f"{chain_ptxas(log, 'res_fir_noise_gate_kernel')}")
     mac_ms = time_ms(lambda: resample_mac(xn, UP, DOWN, zero_phase=False))
     mac_plain_ms = time_ms(lambda: resample_mac_ref(xn, UP, DOWN, zero_phase=False))
+    mac_device_ms = queued_ms(lambda: resample_mac(xn, UP, DOWN, zero_phase=False), reps=10,
+                              cycles=10 ** 8)
+    conv = resample_conv1d(xn, UP, DOWN, resample_filter(UP, DOWN), zero_phase=False)
+    conv_snr = snr_db(resample_mac_ref(xn.double(), UP, DOWN, zero_phase=False), conv())
+    if conv_snr < LINEAR_MIN_DB:
+        raise SystemExit(f"phase 13 failed: the conv1d yardstick reads {conv_snr:.2f} dB "
+                         f"against float64")
+    lib_ms = time_ms(conv)
+    lib_device_ms = queued_ms(conv, reps=10, cycles=10 ** 8)
     print(f"[13 times] resample_mac whole file {RES_HEADLINE[0]}x{RES_HEADLINE[1]} -> "
-          f"{RES_OUT} f32 (res_two's first launch) on {smi}: kernel {mac_ms:.4f} ms "
-          f"({samples / mac_ms * 1e3:.4e} out samples/s), plain {mac_plain_ms:.4f} ms")
-    record["resample_mac"].update(ms=mac_ms, plain_ms=mac_plain_ms)
+          f"{RES_OUT} f32 causal (res_two's first launch) on {smi}: kernel {mac_ms:.4f} ms "
+          f"({samples / mac_ms * 1e3:.4e} out samples/s), plain {mac_plain_ms:.4f} ms; device "
+          f"time of queued calls {mac_device_ms:.4f} ms; library (one strided conv1d of "
+          f"{UP} phase channels, TF32 off, {conv_snr:.2f} dB against float64) {lib_ms:.4f} ms, "
+          f"queued {lib_device_ms:.4f} ms")
+    from audiosignalprocess_tpu_torch.kernels.resample_kernel import resample_mac_info
+
+    block_info = resample_mac_info(channels=RES_HEADLINE[0], nout=RES_BLOCK * UP // DOWN,
+                                   device=dev)
+    print(f"[13 kernel] resample_mac {UP}/{DOWN} on {smi}, from the CUDA runtime (registers, "
+          f"local bytes a thread, CTAs an SM by the occupancy API and by the geometry's model; "
+          f"outputs and super-cycles a thread, threads, shared memory, grid): whole file {resample_mac_info(device=dev)}, "
+          f"path D's block {block_info}; ptxas <q,p>: {chain_ptxas(log, 'resample_mac_kernel')}")
+    record["resample_mac"].update(ms=mac_ms, plain_ms=mac_plain_ms, device_ms=mac_device_ms,
+                                  library_ms=lib_ms, library_device_ms=lib_device_ms)
 
     def plain_c(env_h=None):
         return Chain([ResampleStage(UP, DOWN), FIRStage(h=h, nfft=NFFT, impl="torch"),
@@ -648,10 +673,40 @@ def chain_flops(channels, samples, frames, nfft=NFFT, taps=TAPS):
     return channels * fft_flops(nfft, blocks + frames)
 
 
+def resample_conv1d(x, up, down, h, zero_phase=True):
+    """The yardstick library call for resample_mac (the port never calls
+    it): () -> x (C, n) resampled by one strided conv1d with ``up`` output
+    channels, phase s's reversed taps placed at its newest raw offset
+    floor((s*down + delay)/up), stride down, then a reshape of (C, up,
+    cycles) to (C, nout); TF32 off, restored afterwards."""
+    from audiosignalprocess_tpu_torch.ops.resample import phase_bank, taps_per_phase
+
+    c, n = x.shape
+    nk = taps_per_phase(len(h), up)
+    delay = (len(h) - 1) // 2 if zero_phase else 0
+    nout = -(-n * up // down)
+    cycles = -(-nout // up)
+    off = (np.arange(up) * down + delay) // up
+    w = np.zeros((up, 1, int(off.max()) + nk))
+    bank = phase_bank(h, up)[:, ::-1]
+    for s in range(up):
+        w[s, 0, off[s]:off[s] + nk] = bank[(s * down + delay) % up]
+    wt = torch.as_tensor(w, dtype=x.dtype, device=x.device)
+    right = max(0, (cycles - 1) * down + w.shape[-1] - (nk - 1) - n)
+    xp = torch.nn.functional.pad(x.reshape(c, 1, n), (nk - 1, right))
+
+    def call():
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            y = torch.nn.functional.conv1d(xp, wt, stride=down)
+        return y.transpose(1, 2).reshape(c, cycles * up)[:, :nout]
+
+    return call
+
+
 def conv_ms(x, taps):
     """The yardstick library call for a causal FIR: one conv1d over the
     whole input, TF32 off (the port never calls it)."""
-    w = torch.as_tensor(np.ascontiguousarray(taps[::-1]), dtype=x.dtype,
+    w = torch.as_tensor(taps[::-1].copy(), dtype=x.dtype,
                         device=x.device).reshape(1, 1, -1)
     xp = torch.nn.functional.pad(x.reshape(x.shape[0], 1, -1), (len(taps) - 1, 0))
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -1201,9 +1256,15 @@ def step_device_phase(dev, smi, record, kernels, h, h_env, log=""):
     Writes ``device_ms`` (a launch) to ``record`` and ranks the kernels by
     launches x (device time - bound) a launch, the bound a launch being the
     stream's over its launches (a whole-file launch's scaled to a block for
-    overlap_save_fused and fir_mac).  Run after earlier_bounds."""
+    overlap_save_fused and fir_mac).  resample_mac runs at path D's block
+    (``ResampleStage(fused=True)``, its history carried): its launch goes to
+    ``block_device_ms`` (``device_ms`` stays phase 13's whole file), ranked
+    by path D's launches a stream, the bound a launch the block's bytes
+    (input, history, output) over the memory rate.  Run after
+    earlier_bounds."""
     from audiosignalprocess_tpu_torch.pipeline import (
-        Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage, ResFIRGateStage, StretchStage,
+        Chain, EnvelopeStage, FIRGateStage, FIRStage, GateStage, ResampleStage, ResFIRGateStage,
+        StretchStage,
     )
 
     gate = dict(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES)
@@ -1215,7 +1276,11 @@ def step_device_phase(dev, smi, record, kernels, h, h_env, log=""):
         "fir_mac": (EnvelopeStage(h_env, fused=True), BLOCK),
         "res_fir_gate_step_fused": (ResFIRGateStage(UP, DOWN, h=h, **gate), RES_BLOCK),
         "stretch_step_fused": (StretchStage(4, 3, nfft=NFFT, hop=HOP, fused=True), BLOCK),
+        "resample_mac": (ResampleStage(UP, DOWN, fused=True), RES_BLOCK),  # path D's block
     }
+    path_d = Chain([ResampleStage(UP, DOWN, fused=True), FIRGateStage(h=h, **gate)])
+    path_d.build()
+    path_d_blocks = path_d.drain_blocks(RES_HEADLINE[1], RES_BLOCK)
     by_name = {k.__name__: k for k in kernels}
     rng = np.random.default_rng(9)
     rank = []
@@ -1236,11 +1301,17 @@ def step_device_phase(dev, smi, record, kernels, h, h_env, log=""):
                              f"{kernel.launches - before} times")
         device_ms = queued_ms(lambda: chain.step(states, xb), cycles=10 ** 8)
         rec = record[name]
-        whole = name in ("overlap_save_fused", "fir_mac")
-        bound = rec["bound_ms"] * (block / HEADLINE[1] if whole else 1.0 / rec["launches"])
-        rec["device_ms"] = device_ms
-        rank.append((rec["launches"] * (device_ms - bound), name, device_ms, bound,
-                     rec["launches"]))
+        launches = rec["launches"]
+        if name == "resample_mac":  # a launch a block of path D; device_ms stays the file's
+            launches = path_d_blocks
+            bound = 4 * c * (block + states[0].shape[-1] + block * UP // DOWN) / (
+                chip_peaks()[0]) * 1e3
+            rec["block_device_ms"] = device_ms
+        else:
+            whole = name in ("overlap_save_fused", "fir_mac")
+            bound = rec["bound_ms"] * (block / HEADLINE[1] if whole else 1.0 / launches)
+            rec["device_ms"] = device_ms
+        rank.append((launches * (device_ms - bound), name, device_ms, bound, launches))
         print(f"[9b times] {name} one launch at {c}x{block} f32, the carry after "
               f"{STEP_WARM} blocks, on {smi}: device time of queued launches {device_ms:.4f} ms, "
               f"bound a launch {bound:.4f} ms ({rec['bound_by']})")
@@ -2610,6 +2681,7 @@ def main() -> int:
         "library_ms": r["library_ms"],
         "stream_ms": r.get("stream_ms"),
         "device_ms": r.get("device_ms"),
+        "block_device_ms": r.get("block_device_ms"),
         "library_device_ms": r.get("library_device_ms"),
         "slice_ms": r.get("slice_ms"),
     } for name, r in record.items()]}))

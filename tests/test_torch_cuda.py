@@ -586,6 +586,104 @@ def test_resample_mac_vs_plain(card, up, down, mode):
     assert snr_db(ref, out) >= 100.0
 
 
+def _rs_fuzz_cases(k):
+    """tests/kernels/test_fuzz_params.py's resampler draws (its seed): up and
+    down below 24, n not a multiple of down (a ragged last cycle)."""
+    rng = np.random.default_rng(2028)
+    out = []
+    for _ in range(k):
+        up = int(rng.integers(1, 24))
+        down = int(rng.integers(1, 24))
+        if up == down:
+            down += 1
+        out.append((up, down, int(rng.integers(40, 120)) * down + int(rng.integers(0, down))))
+    return out
+
+
+@pytest.mark.parametrize("zp", (True, False), ids=("zero_phase", "causal"))
+@pytest.mark.parametrize("up,down,n", _rs_fuzz_cases(8))
+def test_resample_fuzz_twin(card, up, down, n, zp):
+    """The card twin of test_fuzz_params.py::test_resample_fuzz: random up/down
+    below 24 with ragged tails, zero-phase and causal, on 2 channels: >= 100
+    dB against the float64 plain version, exact length, every output written
+    (NaN-filled before the call), one launch."""
+    rng = np.random.default_rng(up * 100 + down)
+    x = torch.as_tensor(rng.standard_normal((2, n)), device=card)
+    xf = x.float()
+    out = _poisoned_launch(resample_mac, lambda: resample_mac(xf, up, down, zero_phase=zp),
+                           2 * (n * up // down + 1), card)
+    ref = resample_mac_ref(x, up, down, zero_phase=zp)
+    assert out.shape == ref.shape == (2, -(-n * up // down)) and bool(torch.isfinite(out).all())
+    assert snr_db(ref, out) >= 100.0
+
+
+@pytest.mark.parametrize("up,down,c,n,mode", [
+    (160, 147, 2, 441000, "causal"), (160, 147, 2, 441000, "zero_phase"),
+    (160, 147, 64, 4704, "history"), (147, 160, 3, 48000, "zero_phase"),
+    (147, 160, 64, 4800, "history"), (1, 2, 3, 40001, "causal"), (1, 2, 64, 4096, "history")])
+def test_resample_mac_is_the_fmaf_chain(card, up, down, c, n, mode):
+    """Bit for bit the polyphase fmaf chains in tap order (a float32 model
+    with exact fmaf, tests/torch_fmaf.py) at the whole file's geometry (2
+    channels of 441000: strips of tiles, the contiguous window), path D's
+    block with its history (the groups split over CTAs), 147/160 and 1/2:
+    every output written, one launch."""
+    from torch_fmaf import resample_fmaf_reference
+
+    rng = np.random.default_rng(up + down + n)
+    x = torch.as_tensor(rng.standard_normal((c, n)), dtype=torch.float32, device=card)
+    hist = None
+    if mode == "history":
+        hist = torch.as_tensor(rng.standard_normal((c, history_len(
+            len(resample_filter(up, down)), up, down))), dtype=torch.float32, device=card)
+    zp = mode == "zero_phase"
+    out = _poisoned_launch(resample_mac, lambda: resample_mac(x, up, down, zero_phase=zp,
+                                                              history=hist),
+                           c * (n * up // down + 1), card)
+    ref = resample_fmaf_reference(x.cpu().numpy(), up, down, zero_phase=zp,
+                                  hist=None if hist is None else hist.cpu().numpy())
+    assert np.array_equal(out.cpu().numpy(), ref)
+
+
+@pytest.mark.parametrize("up,down,taps,channels,nout", [
+    (160, 147, None, 64, 480000), (160, 147, None, 64, 5120), (1, 2, None, 64, 480000),
+    (147, 160, None, 64, 441000), (2, 1, None, 64, 960000), (1, 2, 8000, 2, 3000)])
+def test_resample_mac_geometry_counts_the_ctas_an_sm_holds(card, up, down, taps, channels, nout):
+    """resample_geometry's CTAs an SM (``ctas_per_sm`` with the built
+    kernels' registers; it sizes the strips) is the occupancy API's at the
+    launch it chose, and the grid is at most one wave of them."""
+    from audiosignalprocess_tpu_torch.kernels.resample_kernel import resample_mac_info
+
+    info = resample_mac_info(up, down, taps, channels, nout, device=card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert info["ctas"] == info["per_sm"] >= 1, info
+    assert info["grid"] <= info["per_sm"] * sms, info
+
+
+@pytest.mark.parametrize("up,down,taps,n", [(160, 147, 56800, 6000), (58110, 1, 58110, 4),
+                                             (1, 2, 8000, 6000)])
+def test_resample_mac_at_the_retired_limit(card, up, down, taps, n):
+    """Filters at the retired kernel's edge (its bank and 1024 outputs'
+    window within 227 KB): 160/147 with the most taps it took (355 a
+    phase), 58110/1 with one tap a phase (the largest up*nk it took), and
+    1/2 with 8000 taps (where 8 outputs' tap table no longer fits: one
+    output a thread): still one launch, >= 100 dB against the float64 plain
+    version, every output written."""
+    from audiosignalprocess_tpu_torch.kernels import resample_kernel as rk
+    from audiosignalprocess_tpu_torch.kernels._build import SMEM_LIMIT
+
+    nk = -(-taps // up)
+    assert 4 * (up * nk + rk.res_window(1024, up, down, nk)) <= SMEM_LIMIT
+    rng = np.random.default_rng(taps)
+    h = design_fir(taps, 0.9 / max(up, down)) * up
+    x = torch.as_tensor(rng.standard_normal((2, n)), device=card)
+    xf = x.float()
+    out = _poisoned_launch(resample_mac, lambda: resample_mac(xf, up, down, h=h),
+                           2 * (n * up // down + 1), card)
+    ref = resample_mac_ref(x, up, down, h=h)
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert snr_db(ref, out) >= 100.0
+
+
 @pytest.mark.parametrize("c,up,down,taps,n,release,nfft,hop", [
     (2, 160, 147, 64, 47040, 0.0, 1024, 256), (2, 2, 1, 96, 16384, 0.7, 1024, 256),
     (2, 160, 147, 384, 47040, 0.0, 1024, 256), (2, 147, 160, 64, 40960 + 333, 0.0, 1024, 256),

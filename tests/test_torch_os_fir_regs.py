@@ -44,6 +44,7 @@ from audiosignalprocess_tpu_torch.ops.fir import design_fir
 from test_torch_chain_regs import (
     _brev_np, _read_idx, _snr, _stages, _swizzle, _to_inverse_slots, _write_idx,
 )
+from torch_fmaf import fmaf32
 
 
 # ---------------------------------------------------------------------------
@@ -231,21 +232,6 @@ def test_os_geometry_at_the_stream_block():
 # ---------------------------------------------------------------------------
 # the MAC kernel
 # ---------------------------------------------------------------------------
-
-def fmaf32(a, b, c):
-    """fmaf on float32 arrays, exactly: the product is exact in float64,
-    the sum's error exact by TwoSum, and the sum rounded to odd in float64
-    (53 >= 24 + 2 bits) rounds once more to float32 correctly."""
-    a, b, c = (np.asarray(v, np.float32).astype(np.float64) for v in (a, b, c))
-    p = a * b
-    s = p + c
-    bb = s - p
-    e = (p - (s - bb)) + (c - bb)
-    bits = s.view(np.int64)
-    fix = (e != 0) & ((bits & 1) == 0)
-    bits = np.where(fix, bits + np.where((e > 0) == (s > 0), 1, -1), bits)
-    return bits.view(np.float64).astype(np.float32)
-
 
 def fmaf_reference(x, h, hist=None):
     """The taps' fmaf chains in order on float32 x (C, n): y[o] = fmaf over
