@@ -19,6 +19,7 @@ import torch
 import torch.distributed as dist
 
 from audiosignalprocess_tpu_torch.io.wav import read_wav, write_wav
+from audiosignalprocess_tpu_torch.parallel import Mesh, gather_audio
 from audiosignalprocess_tpu_torch.utils.metrics import snr_db  # noqa: F401
 from audiosignalprocess_tpu_torch.utils.validate import check
 
@@ -87,8 +88,12 @@ def world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def report(name: str, x, out, dt: float | None, snr: float | None, args) -> None:
-    """Print the run's record (rank 0 only)."""
+def report(name: str, x, out, dt: float | None, snr: float | None, args,
+           ref: str = "f64_plain", bar: float = 60.0, extra: dict | None = None) -> None:
+    """Print the run's record (rank 0 only).  ``snr`` is against ``ref``
+    (``snr_db_vs_<ref>``; an infinite one, a bit-equal output, is
+    recorded as null with ``bit_equal``), and parity means ``snr >= bar``;
+    ``extra`` adds keys."""
     if rank() != 0:
         return
     rec = {"config": name, "device": str(args.device), "ranks": world(),
@@ -97,8 +102,12 @@ def report(name: str, x, out, dt: float | None, snr: float | None, args) -> None
         rec["seconds_per_run"] = round(dt, 6)
         rec["samples_per_s"] = round(float(np.prod(np.shape(x))) / dt, 1)
     if snr is not None:
-        rec["snr_db_vs_f64_plain"] = round(snr, 2)
-        rec["parity"] = bool(snr >= 60.0)
+        exact = snr == np.inf
+        rec[f"snr_db_vs_{ref}"] = None if exact else round(snr, 2)
+        if exact:
+            rec["bit_equal"] = True
+        rec["parity"] = bool(snr >= bar)
+    rec.update(extra or {})
     if args.json:
         print(json.dumps(rec))
     else:
@@ -124,6 +133,14 @@ def timed(fn, x, iters: int = 5):
     for _ in range(iters):
         fn(x)
     return out, (time.perf_counter() - t0) / iters
+
+
+def to_host(y: torch.Tensor, mesh: Mesh | None = None) -> np.ndarray:
+    """The whole output as numpy: this rank's block ``y`` gathered across
+    the ranks of ``mesh`` (every rank calls it), or ``y`` itself."""
+    if mesh is not None:
+        y = gather_audio(y, mesh)
+    return y.cpu().numpy()
 
 
 def maybe_write(args, out, rate: int) -> None:

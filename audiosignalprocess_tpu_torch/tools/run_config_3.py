@@ -15,11 +15,11 @@ import numpy as np
 import torch
 
 from audiosignalprocess_tpu_torch.parallel import (
-    gather_audio, initialize, make_mesh, shard_audio, sharded_noise_gate,
+    initialize, make_mesh, shard_audio, sharded_noise_gate,
 )
 from audiosignalprocess_tpu_torch.pipeline import GateStage
 from audiosignalprocess_tpu_torch.tools.common import (
-    load_or_make, maybe_write, report, snr_db, std_parser, timed, world,
+    load_or_make, maybe_write, report, snr_db, std_parser, timed, to_host, world,
 )
 from audiosignalprocess_tpu_torch.utils.validate import check
 
@@ -41,7 +41,7 @@ def main():
     xs = shard_audio(torch.as_tensor(x, device=args.device), mesh)
 
     y, dt = timed(fn, xs) if args.bench else (fn(xs), None)
-    out = gather_audio(y, mesh).cpu().numpy()
+    out = to_host(y, mesh)
 
     snr = None
     if args.check:

@@ -20,10 +20,10 @@ import torch
 from audiosignalprocess_tpu_torch.ops.fir import design_fir
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.parallel import (
-    gather_audio, initialize, make_mesh, shard_audio, sharded_overlap_save,
+    initialize, make_mesh, shard_audio, sharded_overlap_save,
 )
 from audiosignalprocess_tpu_torch.tools.common import (
-    load_or_make, maybe_write, report, snr_db, std_parser, timed, world,
+    load_or_make, maybe_write, report, snr_db, std_parser, timed, to_host, world,
 )
 from audiosignalprocess_tpu_torch.utils.validate import check
 
@@ -55,7 +55,7 @@ def main():
     xs = shard_audio(torch.as_tensor(x, device=args.device), mesh)
 
     y, dt = timed(fn, xs) if args.bench else (fn(xs), None)
-    out = gather_audio(y, mesh).cpu().numpy()
+    out = to_host(y, mesh)
 
     snr = None
     if args.check:

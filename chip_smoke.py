@@ -65,6 +65,18 @@ audio, counting the kernel launches of each run:
   the JAX A/B's protocol (arms round-robin, each bracketed by a copy
   probe).
 
+- configs 1, 2 and 5 through the port's drivers (phase 27): config 1's
+  overlap-save (``overlap_save_fused``), config 2's zero-phase resampler
+  and bandpass (``resample_mac``, ``fir_mac``) and config 5 at 128 x
+  169344, streamed by the four stages (``resample_mac``,
+  ``overlap_save_fused``, ``gate_step_fused``, ``fir_mac`` a block) and
+  by the composite (``res_fir_gate_step_fused`` a block), sharded on a
+  one-rank NCCL group, and behind the native decode thread and SPSC ring
+  (``run_ring``: against ``Chain.stream``, K = 3, a restart from a carry
+  checkpoint, drained), each with exact launch counts; then the drivers
+  as processes (config 5 sharded also under torchrun on four gloo ranks)
+  and the scaling harness;
+
 - the whole-file kernels on the batched body at nfft 8192, hop 2048 (one
   transform of 512 threads a batch, one exchange buffer, the span in
   device memory: phase 26):
@@ -1873,6 +1885,304 @@ def sharded_phases(dev, smi, record, kernels, reset_counts):
             raise SystemExit(f"phase 23 failed: {line}\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
 
 
+CFG_SECONDS = 4.0  # the drivers' default --seconds: BASELINE.json:7, 8 and 11 at 4 s
+SCALING_SHAPE = (16, 147 * 64)  # tools.scaling's default channels and samples a shard
+
+
+def driver_runs(root, runs, timeout=600):
+    """Start every (label, args) driver run at once, each in its own process
+    (``python -m`` from the checkout's root); returns {label: (rc, stdout,
+    stderr)}.  Every process is waited for, and killed on a failure here."""
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = {label: subprocess.Popen([sys.executable, *args], cwd=root, env=env, text=True,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for label, args in runs}
+    out = {}
+    try:
+        for label, p in procs.items():
+            so, se = p.communicate(timeout=timeout)
+            out[label] = (p.returncode, so, se)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def config_driver_phases(dev, smi, kernels, reset_counts):
+    """Phase 27: configs 1, 2 and 5 through the port's drivers on the card.
+
+    27a drives each path in this process at its driver's width, every
+    launch count at 0 just before and read just after: config 1
+    (``overlap_save`` fused, 1 x 64000 at 16 kHz), config 2
+    (``run_config_2.chain``, 2 x 176400 at 44.1 kHz -> 48 kHz), config 5's
+    stream, composite stream and sharded chain (one NCCL rank, 1x1 mesh)
+    at 128 x 169344 (18 blocks of 147 x 64), each on all 128 channels
+    against the float64 plain chain on the card (>= 60 dB), and its ring (``run_config_5.run_ring``)
+    against ``Chain.stream`` (bit-equal or >= 100 dB, printed which), K =
+    3 against K = 1, the restart's tail (bit-equal) and a drained ring
+    against ``stream(drain=True)`` (length and samples); the ring's
+    consumer wait share and, under the profiler, the device's idle share;
+    config 1's and 2's kernels alone on white noise at the drivers' shapes
+    against their float64 plain versions (>= 100 dB, launches not
+    counted).  In the NCCL group it also holds the sharded chain against
+    the unsharded whole-file kernels (>= 60 dB) and runs ``tools.scaling.bench_mesh``
+    at one NCCL rank.  27b runs the drivers as processes side by side (rc
+    0, parity, device cuda; no times), config 5 sharded also under
+    torchrun with four gloo ranks sharing the card, then ``tools.scaling``
+    alone at gloo sizes 1, 2 and 4 (a harness check on one card: no
+    scaling number).  Raises SystemExit on a failure."""
+    import torch.distributed as dist
+
+    from audiosignalprocess_tpu_torch import parallel
+    from audiosignalprocess_tpu_torch.io.wav import write_wav
+    from audiosignalprocess_tpu_torch.kernels.fir_kernel import fir_mac, fir_mac_ref
+    from audiosignalprocess_tpu_torch.kernels.os_kernel import (
+        overlap_save_fused, overlap_save_ref,
+    )
+    from audiosignalprocess_tpu_torch.kernels.resample_kernel import (
+        resample_mac, resample_mac_ref,
+    )
+    from audiosignalprocess_tpu_torch.ops.fir import design_fir
+    from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
+    from audiosignalprocess_tpu_torch.tools import (
+        run_config_1, run_config_2, run_config_5, scaling,
+    )
+    from audiosignalprocess_tpu_torch.tools.common import make_signal
+    from audiosignalprocess_tpu_torch.utils.metrics import snr_db
+
+    def counted(fn):
+        reset_counts()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, {k.__name__: k.launches for k in kernels if k.launches}
+
+    def fail(line, want):
+        raise SystemExit(f"phase 27 failed: {line} (want {want})")
+
+    def held(label, y, ref):
+        """A kernel alone against its float64 plain version (not counted)."""
+        torch.cuda.synchronize()
+        snr = snr_db(ref, y)
+        line = (f"[27 kernel] {label}: snr_vs_f64_plain={snr:.2f} dB "
+                f"max_abs_err={float((y.double() - ref).abs().max()):.3e}")
+        print(line)
+        if tuple(y.shape) != tuple(ref.shape) or not bool(torch.isfinite(y).all()) \
+                or snr < LINEAR_MIN_DB:
+            fail(line, f">= {LINEAR_MIN_DB} dB")
+
+    def drive(label, fn, want, ref64, samples, trim=0):
+        """One counted run of fn(), its output (every channel, from ``trim``
+        on) against the float64 reference ``ref64`` (>= 60 dB over all
+        channels; the worst channel printed), then its time (CUDA events
+        around whole calls)."""
+        y, counts = counted(fn)
+        got = y[:, trim:]
+        ref = ref64[..., : got.shape[-1]]
+        snr = snr_db(ref, got) if ref.shape == got.shape else -np.inf
+        per = [snr_db(r, g) for r, g in zip(ref, got)] if ref.shape == got.shape else [-np.inf]
+        ms = stream_ms(fn)
+        line = (f"[27 {label}] launches={counts} snr_vs_f64_plain={snr:.2f} dB over "
+                f"{got.shape[0]} of {ref64.shape[0]} channels (worst channel "
+                f"{int(np.argmin(per))}: {min(per):.2f} dB); {ms:.4f} ms a call "
+                f"({samples / ms * 1e3:.4e} input samples/s) on {smi}")
+        print(line)
+        if counts != want or snr < SNR_MIN_DB or not bool(torch.isfinite(y).all()):
+            fail(line, want)
+        return y
+
+    t0 = time.perf_counter()
+    # ---- 27a: config 1, mono 16 kHz, 64-tap Hann lowpass by overlap-save
+    x1 = torch.as_tensor(make_signal(1, run_config_1.RATE, CFG_SECONDS), device=dev)
+    h1 = design_fir(64, 0.25, window_kind="hann")
+    nfft1 = run_config_1.NFFT
+    noise = lambda shape: torch.as_tensor(  # noqa: E731
+        np.random.default_rng(27).standard_normal(shape), device=dev)
+    w1 = noise(tuple(x1.shape))
+    held(f"overlap_save_fused at config 1's {tuple(x1.shape)}, white noise",
+         overlap_save_fused(w1.float(), h1, nfft1), overlap_save_ref(w1, h1, nfft1))
+    drive(f"config 1 overlap_save(fused=True) {tuple(x1.shape)}",
+          lambda: overlap_save(x1.float(), h1, nfft1, fused=True), {"overlap_save_fused": 1},
+          overlap_save_ref(x1, h1, nfft1), x1.numel())
+
+    # ---- config 2, stereo 44.1 kHz AM -> 48 kHz (zero phase) -> 256-tap bandpass
+    x2 = torch.as_tensor(make_signal(2, run_config_2.RATE_IN, CFG_SECONDS, kind="am"),
+                         device=dev)
+    h2 = run_config_2.bandpass()
+    up, down = run_config_2.UP, run_config_2.DOWN
+    w2 = noise(tuple(x2.shape))
+    held(f"resample_mac zero-phase {up}/{down} at config 2's {tuple(x2.shape)}, white noise",
+         resample_mac(w2.float(), up, down), resample_mac_ref(w2, up, down))
+    w2 = noise((2, -(-x2.shape[-1] * up // down)))
+    held(f"fir_mac 256 taps at config 2's {tuple(w2.shape)}, white noise",
+         fir_mac(w2.float(), h2), fir_mac_ref(w2, h2))
+    drive(f"config 2 run_config_2.chain {tuple(x2.shape)}",
+          lambda: run_config_2.chain(x2.float(), h2), {"resample_mac": 1, "fir_mac": 1},
+          run_config_2.chain(x2, h2, fused=False), x2.numel())
+
+    # ---- config 5, 128 channels at 44.1 kHz: stream, composite stream, sharded
+    c5, block = run_config_5.CHANNELS, run_config_5.BLOCK
+    x5np = make_signal(c5, run_config_5.RATE_IN, CFG_SECONDS).astype(np.float32)
+    nb = x5np.shape[-1] // block
+    x5np = x5np[:, : nb * block]
+    x5 = torch.as_tensor(x5np, device=dev)
+    chain = run_config_5.build_chain()
+    lat = chain.build()
+    comp = run_config_5.build_chain(composite=True)
+    comp.build()
+    # the float64 plain chain over all 128 channels (float64 takes the plain
+    # path on the card too: no launch)
+    full64 = chain.full(x5.double())
+    per_block = {"resample_mac": nb, "overlap_save_fused": nb, "gate_step_fused": nb,
+                 "fir_mac": nb}
+    drive(f"config 5 stream {tuple(x5.shape)} block {block} ({nb} blocks)",
+          lambda: chain.stream(x5, block), per_block, full64, x5.numel(), trim=lat)
+    drive(f"config 5 stream --composite {tuple(x5.shape)} ({nb} blocks)",
+          lambda: comp.stream(x5, block), {"res_fir_gate_step_fused": nb}, full64,
+          x5.numel(), trim=lat)
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.initialize(f"file://{tmp}/store", 1, 0, backend="nccl")
+        try:
+            mesh = parallel.make_mesh(1, 1)
+            fn = parallel.sharded_chain(mesh, chain)
+            xs = parallel.shard_audio(x5, mesh)
+            parallel.warmup(fn, xs)
+            y = drive(f"config 5 sharded {dist.get_backend()} world 1 mesh 1x1 "
+                      f"{tuple(x5.shape)}", lambda: parallel.gather_audio(fn(xs), mesh),
+                      {"resample_mac": 1, "overlap_save_fused": 1, "gate_shard_fused": 1,
+                       "fir_mac": 1}, full64, x5.numel())
+            # the sharded chain against the unsharded whole-file kernels
+            # (chain.full: noise_gate_fused for the gate; >= 60 dB), and
+            # where both depart from float64: the hops whose error passes
+            # 1e-4 of the peak on any channel
+            whole = chain.full(x5)
+            s_whole = snr_db(whole, y) if whole.shape == y.shape else -np.inf
+            err = (y - full64).abs().reshape(c5, -1, HOP).amax(dim=(0, 2))
+            hops = torch.nonzero(err > 1e-4 * full64.abs().max()).flatten().tolist()
+            line = (f"[27 config 5 sharded] against the unsharded whole-file kernels "
+                    f"(chain.full), all {c5} channels: {s_whole:.2f} dB; the whole-file "
+                    f"kernels against float64: {snr_db(full64, whole):.2f} dB; hops past "
+                    f"1e-4 of the peak against float64: {len(hops)} {hops[:12]}")
+            print(line)
+            if s_whole < SNR_MIN_DB:
+                fail(line, f">= {SNR_MIN_DB} dB")
+            rate = scaling.bench_mesh(1, *SCALING_SHAPE, device="cuda")
+            print(f"[27 scaling] tools.scaling.bench_mesh at one NCCL rank in this process, "
+                  f"{SCALING_SHAPE[0]} x {SCALING_SHAPE[1]} a shard on {smi}: {rate:.4e} "
+                  f"samples/s")
+        finally:
+            dist.destroy_process_group()
+
+    # ---- config 5's ring: native decode thread -> SPSC ring -> chain.step
+    def same(ref, out):
+        """(bit-equal, its text): bit-equal, or the SNR in dB."""
+        if ref.shape == out.shape and np.array_equal(ref, out):
+            return True, np.inf, "bit-equal"
+        snr = snr_db(ref, out) if ref.shape == out.shape else -np.inf
+        return False, snr, f"{snr:.2f} dB"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "in.wav")
+        write_wav(wav, x5np, run_config_5.RATE_IN, float_fmt=True)
+
+        def ring(path=wav, **kw):
+            stats = {}
+            out, n_run, secs = run_config_5.run_ring(chain, path, block, c5, device=dev,
+                                                     stats=stats, **kw)
+            return out, n_run, secs, stats["wait_s"] / secs
+
+        stream = chain.stream(x5, block).cpu().numpy()
+        ring(warmup=True)  # the first run pins the host buffers and uploads the tables
+        for k in (1, 3):
+            (out, n_run, secs, wait), counts = counted(lambda: ring(batch_blocks=k, warmup=True))
+            exact, snr, text = same(stream, out)
+            line = (f"[27 ring] K={k}: {n_run} blocks launches={counts} against Chain.stream: "
+                    f"{text}; {secs:.4f} s ({x5.numel() / secs:.4e} input samples/s, host "
+                    f"clock from the decode thread's start), consumer waited for the ring "
+                    f"{wait:.4f} of it, on {smi}")
+            print(line)
+            if counts != per_block or n_run != nb or not (exact or snr >= LINEAR_MIN_DB):
+                fail(line, per_block)
+            if k == 1:
+                out1 = out
+            elif not np.array_equal(out, out1):
+                fail(f"[27 ring] K=3 differs from K=1: {same(out1, out)[2]}", "bit-equal")
+        print("[27 ring] K=3 bit-equal to K=1: True")
+        idle = device_idle_share(lambda: ring())
+        print(f"[27 ring] K=1 under torch.profiler on {smi}: device idle {idle_text(idle)} "
+              f"of its span")
+        half = nb // 2
+        ck = os.path.join(tmp, "carry.npz")
+        out_a = ring(ckpt=(ck, half))[0]
+        out_b, n_b = ring(resume=ck)[:2]
+        tail = out_a[..., half * chain.out_block(block):]
+        ok = np.array_equal(tail, out_b)
+        line = (f"[27 ring] restart from the checkpoint at block {half}: {n_b} blocks resumed, "
+                f"tail {out_b.shape} bit-equal {ok}")
+        print(line)
+        if not ok or n_b != nb - half:
+            fail(line, "a bit-equal tail")
+        n_d = x5np.shape[-1] - 333  # a file that is no whole number of blocks
+        wav_d = os.path.join(tmp, "drain.wav")
+        write_wav(wav_d, x5np[:, :n_d], run_config_5.RATE_IN, float_fmt=True)
+        (out_d, nb_d, _, _), counts = counted(lambda: ring(wav_d, drain=True, batch_blocks=3))
+        ref_d = chain.stream(x5[:, :n_d], block, drain=True).cpu().numpy()
+        exact, snr, text = same(ref_d, out_d)
+        want = {k: nb_d for k in per_block}
+        line = (f"[27 ring] --drain K=3 on {c5}x{n_d}: {nb_d} blocks launches={counts}, "
+                f"{out_d.shape} against stream(drain=True) {ref_d.shape} "
+                f"(out_len {chain.out_len(n_d)}): {text}")
+        print(line)
+        if counts != want or out_d.shape != (c5, chain.out_len(n_d)) \
+                or not (exact or snr >= LINEAR_MIN_DB):
+            fail(line, want)
+    t_a = time.perf_counter() - t0
+
+    # ---- 27b: the drivers as processes (side by side: no times), then the
+    # scaling harness alone
+    root = Path(__file__).resolve().parent
+    m5 = ["-m", "audiosignalprocess_tpu_torch.tools.run_config_5"]
+    runs = [("config 1", ["-m", "audiosignalprocess_tpu_torch.tools.run_config_1"]),
+            ("config 2", ["-m", "audiosignalprocess_tpu_torch.tools.run_config_2", "--check"]),
+            ("config 5 stream", [*m5, "--check"]),
+            ("config 5 stream --composite", [*m5, "--composite", "--check"]),
+            ("config 5 ring --demo-restart", [*m5, "--mode", "ring", "--check",
+                                              "--demo-restart"]),
+            ("config 5 ring --drain --ring-batch 3", [*m5, "--mode", "ring", "--check",
+                                                      "--drain", "--ring-batch", "3"]),
+            ("config 5 sharded", [*m5, "--mode", "sharded", "--check"]),
+            (f"config 5 sharded torchrun x{SHARDS} gloo",
+             ["-m", "torch.distributed.run", "--standalone", f"--nproc-per-node={SHARDS}", *m5,
+              "--mode", "sharded", "--backend", "gloo", "--check"])]
+    t0 = time.perf_counter()
+    done = driver_runs(root, [(label, [*args, "--json"]) for label, args in runs])
+    for label, (rc, so, se) in done.items():
+        recs = [json.loads(ln) for ln in so.splitlines() if ln.startswith('{"config"')]
+        line = f"[27 driver] {label}: rc={rc} {recs}"
+        print(line)
+        ranks = SHARDS if "torchrun" in label else 1
+        if rc != 0 or len(recs) != 1 or not recs[0]["parity"] or recs[0]["device"] != "cuda" \
+                or recs[0]["ranks"] != ranks \
+                or ("restart" in label and not recs[0].get("restart_tail_bit_equal")):
+            raise SystemExit(f"phase 27 failed: {line}\n{so[-2000:]}\n{se[-3000:]}")
+    t_b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    label = "gloo ranks sharing the card"
+    rc, so, se = driver_runs(root, [(label, [
+        "-m", "audiosignalprocess_tpu_torch.tools.scaling", "--json", "--backend", "gloo",
+        "--sizes", "1,2,4", "--channels", str(SCALING_SHAPE[0]), "--per-shard",
+        str(SCALING_SHAPE[1])])])[label]
+    rows = [json.loads(ln) for ln in so.splitlines() if ln.startswith('{"devices"')]
+    line = f"[27 scaling] tools.scaling, {label} ({smi}): rc={rc} {rows}"
+    print(line)
+    if rc != 0 or {r["devices"] for r in rows} != {1, 2, 4} \
+            or any(r["device"] != "cuda" or not r["samples_per_s"] > 0 for r in rows):
+        raise SystemExit(f"phase 27 failed: {line}\n{so[-2000:]}\n{se[-3000:]}")
+    print(f"[27 time] in-process {t_a:.1f} s, driver processes {t_b:.1f} s, scaling "
+          f"{time.perf_counter() - t0:.1f} s (host clock)")
+
+
 FFT_VARIANTS = {  # kernel: (ops.fft impl, smallest n, the TPU kernel it replaces)
     "fft_fourstep": ("fourstep", 4, "fft_kernel.py:652"),
     "fft_radix2_lanes": ("radix2_lanes", 2, "fft_kernel.py:826"),
@@ -2660,6 +2970,8 @@ def main() -> int:
     marks.append(("phase 26", time.perf_counter()))
     step_device_phase(dev, smi, record, kernels, h, h_env, log)
     marks.append(("phase 9b", time.perf_counter()))
+    config_driver_phases(dev, smi, kernels, reset_counts)
+    marks.append(("phase 27", time.perf_counter()))
 
     prev = t_start
     for name, t in marks:

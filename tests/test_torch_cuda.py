@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_soak_fuzz as soak
 from audiosignalprocess_tpu_torch import api
 from audiosignalprocess_tpu_torch.io.wav import read_wav, write_wav
 from audiosignalprocess_tpu_torch.kernels import fft_kernel as fk
@@ -1578,3 +1579,60 @@ def test_time_sharded_gate_gloo_on_the_card(card):
     assert chip_smoke.unexplained_hops(hops, x.shape[-1], 2) == []
     ref = noise_gate_ref(xc.double(), noise_frames=8).cpu()
     assert snr_db(ref, torch.as_tensor(out[:, : ref.shape[-1]])) >= 60.0
+
+
+# ---------------------------------------------------------------------------
+# twins of tests/kernels/test_fuzz_params.py::test_gate_fuzz and of
+# tests/integration/test_soak_short.py (inputs, chains and bars in
+# tests/torch_soak_fuzz.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nfft,hop,n", soak.gate_fuzz_cases())
+def test_gate_fuzz_twin(card, nfft, hop, n):
+    """noise_gate_fused float32 on the reference fuzz's random lengths (the
+    last tile of the batched body moves with n) against its float64 plain
+    version, to the GATE_GRID tests' bars: exact length, finite, >= 60 dB,
+    one launch and no other kernel; flipped bins counted on failure."""
+    x = torch.as_tensor(soak.gate_fuzz_input(nfft, hop, n), device=card)
+    y, k = _launches(lambda: noise_gate_fused(x.float(), nfft, hop))
+    assert k == {"noise_gate_fused": 1}
+    ref = noise_gate_ref(x, nfft, hop)
+    assert y.shape == ref.shape == (2, nfft + ((n - nfft) // hop) * hop)
+    assert bool(torch.isfinite(y).all())
+    snr = snr_db(ref, y)
+    if snr < 60.0:
+        import chip_smoke
+
+        pytest.fail(f"{snr:.2f} dB against float64, "
+                    f"{chip_smoke.decision_flips(x, nfft, hop, 8)} bins the plain gate flips")
+
+
+def test_stretch_soak_short_on_card(card):
+    """32 drained vocoder blocks (4/3) through stretch_step_fused, one
+    launch a block and no other kernel, >= 95 dB against the float64
+    whole-file vocoder (the oracle's, tests/test_torch_soak_fuzz.py)."""
+    x = soak.stretch_input()
+    chain = soak.stretch_chain()
+    y, k = _launches(lambda: chain.stream(torch.as_tensor(x, device=card), soak.STRETCH_BLOCK,
+                                          drain=True))
+    assert k == {"stretch_step_fused": chain.drain_blocks(x.shape[-1], soak.STRETCH_BLOCK)}
+    ref = soak.stretch_ref64(x)
+    assert bool(torch.isfinite(y).all())
+    assert soak.stretch_snr(ref, y) >= soak.STRETCH_MIN_DB
+
+
+def test_composite_soak_short_flat_on_card(card):
+    """24 drained composite blocks through res_fir_gate_step_fused (the
+    envelope folded in), one launch a block and no other kernel: >= 60 dB
+    overall against the float64 chain and the last quarter within 15 dB
+    of the second."""
+    x = soak.composite_input()
+    chain = soak.composite_chain()
+    y, k = _launches(lambda: chain.stream(torch.as_tensor(x, device=card),
+                                          soak.COMPOSITE_BLOCK, drain=True))
+    blocks = chain.drain_blocks(x.shape[-1], soak.COMPOSITE_BLOCK)
+    assert k == {"res_fir_gate_step_fused": blocks}
+    assert bool(torch.isfinite(y).all())
+    snr_all, snr_q2, snr_q4 = soak.composite_snrs(soak.composite_ref64(x), y)
+    assert snr_all >= soak.COMPOSITE_MIN_DB, snr_all
+    assert snr_q4 >= snr_q2 - soak.FLAT_DB, (snr_q2, snr_q4)
