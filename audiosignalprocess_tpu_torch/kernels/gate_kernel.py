@@ -621,9 +621,11 @@ def step_device_tables(nfft: int, hop: int, window_kind: str,
 def gate_step_ref(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
                   threshold_db: float, reduction_db: float, noise_frames: int,
                   release: float, window_kind: str, input_latency: int,
-                  latency: int, eof_in: int | None = None):
+                  latency: int, eof_in: int | None = None, impl: str = "torch"):
     """Plain PyTorch streaming gate step: (state, x) -> (new_state, y),
-    any device and dtype (the JAX package's ``GateStage.step``)."""
+    any device and dtype (the JAX package's ``GateStage.step``).  ``impl``
+    is the FFT implementation of its two transforms (``ops.fft``); the
+    default pins torch.fft, as every plain version does."""
     b = x.shape[-1]
     check(b % hop == 0 and b >= hop, f"block {b} not a multiple of hop={hop}")
     m, d = b // hop, nfft - hop
@@ -634,7 +636,7 @@ def gate_step_ref(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
     wv, head, const, tail = _step_tables_np(nfft, hop, window_kind)
     w = upload(wv, dtype, dev)
     ext = torch.cat([state["in_tail"], x], dim=-1)                  # (..., b+d)
-    spec = fft_ops.rfft(frame(ext, nfft, hop) * w, impl="torch")    # (..., m, nb)
+    spec = fft_ops.rfft(frame(ext, nfft, hop) * w, impl=impl)       # (..., m, nb)
     spec = spec * upload(np.array(valid, np.float64), dtype, dev)[:, None]
     tmask = upload(np.array(take, np.float64), dtype, dev)
     floor_sum = state["floor_sum"] + (spec.abs() * tmask[:, None]).sum(
@@ -657,7 +659,7 @@ def gate_step_ref(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
             rows.append(s)
         mask = torch.cat(rows, dim=-2)
         new_state["rel"] = s
-    out_frames = fft_ops.irfft(popped * mask, nfft, impl="torch") * w
+    out_frames = fft_ops.irfft(popped * mask, nfft, impl=impl) * w
     p = torch.arange(b, device=dev) + (pos - latency - input_latency)
     norm = wola_norm_at(p, upload(head, dtype, dev), const, d, eof_out,
                         upload(tail, dtype, dev))

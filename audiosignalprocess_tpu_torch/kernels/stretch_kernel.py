@@ -111,10 +111,11 @@ def stretch_block_frames(b: int, hop: int, p: int, q: int) -> tuple[int, int]:
 
 def stretch_step_ref(x: torch.Tensor, state: dict, *, nfft: int, hop: int, p: int,
                      q: int, n_skip: int, off: int, window_kind: str,
-                     eof_frames_out: int | None = None):
+                     eof_frames_out: int | None = None, impl: str = "torch"):
     """Plain PyTorch streaming stretch step: (state, x) -> (new_state, y),
-    any device and dtype (the JAX package's plain ``StretchStage.step``;
-    its FFTs pinned to torch.fft).  x (..., m*hop) -> y (..., mo*hop)."""
+    any device and dtype (the JAX package's plain ``StretchStage.step``).
+    ``impl`` is the FFT implementation of its two transforms (``ops.fft``;
+    the default pins torch.fft).  x (..., m*hop) -> y (..., mo*hop)."""
     m, mo = stretch_block_frames(x.shape[-1], hop, p, q)
     d = nfft - hop
     dtype, dev = x.dtype, x.device
@@ -125,7 +126,7 @@ def stretch_step_ref(x: torch.Tensor, state: dict, *, nfft: int, hop: int, p: in
     wv, head, const, tail = _step_tables_np(nfft, hop, window_kind)
     w = upload(wv, dtype, dev)
     ext = torch.cat([state["in_tail"], x], dim=-1)                  # (..., b+d)
-    spec = fft_ops.rfft(frame(ext, nfft, hop) * w, impl="torch")    # (..., m, nb)
+    spec = fft_ops.rfft(frame(ext, nfft, hop) * w, impl=impl)       # (..., m, nb)
     spec_r, spec_i = spec.real, spec.imag
     z0r, z0i = state["z0r"], state["z0i"]
     if hit >= 0:  # capture z0 when the first true frame arrives
@@ -152,7 +153,7 @@ def stretch_step_ref(x: torch.Tensor, state: dict, *, nfft: int, hop: int, p: in
     # hypot, not sqrt(r^2+i^2): the accuracy of |z| (the JAX package
     # measured ~4 dB of stream==full parity for the naive form)
     mag = ((1.0 - f) * torch.hypot(s0r, s0i) + f * torch.hypot(s1r, s1i)) * emit.to(dtype)
-    out_frames = fft_ops.irfft(torch.complex(mag * phr, mag * phi), nfft, impl="torch") * w
+    out_frames = fft_ops.irfft(torch.complex(mag * phr, mag * phi), nfft, impl=impl) * w
     pvec = torch.arange(mo * hop, device=dev) + i0 * hop
     norm = wola_norm_at(pvec, upload(head, dtype, dev), const, d, eof_out,
                         upload(tail, dtype, dev))

@@ -301,14 +301,15 @@ def sharded_time_stretch(mesh: Mesh, p: int, q: int, nfft: int = 1024, hop: int 
 
 def _components(chain) -> list:
     """The chain's stages with each composite split into its components:
-    across shards the halo and broadcast structure is the components'.  A
-    folded envelope becomes its direct-form FIR (|x| halo + MAC): the
-    overlap-save form takes no abs."""
+    across shards the halo and broadcast structure is the components'.  The
+    components carry the composite's ``fused`` and ``impl``, as the JAX
+    package's do.  A folded envelope becomes its direct-form FIR (|x| halo
+    + MAC): the overlap-save form takes no abs."""
     from audiosignalprocess_tpu_torch.pipeline import FIRGateStage, FIRStage, ResFIRGateStage
 
     def env_direct(fg):
         return FIRStage(h=fg._env.h, pre="abs", post_scale=fg._env.post_scale,
-                        fused=fg._env.fused)
+                        fused=fg.fused)
 
     stages = []
     for s in chain.stages:

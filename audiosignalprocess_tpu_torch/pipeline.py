@@ -15,10 +15,13 @@ dicts of tensors and Python ints) and is checkpointable
 (``utils/checkpoint``).  ``stream`` is a Python loop over the blocks that
 writes into a preallocated output and never reads the device.
 
-Stages with a hand-written kernel route by tensor: a CUDA float32 tensor
-launches the kernel, a CPU tensor runs the kernel's plain version, and
-float64 takes the plain path on any device (the kernels compute in
-float32), as the JAX package does on a TPU.
+Stages with a hand-written kernel route by ``fused`` and tensor: with
+``fused`` a CUDA float32 tensor launches the kernel, a CPU tensor runs the
+kernel's plain version, and float64 takes the plain path on any device
+(the kernels compute in float32), as the JAX package does on a TPU;
+``fused=False`` takes the unfused route, plain PyTorch around ``ops.fft``
+with the stage's ``impl`` (the Stockham kernels on a CUDA float32 tensor
+by default).
 
 Stage parameters carry over from the JAX package as plain dictionaries:
 ``Chain.from_params([dict(dataclasses.asdict(jax_stage), stage=name)])``
@@ -60,8 +63,10 @@ from audiosignalprocess_tpu_torch.ops.stft import istft, stft
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 _NOT_CARRIED = ("impl", "fused", "input_latency")
-"""JAX stage fields that are execution choices or set by ``Chain.build``;
-``from_params`` keeps those the port's stage has as fields."""
+"""JAX stage fields that are execution choices or set by ``Chain.build``.
+``from_params`` keeps those the port's stage has as fields (``fused`` and
+``impl`` on every stage but ``ResampleStage``, which has no ``impl``; a
+JAX impl name resolves in ``ops.fft``) and drops the rest."""
 
 
 def _pad_to(y: torch.Tensor, n: int) -> torch.Tensor:
@@ -244,10 +249,10 @@ class GateStage(Stage):
     ``fused`` routes float32 through the hand-written kernels:
     ``noise_gate_fused`` for the whole file, ``gate_step_fused`` per
     block (their plain versions on a CPU tensor); float64 takes the plain
-    path on any device.  ``impl`` is the whole-file FFT implementation
-    when ``fused`` is off (``ops.fft``; a CUDA float32 tensor then runs
-    one ``rfft_stockham`` and one ``irfft_stockham`` by default); the
-    plain step computes its FFTs with torch.fft.
+    path on any device.  ``impl`` is the FFT implementation of the
+    unfused route, whole file and step (``ops.fft``; a CUDA float32 tensor
+    then runs one ``rfft_stockham`` and one ``irfft_stockham`` a call or
+    a block by default).
     """
 
     nfft: int = 1024
@@ -311,7 +316,7 @@ class GateStage(Stage):
     def step(self, state, x):
         if self.fused and x.dtype != torch.float64:
             return gate_step_fused(x, state, **self._step_kw())
-        return gate_step_ref(x, state, **self._step_kw())
+        return gate_step_ref(x, state, impl=self.impl, **self._step_kw())
 
 
 @dataclass
@@ -321,14 +326,21 @@ class FIRGateStage(Stage):
 
     Equivalent to ``FIRStage(h, nfft) -> GateStage(nfft, hop, ...)``, with
     ``env_h`` also ``-> EnvelopeStage(env_h)`` (|y| -> FIR -> *
-    ``env_scale``).  Routes by tensor:
+    ``env_scale``).  Routes by ``fused`` and tensor:
 
-    - float32: ``full`` runs ``fir_noise_gate_fused`` (then ``fir_mac`` for
-      the envelope) and each streaming block one ``fir_gate_step_fused``,
-      envelope included: the hand-written kernels on a CUDA tensor, their
-      plain versions on a CPU tensor;
-    - float64 runs the composed plain path on any device, as the JAX
-      package does (the kernels compute in float32).
+    - ``fused`` and float32: ``full`` runs ``fir_noise_gate_fused`` (then
+      ``fir_mac`` for the envelope) and each streaming block one
+      ``fir_gate_step_fused``, envelope included: the hand-written kernels
+      on a CUDA tensor, their plain versions on a CPU tensor;
+    - ``fused`` and float64 runs the composed plain path on any device, as
+      the JAX package does (the kernels compute in float32);
+    - ``fused=False`` runs the components, ``FIRStage`` -> ``GateStage``
+      (-> the direct-form envelope), unfused with ``impl`` on any device
+      and dtype: a CUDA float32 block under the default ``impl`` launches
+      two ``rfft_stockham`` and two ``irfft_stockham`` (the FIR's and the
+      gate's), the envelope runs ``conv1d``.
+
+    Both routes take the same carry, ``[fir, gate(, env)]``.
     """
 
     h: np.ndarray = None
@@ -339,6 +351,8 @@ class FIRGateStage(Stage):
     noise_frames: int = 8
     release: float = 0.0
     window_kind: str = "hann"
+    impl: str = fft_ops.DEFAULT_IMPL
+    fused: bool = True
     env_h: np.ndarray | None = None
     env_scale: float = math.pi / 2.0
 
@@ -348,19 +362,21 @@ class FIRGateStage(Stage):
         check(self.nfft % self.hop == 0, "nfft must be a multiple of hop")
         check(self.nfft > len(self.h) - 1, "nfft must exceed taps-1")
         self.latency = (self.nfft - self.hop) + self.noise_frames * self.hop
-        # the components run the kernels on float32 too: a sharded chain
-        # (parallel.sharded_chain) executes this stage as them
-        self._fir = FIRStage(h=self.h, nfft=self.nfft, fused=True)
+        # the components follow fused and impl: they are the unfused route,
+        # and a sharded chain (parallel.sharded_chain) executes this stage
+        # as them
+        self._fir = FIRStage(h=self.h, nfft=self.nfft, fused=self.fused, impl=self.impl)
         self._gate = GateStage(
             nfft=self.nfft, hop=self.hop, threshold_db=self.threshold_db,
             reduction_db=self.reduction_db, noise_frames=self.noise_frames,
-            release=self.release, window_kind=self.window_kind, fused=True)
+            release=self.release, window_kind=self.window_kind, fused=self.fused,
+            impl=self.impl)
         self._env = None
         if self.env_h is not None:
             self.env_h = np.asarray(self.env_h, np.float64)
             check(len(self.env_h) >= 1, "the envelope FIR needs at least one tap")
             self._env = FIRStage(h=self.env_h, pre="abs",
-                                 post_scale=self.env_scale, fused=True)
+                                 post_scale=self.env_scale, fused=self.fused)
 
     def configure(self, input_latency: int) -> int:
         check(input_latency % self.hop == 0,
@@ -384,13 +400,13 @@ class FIRGateStage(Stage):
         self._eof_n = None
 
     def full(self, x):
-        if x.dtype == torch.float64:
-            y = self._gate.full(self._fir.full(x))
-        else:
+        if self.fused and x.dtype != torch.float64:
             y = _pad_to(fir_noise_gate_fused(
                 x, self.h, self.nfft, self.hop, self.threshold_db,
                 self.reduction_db, self.noise_frames, self.release,
                 self.window_kind), x.shape[-1])
+        else:
+            y = self._gate.full(self._fir.full(x))
         return y if self._env is None else self._env.full(y)
 
     def init_state(self, batch, block, dtype=torch.float32, device=None):
@@ -403,6 +419,13 @@ class FIRGateStage(Stage):
         return st
 
     def step(self, state, x):
+        if not self.fused:
+            stages = [self._fir, self._gate] + ([self._env] if self._env is not None else [])
+            new = []
+            for s, st in zip(stages, state):
+                st, x = s.step(st, x)
+                new.append(st)
+            return new, x
         step = fir_gate_step_ref if x.dtype == torch.float64 else fir_gate_step_fused
         return step(x, state, self.h, env_h=self.env_h, env_scale=self.env_scale,
                     **self._gate._step_kw())
@@ -415,16 +438,18 @@ class ResFIRGateStage(Stage):
 
     Equivalent to ``ResampleStage(up, down, h_res) -> FIRGateStage(h,
     ...)``; latencies and positions after the resampler are in resampled
-    samples.  Routes by tensor:
+    samples.  Routes by ``fused`` and tensor:
 
-    - float32: ``full`` runs ``resample_fir_gate_fused`` (then ``fir_mac``
-      for the envelope) and each streaming block one
+    - ``fused`` and float32: ``full`` runs ``resample_fir_gate_fused``
+      (then ``fir_mac`` for the envelope) and each streaming block one
       ``res_fir_gate_step_fused``, envelope included: the hand-written
       kernels on a CUDA tensor, their plain versions on a CPU tensor;
-    - float64 runs the composed plain path on any device.
+    - ``fused`` and float64 runs the composed plain path on any device;
+    - ``fused=False`` runs ``ResampleStage(fused=False)`` ->
+      ``FIRGateStage(fused=False, impl)`` on any device and dtype.
 
     The streaming carry is the composition's, ``[res_hist, FIRGateStage
-    carry]``, for either dtype.  Blocks are multiples of the input quantum
+    carry]``, for every route.  Blocks are multiples of the input quantum
     down*hop/gcd(up, hop) (``res_step_geometry``).
     """
 
@@ -439,18 +464,20 @@ class ResFIRGateStage(Stage):
     noise_frames: int = 8
     release: float = 0.0
     window_kind: str = "hann"
+    impl: str = fft_ops.DEFAULT_IMPL
+    fused: bool = True
     env_h: np.ndarray | None = None
     env_scale: float = math.pi / 2.0
 
     def __post_init__(self):
         check(self.h is not None, "ResFIRGateStage requires filter taps h")
-        self._res = ResampleStage(up=self.up, down=self.down, h=self.h_res, fused=True)
+        self._res = ResampleStage(up=self.up, down=self.down, h=self.h_res, fused=self.fused)
         self.up, self.down, self.h_res = self._res.up, self._res.down, self._res.h
         self._fg = FIRGateStage(
             h=self.h, nfft=self.nfft, hop=self.hop, threshold_db=self.threshold_db,
             reduction_db=self.reduction_db, noise_frames=self.noise_frames,
-            release=self.release, window_kind=self.window_kind, env_h=self.env_h,
-            env_scale=self.env_scale)
+            release=self.release, window_kind=self.window_kind, impl=self.impl,
+            fused=self.fused, env_h=self.env_h, env_scale=self.env_scale)
         self.h, self.env_h = self._fg.h, self._fg.env_h
         self.latency = self._fg.latency  # resampled domain
 
@@ -482,7 +509,7 @@ class ResFIRGateStage(Stage):
         return (self.up, self.down, self.h, self.h_res)
 
     def full(self, x):
-        if x.dtype == torch.float64:
+        if not self.fused or x.dtype == torch.float64:
             return self._fg.full(self._res.full(x))
         g = self._fg
         y = _pad_to(resample_fir_gate_fused(
@@ -502,6 +529,10 @@ class ResFIRGateStage(Stage):
                 self._fg.init_state(batch, self._res.out_block(block), dtype, device)]
 
     def step(self, state, x):
+        if not self.fused:
+            sr, y = self._res.step(state[0], x)
+            sf, y = self._fg.step(state[1], y)
+            return [sr, sf], y
         step = res_fir_gate_step_ref if x.dtype == torch.float64 else res_fir_gate_step_fused
         return step(x, state, *self._fused_args(), env_h=self.env_h,
                     env_scale=self.env_scale, **self._fg._gate._step_kw())
@@ -527,10 +558,11 @@ class StretchStage(Stage):
     samples (the whole-file tail ramp has no streaming counterpart but in
     a drained stream).  Routes by tensor: with ``fused`` a float32 block
     runs ``stretch_step_fused`` (the kernel on a CUDA tensor, its plain
-    version on a CPU tensor); float64 runs the plain step on any device.
-    ``full`` runs ``stft`` -> ``stretch_spec_rational`` -> ``istft`` with
-    ``impl`` (a CUDA float32 tensor: one ``rfft_stockham`` and one
-    ``irfft_stockham`` by default).
+    version on a CPU tensor); otherwise, and for float64 on any device,
+    the plain step with ``impl``.  ``full`` runs ``stft`` ->
+    ``stretch_spec_rational`` -> ``istft`` with ``impl``.  A CUDA float32
+    tensor under the default ``impl`` runs one ``rfft_stockham`` and one
+    ``irfft_stockham`` a call or an unfused block.
     """
 
     p: int
@@ -624,7 +656,7 @@ class StretchStage(Stage):
     def step(self, state, x):
         if self.fused and x.dtype != torch.float64:
             return stretch_step_fused(x, state, **self._step_kw())
-        return stretch_step_ref(x, state, **self._step_kw())
+        return stretch_step_ref(x, state, impl=self.impl, **self._step_kw())
 
 
 STAGES = {"FIRStage": FIRStage, "EnvelopeStage": FIRStage,

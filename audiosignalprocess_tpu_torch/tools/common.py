@@ -62,7 +62,8 @@ def std_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0,
                    help="generated-input RNG seed (ignored with --input)")
     p.add_argument("--no-fused", action="store_true",
-                   help="plain PyTorch paths instead of the hand-written kernels")
+                   help="the stages' unfused routes (plain PyTorch around ops.fft's FFTs) "
+                        "instead of their fused kernels")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--backend", default=None,
                    help="process-group backend under torchrun: nccl for cuda and gloo "

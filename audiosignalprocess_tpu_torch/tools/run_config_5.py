@@ -15,7 +15,11 @@ Modes:
   With the kernels (the default) each block launches ``resample_mac``,
   ``overlap_save_fused``, ``gate_step_fused`` and ``fir_mac``;
   ``--composite`` runs the chain as one ``ResFIRGateStage``, one
-  ``res_fir_gate_step_fused`` a block, the envelope folded in.
+  ``res_fir_gate_step_fused`` a block, the envelope folded in.  With
+  ``--no-fused`` either chain takes its unfused route: the plain
+  resampler and envelope (no launch), and the FIR's and the gate's FFTs
+  on ``ops.fft``'s default impl (two ``rfft_stockham`` and two
+  ``irfft_stockham`` a block on the card).
 - ``ring``: a native decode thread (``io.wav_native.WavReader``) feeds a
   single-producer/single-consumer ring while the main thread pops blocks,
   uploads them from pinned memory and steps the chain on the device
@@ -69,14 +73,12 @@ SPIN_S = 0.0002  # producer and consumer poll the ring this often
 
 def build_chain(fused: bool = True, composite: bool = False) -> Chain:
     """The config-5 chain: four stages, or with ``composite`` one
-    ``ResFIRGateStage`` (whose float32 route is always its kernels, so it
-    takes no ``fused=False``)."""
+    ``ResFIRGateStage``; ``fused=False`` takes the unfused route of
+    either."""
     if composite:
-        check(fused, "--composite has no unfused float32 route (ResFIRGateStage runs its "
-                     "kernels on the card and their plain versions on the CPU)")
         return Chain([ResFIRGateStage(
             up=160, down=147, h=design_fir(64, 0.3), nfft=1024, hop=256, noise_frames=8,
-            env_h=design_fir(129, 0.01))])
+            env_h=design_fir(129, 0.01), fused=fused)])
     return Chain([
         ResampleStage(up=160, down=147, fused=fused),
         FIRStage(h=design_fir(64, 0.3), nfft=1024, fused=fused),

@@ -77,6 +77,18 @@ audio, counting the kernel launches of each run:
   as processes (config 5 sharded also under torchrun on four gloo ranks)
   and the scaling harness;
 
+- the unfused float32 routes (phase 28): path A as
+  ``FIRGateStage(fused=False)`` at 64 x 480000, whole file and drained
+  stream, and config 5 as ``run_config_5``'s ``--composite --no-fused``
+  chain at 128 x 169344 (stream and ring, then the driver's ring process):
+  two ``rfft_stockham`` and two ``irfft_stockham`` a call or a block; the
+  unfused ``GateStage`` and ``StretchStage(4, 3)`` steps under ``auto``
+  and each kernel impl at 64 channels in blocks of 4096 and 128 in blocks
+  of 10240: one real-transform pair a block on the impl's kernel; each
+  block's launches checked, no fused kernel and no torch.fft call, every
+  channel against the float64 plain chain, ``auto`` timed beside the
+  fused route;
+
 - the whole-file kernels on the batched body at nfft 8192, hop 2048 (one
   transform of 512 threads a batch, one exchange buffer, the span in
   device memory: phase 26):
@@ -1107,7 +1119,7 @@ def vocoder_phases(dev, smi, record, kernels, reset_counts):
             n = 5 * block + (321 if drain else 0)
             x64 = torch.as_tensor(rng.standard_normal((8, n)), device=dev)
             kern = Chain([StretchStage(p, q, nfft=nfft, hop=hop, fused=True)])
-            plain = Chain([StretchStage(p, q, nfft=nfft, hop=hop)])
+            plain = Chain([StretchStage(p, q, nfft=nfft, hop=hop, impl="torch")])
             kern.build()
             calls = kern.drain_blocks(n, block) if drain else n // block
             before = stretch_step_fused.launches
@@ -1196,7 +1208,7 @@ def vocoder_phases(dev, smi, record, kernels, reset_counts):
     times = {}
     for name, ((p, q), block) in STRETCH_PATHS.items():
         kern = path(name)
-        plain = Chain([StretchStage(p, q, nfft=NFFT, hop=HOP)]
+        plain = Chain([StretchStage(p, q, nfft=NFFT, hop=HOP, impl="torch")]
                       + ([ResampleStage(1, 2)] if name == "S3" else []))
         kern.build()
         plain.build()
@@ -1215,7 +1227,7 @@ def vocoder_phases(dev, smi, record, kernels, reset_counts):
     s1 = path("S1")
     s1.build()
     idle = device_idle_share(lambda: s1.stream(xn, 4096, drain=True))
-    plain1 = Chain([StretchStage(4, 3, nfft=NFFT, hop=HOP)])
+    plain1 = Chain([StretchStage(4, 3, nfft=NFFT, hop=HOP, impl="torch")])
     plain1.build()
     idle_plain = device_idle_share(lambda: plain1.stream(xn, 4096, drain=True))
     print(f"[19 idle] S1 stream under torch.profiler on {smi}: device idle {idle_text(idle)} "
@@ -2609,6 +2621,263 @@ def fft_manual_phase(dev, smi, record, kernels, reset_counts, h):
               f"call ({c * n / ms * 1e3:.4e} samples/s); device idle {idle_text(idle)}")
 
 
+UNFUSED_IMPLS = {  # ops.fft impl (ASP_SK_PIPE): launches of one real-transform pair
+    "auto": (None, {"rfft_stockham": 1, "irfft_stockham": 1}),
+    "stockham_split": (None, {"fft_stockham_lanes": 2}),
+    "stockham_split manual": ("manual", {"fft_stockham_manual": 2}),
+    **{impl: (None, {name: 2}) for name, (impl, _, _) in FFT_VARIANTS.items()},
+}
+# phase 28c's step streams: (channels, block, blocks): bench.py's stream width
+# and config 5's (128 channels, 10240 resampled samples a block)
+UNFUSED_WIDTHS = ((HEADLINE[0], BLOCK, 30), (128, 10240, 12))
+
+
+@contextlib.contextmanager
+def torch_fft_calls():
+    """Count the calls of torch.fft's transforms (cuFFT on the card) made
+    inside the block: {"n": count}."""
+    names = ("fft", "ifft", "rfft", "irfft")
+    saved = {name: getattr(torch.fft, name) for name in names}
+    calls = {"n": 0}
+
+    def counting(fn):
+        def call(*args, **kw):
+            calls["n"] += 1
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(torch.fft, name, counting(fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.fft, name, fn)
+
+
+def unfused_phases(dev, smi, kernels, reset_counts, x_main, h):
+    """Phase 28: the unfused float32 routes, each driven with every launch
+    count at 0 just before and read just after, block by block (each
+    ``Chain.step``'s launches recorded), with torch.fft's calls counted
+    (none may run: no cuFFT) and no fused kernel launched, held on all
+    channels against the float64 plain chain on the card (>= 60 dB, the
+    worst channel and the plain gate's flipped bins printed), and timed
+    beside the fused route (``time_ms`` of whole calls, ``stream_ms`` of
+    streams, the device idle share under torch.profiler).
+
+    28a: path A as ``FIRGateStage(fused=False)`` at 64 x 480000, whole file
+    and drained stream in blocks of 4096 (two ``rfft_stockham`` and two
+    ``irfft_stockham`` a call or a block).  28b: config 5 as
+    ``run_config_5.build_chain(fused=False, composite=True)`` at 128 x
+    169344 (18 blocks of 147 x 64): ``Chain.stream`` and the ring at K = 1
+    (``run_ring``, against the stream: bit-equal or >= 100 dB), then the
+    driver's ``--composite --no-fused --mode ring`` as a process with
+    ``--check``.  28c: ``GateStage(fused=False, impl)`` and
+    ``StretchStage(4, 3, fused=False, impl)`` streamed (drained) under
+    ``auto`` and each kernel impl (``UNFUSED_IMPLS``; ``stockham_split``
+    also under ``ASP_SK_PIPE=manual``) at ``UNFUSED_WIDTHS``, ``auto``
+    timed beside the fused step.  Raises SystemExit on a failure."""
+    from audiosignalprocess_tpu_torch.io.wav import write_wav
+    from audiosignalprocess_tpu_torch.ops.fir import design_fir
+    from audiosignalprocess_tpu_torch.pipeline import (
+        Chain, FIRGateStage, FIRStage, GateStage, ResampleStage, StretchStage,
+    )
+    from audiosignalprocess_tpu_torch.tools import run_config_5
+    from audiosignalprocess_tpu_torch.tools.common import make_signal
+    from audiosignalprocess_tpu_torch.utils.metrics import snr_db
+
+    t_start = time.perf_counter()
+
+    def fail(line, want):
+        raise SystemExit(f"phase 28 failed: {line} (want {want})")
+
+    def counted(fn, chain=None):
+        """fn() with every count at 0 just before and read just after:
+        (output, launches, torch.fft calls, each step's launches of
+        ``chain``)."""
+        steps = []
+        if chain is not None:
+            step = chain.step
+
+            def recorded(states, xb):
+                before = [k.launches for k in kernels]
+                out = step(states, xb)
+                steps.append({k.__name__: k.launches - b for k, b in zip(kernels, before)
+                              if k.launches != b})
+                return out
+
+            chain.step = recorded
+        reset_counts()
+        try:
+            with torch_fft_calls() as tf:
+                y = fn()
+                torch.cuda.synchronize()
+        finally:
+            if chain is not None:
+                del chain.step
+        return y, {k.__name__: k.launches for k in kernels if k.launches}, tf["n"], steps
+
+    def drive(tag, what, fn, chain, pair, calls, ref64, flips=None, trim=0):
+        """One counted run of fn() (``pair`` the launches a call or a step,
+        ``calls`` of them) held against ``ref64`` from ``trim`` on (``flips``:
+        the plain gate's flipped bins on this input); returns the output."""
+        y, counts, n_fft, steps = counted(fn, chain)
+        want = {k: v * calls for k, v in pair.items()}
+        got = y[:, trim:]
+        ref = ref64[..., : got.shape[-1]]
+        ok_shape = ref.shape == got.shape
+        snr = snr_db(ref, got) if ok_shape else -np.inf
+        per = [snr_db(r, g) for r, g in zip(ref, got)] if ok_shape else [-np.inf]
+        each = "" if chain is None else (
+            f" per block {steps[0] if steps else None} on all {len(steps)} blocks"
+            if steps and all(s == pair for s in steps) else f" per block {steps}")
+        line = (f"[28 {tag}] {what}: {tuple(y.shape)} launches={counts}{each}, torch.fft "
+                f"calls {n_fft}; snr_vs_f64_plain={snr:.2f} dB over {got.shape[0]} channels "
+                f"(worst channel {int(np.argmin(per))}: {min(per):.2f} dB)"
+                + ("" if flips is None else flips_text(snr, flips)))
+        print(line)
+        if counts != want or n_fft or snr < SNR_MIN_DB or not bool(torch.isfinite(y).all()) \
+                or (chain is not None and (len(steps) != calls
+                                           or any(s != pair for s in steps))):
+            fail(line, f"{want}, {pair} a block, no torch.fft call, >= {SNR_MIN_DB} dB")
+        return y
+
+    pair2 = {"rfft_stockham": 2, "irfft_stockham": 2}  # the FIR's and the gate's
+    gate = dict(nfft=NFFT, hop=HOP, noise_frames=NOISE_FRAMES)
+
+    # ---- 28a: path A unfused, whole file and drained stream
+    c, n = HEADLINE
+    x64 = torch.as_tensor(x_main, device=dev)
+    x32 = x64.float()
+    unf = Chain([FIRGateStage(h=h, fused=False, **gate)])
+    fus = Chain([FIRGateStage(h=h, **gate)])
+    unf.build()
+    fus.build()
+    blocks = unf.drain_blocks(n, BLOCK)
+    ref64 = unf.full_flush(x64)
+    flips = decision_flips(FIRStage(h=h, nfft=NFFT).full(x64))
+    drive("path A unfused", f"FIRGateStage(fused=False).full_flush {c}x{n}",
+          lambda: unf.full_flush(x32), None, pair2, 1, ref64, flips)
+    drive("path A unfused", f"FIRGateStage(fused=False) Chain.stream(drain=True) block {BLOCK}",
+          lambda: unf.stream(x32, BLOCK, drain=True), unf, pair2, blocks, ref64, flips)
+    del ref64
+    ms = {name: time_ms(lambda: ch.full_flush(x32), reps=10) for name, ch in
+          (("unfused", unf), ("fused", fus))}
+    st = {name: stream_ms(lambda: ch.stream(x32, BLOCK, drain=True)) for name, ch in
+          (("unfused", unf), ("fused", fus))}
+    idle = {name: device_idle_share(lambda: ch.stream(x32, BLOCK, drain=True)) for name, ch in
+            (("unfused", unf), ("fused", fus))}
+    print(f"[28 path A times] {c}x{n} f32 tone burst on {smi}: whole file unfused "
+          f"{ms['unfused']:.4f} ms, fused (fir_noise_gate_fused) {ms['fused']:.4f} ms; drained "
+          f"stream of {blocks} blocks unfused {st['unfused']:.4f} ms, fused "
+          f"(fir_gate_step_fused) {st['fused']:.4f} ms; device idle unfused "
+          f"{idle_text(idle['unfused'])}, fused {idle_text(idle['fused'])}")
+    del x64, x32
+
+    t_a = time.perf_counter()
+
+    # ---- 28b: config 5 --composite --no-fused through run_config_5
+    c5, block5 = run_config_5.CHANNELS, run_config_5.BLOCK
+    x5np = make_signal(c5, run_config_5.RATE_IN, CFG_SECONDS).astype(np.float32)
+    nb = x5np.shape[-1] // block5
+    x5np = x5np[:, : nb * block5]
+    x5 = torch.as_tensor(x5np, device=dev)
+    comp = run_config_5.build_chain(fused=False, composite=True)
+    lat = comp.build()
+    comp_f = run_config_5.build_chain(composite=True)
+    comp_f.build()
+    full64 = comp.full(x5.double())
+    flips = decision_flips(FIRStage(h=design_fir(TAPS, 0.3), nfft=NFFT).full(
+        ResampleStage(UP, DOWN).full(x5.double())))
+    tag = "config 5 --composite --no-fused"
+    stream5 = drive(tag, f"Chain.stream {c5}x{nb * block5} block {block5}",
+                    lambda: comp.stream(x5, block5), comp, pair2, nb, full64, flips,
+                    trim=lat).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "in.wav")
+        write_wav(wav, x5np, run_config_5.RATE_IN, float_fmt=True)
+        stats = {}
+
+        def ring():
+            return run_config_5.run_ring(comp, wav, block5, c5, device=dev, stats=stats,
+                                         warmup=True)
+
+        ring()
+        out = drive(tag, f"run_ring K=1 {c5}x{nb * block5}", lambda: torch.as_tensor(ring()[0]),
+                    comp, pair2, nb, full64.cpu(), flips, trim=lat).numpy()
+        secs = ring()[2]
+    exact = np.array_equal(stream5, out)
+    snr_ring = np.inf if exact else snr_db(stream5, out)
+    line = (f"[28 {tag}] ring against Chain.stream: "
+            f"{'bit-equal' if exact else f'{snr_ring:.2f} dB'}; {secs:.4f} s ({x5.numel() / secs:.4e} "
+            f"input samples/s, host clock), consumer waited {stats['wait_s'] / secs:.4f} of it")
+    print(line)
+    if snr_ring < LINEAR_MIN_DB:
+        fail(line, f"bit-equal or >= {LINEAR_MIN_DB} dB")
+    st = {name: stream_ms(lambda: ch.stream(x5, block5)) for name, ch in
+          (("unfused", comp), ("fused", comp_f))}
+    idle = {name: device_idle_share(lambda: ch.stream(x5, block5)) for name, ch in
+            (("unfused", comp), ("fused", comp_f))}
+    print(f"[28 config 5 times] {c5}x{nb * block5} stream of {nb} blocks on {smi}: unfused "
+          f"{st['unfused']:.4f} ms ({x5.numel() / st['unfused'] * 1e3:.4e} input samples/s), "
+          f"fused (res_fir_gate_step_fused) {st['fused']:.4f} ms; device idle unfused "
+          f"{idle_text(idle['unfused'])}, fused {idle_text(idle['fused'])}")
+    del x5, full64
+    m5 = ["-m", "audiosignalprocess_tpu_torch.tools.run_config_5", "--composite",
+          "--no-fused", "--check", "--json"]
+    done = driver_runs(Path(__file__).resolve().parent, [("ring", [*m5, "--mode", "ring"])])
+    for label, (rc, so, se) in done.items():
+        recs = [json.loads(ln) for ln in so.splitlines() if ln.startswith('{"config"')]
+        line = f"[28 driver] run_config_5 --composite --no-fused --mode {label}: rc={rc} {recs}"
+        print(line)
+        if rc != 0 or len(recs) != 1 or not recs[0]["parity"] or recs[0]["device"] != "cuda":
+            raise SystemExit(f"phase 28 failed: {line}\n{so[-2000:]}\n{se[-3000:]}")
+
+    t_b = time.perf_counter()
+
+    # ---- 28c: the unfused gate and vocoder steps under each impl (``auto``
+    # timed beside the fused step, and the device idle share at the first
+    # width only)
+    rng = np.random.default_rng(28)
+    for cw, block, nblk in UNFUSED_WIDTHS:
+        n = nblk * block + 777
+        xs64 = torch.as_tensor(tone_burst(rng, cw, n), device=dev)
+        xs = xs64.float()
+        kinds = {"GateStage": lambda impl, fused=False: GateStage(fused=fused, impl=impl, **gate),
+                 "StretchStage(4, 3)": lambda impl, fused=False: StretchStage(
+                     4, 3, nfft=NFFT, hop=HOP, fused=fused, impl=impl)}
+        flips = decision_flips(xs64)
+        for kind, make in kinds.items():
+            plain = Chain([make("auto")])  # float64: torch.fft
+            plain.build()
+            ref = plain.stream(xs64, block, drain=True)
+            routes = {}
+            for impl, (pipe, pair) in UNFUSED_IMPLS.items():
+                ch = routes[impl] = Chain([make(impl.split()[0])])
+                ch.build()
+                calls = ch.drain_blocks(n, block)
+                with sk_pipe(pipe):
+                    drive(f"{kind} unfused", f"impl={impl} {cw}x{n} block {block}",
+                          lambda: ch.stream(xs, block, drain=True), ch, pair, calls, ref,
+                          flips if kind == "GateStage" else None)
+            auto, fused = routes["auto"], Chain([make("auto", True)])
+            fused.build()
+            ms = {name: stream_ms(lambda: c.stream(xs, block, drain=True))
+                  for name, c in (("auto", auto), ("fused", fused))}
+            line = (f"[28 {kind} times] drained stream of {cw}x{n}, block {block}, {calls} "
+                    f"blocks, on {smi}: auto {ms['auto']:.4f} ms, fused {ms['fused']:.4f} ms")
+            if cw == UNFUSED_WIDTHS[0][0]:
+                line += (f"; device idle auto "
+                         f"{idle_text(device_idle_share(lambda: auto.stream(xs, block, drain=True)))}"
+                         f", fused "
+                         f"{idle_text(device_idle_share(lambda: fused.stream(xs, block, drain=True)))}")
+            print(line)
+        del xs64, xs
+    t_c = time.perf_counter()
+    print(f"[28 time] 28a {t_a - t_start:.1f} s, 28b {t_b - t_a:.1f} s, 28c {t_c - t_b:.1f} s "
+          f"(host clock)")
+
+
 def main() -> int:
     # ---- phase 1: environment
     t_start = time.perf_counter()
@@ -2972,6 +3241,8 @@ def main() -> int:
     marks.append(("phase 9b", time.perf_counter()))
     config_driver_phases(dev, smi, kernels, reset_counts)
     marks.append(("phase 27", time.perf_counter()))
+    unfused_phases(dev, smi, kernels, reset_counts, x_main, h)
+    marks.append(("phase 28", time.perf_counter()))
 
     prev = t_start
     for name, t in marks:

@@ -1432,6 +1432,10 @@ def _step_stream(monkeypatch, chain, x, block, drain, fs, name="fir_gate_step_re
     plain = getattr(pipeline, name)
 
     def model_step(*args, **kw):
+        # the stage hands the plain gate step its impl: the model's
+        # transforms are the kernel's, the plain step's follow impl
+        plain_kw = dict(kw)
+        kw.pop("impl", None)
         if name == "res_fir_gate_step_ref":
             xb, st, up, down, h_fir, h_res = args
             u = resample_poly(xb, up, down, h=h_res, zero_phase=False, history=st[0])
@@ -1444,7 +1448,7 @@ def _step_stream(monkeypatch, chain, x, block, drain, fs, name="fir_gate_step_re
         else:
             xb, st, h_fir = args
             new, y = step_model(xb, st, h_fir, fs=fs, cluster=cluster, **kw)
-        want_st, want_y = plain(*args, **kw)
+        want_st, want_y = plain(*args, **plain_kw)
         if float(want_y.abs().max()) > 0.0:
             assert _snr(want_y.numpy(), y.numpy()) >= 200.0
         else:  # a block inside the latency: silence

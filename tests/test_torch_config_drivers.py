@@ -121,17 +121,35 @@ class TestConfig5:
 
     def test_driver_chains(self):
         """build_chain: the four stages with the kernels, or one composite
-        stage (which has no unfused float32 route and says so)."""
+        stage, which with fused=False is the unfused composite."""
         four = run_config_5.build_chain()
         assert [type(s) for s in four.stages] == [P.ResampleStage, P.FIRStage, P.GateStage,
                                                   P.FIRStage]
         assert all(s.fused for s in four.stages)
         one = run_config_5.build_chain(composite=True)
         assert [type(s) for s in one.stages] == [P.ResFIRGateStage]
+        assert one.stages[0].fused
         assert four.build() == one.build()
         assert run_config_5.BLOCK % 1176 == 0  # the composite's input quantum
-        with pytest.raises(ValueError, match="unfused"):
-            run_config_5.build_chain(fused=False, composite=True)
+        unfused = run_config_5.build_chain(fused=False, composite=True)
+        assert [type(s) for s in unfused.stages] == [P.ResFIRGateStage]
+        st = unfused.stages[0]
+        assert not st.fused and not st._res.fused and not st._fg.fused
+        assert unfused.build() == one.build()
+
+    @pytest.mark.parametrize("mode", ("stream", "ring"))
+    def test_composite_unfused_cli(self, mode):
+        """run_config_5 --composite --no-fused on the CPU: the unfused
+        composite streams (stream, or ring against the stream) and passes
+        the driver's own check."""
+        r = subprocess.run(
+            [sys.executable, "-m", "audiosignalprocess_tpu_torch.tools.run_config_5",
+             "--mode", mode, "--composite", "--no-fused", "--check", "--json", "--seconds",
+             "0.5", "--device", CPU],
+            capture_output=True, text=True, timeout=300, env=_env(), cwd=REPO)
+        assert r.returncode == 0, f"stdout:\n{r.stdout[-2000:]}\nstderr:\n{r.stderr[-2000:]}"
+        recs = [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith('{"config"')]
+        assert len(recs) == 1 and recs[0]["parity"], r.stdout
 
 
 def _chain3(mod):

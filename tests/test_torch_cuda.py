@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import torch_soak_fuzz as soak
 from audiosignalprocess_tpu_torch import api
 from audiosignalprocess_tpu_torch.io.wav import read_wav, write_wav
@@ -355,8 +356,6 @@ def test_gate_step_kernel_every_nfft(card, nfft, hop, m, release, drain):
     assert y.shape == ref.shape and bool(torch.isfinite(y).all())
     snr = snr_db(ref, y)
     if snr < 60.0:
-        import chip_smoke
-
         pytest.fail(f"{snr:.2f} dB against float64, "
                     f"{chip_smoke.decision_flips(x, nfft, hop, 4)} bins the plain gate flips")
 
@@ -1236,7 +1235,7 @@ def test_stretch_step_vs_plain(card, p, q, nfft, hop, drain):
     n = 5 * block + (321 if drain else 0)
     x = torch.as_tensor(rng.standard_normal((3, n)), device=card)
     kern, plain = Chain([StretchStage(p, q, nfft=nfft, hop=hop, fused=True)]), \
-        Chain([StretchStage(p, q, nfft=nfft, hop=hop)])
+        Chain([StretchStage(p, q, nfft=nfft, hop=hop, impl="torch")])
     kern.build()
     blocks = kern.drain_blocks(n, block) if drain else n // block
     y, counts = _launches(lambda: kern.stream(x.float(), block, drain=drain))
@@ -1265,7 +1264,7 @@ def test_stretch_step_kernel_every_nfft(card, p, q, nfft, hop):
     n = (3 if p > 16 else 5) * block + 321
     x = torch.as_tensor(rng.standard_normal((2, n)), device=card)
     kern = Chain([StretchStage(p, q, nfft=nfft, hop=hop, fused=True)])
-    plain = Chain([StretchStage(p, q, nfft=nfft, hop=hop)])
+    plain = Chain([StretchStage(p, q, nfft=nfft, hop=hop, impl="torch")])
     kern.build()
     blocks = kern.drain_blocks(n, block)
     before = stretch_step_fused.launches
@@ -1566,8 +1565,6 @@ def test_time_sharded_gate_gloo_on_the_card(card):
     cases = [("gate", "gate", (1, 2), dict(noise_frames=8, fused=True), x)]
     out = spawn_local(torch_dist_workers.run_cases, 2, backend="gloo", device="cuda",
                       args=(cases, "cuda"), timeout_s=240.0)[0]["gate"]
-    import chip_smoke
-
     xc = torch.as_tensor(x, device=card)
     whole = noise_gate_fused(xc, noise_frames=8).cpu()
     got = torch.as_tensor(out[:, : whole.shape[-1]])
@@ -1601,8 +1598,6 @@ def test_gate_fuzz_twin(card, nfft, hop, n):
     assert bool(torch.isfinite(y).all())
     snr = snr_db(ref, y)
     if snr < 60.0:
-        import chip_smoke
-
         pytest.fail(f"{snr:.2f} dB against float64, "
                     f"{chip_smoke.decision_flips(x, nfft, hop, 8)} bins the plain gate flips")
 
@@ -1636,3 +1631,79 @@ def test_composite_soak_short_flat_on_card(card):
     snr_all, snr_q2, snr_q4 = soak.composite_snrs(soak.composite_ref64(x), y)
     assert snr_all >= soak.COMPOSITE_MIN_DB, snr_all
     assert snr_q4 >= snr_q2 - soak.FLAT_DB, (snr_q2, snr_q4)
+
+
+# ---------------------------------------------------------------------------
+# the unfused routes: the composites' components and the steps' impl
+# ---------------------------------------------------------------------------
+
+def _without_torch_fft(fn):
+    """fn()'s output and launches; no torch.fft transform (cuFFT) may
+    run inside it."""
+    with chip_smoke.torch_fft_calls() as tf:
+        out = _launches(fn)
+    assert tf["n"] == 0, f"the unfused route called torch.fft {tf['n']} times"
+    return out
+
+
+@pytest.mark.parametrize("mode", ("full", "stream"))
+@pytest.mark.parametrize("composite", ("fir_gate", "fir_gate_env", "res_fir_gate"))
+def test_unfused_composites_launch_the_real_ffts(card, composite, mode):
+    """FIRGateStage(fused=False) (with and without the envelope) and
+    ResFIRGateStage(fused=False) on CUDA float32, whole file and drained
+    stream: two rfft_stockham and two irfft_stockham a call or a block
+    (the FIR's pair and the gate's), no fused kernel and no torch.fft
+    call, >= 60 dB against the float64 plain chain, flips counted."""
+    rng = np.random.default_rng(91)
+    h, he = design_fir(64, 0.3), design_fir(129, 0.01)
+    gate = dict(nfft=1024, hop=256, noise_frames=8)
+    if composite == "res_fir_gate":
+        stage = ResFIRGateStage(160, 147, h=h, env_h=he, fused=False, **gate)
+        block, n = 9408, 9408 * 6 + 555
+        x = torch.as_tensor(_tone_burst(rng, 8, n, fs=44100), device=card)
+    else:
+        stage = FIRGateStage(h=h, env_h=he if composite == "fir_gate_env" else None,
+                             fused=False, **gate)
+        block, n = 4096, 4096 * 6 + 555
+        x = torch.as_tensor(_tone_burst(rng, 8, n), device=card)
+    chain = Chain([stage])
+    chain.build()
+    calls = 1 if mode == "full" else chain.drain_blocks(n, block)
+    run = ((lambda v: chain.full_flush(v)) if mode == "full"
+           else (lambda v: chain.stream(v, block, drain=True)))
+    y, k = _without_torch_fft(lambda: run(x.float()))
+    assert k == {"rfft_stockham": 2 * calls, "irfft_stockham": 2 * calls}
+    ref = run(x)
+    assert y.shape == ref.shape == (8, chain.out_len(n)) and bool(torch.isfinite(y).all())
+    snr = snr_db(ref, y)
+    if snr < 60.0:
+        g_in = FIRStage(h=h, nfft=1024).full(
+            ResampleStage(160, 147).full(x) if composite == "res_fir_gate" else x)
+        pytest.fail(f"{snr:.2f} dB against float64, {chip_smoke.decision_flips(g_in)} bins the "
+                    f"plain gate flips")
+
+
+@pytest.mark.parametrize("impl", list(chip_smoke.UNFUSED_IMPLS))
+@pytest.mark.parametrize("stage", ("gate", "stretch"))
+def test_unfused_step_launches_its_impls_kernel(card, monkeypatch, stage, impl):
+    """GateStage(fused=False, impl).step and StretchStage(4, 3,
+    fused=False, impl).step at bench.py's stream width (64 x 4096 blocks):
+    one real-transform pair a block on the impl's kernel (two launches of
+    a complex kernel, or one rfft_stockham and one irfft_stockham under
+    auto), no other kernel and no torch.fft call, >= 60 dB against the
+    float64 plain stream."""
+    pipe, pair = chip_smoke.UNFUSED_IMPLS[impl]
+    if pipe is not None:
+        monkeypatch.setenv("ASP_SK_PIPE", pipe)
+    name = impl.split()[0]
+    rng = np.random.default_rng(92)
+    x = torch.as_tensor(_tone_burst(rng, 64, 5 * 4096), device=card)
+    if stage == "gate":
+        make = lambda i: Chain([GateStage(noise_frames=8, impl=i)])
+    else:
+        make = lambda i: Chain([StretchStage(4, 3, impl=i)])
+    y, k = _without_torch_fft(lambda: make(name).stream(x.float(), 4096))
+    assert k == {kern: 5 * c for kern, c in pair.items()}
+    ref = make("auto").stream(x, 4096)
+    assert y.shape == ref.shape and bool(torch.isfinite(y).all())
+    assert snr_db(ref, y) >= 60.0

@@ -262,8 +262,8 @@ def test_geometry_matches_jax(n, block):
 
 def test_from_params_builds_resampler_stages(rng):
     """Chain.from_params from the JAX asdict of ResampleStage and
-    ResFIRGateStage (the execution choices fused/impl/input_latency are
-    dropped): the same stream as the JAX chain."""
+    ResFIRGateStage (fused and impl carried where the port's stage has
+    them, input_latency dropped): the same stream as the JAX chain."""
     js = J.ResFIRGateStage(**_stage_kw(0.6, True))
     pc = P.Chain.from_params([dict(dataclasses.asdict(js), stage="ResFIRGateStage")])
     st = pc.stages[0]

@@ -209,9 +209,11 @@ def _model_stream(monkeypatch, chain, x, block, drain, cluster):
 
     plain = pipeline.stretch_step_ref
 
-    def model_step(xb, st, **kw):
+    def model_step(xb, st, impl="torch", **kw):
+        # the stage hands the plain step its impl; the model's transforms
+        # are the kernel's
         new, y = stretch_step_model(xb, st, cluster=cluster, **kw)
-        want_st, want_y = plain(xb, st, **kw)
+        want_st, want_y = plain(xb, st, impl=impl, **kw)
         if float(want_y.abs().max()) > 0.0:
             assert _snr(want_y.numpy(), y.numpy()) >= 200.0
         else:  # a block inside the latency: silence

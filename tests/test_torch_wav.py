@@ -1,5 +1,6 @@
 """Twins of tests/unit/test_wav_io.py for the port's ``io/wav`` (all but
-``test_pcm8_native_parity``, which waits for a port of ``io/wav_native``).
+``test_pcm8_native_parity``, whose twin is in
+``tests/test_torch_wav_native.py`` with the port of ``io/wav_native``).
 
 Each twin runs the reference test's own file through the port and holds
 it to the same assertions; where the JAX package's reader or writer runs
