@@ -20,6 +20,7 @@ from pathlib import Path
 
 import torch
 
+from audiosignalprocess_tpu_torch.utils.profiling import span
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -133,6 +134,15 @@ def raise_on_error(rc: int, what: str) -> None:
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_char_p
         raise RuntimeError(f"{what} kernel launch failed: {fn(rc).decode()} ({rc})")
+
+
+def launch(what: str, fn, *args) -> None:
+    """Launch a kernel: ``fn(*args)``, one of the library's launch
+    functions, inside the span ``asp.launch``, raising on the CUDA error
+    code it returns.  The arguments are made before the span opens, so the
+    span times the launch alone and its wrapper's span the rest."""
+    with span("asp.launch"):
+        raise_on_error(fn(*args), what)
 
 
 def rows_view(x: torch.Tensor) -> tuple[torch.Tensor, int]:

@@ -36,7 +36,7 @@ import torch
 from audiosignalprocess_tpu_torch.effects.noise_gate import noise_gate
 from audiosignalprocess_tpu_torch.kernels import _build
 from audiosignalprocess_tpu_torch.kernels._build import (  # noqa: F401
-    SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
+    SMEM_LIMIT, check_cuda_f32, kernel_fn, launch, rows_view,
 )
 from audiosignalprocess_tpu_torch.kernels.fir_kernel import reversed_taps
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (  # noqa: F401
@@ -49,6 +49,7 @@ from audiosignalprocess_tpu_torch.kernels.os_kernel import check_os_geometry, ta
 from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.ops.stft import frame
+from audiosignalprocess_tpu_torch.utils.profiling import kernel_wrapper
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 def _check_guards(h: np.ndarray, n: int, nfft: int, hop: int,
@@ -100,6 +101,7 @@ def fir_noise_gate_ref(x: torch.Tensor, h, nfft: int = 1024, hop: int = 256,
                       release, window_kind, impl="torch")
 
 
+@kernel_wrapper
 def fir_noise_gate_fused(x: torch.Tensor, h, nfft: int = 1024,
                          hop: int = 256, threshold_db: float = 6.0,
                          reduction_db: float = 60.0, noise_frames: int = 8,
@@ -136,16 +138,12 @@ def fir_noise_gate_fused(x: torch.Tensor, h, nfft: int = 1024,
     floor = filtered_floor(head, h, nfft, hop, noise_frames, win)
     out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
     spans = regs_span_rows(nfft, hop, geo, channels, out_len, release > 0.0, dev)
-    rc = _lib()(
-        xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(),
-        hf.data_ptr(), twf.data_ptr(), twi.data_ptr(), inv_tab.data_ptr(), data_ptr(spans),
-        channels, n, nfft, nfft.bit_length() - 1, hop, len(h), nframes,
-        geo["mf"], int(release > 0.0),
-        float(10.0 ** (threshold_db / 20.0)),
-        float(10.0 ** (-reduction_db / 20.0)), float(release),
-        geo["smem"], dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "fir_noise_gate")
+    launch("fir_noise_gate", _lib(), xf.data_ptr(), out.data_ptr(), floor.data_ptr(),
+           win.data_ptr(), hf.data_ptr(), twf.data_ptr(), twi.data_ptr(), inv_tab.data_ptr(),
+           data_ptr(spans), channels, n, nfft, nfft.bit_length() - 1, hop, len(h), nframes,
+           geo["mf"], int(release > 0.0), float(10.0 ** (threshold_db / 20.0)),
+           float(10.0 ** (-reduction_db / 20.0)), float(release), geo["smem"], dev.index,
+           torch.cuda.current_stream(dev).cuda_stream)
     fir_noise_gate_fused.launches += 1
     return out.reshape(batch + (out_len,))
 
@@ -247,6 +245,7 @@ def fir_gate_step_args(x2d: torch.Tensor, x_ld: int, state: list, h: np.ndarray,
     return args, fargs, new, out, geo["smem"], (keep, hist, ehist, rect)
 
 
+@kernel_wrapper
 def fir_gate_step_fused(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
                         threshold_db: float, reduction_db: float,
                         noise_frames: int, release: float, window_kind: str,
@@ -276,10 +275,8 @@ def fir_gate_step_fused(x: torch.Tensor, state: list, h, *, nfft: int, hop: int,
     x2d, x_ld = rows_view(x)
     args, fargs, new, out, smem, _keep = fir_gate_step_args(
         x2d, x_ld, state, h, env_h=env_h, env_scale=env_scale, **kw)
-    rc = kernel_fn("asp_fir_gate_step", 2)(
-        ctypes.byref(args), ctypes.byref(fargs), smem, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "fir_gate_step")
+    launch("fir_gate_step", kernel_fn("asp_fir_gate_step", 2), ctypes.byref(args),
+           ctypes.byref(fargs), smem, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     fir_gate_step_fused.launches += 1
     return new, out.reshape(x.shape)
 

@@ -45,10 +45,11 @@ import numpy as np
 import torch
 
 from audiosignalprocess_tpu_torch.kernels._build import (
-    SMEM_LIMIT, check_cuda_f32, kernel_fn, load, raise_on_error,
+    SMEM_LIMIT, check_cuda_f32, kernel_fn, launch, load, raise_on_error,
 )
 from audiosignalprocess_tpu_torch.ops.fft import bit_reverse_indices
 from audiosignalprocess_tpu_torch.utils.device import upload
+from audiosignalprocess_tpu_torch.utils.profiling import kernel_wrapper
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 ROW_POINTS = 1024
@@ -458,9 +459,8 @@ def _launch(name: str, what: str, in_r, in_i, out_r, out_i, batch: int, n: int,
     ptr = lambda t: None if t is None else t.data_ptr()
     args = FftArgs(ptr(in_r), ptr(in_i), ptr(out_r), ptr(out_i), tw.data_ptr(),
                    ptr(scratch), ptr(table), batch, n, sign, rows)
-    rc = kernel_fn(name, 1)(ctypes.byref(args), smem, dev.index,
-                            torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, what)
+    launch(what, kernel_fn(name, 1), ctypes.byref(args), smem, dev.index,
+           torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _pairs(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -544,6 +544,7 @@ def _sk_pipe() -> str:
     return v
 
 
+@kernel_wrapper
 def fft_stockham_lanes(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     """Batched complex FFT of planar (B, n) rows, n a power of two >= 2:
     (yr, yi), natural order, unnormalized; ``sign`` -1 forward, +1 inverse.
@@ -625,6 +626,7 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+@kernel_wrapper
 def fft_stockham_manual(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     """``fft_stockham_lanes``' transform through the copy-ring kernel (the
     JAX package's ``ASP_SK_PIPE=manual`` form), n a power of two,
@@ -652,9 +654,8 @@ def fft_stockham_manual(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     s = -1 if sign < 0 else 1
     args = FftManualArgs(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
                          stockham_table(n, s, dev).data_ptr(), b, n, s, rows, nbuf, grid)
-    rc = kernel_fn("asp_fft_stockham_manual", 1)(ctypes.byref(args), smem, dev.index,
-                                                  torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "fft_stockham_manual")
+    launch("fft_stockham_manual", kernel_fn("asp_fft_stockham_manual", 1), ctypes.byref(args),
+           smem, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     fft_stockham_manual.launches += 1
     return yr, yi
 
@@ -662,6 +663,7 @@ def fft_stockham_manual(xr: torch.Tensor, xi: torch.Tensor, sign: float):
 fft_stockham_manual.launches = 0
 
 
+@kernel_wrapper
 def rfft_stockham(x: torch.Tensor):
     """Batched real FFT, (B, n) -> (sr, si) of shape (B, n/2+1), n a power
     of two >= 4.
@@ -693,6 +695,7 @@ def rfft_stockham(x: torch.Tensor):
 rfft_stockham.launches = 0
 
 
+@kernel_wrapper
 def irfft_stockham(sr: torch.Tensor, si: torch.Tensor, n: int):
     """Batched inverse real FFT, planar (B, n/2+1) -> (B, n), scaled 1/n,
     n a power of two >= 4; the imaginary parts of bins 0 and n/2 are
@@ -723,6 +726,7 @@ def irfft_stockham(sr: torch.Tensor, si: torch.Tensor, n: int):
 irfft_stockham.launches = 0
 
 
+@kernel_wrapper
 def fft_fourstep(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     """Batched complex FFT of planar (B, n) rows, n a power of two >= 4, by
     the four-step factorization (the JAX package's ``impl="pallas"``):
@@ -747,6 +751,7 @@ def fft_fourstep(xr: torch.Tensor, xi: torch.Tensor, sign: float):
 fft_fourstep.launches = 0
 
 
+@kernel_wrapper
 def fft_radix2_lanes(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     """Batched complex FFT of planar (B, n) rows, n a power of two >= 2, by
     radix-2 decimation in time (the JAX package's ``impl="pallas_r2"``):
@@ -770,6 +775,7 @@ def fft_radix2_lanes(xr: torch.Tensor, xi: torch.Tensor, sign: float):
 fft_radix2_lanes.launches = 0
 
 
+@kernel_wrapper
 def fft_radix2_stages(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     """``fft_radix2_lanes``' transform with its twiddles read from the
     stacked per-stage table ``stage_twiddles_np`` (the JAX package's
@@ -791,6 +797,7 @@ def fft_radix2_stages(xr: torch.Tensor, xi: torch.Tensor, sign: float):
 fft_radix2_stages.launches = 0
 
 
+@kernel_wrapper
 def fft_pease_lanes(xr: torch.Tensor, xi: torch.Tensor, sign: float):
     """Batched complex FFT of planar (B, n) rows, n a power of two,
     2 <= n <= 2^24, by the constant-geometry (Pease) stages (the JAX

@@ -20,11 +20,12 @@ import torch
 
 from audiosignalprocess_tpu_torch.kernels import _build
 from audiosignalprocess_tpu_torch.kernels._build import (
-    SMEM_LIMIT, check_cuda_f32, raise_on_error, rows_view,
+    SMEM_LIMIT, check_cuda_f32, launch, rows_view,
 )
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import regs_info
 from audiosignalprocess_tpu_torch.ops.fir import fir_direct
 from audiosignalprocess_tpu_torch.utils.device import upload
+from audiosignalprocess_tpu_torch.utils.profiling import kernel_wrapper
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 OUTPUTS = 8
@@ -79,6 +80,7 @@ def _lib():
     return fn
 
 
+@kernel_wrapper
 def fir_mac(x: torch.Tensor, h, history: torch.Tensor | None = None) -> torch.Tensor:
     """Causal direct-form FIR on the last axis via the MAC kernel.
 
@@ -105,11 +107,9 @@ def fir_mac(x: torch.Tensor, h, history: torch.Tensor | None = None) -> torch.Te
     geo = fir_geometry(t)
     dev = x.device
     y = torch.empty((channels, n), dtype=torch.float32, device=dev)
-    rc = _lib()(x2d.data_ptr(), x_ld, None if hist is None else hist.data_ptr(),
-                y.data_ptr(), reversed_taps(h.tobytes(), dev).data_ptr(),
-                channels, n, t, geo["threads"], geo["smem"], dev.index,
-                torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "fir_mac")
+    launch("fir_mac", _lib(), x2d.data_ptr(), x_ld, None if hist is None else hist.data_ptr(),
+           y.data_ptr(), reversed_taps(h.tobytes(), dev).data_ptr(), channels, n, t,
+           geo["threads"], geo["smem"], dev.index, torch.cuda.current_stream(dev).cuda_stream)
     fir_mac.launches += 1
     return y.reshape(x.shape)
 

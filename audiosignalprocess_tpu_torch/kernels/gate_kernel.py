@@ -51,7 +51,7 @@ import torch
 from audiosignalprocess_tpu_torch.effects.noise_gate import gate_mask, noise_gate
 from audiosignalprocess_tpu_torch.kernels import _build
 from audiosignalprocess_tpu_torch.kernels._build import (
-    SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
+    SMEM_LIMIT, check_cuda_f32, kernel_fn, launch, raise_on_error, rows_view,
 )
 from audiosignalprocess_tpu_torch.kernels.fft_kernel import real_stockham_passes, stockham_table
 from audiosignalprocess_tpu_torch.kernels.resample_kernel import res_window
@@ -61,6 +61,7 @@ from audiosignalprocess_tpu_torch.ops.stft import (
 )
 from audiosignalprocess_tpu_torch.ops.windows import window, window_np
 from audiosignalprocess_tpu_torch.utils.device import upload
+from audiosignalprocess_tpu_torch.utils.profiling import kernel_wrapper
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 def inv_norm_rows(wv_np: np.ndarray, nfft: int, hop: int, nframes: int,
@@ -325,6 +326,7 @@ def noise_gate_ref(x: torch.Tensor, nfft: int = 1024, hop: int = 256,
                       release, window_kind, impl="torch")
 
 
+@kernel_wrapper
 def noise_gate_fused(x: torch.Tensor, nfft: int = 1024, hop: int = 256,
                      threshold_db: float = 6.0, reduction_db: float = 60.0,
                      noise_frames: int = 8, release: float = 0.0,
@@ -355,14 +357,12 @@ def noise_gate_fused(x: torch.Tensor, nfft: int = 1024, hop: int = 256,
     floor = noise_floor(frame(head, nfft, hop) * win).contiguous()
     out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
     spans = regs_span_rows(nfft, hop, geo, channels, out_len, release > 0.0, dev)
-    rc = _lib()(
-        xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(), twf.data_ptr(),
-        twi.data_ptr(), inv_tab.data_ptr(), data_ptr(spans), channels, n, nfft,
-        nfft.bit_length() - 1, hop, nframes,
-        geo["mf"], int(release > 0.0), float(10.0 ** (threshold_db / 20.0)),
-        float(10.0 ** (-reduction_db / 20.0)), float(release), geo["smem"], dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "noise_gate")
+    launch("noise_gate", _lib(), xf.data_ptr(), out.data_ptr(), floor.data_ptr(),
+           win.data_ptr(), twf.data_ptr(), twi.data_ptr(), inv_tab.data_ptr(),
+           data_ptr(spans), channels, n, nfft, nfft.bit_length() - 1, hop, nframes, geo["mf"],
+           int(release > 0.0), float(10.0 ** (threshold_db / 20.0)),
+           float(10.0 ** (-reduction_db / 20.0)), float(release), geo["smem"], dev.index,
+           torch.cuda.current_stream(dev).cuda_stream)
     noise_gate_fused.launches += 1
     return out.reshape(batch + (out_len,))
 
@@ -427,6 +427,7 @@ def _shard_lib():
     return fn
 
 
+@kernel_wrapper
 def gate_shard_fused(x_ext: torch.Tensor, floor_half: torch.Tensor, n_valid: int,
                      nfft: int, hop: int, threshold_db: float = 6.0,
                      reduction_db: float = 60.0, window_kind: str = "hann") -> torch.Tensor:
@@ -459,13 +460,11 @@ def gate_shard_fused(x_ext: torch.Tensor, floor_half: torch.Tensor, n_valid: int
     win, twf, twi, _ = file_tables(nfft, hop, window_kind, dev)
     out = torch.empty((channels, n_ext), dtype=torch.float32, device=dev)
     spans = regs_span_rows(nfft, hop, geo, channels, n_ext, False, dev)
-    rc = _shard_lib()(
-        xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(), twf.data_ptr(),
-        twi.data_ptr(), data_ptr(spans), channels, n_ext, nfft, nfft.bit_length() - 1, hop,
-        n_valid, geo["mf"],
-        float(10.0 ** (threshold_db / 20.0)), float(10.0 ** (-reduction_db / 20.0)),
-        geo["smem"], dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "gate_shard")
+    launch("gate_shard", _shard_lib(), xf.data_ptr(), out.data_ptr(), floor.data_ptr(),
+           win.data_ptr(), twf.data_ptr(), twi.data_ptr(), data_ptr(spans), channels, n_ext,
+           nfft, nfft.bit_length() - 1, hop, n_valid, geo["mf"],
+           float(10.0 ** (threshold_db / 20.0)), float(10.0 ** (-reduction_db / 20.0)),
+           geo["smem"], dev.index, torch.cuda.current_stream(dev).cuda_stream)
     gate_shard_fused.launches += 1
     return out.reshape(x_ext.shape)
 
@@ -856,6 +855,7 @@ def gate_step_args(x2d: torch.Tensor, x_ld: int, state: dict, out: torch.Tensor,
     return args, new_state, (cur, rows)
 
 
+@kernel_wrapper
 def gate_step_fused(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
                     threshold_db: float, reduction_db: float,
                     noise_frames: int, release: float, window_kind: str,
@@ -890,10 +890,9 @@ def gate_step_fused(x: torch.Tensor, state: dict, *, nfft: int, hop: int,
     fargs = FirEnvArgs(None, None, None, tabs["twf"].data_ptr(), tabs["twi"].data_ptr(),
                        None, None, None, None, 0, 0, 0.0, geo["fs"], geo["pop_smem"],
                        *(geo[k] for k in STEP_OFFSETS))
-    rc = kernel_fn("asp_gate_step", 2)(
-        ctypes.byref(args), ctypes.byref(fargs), geo["smem"], dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "gate step")
+    launch("gate step", kernel_fn("asp_gate_step", 2), ctypes.byref(args),
+           ctypes.byref(fargs), geo["smem"], dev.index,
+           torch.cuda.current_stream(dev).cuda_stream)
     gate_step_fused.launches += 1
     return new_state, out.reshape(x.shape)
 

@@ -20,12 +20,13 @@ import torch
 
 from audiosignalprocess_tpu_torch.kernels import _build
 from audiosignalprocess_tpu_torch.kernels._build import (
-    SMEM_LIMIT, check_cuda_f32, raise_on_error, rows_view,
+    SMEM_LIMIT, check_cuda_f32, launch, rows_view,
 )
 from audiosignalprocess_tpu_torch.kernels.fft_kernel import stockham_table
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import regs_info
 from audiosignalprocess_tpu_torch.ops.overlap_save import overlap_save
 from audiosignalprocess_tpu_torch.utils.device import upload
+from audiosignalprocess_tpu_torch.utils.profiling import kernel_wrapper
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 
@@ -89,6 +90,7 @@ def _lib():
     return fn
 
 
+@kernel_wrapper
 def overlap_save_fused(x: torch.Tensor, h, nfft: int,
                        history: torch.Tensor | None = None) -> torch.Tensor:
     """Causal FIR by overlap-save at FFT size ``nfft``, fused.
@@ -120,12 +122,11 @@ def overlap_save_fused(x: torch.Tensor, h, nfft: int,
     dev = x.device
     hf = tap_spectrum(h.tobytes(), nfft, dev)
     y = torch.empty((channels, n), dtype=torch.float32, device=dev)
-    rc = _lib()(x2d.data_ptr(), x_ld, None if hist is None else hist.data_ptr(),
-                y.data_ptr(), hf.data_ptr(), stockham_table(nfft, -1, dev).data_ptr(),
-                stockham_table(nfft, 1, dev).data_ptr(), channels, n, nfft,
-                nfft.bit_length() - 1, t, smem, dev.index,
-                torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "overlap_save")
+    launch("overlap_save", _lib(), x2d.data_ptr(), x_ld,
+           None if hist is None else hist.data_ptr(), y.data_ptr(), hf.data_ptr(),
+           stockham_table(nfft, -1, dev).data_ptr(), stockham_table(nfft, 1, dev).data_ptr(),
+           channels, n, nfft, nfft.bit_length() - 1, t, smem, dev.index,
+           torch.cuda.current_stream(dev).cuda_stream)
     overlap_save_fused.launches += 1
     return y.reshape(x.shape)
 

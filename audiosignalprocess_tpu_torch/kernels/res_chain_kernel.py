@@ -33,7 +33,7 @@ import torch
 
 from audiosignalprocess_tpu_torch.kernels import _build
 from audiosignalprocess_tpu_torch.kernels._build import (
-    check_cuda_f32, kernel_fn, raise_on_error, rows_view,
+    check_cuda_f32, kernel_fn, launch, rows_view,
 )
 from audiosignalprocess_tpu_torch.kernels.chain_kernel import (
     _check_guards, filtered_floor, fir_gate_step_args, fir_gate_step_ref,
@@ -47,6 +47,7 @@ from audiosignalprocess_tpu_torch.kernels.resample_kernel import bank_table, res
 from audiosignalprocess_tpu_torch.ops.resample import (
     reduce_ratio, resample_poly, stream_geometry, taps_per_phase,
 )
+from audiosignalprocess_tpu_torch.utils.profiling import kernel_wrapper
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 def _ratio(up: int, down: int, h_res) -> tuple[int, int, np.ndarray]:
@@ -77,6 +78,7 @@ def _lib():
     return fn
 
 
+@kernel_wrapper
 def resample_fir_gate_fused(x: torch.Tensor, up: int, down: int, h_fir, h_res=None,
                             nfft: int = 1024, hop: int = 256,
                             threshold_db: float = 6.0, reduction_db: float = 60.0,
@@ -119,16 +121,13 @@ def resample_fir_gate_fused(x: torch.Tensor, up: int, down: int, h_fir, h_res=No
     floor = filtered_floor(head, h, nfft, hop, noise_frames, win)
     out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
     spans = regs_span_rows(nfft, hop, geo, channels, out_len, release > 0.0, dev)
-    rc = _lib()(
-        xf.data_ptr(), out.data_ptr(), floor.data_ptr(), win.data_ptr(),
-        hf.data_ptr(), twf.data_ptr(), twi.data_ptr(), inv_tab.data_ptr(),
-        bank_table(h_res.tobytes(), up, dev).data_ptr(), data_ptr(spans),
-        channels, n, n_res, up, down, nk, nfft, nfft.bit_length() - 1, hop, len(h),
-        nframes, geo["mf"], int(release > 0.0),
-        float(10.0 ** (threshold_db / 20.0)),
-        float(10.0 ** (-reduction_db / 20.0)), float(release),
-        geo["smem"], dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "res_fir_noise_gate")
+    launch("res_fir_noise_gate", _lib(), xf.data_ptr(), out.data_ptr(), floor.data_ptr(),
+           win.data_ptr(), hf.data_ptr(), twf.data_ptr(), twi.data_ptr(), inv_tab.data_ptr(),
+           bank_table(h_res.tobytes(), up, dev).data_ptr(), data_ptr(spans), channels, n,
+           n_res, up, down, nk, nfft, nfft.bit_length() - 1, hop, len(h), nframes, geo["mf"],
+           int(release > 0.0), float(10.0 ** (threshold_db / 20.0)),
+           float(10.0 ** (-reduction_db / 20.0)), float(release), geo["smem"], dev.index,
+           torch.cuda.current_stream(dev).cuda_stream)
     resample_fir_gate_fused.launches += 1
     return out.reshape(batch + (out_len,))
 
@@ -202,6 +201,7 @@ def res_fir_gate_step_ref(x: torch.Tensor, state: list, up: int, down: int, h_fi
     return [new_hist, fg], y
 
 
+@kernel_wrapper
 def res_fir_gate_step_fused(x: torch.Tensor, state: list, up: int, down: int, h_fir,
                             h_res=None, *, nfft: int, hop: int, threshold_db: float,
                             reduction_db: float, noise_frames: int, release: float,
@@ -250,10 +250,9 @@ def res_fir_gate_step_fused(x: torch.Tensor, state: list, up: int, down: int, h_
     rargs = ResStepArgs(x2d.data_ptr(), res_hist.data_ptr(), hist_out.data_ptr(),
                         bank_table(h_res.tobytes(), up, dev).data_ptr(),
                         x_ld, b_in, hn, up, down, nk)
-    rc = kernel_fn("asp_res_fir_gate_step", 3)(
-        ctypes.byref(args), ctypes.byref(fargs), ctypes.byref(rargs), smem, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "res_fir_gate_step")
+    launch("res_fir_gate_step", kernel_fn("asp_res_fir_gate_step", 3), ctypes.byref(args),
+           ctypes.byref(fargs), ctypes.byref(rargs), smem, dev.index,
+           torch.cuda.current_stream(dev).cuda_stream)
     res_fir_gate_step_fused.launches += 1
     return ([hist_out.reshape(state[0].shape), fg],
             out.reshape(x.shape[:-1] + (b_out,)))

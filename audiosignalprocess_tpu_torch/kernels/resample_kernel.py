@@ -20,12 +20,13 @@ import torch
 
 from audiosignalprocess_tpu_torch.kernels import _build
 from audiosignalprocess_tpu_torch.kernels._build import (
-    SMEM_LIMIT, check_cuda_f32, raise_on_error, rows_view,
+    SMEM_LIMIT, check_cuda_f32, launch, raise_on_error, rows_view,
 )
 from audiosignalprocess_tpu_torch.ops.resample import (
     phase_bank, reduce_ratio, resample_poly, stream_geometry, taps_per_phase,
 )
 from audiosignalprocess_tpu_torch.utils.device import upload
+from audiosignalprocess_tpu_torch.utils.profiling import kernel_wrapper
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 OUTPUTS = 8
@@ -260,6 +261,7 @@ def _registers(index: int) -> tuple[int, ...]:
     return tuple(_info(q, p, 32, 0, index)[0] for q, p in INSTANCES)
 
 
+@kernel_wrapper
 def resample_mac(x: torch.Tensor, up: int, down: int, h=None,
                  zero_phase: bool = True,
                  history: torch.Tensor | None = None) -> torch.Tensor:
@@ -294,12 +296,11 @@ def resample_mac(x: torch.Tensor, up: int, down: int, h=None,
                             _registers(dev.index))
     args = dict(geo, x_ld=x_ld, hn=hn, n=n)
     y = torch.empty((channels, nout), dtype=torch.float32, device=dev)
-    rc = _lib()(x2d.data_ptr(), None if hist is None else hist.data_ptr(), y.data_ptr(),
-                bank_table(h.tobytes(), up, dev).data_ptr(),
-                (ctypes.c_int * len(GEO_FIELDS))(*(args[f] for f in GEO_FIELDS)),
-                geo["q"], geo["p"], channels, geo["threads"], geo["smem"], dev.index,
-                torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "resample_mac")
+    launch("resample_mac", _lib(), x2d.data_ptr(), None if hist is None else hist.data_ptr(),
+           y.data_ptr(), bank_table(h.tobytes(), up, dev).data_ptr(),
+           (ctypes.c_int * len(GEO_FIELDS))(*(args[f] for f in GEO_FIELDS)), geo["q"],
+           geo["p"], channels, geo["threads"], geo["smem"], dev.index,
+           torch.cuda.current_stream(dev).cuda_stream)
     resample_mac.launches += 1
     return y.reshape(x.shape[:-1] + (nout,))
 

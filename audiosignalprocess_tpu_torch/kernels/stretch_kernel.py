@@ -39,7 +39,7 @@ import torch
 
 from audiosignalprocess_tpu_torch.effects.phase_vocoder import _cmul, cumrotor, unit_rotor
 from audiosignalprocess_tpu_torch.kernels._build import (
-    SMEM_LIMIT, check_cuda_f32, kernel_fn, raise_on_error, rows_view,
+    SMEM_LIMIT, check_cuda_f32, kernel_fn, launch, rows_view,
 )
 from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
     _step_tables_np, regs_batch, regs_info, regs_one_buffer, regs_points, regs_threads,
@@ -48,6 +48,7 @@ from audiosignalprocess_tpu_torch.kernels.gate_kernel import (
 from audiosignalprocess_tpu_torch.ops import fft as fft_ops
 from audiosignalprocess_tpu_torch.ops.stft import frame
 from audiosignalprocess_tpu_torch.utils.device import upload
+from audiosignalprocess_tpu_torch.utils.profiling import kernel_wrapper
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 
@@ -213,6 +214,7 @@ def stretch_regs_geometry(nfft: int, hop: int) -> dict:
     return dict(o_carry=o_carry, o_syn=o_syn, o_ex=o_ex, cluster=step_cluster(nfft), smem=smem)
 
 
+@kernel_wrapper
 def stretch_step_fused(x: torch.Tensor, state: dict, *, nfft: int, hop: int, p: int,
                        q: int, n_skip: int, off: int, window_kind: str,
                        eof_frames_out: int | None = None):
@@ -263,9 +265,8 @@ def stretch_step_fused(x: torch.Tensor, state: dict, *, nfft: int, hop: int, p: 
         channels, x_ld, nfft, nfft.bit_length() - 1, hop, m, mo, depth, hit, i0, lo, hi,
         -1 if eof_out is None else eof_out, geo["o_carry"], geo["o_syn"], geo["o_ex"],
         tabs["inv_const"])
-    rc = kernel_fn("asp_stretch_step", 1)(
-        ctypes.byref(args), geo["smem"], dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(rc, "stretch step")
+    launch("stretch step", kernel_fn("asp_stretch_step", 1), ctypes.byref(args), geo["smem"],
+           dev.index, torch.cuda.current_stream(dev).cuda_stream)
     stretch_step_fused.launches += 1
     return dict(new, blk=blk + 1), out.reshape(x.shape[:-1] + (mo * hop,))
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from audiosignalprocess_tpu_torch.utils.profiling import span
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 
@@ -34,17 +35,18 @@ def _shift(x: torch.Tensor, step: int, mesh) -> torch.Tensor:
     """Each time shard sends ``x`` to the shard ``step`` to its right and
     returns what the shard ``step`` to its left sent (zeros where there is
     none)."""
-    t, n = mesh.t, mesh.time
-    buf = _staged(x, mesh.backend)
-    recv = torch.zeros_like(buf)
-    ops = []
-    if 0 <= t + step < n:
-        ops.append(dist.P2POp(dist.isend, buf, mesh.peer(t + step), mesh.time_group))
-    if 0 <= t - step < n:
-        ops.append(dist.P2POp(dist.irecv, recv, mesh.peer(t - step), mesh.time_group))
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return recv.to(x.device)
+    with span("asp.collective.shift"):
+        t, n = mesh.t, mesh.time
+        buf = _staged(x, mesh.backend)
+        recv = torch.zeros_like(buf)
+        ops = []
+        if 0 <= t + step < n:
+            ops.append(dist.P2POp(dist.isend, buf, mesh.peer(t + step), mesh.time_group))
+        if 0 <= t - step < n:
+            ops.append(dist.P2POp(dist.irecv, recv, mesh.peer(t - step), mesh.time_group))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return recv.to(x.device)
 
 
 def halo_left(x: torch.Tensor, halo: int, mesh) -> torch.Tensor:
@@ -86,14 +88,16 @@ def broadcast_first(x: torch.Tensor, mesh) -> torch.Tensor:
     psum of values that are zero off shard 0)."""
     if mesh.time == 1:
         return x
-    buf = _staged(x, mesh.backend)
-    dist.broadcast(buf, src=mesh.peer(0), group=mesh.time_group)
-    return buf.to(x.device)
+    with span("asp.collective.broadcast_first"):
+        buf = _staged(x, mesh.backend)
+        dist.broadcast(buf, src=mesh.peer(0), group=mesh.time_group)
+        return buf.to(x.device)
 
 
 def all_gather(x: torch.Tensor, group, backend: str | None) -> list[torch.Tensor]:
     """Every member's ``x`` from the group, in group rank order."""
-    buf = _staged(x, backend)
-    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, buf, group=group)
-    return [p.to(x.device) for p in parts]
+    with span("asp.collective.all_gather"):
+        buf = _staged(x, backend)
+        parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, buf, group=group)
+        return [p.to(x.device) for p in parts]

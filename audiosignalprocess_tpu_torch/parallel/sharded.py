@@ -39,6 +39,7 @@ from audiosignalprocess_tpu_torch.parallel.halo import (
 )
 from audiosignalprocess_tpu_torch.parallel.mesh import Mesh
 from audiosignalprocess_tpu_torch.utils.device import upload
+from audiosignalprocess_tpu_torch.utils.profiling import span
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 
@@ -127,15 +128,16 @@ def _spill_and_norm(acc, t, l_out, d, out_len, norms, mesh):
     WOLA norm at global positions (head ramp, interior, the finite file's
     tail ramp, 1.0 in the zero pad past ``out_len``, the global synthesis
     length).  ``acc`` holds l_out + d locally accumulated samples."""
-    head, tail, const = norms
-    num_head = send_right_add(acc[..., l_out : l_out + d], acc[..., :d], mesh)
-    num = torch.cat([num_head, acc[..., d:l_out]], dim=-1)
-    p = t * l_out + np.arange(l_out)
-    norm = np.where(p < d, head[np.clip(p, 0, d - 1)],
-                    np.where(p < out_len - d, const,
-                             np.where(p < out_len, tail[np.clip(p - (out_len - d), 0, d - 1)],
-                                      1.0)))
-    return num / upload(norm, acc.dtype, acc.device)
+    with span("asp.spill_and_norm"):
+        head, tail, const = norms
+        num_head = send_right_add(acc[..., l_out : l_out + d], acc[..., :d], mesh)
+        num = torch.cat([num_head, acc[..., d:l_out]], dim=-1)
+        p = t * l_out + np.arange(l_out)
+        norm = np.where(p < d, head[np.clip(p, 0, d - 1)],
+                        np.where(p < out_len - d, const,
+                                 np.where(p < out_len,
+                                          tail[np.clip(p - (out_len - d), 0, d - 1)], 1.0)))
+        return num / upload(norm, acc.dtype, acc.device)
 
 
 def gate_shard_body(x: torch.Tensor, mesh: Mesh, nfft: int, hop: int, threshold_db: float,
@@ -331,33 +333,34 @@ def chain_shard_body(chain, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     )
 
     for s in _components(chain):
-        if isinstance(s, FIRStage):
-            t = len(s.h)
-            src = x.abs() if s.pre == "abs" else x
-            _check_halo(t - 1, src.shape[-1])
-            hist = halo_left(src, t - 1, mesh)[..., : t - 1]
-            if s.nfft is not None:
-                check(s.pre is None, "abs-pre + overlap-save not supported")
-                x = overlap_save(x, s.h, s.nfft, history=hist, impl=s.impl,
-                                 fused=_f32_kernel(s.fused, x))
+        with span(s.span_shard):
+            if isinstance(s, FIRStage):
+                t = len(s.h)
+                src = x.abs() if s.pre == "abs" else x
+                _check_halo(t - 1, src.shape[-1])
+                hist = halo_left(src, t - 1, mesh)[..., : t - 1]
+                if s.nfft is not None:
+                    check(s.pre is None, "abs-pre + overlap-save not supported")
+                    x = overlap_save(x, s.h, s.nfft, history=hist, impl=s.impl,
+                                     fused=_f32_kernel(s.fused, x))
+                else:
+                    x = fir_direct(src, s.h, history=hist, fused=_f32_kernel(s.fused, x))
+                if s.post_scale != 1.0:
+                    x = x * s.post_scale
+            elif isinstance(s, ResampleStage):
+                hl = history_len(len(s.h), s.up, s.down)
+                _check_halo(hl, x.shape[-1])
+                x = resample_poly(x, s.up, s.down, h=s.h, zero_phase=False,
+                                  history=halo_left(x, hl, mesh)[..., :hl],
+                                  fused=_f32_kernel(s.fused, x))
+            elif isinstance(s, GateStage):
+                x = gate_shard_body(x, mesh, s.nfft, s.hop, s.threshold_db, s.reduction_db,
+                                    s.noise_frames, s.window_kind, s.impl, release=s.release,
+                                    fused=s.fused and s.release == 0.0)
+            elif isinstance(s, StretchStage):
+                x = stretch_shard_body(x, mesh, s.p, s.q, s.nfft, s.hop, s.window_kind, s.impl)
             else:
-                x = fir_direct(src, s.h, history=hist, fused=_f32_kernel(s.fused, x))
-            if s.post_scale != 1.0:
-                x = x * s.post_scale
-        elif isinstance(s, ResampleStage):
-            hl = history_len(len(s.h), s.up, s.down)
-            _check_halo(hl, x.shape[-1])
-            x = resample_poly(x, s.up, s.down, h=s.h, zero_phase=False,
-                              history=halo_left(x, hl, mesh)[..., :hl],
-                              fused=_f32_kernel(s.fused, x))
-        elif isinstance(s, GateStage):
-            x = gate_shard_body(x, mesh, s.nfft, s.hop, s.threshold_db, s.reduction_db,
-                                s.noise_frames, s.window_kind, s.impl, release=s.release,
-                                fused=s.fused and s.release == 0.0)
-        elif isinstance(s, StretchStage):
-            x = stretch_shard_body(x, mesh, s.p, s.q, s.nfft, s.hop, s.window_kind, s.impl)
-        else:
-            raise NotImplementedError(f"sharded chain stage: {type(s).__name__}")
+                raise NotImplementedError(f"sharded chain stage: {type(s).__name__}")
     return x
 
 
@@ -366,6 +369,7 @@ def sharded_chain(mesh: Mesh, chain):
     ``chain.full(x)``."""
 
     def local(x):
-        return chain_shard_body(chain, x, mesh)
+        with span("asp.sharded_chain"):
+            return chain_shard_body(chain, x, mesh)
 
     return local

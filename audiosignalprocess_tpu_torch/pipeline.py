@@ -60,6 +60,7 @@ from audiosignalprocess_tpu_torch.ops.resample import (
     history_len, resample_filter, resample_poly,
 )
 from audiosignalprocess_tpu_torch.ops.stft import istft, stft
+from audiosignalprocess_tpu_torch.utils.profiling import span
 from audiosignalprocess_tpu_torch.utils.validate import check
 
 _NOT_CARRIED = ("impl", "fused", "input_latency")
@@ -80,6 +81,14 @@ class Stage:
     latency: int = 0
     input_latency: int = 0
     _eof_n: int | None = None
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        # the spans around this class's calls (Chain, parallel.sharded),
+        # named once rather than at every block
+        cls.span_step = f"asp.{cls.__name__}.step"
+        cls.span_full = f"asp.{cls.__name__}.full"
+        cls.span_shard = f"asp.shard.{cls.__name__}"
 
     @classmethod
     def from_params(cls, params: dict) -> Stage:
@@ -714,17 +723,20 @@ class Chain:
         return t
 
     def full(self, x: torch.Tensor) -> torch.Tensor:
-        for s in self.stages:
-            x = s.full(x)
-        return x
+        with span("asp.Chain.full"):
+            for s in self.stages:
+                with span(s.span_full):
+                    x = s.full(x)
+            return x
 
     def full_flush(self, x: torch.Tensor) -> torch.Tensor:
         """``full`` with the output length pinned to ``out_len(n)``."""
-        n_out = self.out_len(x.shape[-1])
-        y = self.full(x)
-        if y.shape[-1] < n_out:
-            y = _pad_to(y, n_out)
-        return y[..., :n_out]
+        with span("asp.Chain.full_flush"):
+            n_out = self.out_len(x.shape[-1])
+            y = self.full(x)
+            if y.shape[-1] < n_out:
+                y = _pad_to(y, n_out)
+            return y[..., :n_out]
 
     def init_state(self, batch: tuple, block: int, dtype=torch.float32, device=None):
         self.build()
@@ -735,11 +747,13 @@ class Chain:
         return states
 
     def step(self, states, x):
-        new_states = []
-        for s, st in zip(self.stages, states):
-            st, x = s.step(st, x)
-            new_states.append(st)
-        return new_states, x
+        with span("asp.Chain.step"):
+            new_states = []
+            for s, st in zip(self.stages, states):
+                with span(s.span_step):
+                    st, x = s.step(st, x)
+                new_states.append(st)
+            return new_states, x
 
     def arm_eof(self, n: int) -> None:
         """Arm every stage's end-of-file handling for a drained stream of

@@ -275,14 +275,14 @@ class TestProfiling:
         rec = json.loads(lines[0])
         assert rec["samples"] == 1024 and rec["stage"] == "fir"
 
-    def test_annotate(self):
-        with profiling.annotate("test"):
+    def test_span(self):
+        with profiling.span("test"):
             assert float(torch.sum(torch.ones(4))) == 4.0
 
     def test_trace_into_a_directory(self, tmp_path):
-        """trace() writes a Chrome trace holding the annotated span."""
+        """trace() writes a Chrome trace holding the span."""
         with profiling.trace(str(tmp_path / "prof")):
-            with profiling.annotate("asp_block"):
+            with profiling.span("asp_block"):
                 torch.fft.rfft(torch.ones(8, 64))
         doc = json.loads((tmp_path / "prof" / "trace.json").read_text())
         assert any(ev.get("name") == "asp_block" for ev in doc["traceEvents"])

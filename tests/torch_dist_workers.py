@@ -1,5 +1,6 @@
 """Rank bodies of the port's distributed tests (``tests/test_torch_sharded*.py``,
-``tests/test_torch_configs.py`` and, on the card, ``tests/test_torch_cuda.py``).
+``tests/test_torch_configs.py``, ``tests/test_torch_tracing.py`` and, on the
+card, ``tests/test_torch_cuda.py``).
 
 ``parallel.spawn_local`` starts fresh processes that import this module
 by name, so it imports no jax: a rank loads only torch and the port.
@@ -63,6 +64,24 @@ def run_cases(rank: int, world: int, cases: list, device: str = "cpu") -> dict |
             continue
         out[name] = gather_audio(y, mesh).cpu().numpy()
     return out if rank == 0 else None
+
+
+def record_sharded_chain(rank: int, world: int, chain, x) -> list | None:
+    """``parallel.sharded_chain`` of ``chain`` over a (1, world) mesh with
+    the span recorder on; returns rank 0's spans, None elsewhere."""
+    from audiosignalprocess_tpu_torch.parallel import make_mesh, shard_audio, sharded_chain
+    from audiosignalprocess_tpu_torch.utils import profiling
+
+    mesh = make_mesh(1, world)
+    chain.build()
+    fn = sharded_chain(mesh, chain)
+    xs = shard_audio(torch.as_tensor(x), mesh)
+    profiling.enable(True)
+    try:
+        fn(xs)
+    finally:
+        profiling.enable(False)
+    return profiling.spans() if rank == 0 else None
 
 
 def fail_on(rank: int, world: int, bad_rank: int) -> int:
